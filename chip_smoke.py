@@ -3,13 +3,16 @@
 
 Run from the repository root:  python3 chip_smoke.py
 
-It builds the hand-written CUDA rollout kernel from csrc/ and drives the
-port's main path, make("fishing-v1") -> escapement -> fused rollout with
-auto-reset, at the bench size (2^21 envs, 512 steps per call). Phases, each
-of which raises on failure:
+It builds the hand-written CUDA kernels from csrc/ and drives the port's two
+paths at the JAX bench's sizes: stepping, make("fishing-v1") -> escapement
+-> fused rollout with auto-reset (2^21 envs, 512 steps per call), and PPO
+training on fishing-v1 (16384 envs x 128 steps, 4 epochs x 8 minibatches,
+hidden 64) in its plain and fused-update forms. Phases, each of which raises
+on failure:
 
 1. device: a CUDA device is required; prints the card's name and power limit;
-2. build: nvcc builds csrc/rollout_kernel.cu (prints the seconds);
+2. build: nvcc builds csrc/rollout_kernel.cu and csrc/ppo_update_kernel.cu,
+   one process per source, started together (prints the seconds);
 3. kernel ≡ twin: the kernel against its plain PyTorch twin on the same
    numpy-made noise planes, over every growth model, both noise forms, the
    three policies and schemes, observation noise, cost, collapse penalty,
@@ -19,19 +22,34 @@ of which raises on failure:
 5. main path, kernel tier: chained calls with launch counting, sanity and
    episode-accounting checks, the twin from the same seed, and env-steps/s
    of both;
-6. main path, engine tier: `measure(mode="engine")`.
+6. main path, engine tier: `measure(mode="engine")`;
+7. the PPO update kernels' build: seconds, and ptxas registers, shared
+   memory and spills;
+8. K2 (fused minibatch gradient) ≡ its twin at full width: numpy-made
+   packed data [8, 2^21], one minibatch of 128 random tiles of 2048, both
+   heads (fishing-v1 Gaussian, fishing-v0 categorical with 3 actions),
+   ent_coef 0 and 0.01, compute float32 and bfloat16;
+9. K3 (gradient + clip + Adam) ≡ its twin from non-zero moments at count 5,
+   below and above the clip threshold;
+10. main path, training: train_step in the forms off, update (K2) and
+    update + fused_adam (K3) from one set of weights, with launch counting;
+    fused ≡ plain after one step at 1 epoch x 1 minibatch; the learning
+    agreement of off and update + fused_adam over 20 iterations; ms per
+    iteration and env-steps/s of each form.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Any failure exits non-zero before either.
 It never imports JAX.
 """
 
+import dataclasses
 import json
 import math
 import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -47,6 +65,18 @@ REWARD_ATOL = 1e-4  # sums over 64 steps
 # Over 512 steps a float32 running sum of magnitude ~40 rounds by up to
 # 512 * ulp(40) / 2 ~ 1e-3.
 SUM_ATOL_512 = 2e-3
+# PPO: the bench's buffer (16384 envs x 128 steps) and one minibatch of it
+B_PPO, T_PPO = 16384, 128
+N_PPO, TILE, MB_TILES = B_PPO * T_PPO, 2048, 128
+# K2/K3 vs twin: float32 sums over 2^18 samples in another order (per-chunk
+# partials, then per tile, then over 128 tiles, against one torch reduction),
+# so each buffer agrees to 2e-4 of its largest entry plus 2e-6, and each
+# metric sum to rtol 2e-4.
+GRAD_RTOL, GRAD_ATOL, MET_RTOL = 2e-4, 2e-6, 2e-4
+# fused vs plain params after one step at 1 epoch x 1 minibatch (the mirror
+# of tests/test_update_kernel.py's own bar), and the learning agreement of
+# scripts/validate_fused_training.py --agreement
+STEP_RTOL, STEP_ATOL, AGREE_TOL = 5e-4, 1e-6, 0.25
 
 
 def fail(msg):
@@ -76,6 +106,24 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps, out
 
 
+def build_all(modules):
+    """Build every kernel library at once, one nvcc per source; returns
+    {name: seconds}."""
+    def timed(mod):
+        t0 = time.perf_counter()
+        mod.library()
+        return time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(modules)) as pool:
+        return dict(zip(modules, pool.map(timed, modules.values())))
+
+
+def print_ptxas(_build, name):
+    for line in _build.build_log.get(name, "").splitlines():
+        if "registers" in line or "spill" in line or "Compiling" in line:
+            print("  ptxas:", line.strip())
+
+
 def compare(ker, ref, what, stock_atol=STOCK_ATOL, reward_atol=REWARD_ATOL):
     """Kernel result vs twin result; returns the largest float error."""
     for name in ("t", "ep_count"):
@@ -91,6 +139,56 @@ def compare(ker, ref, what, stock_atol=STOCK_ATOL, reward_atol=REWARD_ATOL):
     if ker.next_offset != ref.next_offset:
         fail(f"{what}: next_offset {ker.next_offset} != {ref.next_offset}")
     return max(errs.values())
+
+
+def ppo_case(ppo, ppo_fused, rng, head, dev):
+    """Jittered random weights and the bench's packed buffer [8, 2^21] drawn
+    from them with numpy-made noise: (13 kernel-layout weights, data,
+    act_dim). Old log-probs and values are spread so every clip branch is
+    visited."""
+    gauss = head == "gaussian"
+    a = 1 if gauss else 3
+    model = ppo.ActorCritic(1, a, gauss, 64, generator=torch.Generator().manual_seed(3)).to(dev)
+    normal = lambda *shape: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(shape).astype(np.float32)).to(dev)
+    n = N_PPO
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(0.05 * normal(*p.shape))
+        if gauss:
+            model.log_std.fill_(-0.4)
+        obs = 0.7 * normal(n, 1)
+        dist, value = model(obs)
+        if gauss:
+            noise = normal(n, 1)
+        else:
+            u = torch.from_numpy(rng.random((n, a)).astype(np.float32)).to(dev)
+            noise = -torch.log(-torch.log(u.clamp_min(1e-30)))
+        action, logp = ppo.sample_action(dist, gauss, noise)
+        packed = torch.cat([obs, action.float().reshape(n, -1), (logp + 0.3 * normal(n))[:, None],
+                            (value + 0.3 * normal(n))[:, None], normal(n, 1),
+                            (value + normal(n))[:, None]], 1)
+    weights = ppo_fused.kernel_weights(dict(model.named_parameters()), head)
+    return weights, ppo_fused.pack_feature_major(packed), a
+
+
+def check_buffers(got, want, what):
+    """Each buffer within GRAD_RTOL of its largest entry + GRAD_ATOL;
+    returns the largest absolute error."""
+    worst = 0.0
+    for i, (g, r) in enumerate(zip(got, want)):
+        err = max_err(g, r)
+        tol = GRAD_RTOL * float(r.abs().max()) + GRAD_ATOL
+        if not err <= tol:
+            fail(f"{what}: buffer {i} max abs err {err:.3g} > {tol:.3g}")
+        worst = max(worst, err)
+    return worst
+
+
+def check_metrics(met, met_ref, what):
+    bad = (met.double() - met_ref.double()).abs() > MET_RTOL * met_ref.double().abs() + 1e-6
+    if bool(bad.any()):
+        fail(f"{what}: metric sums {met.tolist()} vs twin {met_ref.tolist()}")
 
 
 def parity_cases(gtt):
@@ -130,8 +228,18 @@ def main():
     import gym_fishing_tpu_torch as gtt
     from gym_fishing_tpu_torch.agents.policies import escapement
     from gym_fishing_tpu_torch.bench import measure
+    from gym_fishing_tpu_torch.agents import ppo, ppo_fused
+    from gym_fishing_tpu_torch.batch import batched_reset
+    from gym_fishing_tpu_torch.bench import measure_ppo_train
     from gym_fishing_tpu_torch.kernels import _build
+    from gym_fishing_tpu_torch.kernels import ppo_update_kernel as uk
     from gym_fishing_tpu_torch.kernels import rollout_kernel as rk
+
+    def reset_counts():
+        rk.launches = uk.grad_launches = uk.adam_launches = 0
+
+    def counts():
+        return {"rollout": rk.launches, "grad": uk.grad_launches, "adam": uk.adam_launches}
 
     if "jax" in sys.modules:
         fail("jax was imported")
@@ -143,14 +251,15 @@ def main():
           f"{torch.cuda.device_count()}, torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     # ---------------------------------------------------------------- 2
+    torch.backends.cuda.matmul.allow_tf32 = False  # the twins' matmuls in full float32
+    torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    rk.library()
-    build_s = time.perf_counter() - t0
-    print(f"phase 2: built and loaded {_build.library_path('rollout_kernel').name} in "
-          f"{build_s:.2f} s")
-    for line in _build.build_log.get("rollout_kernel", "").splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            print("  ptxas:", line.strip())
+    build_s = build_all({"rollout_kernel": rk, "ppo_update_kernel": uk})
+    print(f"phase 2: built and loaded {len(build_s)} libraries in parallel in "
+          f"{time.perf_counter() - t0:.2f} s")
+    print(f"phase 2: {_build.library_path('rollout_kernel').name} in "
+          f"{build_s['rollout_kernel']:.2f} s")
+    print_ptxas(_build, "rollout_kernel")
 
     # ---------------------------------------------------------------- 3
     rng = np.random.default_rng(2026)
@@ -239,7 +348,7 @@ def main():
     t0_ = torch.zeros(B_MAIN, dtype=torch.int32, device=dev)
     ep0 = torch.zeros(B_MAIN, dtype=torch.float32, device=dev)
     n_calls = 6
-    rk.launches = 0
+    reset_counts()
     state = (stock0, t0_, ep0, 0)
     calls = []
 
@@ -260,7 +369,7 @@ def main():
     host_s = time.perf_counter() - host0
     timed = measure(mode="kernel", num_envs=B_MAIN, num_steps=T_MAIN, iters=5, warmup=1,
                     seed=seed + 1)
-    launched = rk.launches
+    launched = counts()["rollout"]
     if launched != n_calls + 6:
         fail(f"launch counter {launched} != {n_calls + 6} calls")
     for k, (ep_in, offset, out) in enumerate(calls):
@@ -301,22 +410,186 @@ def main():
     print(f"phase 6: engine {eng['ms_per_call']:.2f} ms/call, {eng['steps_per_s']:.4g} "
           f"env-steps/s, reward sum {eng['reward_sum']:.6g}; B={B_MAIN} T=64 {label}")
 
+    # ---------------------------------------------------------------- 7
+    print(f"phase 7: {_build.library_path('ppo_update_kernel').name} in "
+          f"{build_s['ppo_update_kernel']:.2f} s (built beside rollout_kernel in phase 2)")
+    print_ptxas(_build, "ppo_update_kernel")
+
+    # ---------------------------------------------------------------- 8
+    rng = np.random.default_rng(7)
+    cases = {head: ppo_case(ppo, ppo_fused, rng, head, dev) for head in ("gaussian",
+                                                                         "categorical")}
+    order = torch.from_numpy(rng.permutation(N_PPO // TILE)[:MB_TILES].astype(np.int32)).to(dev)
+    grad_err = 0.0
+    grad_ms = grad_plain_ms = None
+    for head, (weights, data, a) in cases.items():
+        adv = data[4, order.long()[:, None] * TILE + torch.arange(TILE, device=dev)]
+        stats = torch.stack([adv.mean(), 1.0 / (adv.std(correction=0) + 1e-8)])
+        for ent_coef in (0.0, 0.01):
+            for compute in ("float32", "bfloat16"):
+                kw = dict(clip_eps=0.2, vf_coef=0.5, ent_coef=ent_coef, obs_dim=1, act_dim=a,
+                          tile=TILE, head=head, compute=compute)
+                g, met = uk.fused_minibatch_grad(data, order, weights, stats, **kw)
+                g_ref, met_ref = uk.fused_minibatch_grad_reference(data, order, weights,
+                                                                    stats, **kw)
+                torch.cuda.synchronize()
+                what = f"K2 {head} ent_coef={ent_coef} {compute}"
+                err = check_buffers(g, g_ref, what)
+                check_metrics(met, met_ref, what)
+                grad_err = max(grad_err, err)
+                print(f"phase 8: {what:40s} max abs err {err:.3g}")
+                if head == "gaussian" and ent_coef == 0.0 and compute == "float32":
+                    grad_ms, _ = cuda_ms(lambda: uk.fused_minibatch_grad(
+                        data, order, weights, stats, **kw), 20)
+                    grad_plain_ms, _ = cuda_ms(lambda: uk.fused_minibatch_grad_reference(
+                        data, order, weights, stats, **kw), 5)
+    print(f"phase 8: K2 {grad_ms:.3f} ms, twin {grad_plain_ms:.3f} ms per minibatch of "
+          f"{MB_TILES} x {TILE} samples (CUDA events); N={N_PPO} hidden=64 {label}")
+
+    # ---------------------------------------------------------------- 9
+    adam_err = 0.0
+    adam_ms = adam_plain_ms = None
+    for head, (weights, data, a) in cases.items():
+        w = uk.merge_weights(weights)
+        m = tuple(torch.from_numpy(0.01 * rng.standard_normal(x.shape).astype(np.float32))
+                  .to(dev) for x in w)
+        v = tuple(torch.from_numpy(1e-4 * rng.random(x.shape).astype(np.float32)).to(dev)
+                  for x in w)
+        stats = torch.tensor([0.01, 1.2], device=dev)
+        for max_grad_norm in (1e6, 1e-3):   # below the threshold, then clipped
+            kw = dict(clip_eps=0.2, vf_coef=0.5, ent_coef=0.01, lr=3e-4, bc1=1 - 0.9 ** 5,
+                      bc2=1 - 0.999 ** 5, obs_dim=1, act_dim=a, tile=TILE, head=head,
+                      max_grad_norm=max_grad_norm)
+            *new, met = uk.fused_minibatch_grad_adam(data, order, w, m, v, stats, **kw)
+            *ref, met_ref = uk.fused_minibatch_grad_adam_reference(data, order, w, m, v, stats,
+                                                                   **kw)
+            torch.cuda.synchronize()
+            what = f"K3 {head} max_grad_norm={max_grad_norm:g}"
+            # the weights through their update (~lr), the moments as they are
+            err = max(check_buffers([x - y for x, y in zip(new[0], w)],
+                                    [x - y for x, y in zip(ref[0], w)], what + " dw"),
+                      check_buffers(new[1], ref[1], what + " m"),
+                      check_buffers(new[2], ref[2], what + " v"))
+            check_metrics(met, met_ref, what)
+            adam_err = max(adam_err, err)
+            print(f"phase 9: {what:40s} max abs err {err:.3g}")
+            if head == "gaussian" and max_grad_norm == 1e-3:
+                adam_ms, _ = cuda_ms(lambda: uk.fused_minibatch_grad_adam(
+                    data, order, w, m, v, stats, **kw), 20)
+                adam_plain_ms, _ = cuda_ms(lambda: uk.fused_minibatch_grad_adam_reference(
+                    data, order, w, m, v, stats, **kw), 5)
+    print(f"phase 9: K3 {adam_ms:.3f} ms, twin {adam_plain_ms:.3f} ms per minibatch of "
+          f"{MB_TILES} x {TILE} samples (CUDA events); {label}")
+    del cases
+
+    # --------------------------------------------------------------- 10
+    forms = {"off": dict(fused="off"), "update": dict(fused="update"),
+             "update+adam": dict(fused="update", fused_adam=True)}
+    expect = {"off": {"grad": 0, "adam": 0}, "update": {"grad": 4 * 32, "adam": 0},
+              "update+adam": {"grad": 0, "adam": 4 * 32}}
+    train_launches = {}
+    for name, kw in forms.items():
+        reset_counts()
+        res = measure_ppo_train(num_envs=B_PPO, num_steps=T_PPO, iters=3, warmup=1,
+                                device=dev, **kw)
+        got = counts()
+        if {k: got[k] for k in ("grad", "adam")} != expect[name] or got["rollout"]:
+            fail(f"train_step {name}: launches {got}, expected {expect[name]} "
+                 "(32 per iteration over 1 warm-up + 3 timed iterations)")
+        train_launches[name] = got
+        print(f"phase 10: train_step {name:12s} {res['seconds'] / res['iters'] * 1e3:.1f} "
+              f"ms/iter, {res['steps_per_s']:.4g} env-steps/s (host clock, 3 chained "
+              f"iterations after 1 warm-up); launches {got}; B={B_PPO} T={T_PPO} 4x8 "
+              f"hidden=64 {label}")
+    env, params = make("fishing-v1", sigma=0.05, device=dev)
+    ts0 = ppo.make_train_state(env, ppo.PPOConfig(), torch.Generator().manual_seed(11), dev)
+
+    def run(cfg, iterations, seed=5):
+        ts = ts0.clone()
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        bstate = batched_reset(env, params, cfg.num_envs)
+        hist = []
+        for _ in range(iterations):
+            ts, bstate, met = ppo.train_step(env, params, cfg, ts, bstate, gen)
+            hist.append({k: float(x) for k, x in met.items()})
+        for name_, p in ts.model.named_parameters():
+            if not bool(torch.isfinite(p).all()):
+                fail(f"non-finite parameter {name_}")
+        return ts, hist
+
+    base = ppo.PPOConfig(num_envs=B_PPO, num_steps=T_PPO, epochs=1, num_minibatches=1)
+    one = {name: run(dataclasses.replace(base, fused_update=name != "off",
+                                         fused_adam=name == "update+adam"), 1)[0]
+           for name in forms}
+    step_err = 0.0
+    for name in ("update", "update+adam"):
+        for (pname, p), q in zip(one[name].model.named_parameters(), one["off"].model.parameters()):
+            p, q = p.detach(), q.detach()
+            err = float((p - q).abs().max())
+            bound = STEP_ATOL + STEP_RTOL * q.abs()
+            if not bool(((p - q).abs() <= bound).all()):
+                fail(f"one step at 1x1, {name} vs off: {pname} max abs err {err:.3g}")
+            step_err = max(step_err, err)
+    print(f"phase 10: fused ≡ plain after one step at 1 epoch x 1 minibatch, N={N_PPO}: "
+          f"max abs param err {step_err:.3g} (rtol {STEP_RTOL}, atol {STEP_ATOL})")
+
+    curves = {}
+    for name in ("off", "update+adam"):
+        cfg = ppo.PPOConfig(num_envs=B_PPO, num_steps=T_PPO, fused_update=name != "off",
+                            fused_adam=name != "off")
+        t0 = time.perf_counter()
+        _, hist = run(cfg, 20)
+        rets = np.array([h["episode_return"] for h in hist])
+        first, last = float(np.nanmean(rets[:5])), float(np.nanmean(rets[-5:]))
+        if not last > first:
+            fail(f"{name}: mean episode return did not rise ({first:.4f} -> {last:.4f})")
+        curves[name] = (first, last)
+        print(f"phase 10: agreement {name:12s} episode return first5 {first:.4f} -> last5 "
+              f"{last:.4f} over 20 iterations ({time.perf_counter() - t0:.1f} s)")
+    gap = abs(curves["off"][1] - curves["update+adam"][1])
+    if not gap <= AGREE_TOL:
+        fail(f"last-5 mean episode returns differ by {gap:.4f} > {AGREE_TOL}")
+    print(f"phase 10: agreement gap {gap:.4f} <= {AGREE_TOL}")
+
     if "jax" in sys.modules:
         fail("jax was imported")
-    print(json.dumps({"kernels": [{
-        "name": "rollout_kernel",
-        "route": "cuda",
-        "source": "gym_fishing_tpu_torch/csrc/rollout_kernel.cu",
-        "replaces": "gym_fishing_tpu/kernels/rollout_kernel.py:177",
-        "launches": launched,
-        "max_abs_err": max(worst, main_err),
-        "ms": ker_ms,
-        "plain_ms": plain_ms,
-    }]}))
+    print(json.dumps({"kernels": [
+        {
+            "name": "rollout_kernel",
+            "route": "cuda",
+            "source": "gym_fishing_tpu_torch/csrc/rollout_kernel.cu",
+            "replaces": "gym_fishing_tpu/kernels/rollout_kernel.py:177",
+            "launches": launched,
+            "max_abs_err": max(worst, main_err),
+            "ms": ker_ms,
+            "plain_ms": plain_ms,
+        },
+        {
+            "name": "ppo_grad_kernel",
+            "route": "cuda",
+            "source": "gym_fishing_tpu_torch/csrc/ppo_update_kernel.cu",
+            "replaces": "gym_fishing_tpu/kernels/ppo_update_kernel.py:114",
+            "launches": train_launches["update"]["grad"],
+            "max_abs_err": grad_err,
+            "ms": grad_ms,
+            "plain_ms": grad_plain_ms,
+        },
+        {
+            "name": "ppo_grad_adam_kernel",
+            "route": "cuda",
+            "source": "gym_fishing_tpu_torch/csrc/ppo_update_kernel.cu",
+            "replaces": "gym_fishing_tpu/kernels/ppo_update_kernel.py:455",
+            "launches": train_launches["update+adam"]["adam"],
+            "max_abs_err": adam_err,
+            "ms": adam_ms,
+            "plain_ms": adam_plain_ms,
+        },
+    ]}))
+    # the run drives one device, cuda:0
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count(),
+        "count": 1,
     }}))
 
 

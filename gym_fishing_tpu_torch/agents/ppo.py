@@ -1,0 +1,478 @@
+"""PPO learner on the batched env engine.
+
+Counterpart of ``gym_fishing_tpu/agents/ppo.py``. One iteration is
+`collect_rollout` (policy forward, sampling, batched step with auto-reset),
+`compute_gae`, packing into one ``[N, C]`` sample matrix, and
+``epochs x num_minibatches`` clipped-PPO updates, in one of two forms:
+
+- plain (``fused_update=False``): `ppo_loss` under autograd, then
+  clip-by-global-norm and Adam written by hand to optax's semantics
+  (`apply_gradients`);
+- fused (``fused_update=True``): every minibatch gradient through the fused
+  update kernel K2 (``agents/ppo_fused.fused_epoch_scan``), or with
+  ``fused_adam`` gradient + clip + Adam through K3
+  (``fused_epoch_scan_adam``).
+
+Randomness comes from one `torch.Generator` on the rollout's device: action
+normals (Gaussian head) or Gumbel noise (categorical head, Gumbel-max
+sampling), the env's (2, B) noise plane per step, and one permutation per
+epoch. Parity tests inject all of them instead: ``act_noise [T, B, A]``,
+``env_noise [T, 2, B]`` and ``perms`` (one permutation per epoch: of the N
+samples in the plain form, of the tiles in the fused forms).
+
+The Adam count is a Python int, so the learning rate and the bias
+corrections are host numbers and an iteration queues on the device without
+a host sync until `train` reads its metrics.
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+import math
+from typing import Any, Dict, Optional, Sequence
+
+import numpy as np
+import torch
+from torch import nn
+
+from gym_fishing_tpu_torch.batch import BatchState, batched_reset, batched_step
+from gym_fishing_tpu_torch.core.env import Env
+from gym_fishing_tpu_torch.core.types import EnvParams
+from gym_fishing_tpu_torch.kernels.ppo_update_kernel import (
+    ADAM_B1,
+    ADAM_B2,
+    ADAM_EPS,
+    LOG_2PI,
+    LOG_2PI_E,
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class PPOConfig:
+    num_envs: int = 1024
+    num_steps: int = 128          # rollout length per iteration
+    epochs: int = 4
+    num_minibatches: int = 8
+    gamma: float = 0.99
+    gae_lambda: float = 0.95
+    clip_eps: float = 0.2
+    lr: float = 3e-4
+    vf_coef: float = 0.5
+    ent_coef: float = 0.0
+    max_grad_norm: float = 0.5
+    hidden: int = 64
+    anneal_lr: bool = False
+    total_iterations: int = 64    # used only for lr annealing
+    # "bfloat16": the two hidden layers of each tower compute in bf16 (plain
+    # form) or the kernel's three 2H-contractions take bf16 inputs (fused)
+    compute_dtype: str = "float32"
+    # every minibatch gradient through the fused update kernel (K2)
+    fused_update: bool = False
+    # rollout + GAE + packing through the policy-rollout kernel (K4): not
+    # ported yet, raises
+    fused_rollout: bool = False
+    # options of the policy-rollout kernel, kept for config parity with the
+    # JAX package; read once fused_rollout is ported
+    rollout_pregen_noise: bool = True
+    rollout_fold_obs: bool = True
+    rollout_vector_gae: bool = False
+    # with fused_update: gradient + clip + Adam in one kernel per minibatch
+    # (K3); the optimizer state is read and written once per train step
+    fused_adam: bool = False
+    # "exact" only: a fresh permutation per epoch ("affine" was a TPU
+    # ablation and is not ported)
+    shuffle: str = "exact"
+
+
+# ------------------------------------------------------------------ network
+
+def _orthogonal_linear(n_in: int, n_out: int, gain: float, generator) -> nn.Linear:
+    layer = nn.Linear(n_in, n_out)
+    with torch.no_grad():
+        nn.init.orthogonal_(layer.weight, gain=gain, generator=generator)
+        layer.bias.zero_()
+    return layer
+
+
+class ActorCritic(nn.Module):
+    """Shared-nothing actor and critic MLPs (sb3 MlpPolicy shape): two tanh
+    layers of `hidden` units per tower, a ``v_out`` head, and a ``pi_mean``
+    head with a free ``log_std`` (continuous) or a ``pi_logits`` head.
+
+    ``compute_dtype=torch.bfloat16`` computes the four hidden layers in
+    bf16 (inputs, weights, bias add and tanh); the heads stay float32.
+    """
+
+    def __init__(self, obs_dim: int, action_dim: int, continuous: bool, hidden: int = 64,
+                 compute_dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.continuous = continuous
+        self.compute_dtype = compute_dtype
+        root2 = math.sqrt(2.0)
+        self.pi_d1 = _orthogonal_linear(obs_dim, hidden, root2, generator)
+        self.pi_d2 = _orthogonal_linear(hidden, hidden, root2, generator)
+        self.v_d1 = _orthogonal_linear(obs_dim, hidden, root2, generator)
+        self.v_d2 = _orthogonal_linear(hidden, hidden, root2, generator)
+        self.v_out = _orthogonal_linear(hidden, 1, 1.0, generator)
+        if continuous:
+            self.pi_mean = _orthogonal_linear(hidden, action_dim, 0.01, generator)
+            self.log_std = nn.Parameter(torch.zeros(action_dim))
+        else:
+            self.pi_logits = _orthogonal_linear(hidden, action_dim, 0.01, generator)
+
+    def _dense(self, layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+        cdt = self.compute_dtype
+        return x.to(cdt) @ layer.weight.to(cdt).T + layer.bias.to(cdt)
+
+    def _tower(self, obs, d1, d2):
+        return torch.tanh(self._dense(d2, torch.tanh(self._dense(d1, obs))))
+
+    def forward(self, obs: torch.Tensor):
+        pi = self._tower(obs, self.pi_d1, self.pi_d2).float()
+        v = self._tower(obs, self.v_d1, self.v_d2).float()
+        value = self.v_out(v)[..., 0]
+        if self.continuous:
+            return (self.pi_mean(pi), self.log_std), value
+        return (self.pi_logits(pi),), value
+
+
+# -------------------------------------------------------------------- dists
+
+def _normal_logp(x, mean, log_std):
+    var = torch.exp(2 * log_std)
+    return torch.sum(-0.5 * ((x - mean) ** 2 / var + 2 * log_std + LOG_2PI), dim=-1)
+
+
+def sample_action(dist, continuous: bool, noise: Optional[torch.Tensor] = None,
+                  generator: Optional[torch.Generator] = None):
+    """(action, logp). `noise` is N(0,1) shaped like the mean (Gaussian:
+    ``mean + exp(log_std) * noise``) or Gumbel shaped like the logits
+    (categorical: ``argmax(logits + noise)``); drawn from `generator` when
+    not given."""
+    if continuous:
+        mean, log_std = dist
+        if noise is None:
+            noise = torch.randn(mean.shape, generator=generator, dtype=mean.dtype,
+                                device=mean.device)
+        action = mean + torch.exp(log_std) * noise
+        return action, _normal_logp(action, mean, log_std)
+    (logits,) = dist
+    if noise is None:
+        u = torch.rand(logits.shape, generator=generator, dtype=logits.dtype,
+                       device=logits.device)
+        noise = -torch.log(-torch.log(u.clamp_min(torch.finfo(logits.dtype).tiny)))
+    action = torch.argmax(logits + noise, dim=-1)
+    logp = torch.log_softmax(logits, -1).gather(-1, action[..., None])[..., 0]
+    return action, logp
+
+
+def action_logp_entropy(dist, action, continuous: bool):
+    if continuous:
+        mean, log_std = dist
+        logp = _normal_logp(action, mean, log_std)
+        ent = torch.sum(log_std + 0.5 * LOG_2PI_E, dim=-1)
+        return logp, ent.expand_as(logp)
+    (logits,) = dist
+    logps = torch.log_softmax(logits, -1)
+    logp = logps.gather(-1, action.long()[..., None])[..., 0]
+    ent = -torch.sum(torch.softmax(logits, -1) * logps, dim=-1)
+    return logp, ent
+
+
+# -------------------------------------------------------------------- state
+
+@dataclasses.dataclass
+class TrainState:
+    """The network, Adam's moments (keyed by parameter name), the Adam
+    update count and the number of optimizer steps taken."""
+
+    model: ActorCritic
+    m: Dict[str, torch.Tensor]
+    v: Dict[str, torch.Tensor]
+    count: int = 0
+    step: int = 0
+
+    def params(self) -> Dict[str, torch.Tensor]:
+        return dict(self.model.named_parameters())
+
+    def clone(self) -> "TrainState":
+        return copy.deepcopy(self)
+
+
+def _continuous(env: Env) -> bool:
+    return env.config.scheme == "continuous"
+
+
+def make_train_state(env: Env, cfg: PPOConfig, generator: Optional[torch.Generator] = None,
+                     device=None) -> TrainState:
+    """A fresh network (orthogonal init from the CPU `generator`) on `device`
+    with zero Adam moments."""
+    continuous = _continuous(env)
+    model = ActorCritic(
+        obs_dim=env.observation_space.shape[0],
+        action_dim=1 if continuous else env.config.n_actions,
+        continuous=continuous,
+        hidden=cfg.hidden,
+        compute_dtype=getattr(torch, cfg.compute_dtype),
+        generator=generator,
+    ).to(device)
+    zeros = {n: torch.zeros_like(p) for n, p in model.named_parameters()}
+    return TrainState(model=model, m=zeros, v={n: z.clone() for n, z in zeros.items()})
+
+
+def learning_rate(cfg: PPOConfig, count: int) -> float:
+    """optax.linear_schedule(lr, 0, total_updates) at `count`, or the
+    constant lr."""
+    if not cfg.anneal_lr:
+        return cfg.lr
+    total = cfg.total_iterations * cfg.epochs * cfg.num_minibatches
+    return cfg.lr * (1.0 - min(max(count, 0), total) / total)
+
+
+def apply_gradients(ts: TrainState, grads: Dict[str, torch.Tensor], cfg: PPOConfig) -> None:
+    """optax.chain(clip_by_global_norm(max_grad_norm), adam(lr, eps=ADAM_EPS))
+    in place: the clip scales by ``max_norm / norm`` only when ``norm >=
+    max_norm``; Adam's bias corrections use the incremented count and the
+    schedule the count before it."""
+    lr = learning_rate(cfg, ts.count)
+    count1 = ts.count + 1
+    bc1 = 1.0 - ADAM_B1 ** count1
+    bc2 = 1.0 - ADAM_B2 ** count1
+    norm = torch.sqrt(sum((g * g).sum() for g in grads.values()))
+    keep = norm < cfg.max_grad_norm
+    with torch.no_grad():
+        for name, p in ts.model.named_parameters():
+            g = grads[name]
+            g = torch.where(keep, g, g / norm * cfg.max_grad_norm)
+            m = (1.0 - ADAM_B1) * g + ADAM_B1 * ts.m[name]
+            v = (1.0 - ADAM_B2) * (g * g) + ADAM_B2 * ts.v[name]
+            ts.m[name], ts.v[name] = m, v
+            p.add_((m / bc1) / (torch.sqrt(v / bc2) + ADAM_EPS) * (-lr))
+    ts.count = count1
+    ts.step += 1
+
+
+# ------------------------------------------------------------------ rollout
+
+@dataclasses.dataclass(frozen=True)
+class Transition:
+    obs: Any
+    action: Any
+    logp: Any
+    value: Any
+    reward: Any
+    done: Any
+    episode_return: Any
+    episode_length: Any
+
+
+def collect_rollout(env: Env, env_params: EnvParams, cfg: PPOConfig, model: ActorCritic,
+                    bstate: BatchState, generator: Optional[torch.Generator] = None,
+                    act_noise: Optional[torch.Tensor] = None,
+                    env_noise: Optional[torch.Tensor] = None):
+    """`cfg.num_steps` steps of all envs under the current policy.
+
+    Returns (bstate, obs_last, traj, last_value) with `traj` a time-major
+    Transition. `act_noise` [T, B, A] and `env_noise` [T, 2, B] replace the
+    generator's draws."""
+    continuous = _continuous(env)
+    obs = env.get_obs(env_params, bstate.env).float()
+    steps = []
+    with torch.no_grad():
+        for t in range(cfg.num_steps):
+            dist, value = model(obs)
+            action, logp = sample_action(dist, continuous,
+                                         None if act_noise is None else act_noise[t], generator)
+            env_action = action if continuous else action.to(torch.int32)
+            noise = generator if env_noise is None else env_noise[t]
+            bstate, rs = batched_step(env, env_params, bstate, env_action, noise)
+            steps.append(Transition(
+                obs=obs, action=action, logp=logp, value=value,
+                reward=rs.reward.float(), done=rs.done,
+                episode_return=rs.episode_return.float(), episode_length=rs.episode_length,
+            ))
+            obs = rs.obs.float()
+        _, last_value = model(obs)
+    traj = Transition(**{
+        f.name: torch.stack([getattr(s, f.name) for s in steps])
+        for f in dataclasses.fields(Transition)
+    })
+    return bstate, obs, traj, last_value
+
+
+def compute_gae(cfg: PPOConfig, traj: Transition, last_value: torch.Tensor):
+    """Reverse pass of GAE over the time axis -> (advantages, returns)."""
+    gae = torch.zeros_like(last_value)
+    next_value = last_value
+    out = []
+    for t in reversed(range(traj.reward.shape[0])):
+        nonterminal = 1.0 - traj.done[t].float()
+        delta = traj.reward[t] + cfg.gamma * next_value * nonterminal - traj.value[t]
+        gae = delta + cfg.gamma * cfg.gae_lambda * nonterminal * gae
+        out.append(gae)
+        next_value = traj.value[t]
+    advantages = torch.stack(out[::-1])
+    return advantages, advantages + traj.value
+
+
+# ------------------------------------------------------------------- update
+
+def ppo_loss(model: ActorCritic, cfg: PPOConfig, batch, continuous: bool):
+    """Clipped-PPO loss of one minibatch -> (total, metrics). The advantage
+    normalisation uses the population std (``correction=0``), as jnp.std."""
+    obs, action, old_logp, old_value, adv, ret = batch
+    dist, value = model(obs)
+    logp, entropy = action_logp_entropy(dist, action, continuous)
+    ratio = torch.exp(logp - old_logp)
+    adv_n = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
+    pg1 = ratio * adv_n
+    pg2 = torch.clamp(ratio, 1 - cfg.clip_eps, 1 + cfg.clip_eps) * adv_n
+    pg_loss = -torch.minimum(pg1, pg2).mean()
+    v_clipped = old_value + torch.clamp(value - old_value, -cfg.clip_eps, cfg.clip_eps)
+    v_loss = 0.5 * torch.maximum((value - ret) ** 2, (v_clipped - ret) ** 2).mean()
+    ent = entropy.mean()
+    total = pg_loss + cfg.vf_coef * v_loss - cfg.ent_coef * ent
+    approx_kl = ((ratio - 1) - torch.log(ratio)).mean()
+    return total, {"loss": total, "pg_loss": pg_loss, "v_loss": v_loss, "entropy": ent,
+                   "approx_kl": approx_kl}
+
+
+def _pack(traj: Transition, advantages, returns) -> torch.Tensor:
+    """[T, B, ...] fields -> one [N, C] matrix (obs, action, logp, value,
+    advantage, return); discrete actions ride as f32."""
+    def fl2(x):
+        x = x.reshape((-1,) + tuple(x.shape[2:]))
+        return x[:, None] if x.dim() == 1 else x
+
+    return torch.cat([fl2(traj.obs), fl2(traj.action.float()), fl2(traj.logp),
+                      fl2(traj.value), fl2(advantages), fl2(returns)], dim=1)
+
+
+def _episode_metrics(traj: Transition) -> Dict[str, torch.Tensor]:
+    done_f = traj.done.float()
+    n_done = done_f.sum()
+    denom = torch.clamp(n_done, min=1.0)
+    nan = torch.full_like(n_done, float("nan"))
+    return {
+        "episode_return": torch.where(
+            n_done > 0, (traj.episode_return * done_f).sum() / denom, nan),
+        "episode_length": torch.where(
+            n_done > 0, (traj.episode_length.float() * done_f).sum() / denom, nan),
+        "mean_reward": traj.reward.mean(),
+    }
+
+
+def train_step(env: Env, env_params: EnvParams, cfg: PPOConfig, ts: TrainState,
+               bstate: BatchState, generator: Optional[torch.Generator] = None,
+               perms: Optional[Sequence[torch.Tensor]] = None,
+               act_noise: Optional[torch.Tensor] = None,
+               env_noise: Optional[torch.Tensor] = None):
+    """One PPO iteration (rollout + GAE + epochs of minibatch updates).
+
+    Updates `ts` in place and returns (ts, bstate, metrics), the metrics as
+    0-d tensors on the device (means over all minibatches, plus the
+    iteration's episode statistics)."""
+    if cfg.fused_rollout:
+        raise NotImplementedError(
+            "fused_rollout needs the policy-rollout kernel (K4, "
+            "gym_fishing_tpu/kernels/policy_rollout_kernel.py), which is not ported yet")
+    if cfg.shuffle != "exact":
+        raise NotImplementedError(f"shuffle={cfg.shuffle!r} is not ported; use 'exact'")
+    continuous = _continuous(env)
+    if perms is not None and len(perms) != cfg.epochs:
+        raise ValueError(f"perms needs one permutation per epoch ({cfg.epochs})")
+
+    # the two named ranges are what bench/profile.py reads from a trace
+    with torch.profiler.record_function("train_step/rollout"):
+        bstate, _, traj, last_value = collect_rollout(env, env_params, cfg, ts.model, bstate,
+                                                      generator, act_noise, env_noise)
+        advantages, returns = compute_gae(cfg, traj, last_value)
+        packed = _pack(traj, advantages, returns)
+    obs_dim = traj.obs.shape[-1]
+    act_dim = packed.shape[1] - obs_dim - 4
+
+    with torch.profiler.record_function("train_step/update"):
+        if cfg.fused_update:
+            from gym_fishing_tpu_torch.agents import ppo_fused
+
+            head = "gaussian" if continuous else "categorical"
+            kern_act_dim = act_dim if continuous else env.config.n_actions
+            packed_t = ppo_fused.pack_feature_major(packed)
+            scan = (ppo_fused.fused_epoch_scan_adam if cfg.fused_adam
+                    else ppo_fused.fused_epoch_scan)
+            metrics = scan(cfg, ts, packed_t, obs_dim, kern_act_dim, generator, head=head,
+                           perms=perms)
+        else:
+            metrics = _plain_epochs(cfg, ts, packed, obs_dim, act_dim, continuous, generator,
+                                    perms)
+    metrics = {k: v.mean() for k, v in metrics.items()}
+    metrics.update(_episode_metrics(traj))
+    return ts, bstate, metrics
+
+
+def _plain_epochs(cfg, ts, packed, obs_dim, act_dim, continuous, generator, perms):
+    n = packed.shape[0]
+    mb_size = n // cfg.num_minibatches
+    names = [name for name, _ in ts.model.named_parameters()]
+    history = []
+    for e in range(cfg.epochs):
+        perm = perms[e] if perms is not None else torch.randperm(
+            n, generator=generator, device=packed.device)
+        shuffled = packed[perm.to(packed.device).long()]
+        for i in range(cfg.num_minibatches):
+            mb = shuffled[i * mb_size:(i + 1) * mb_size]
+            action = mb[:, obs_dim:obs_dim + act_dim]
+            if not continuous:
+                action = action[:, 0].to(torch.int32)
+            rest = mb[:, obs_dim + act_dim:]
+            batch = (mb[:, :obs_dim], action, rest[:, 0], rest[:, 1], rest[:, 2], rest[:, 3])
+            loss, mets = ppo_loss(ts.model, cfg, batch, continuous)
+            grads = torch.autograd.grad(loss, list(ts.model.parameters()))
+            apply_gradients(ts, dict(zip(names, grads)), cfg)
+            history.append({k: v.detach() for k, v in mets.items()})
+    return {k: torch.stack([h[k] for h in history]) for k in history[0]}
+
+
+def train(env: Env, cfg: PPOConfig, seed: int = 0, iterations: int = 32,
+          env_params: Optional[EnvParams] = None, verbose: bool = False, device=None):
+    """Host loop over `train_step` on `device` (default: the CPU). The
+    network is initialised from a CPU generator seeded with `seed`; the
+    rollout and the shuffles draw from a generator on `device` seeded with
+    `seed` + 1. Returns (ts, history of float metrics per iteration)."""
+    device = torch.device("cpu" if device is None else device)
+    if env_params is None:
+        env_params = env.params(device=device)
+    ts = make_train_state(env, cfg, torch.Generator().manual_seed(seed), device)
+    generator = torch.Generator(device=device).manual_seed(seed + 1)
+    bstate = batched_reset(env, env_params, cfg.num_envs, device)
+    history = []
+    for it in range(iterations):
+        ts, bstate, metrics = train_step(env, env_params, cfg, ts, bstate, generator)
+        history.append({k: float(v) for k, v in metrics.items()})
+        if verbose:
+            print(f"iter {it}: {history[-1]}")
+    return ts, history
+
+
+class PPOPolicy:
+    """sb3-style `.predict` wrapper over a trained TrainState: the mean
+    action (continuous) or the argmax class (discrete)."""
+
+    def __init__(self, env: Env, ts: TrainState):
+        self.env = env
+        self.ts = ts
+        self.continuous = _continuous(env)
+
+    def act(self, obs, carried_harvest=None):
+        with torch.no_grad():
+            dist, _ = self.ts.model(obs.float())
+        if self.continuous:
+            return dist[0]
+        return torch.argmax(dist[0], dim=-1).to(torch.int32)
+
+    def predict(self, obs, state=None, episode_start=None, deterministic=True):
+        device = next(self.ts.model.parameters()).device
+        a = self.act(torch.as_tensor(np.asarray(obs), device=device))
+        return a.cpu().numpy(), state

@@ -1,0 +1,250 @@
+"""Glue between the ActorCritic parameters and the fused update kernels.
+
+Counterpart of the update half of ``gym_fishing_tpu/agents/ppo_fused.py``.
+The kernels (``kernels/ppo_update_kernel.py``) want kernel-layout weights
+(``[in, out]`` matrices, ``[n, 1]`` biases, merged block-diagonally) and the
+feature-major ``[C_PAD, N]`` sample matrix; `torch.nn.Linear` stores
+``[out, in]`` and 1-D biases. The arrays are tiny (~17k floats), so the
+relayout costs little next to the pass over the samples.
+
+Parameters travel as a name -> tensor mapping (``dict(model.named_parameters())``
+or Adam's moments, which share the names), the counterpart of the flax tree.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping, Optional, Sequence
+
+import torch
+
+from gym_fishing_tpu_torch.agents.ppo import apply_gradients, learning_rate
+from gym_fishing_tpu_torch.kernels.ppo_update_kernel import (
+    ADAM_B1,
+    ADAM_B2,
+    C_PAD,
+    LOG_2PI_E,
+    PPOGrads,
+    fused_minibatch_grad,
+    fused_minibatch_grad_adam,
+    merge_weights,
+    unmerge_weights,
+)
+
+
+def _pi_head(head: str) -> str:
+    return "pi_mean" if head == "gaussian" else "pi_logits"
+
+
+def kernel_weights(params: Mapping[str, torch.Tensor], head: str = "gaussian") -> tuple:
+    """Named parameters -> the 13 kernel-layout arrays (PPOGrads order).
+
+    The categorical head has no log_std parameter: its slot gets a zeros
+    [A, 1] placeholder that the kernel never reads."""
+    pi = _pi_head(head)
+    col = lambda v: v.detach().reshape(-1, 1).float()  # noqa: E731
+    mat = lambda name: params[f"{name}.weight"].detach().float().T  # noqa: E731
+    bias = lambda name: col(params[f"{name}.bias"])  # noqa: E731
+    log_std = (col(params["log_std"]) if head == "gaussian"
+               else torch.zeros_like(bias(pi)))
+    return (mat("pi_d1"), bias("pi_d1"), mat("pi_d2"), bias("pi_d2"), mat(pi), bias(pi), log_std,
+            mat("v_d1"), bias("v_d1"), mat("v_d2"), bias("v_d2"), mat("v_out"), bias("v_out"))
+
+
+def params_from_kernel(split: tuple, head: str = "gaussian") -> Dict[str, torch.Tensor]:
+    """Inverse of `kernel_weights`: 13 kernel-layout arrays -> named tensors
+    in `torch.nn.Linear` layout (no log_std for the categorical head)."""
+    (w1p, b1p, w2p, b2p, wm, bm, ls, w1v, b1v, w2v, b2v, wv, bv) = split
+    out = {}
+    for name, w, b in (("pi_d1", w1p, b1p), ("pi_d2", w2p, b2p), (_pi_head(head), wm, bm),
+                       ("v_d1", w1v, b1v), ("v_d2", w2v, b2v), ("v_out", wv, bv)):
+        out[f"{name}.weight"] = w.T
+        out[f"{name}.bias"] = b.reshape(-1)
+    if head == "gaussian":
+        out["log_std"] = ls.reshape(-1)
+    return out
+
+
+def grads_pytree(g: PPOGrads, params: Mapping[str, torch.Tensor], ent_coef: float,
+                 head: str = "gaussian") -> Dict[str, torch.Tensor]:
+    """Kernel-layout gradients -> a name -> tensor mapping with the names and
+    shapes of `params`.
+
+    Gaussian: the entropy term of the loss, -ent_coef * mean(sum_a(log_std +
+    c)), is data-independent; its gradient (-ent_coef per action dim) is
+    added here. Categorical: the entropy gradient is already in dWm/dbm and
+    there is no log_std."""
+    grads = params_from_kernel(tuple(g), head)
+    if head == "gaussian":
+        grads["log_std"] = grads["log_std"] - ent_coef
+    return {name: grads[name].reshape(p.shape) for name, p in params.items()}
+
+
+def pack_feature_major(mb: torch.Tensor) -> torch.Tensor:
+    """[N, C] sample-major matrix -> contiguous feature-major [C_PAD, N],
+    zero-padded to C_PAD rows."""
+    n, c = mb.shape
+    if c > C_PAD:
+        raise ValueError(f"{c} fields do not fit {C_PAD} rows")
+    out = torch.zeros((C_PAD, n), dtype=torch.float32, device=mb.device)
+    out[:c] = mb.T
+    return out
+
+
+def fused_grad(params: Mapping[str, torch.Tensor], data_t: torch.Tensor, clip_eps: float,
+               vf_coef: float, ent_coef: float, obs_dim: int, act_dim: int, tile: int = 2048,
+               tile_order: Optional[torch.Tensor] = None,
+               adv_stats: Optional[torch.Tensor] = None, head: str = "gaussian",
+               compute: str = "float32"):
+    """Full PPO minibatch gradient + metrics through K2 -> (grads by name,
+    metrics dict of 0-d tensors), the quantities autograd of `ppo_loss`
+    gives.
+
+    With `tile_order` the minibatch is those tiles of `data_t`; without it,
+    the whole buffer. `adv_stats` (mu, 1/(std + 1e-8)) as a (2,) tensor is
+    required when `tile_order` subsets the data; otherwise it is computed
+    here over the whole buffer (population std)."""
+    n = data_t.shape[1]
+    tile = min(tile, n)
+    na = act_dim if head == "gaussian" else 1
+    if tile_order is None:
+        if n % tile:
+            raise ValueError(f"N = {n} must be a multiple of tile = {tile}")
+        tile_order = torch.arange(n // tile, dtype=torch.int32, device=data_t.device)
+    n_mb = tile_order.shape[0] * tile
+    if adv_stats is None:
+        if n_mb != n:
+            raise ValueError("adv_stats is required when tile_order subsets the data")
+        adv = data_t[obs_dim + na + 2]
+        adv_stats = torch.stack([adv.mean(), 1.0 / (adv.std(correction=0) + 1e-8)])
+    g, met = fused_minibatch_grad(
+        data_t, tile_order, kernel_weights(params, head), adv_stats, clip_eps=clip_eps,
+        vf_coef=vf_coef, ent_coef=ent_coef, obs_dim=obs_dim, act_dim=act_dim, tile=tile,
+        head=head, compute=compute)
+    grads = grads_pytree(g, params, ent_coef, head)
+    if head == "gaussian":
+        entropy = torch.sum(params["log_std"].detach() + 0.5 * LOG_2PI_E)
+    else:
+        entropy = met[3] / n_mb
+    pg_loss, v_loss = met[0] / n_mb, met[1] / n_mb
+    return grads, {
+        "pg_loss": pg_loss,
+        "v_loss": v_loss,
+        "entropy": entropy,
+        "approx_kl": met[2] / n_mb,
+        "loss": pg_loss + vf_coef * v_loss - ent_coef * entropy,
+    }
+
+
+def _tiling(cfg, packed_t: torch.Tensor, obs_dim: int, act_dim: int, head: str):
+    """(tile, tiles per minibatch, per-tile advantage sums and sums of
+    squares) for zero-copy tile-shuffled minibatches."""
+    n = packed_t.shape[1]
+    mb = n // cfg.num_minibatches
+    tile = next((t for t in (2048, 1024, 512, 256, 128) if mb % t == 0), None)
+    if tile is None:
+        raise ValueError(f"fused_update needs minibatch size {mb} divisible by 128")
+    na = act_dim if head == "gaussian" else 1
+    adv_tiles = packed_t[obs_dim + na + 2].reshape(n // tile, tile)
+    return tile, mb // tile, adv_tiles.sum(1), (adv_tiles * adv_tiles).sum(1)
+
+
+def _tile_perm(e: int, num_tiles: int, generator, perms, device) -> torch.Tensor:
+    perm = perms[e] if perms is not None else torch.randperm(
+        num_tiles, generator=generator, device=device)
+    return perm.to(device=device, dtype=torch.int32)
+
+
+def _adv_stats(tile_sum, tile_sumsq, order, n: int) -> torch.Tensor:
+    """Exact minibatch advantage mean and 1/(std + 1e-8) from per-tile sums:
+    var = ss/n - mu^2 (one pass, as the reference computes it)."""
+    idx = order.long()
+    mu = tile_sum[idx].sum() / n
+    var = tile_sumsq[idx].sum() / n - mu * mu
+    return torch.stack([mu, 1.0 / (torch.sqrt(torch.clamp(var, min=0.0)) + 1e-8)])
+
+
+def fused_epoch_scan(cfg, ts, packed_t: torch.Tensor, obs_dim: int, act_dim: int,
+                     generator: Optional[torch.Generator] = None, head: str = "gaussian",
+                     perms: Optional[Sequence[torch.Tensor]] = None):
+    """cfg.epochs x cfg.num_minibatches updates over `packed_t`: each
+    minibatch is a random set of tiles (one tile permutation per epoch, from
+    `generator` or `perms`), its gradient comes from K2 and the optimizer is
+    the plain form's clip + Adam. Updates `ts` in place; returns metrics
+    stacked over the minibatches."""
+    tile, per_mb, tile_sum, tile_sumsq = _tiling(cfg, packed_t, obs_dim, act_dim, head)
+    n_mb = per_mb * tile
+    history = []
+    for e in range(cfg.epochs):
+        perm = _tile_perm(e, tile_sum.shape[0], generator, perms, packed_t.device)
+        for i in range(cfg.num_minibatches):
+            order = perm[i * per_mb:(i + 1) * per_mb]
+            grads, mets = fused_grad(
+                ts.params(), packed_t, cfg.clip_eps, cfg.vf_coef, cfg.ent_coef,
+                obs_dim=obs_dim, act_dim=act_dim, tile=tile, tile_order=order,
+                adv_stats=_adv_stats(tile_sum, tile_sumsq, order, n_mb), head=head,
+                compute=cfg.compute_dtype)
+            apply_gradients(ts, grads, cfg)
+            history.append(mets)
+    return {k: torch.stack([h[k] for h in history]) for k in history[0]}
+
+
+def fused_epoch_scan_adam(cfg, ts, packed_t: torch.Tensor, obs_dim: int, act_dim: int,
+                          generator: Optional[torch.Generator] = None, head: str = "gaussian",
+                          perms: Optional[Sequence[torch.Tensor]] = None):
+    """`fused_epoch_scan` with clip + Adam inside the kernel (K3).
+
+    The merged weights and moments are built once, carried through every
+    minibatch launch, and written back to `ts` once at the end. lr (with
+    anneal_lr, optax.linear_schedule at the count BEFORE the increment) and
+    the bias corrections come from the Python-int count.
+
+    The Gaussian ``entropy`` metric (and so ``loss``) uses log_std as it was
+    at entry, while the plain optimizer path recomputes it each minibatch:
+    with ent_coef > 0 those two metrics drift slightly between the forms
+    (the parameters do not: the kernel differentiates the true entropy)."""
+    tile, per_mb, tile_sum, tile_sumsq = _tiling(cfg, packed_t, obs_dim, act_dim, head)
+    n_mb = per_mb * tile
+    params = ts.params()
+    log_std0 = params["log_std"].detach().clone() if head == "gaussian" else None
+    w = merge_weights(kernel_weights(params, head))
+    m = merge_weights(kernel_weights(ts.m, head))
+    v = merge_weights(kernel_weights(ts.v, head))
+    count = ts.count
+    mets = []
+    for e in range(cfg.epochs):
+        perm = _tile_perm(e, tile_sum.shape[0], generator, perms, packed_t.device)
+        for i in range(cfg.num_minibatches):
+            order = perm[i * per_mb:(i + 1) * per_mb]
+            count1 = count + 1
+            w, m, v, met = fused_minibatch_grad_adam(
+                packed_t, order, w, m, v, _adv_stats(tile_sum, tile_sumsq, order, n_mb),
+                clip_eps=cfg.clip_eps, vf_coef=cfg.vf_coef, ent_coef=cfg.ent_coef,
+                lr=learning_rate(cfg, count), bc1=1.0 - ADAM_B1 ** count1,
+                bc2=1.0 - ADAM_B2 ** count1, obs_dim=obs_dim, act_dim=act_dim, tile=tile,
+                head=head, compute=cfg.compute_dtype, max_grad_norm=cfg.max_grad_norm)
+            mets.append(met)
+            count = count1
+
+    h = params["pi_d1.weight"].shape[0]
+    a = params[f"{_pi_head(head)}.weight"].shape[0]
+    with torch.no_grad():
+        for name, val in params_from_kernel(unmerge_weights(w, h, a), head).items():
+            params[name].copy_(val.reshape(params[name].shape))
+    for store, merged in ((ts.m, m), (ts.v, v)):
+        for name, val in params_from_kernel(unmerge_weights(merged, h, a), head).items():
+            store[name] = val.reshape(params[name].shape).contiguous()
+    ts.count = count
+    ts.step += cfg.epochs * cfg.num_minibatches
+
+    met = torch.stack(mets) / n_mb                       # [E*M, 4]
+    if head == "gaussian":
+        entropy = torch.sum(log_std0 + 0.5 * LOG_2PI_E).expand(met.shape[0])
+    else:
+        entropy = met[:, 3]
+    return {
+        "pg_loss": met[:, 0],
+        "v_loss": met[:, 1],
+        "entropy": entropy,
+        "approx_kl": met[:, 2],
+        "loss": met[:, 0] + cfg.vf_coef * met[:, 1] - cfg.ent_coef * entropy,
+    }

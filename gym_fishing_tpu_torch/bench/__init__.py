@@ -1,1 +1,1 @@
-from gym_fishing_tpu_torch.bench.throughput import measure
+from gym_fishing_tpu_torch.bench.throughput import measure, measure_ppo_train

@@ -1,8 +1,10 @@
-"""Stepping throughput of the port: the engine and the fused rollout kernel.
+"""Throughput of the port: stepping (the engine and the fused rollout
+kernel) and the PPO train step.
 
-Counterpart of ``gym_fishing_tpu/bench/throughput.py`` (`measure` with
-``store_trajectory=False`` and `_measure_pallas`): batched fishing-v1 under
-the escapement policy with auto-reset.
+Counterpart of ``gym_fishing_tpu/bench/throughput.py``: `measure` (its
+`measure` with ``store_trajectory=False`` and `_measure_pallas`) times
+batched fishing-v1 under the escapement policy with auto-reset;
+`measure_ppo_train` times whole PPO iterations.
 
 Timing: every timed window chains each iteration on the previous one's
 outputs, and ends inside the window with ``torch.cuda.synchronize()`` and a
@@ -19,10 +21,15 @@ import time
 
 import torch
 
+from gym_fishing_tpu_torch.agents import ppo
 from gym_fishing_tpu_torch.agents.policies import escapement
 from gym_fishing_tpu_torch.batch import batched_reset, batched_step
 from gym_fishing_tpu_torch.kernels import rollout_kernel
 from gym_fishing_tpu_torch.registry import make
+
+# BASELINE.json's north-star target, env-steps/s per chip: the bar the
+# reference set itself, not a measurement of this port
+BASELINE_STEPS_PER_S = 50_000_000.0
 
 
 def _finish(x: torch.Tensor) -> float:
@@ -140,3 +147,64 @@ def _time_kernel(env_id, num_envs, num_steps, iters, warmup, sigma, device, seed
         stock, t, ep, harvest, offset, reward = run(stock, t, ep, harvest, offset)
     total = _finish(reward.sum())
     return time.perf_counter() - t0, total
+
+
+def measure_ppo_train(
+    num_envs: int = 16384,
+    num_steps: int = 128,
+    iters: int = 10,
+    warmup: int = 3,
+    sigma: float = 0.05,
+    fused: str = "off",
+    fused_adam: bool = False,
+    compute_dtype: str = "float32",
+    device="cuda",
+    seed: int = 0,
+) -> dict:
+    """Time whole PPO iterations (rollout + GAE + 4 x 8 minibatch updates)
+    on fishing-v1, chained through the train state and the batch state.
+
+    ``fused="off"``: the plain form (autograd + hand-written clip and Adam).
+    ``fused="update"``: every minibatch gradient through K2, or with
+    `fused_adam` gradient + clip + Adam through K3. ``fused="full"`` needs
+    the policy-rollout kernel (K4), which is not ported yet.
+    """
+    if fused == "full":
+        raise NotImplementedError("fused='full' needs the policy-rollout kernel (K4), "
+                                  "which is not ported yet")
+    if fused not in ("off", "update"):
+        raise ValueError(f"unknown fused form {fused!r}")
+    device = _device(device)
+    env, params = make("fishing-v1", sigma=sigma, device=device)
+    cfg = ppo.PPOConfig(num_envs=num_envs, num_steps=num_steps, fused_update=fused == "update",
+                        fused_adam=fused_adam, compute_dtype=compute_dtype)
+    ts = ppo.make_train_state(env, cfg, torch.Generator().manual_seed(seed), device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    bstate = batched_reset(env, params, num_envs)
+
+    for _ in range(warmup):
+        ts, bstate, metrics = ppo.train_step(env, params, cfg, ts, bstate, gen)
+    if warmup:
+        _finish(metrics["loss"])
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        ts, bstate, metrics = ppo.train_step(env, params, cfg, ts, bstate, gen)
+    _finish(metrics["loss"])
+    dt = time.perf_counter() - t0
+
+    steps_per_s = num_envs * num_steps * iters / dt
+    return {
+        "mode": f"ppo-{fused}" + ("+adam" if fused_adam else ""),
+        # options of the fused rollout, which no form here runs
+        "rollout_flags": {"pregen_noise": False, "fold_obs": False, "vector_gae": False},
+        "compute_dtype": cfg.compute_dtype,
+        "device": _device_name(device),
+        "num_envs": num_envs,
+        "num_steps": num_steps,
+        "epochs": cfg.epochs,
+        "num_minibatches": cfg.num_minibatches,
+        "iters": iters,
+        "seconds": dt,
+        "steps_per_s": steps_per_s,
+        "vs_baseline": steps_per_s / BASELINE_STEPS_PER_S,
+    }

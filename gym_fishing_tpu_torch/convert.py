@@ -9,16 +9,23 @@ never touches JAX:
 `batch_state_from_numpy` takes the flattened fields of a JAX ``BatchState``:
 ``stock``, ``harvest`` and ``t`` of its ``env`` record, plus
 ``episode_return`` and ``episode_length``.
+
+`actor_critic_from_numpy` takes the flax ``ActorCritic`` parameter tree as
+nested dicts of numpy arrays (``jax.tree.map(np.asarray, params)``): each
+flax ``kernel [in, out]`` becomes a ``Linear.weight [out, in]``.
+`adam_state_from_numpy` does the same for optax's Adam moments, and
+`actor_critic_to_numpy` goes back, so tests compare in the flax layout.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping
+from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
 
+from gym_fishing_tpu_torch.agents.ppo import ActorCritic
 from gym_fishing_tpu_torch.batch.batch import BatchState
 from gym_fishing_tpu_torch.core.types import EnvParams, EnvState
 
@@ -59,3 +66,62 @@ def batch_state_from_numpy(fields: Mapping[str, np.ndarray], dtype=torch.float32
         episode_return=cast("episode_return", dtype),
         episode_length=cast("episode_length", torch.int32),
     )
+
+
+def _named_from_flax(tree: Mapping) -> Dict[str, np.ndarray]:
+    """flax {"params": {layer: {"kernel", "bias"}, "log_std"}} -> parameter
+    names and arrays in `torch.nn.Linear` layout."""
+    tree = tree.get("params", tree)
+    out = {}
+    for layer, val in tree.items():
+        if isinstance(val, Mapping):
+            out[f"{layer}.weight"] = np.asarray(val["kernel"]).T
+            out[f"{layer}.bias"] = np.asarray(val["bias"])
+        else:
+            out[layer] = np.asarray(val)
+    return out
+
+
+def actor_critic_from_numpy(tree: Mapping, compute_dtype=torch.float32,
+                            device=None) -> ActorCritic:
+    """A port ActorCritic loaded with the flax parameter tree's values."""
+    named = _named_from_flax(tree)
+    continuous = "pi_mean.weight" in named
+    head = named["pi_mean.weight" if continuous else "pi_logits.weight"]
+    hidden, obs_dim = named["pi_d1.weight"].shape
+    model = ActorCritic(obs_dim=obs_dim, action_dim=head.shape[0], continuous=continuous,
+                        hidden=hidden, compute_dtype=compute_dtype)
+    params = dict(model.named_parameters())
+    _check_keys(named, tuple(params))
+    with torch.no_grad():
+        for name, p in params.items():
+            p.copy_(torch.as_tensor(np.array(named[name], dtype=np.float32)))
+    return model.to(device)
+
+
+def adam_state_from_numpy(mu: Mapping, nu: Mapping, count
+                          ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor], int]:
+    """optax ScaleByAdamState fields (mu and nu as flax-shaped trees, count)
+    -> (m, v, count) keyed by the port's parameter names."""
+    def conv(tree):
+        return {k: torch.as_tensor(np.array(v, dtype=np.float32))
+                for k, v in _named_from_flax(tree).items()}
+
+    return conv(mu), conv(nu), int(np.asarray(count))
+
+
+def actor_critic_to_numpy(params) -> Dict[str, Dict]:
+    """Inverse of `actor_critic_from_numpy`: a model (or a name -> tensor
+    mapping such as Adam's moments) -> the flax tree of numpy arrays."""
+    if isinstance(params, torch.nn.Module):
+        params = dict(params.named_parameters())
+    tree: Dict[str, Dict] = {}
+    for name, t in params.items():
+        arr = t.detach().cpu().numpy()
+        if "." in name:
+            layer, kind = name.split(".")
+            tree.setdefault(layer, {})["kernel" if kind == "weight" else "bias"] = (
+                arr.T if kind == "weight" else arr)
+        else:
+            tree[name] = arr
+    return {"params": tree}

@@ -1,4 +1,5 @@
-"""The port's CUDA rollout kernel against its plain twin, on the card.
+"""The port's CUDA kernels against their plain twins, on the card: the
+rollout kernel (K1) and the fused PPO update kernels (K2, K3).
 
 These tests need a CUDA device and skip without one. They import neither
 JAX nor tests/conftest.py's JAX setup, so on a machine with a card and no
@@ -6,9 +7,11 @@ JAX they run with:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
 
-Tolerances: float32 with a different libm, FMA contraction and operation
-order, so values agree to rounding (stock atol 1e-5, sums over 64 steps
-atol 1e-4) while t and ep_count agree exactly.
+Tolerances, K1: float32 with a different libm, FMA contraction and
+operation order, so values agree to rounding (stock atol 1e-5, sums over 64
+steps atol 1e-4) while t and ep_count agree exactly. K2/K3: each gradient
+buffer within 2e-4 * max|twin| + 2e-6 and the metric sums within rtol 2e-4,
+since float32 sums over thousands of samples run in another order.
 """
 
 import numpy as np
@@ -16,6 +19,9 @@ import pytest
 import torch
 
 import gym_fishing_tpu_torch as gtt
+from gym_fishing_tpu_torch.agents import ppo_fused
+from gym_fishing_tpu_torch.agents.ppo import ActorCritic, sample_action
+from gym_fishing_tpu_torch.kernels import ppo_update_kernel as uk
 from gym_fishing_tpu_torch.kernels import rollout_kernel as rk
 
 torch.set_num_threads(1)
@@ -73,3 +79,105 @@ def test_philox_fill_matches_twin_stream(cuda):
     z = rk.philox_normals(seed=5, offset=2**40, num_envs=1 << 16, device=cuda)
     ref = rk.philox_normals(seed=5, offset=2**40, num_envs=1 << 16, device="cpu")
     np.testing.assert_allclose(z.cpu().numpy(), ref.numpy(), atol=1e-5)
+
+
+def _ppo_case(head, n, hidden, seed):
+    """A jittered random ActorCritic and n packed samples drawn from it, with
+    old log-probs and values spread so every clip branch is visited."""
+    gen = torch.Generator().manual_seed(seed)
+    gauss = head == "gaussian"
+    a = 1 if gauss else 3
+    model = ActorCritic(1, a, gauss, hidden, generator=gen)
+    randn = lambda *shape: torch.randn(*shape, generator=gen)  # noqa: E731
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(0.05 * randn(*p.shape))
+        if gauss:
+            model.log_std.fill_(-0.4)
+        obs = 0.7 * randn(n, 1)
+        dist, value = model(obs)
+        action, logp = sample_action(dist, gauss, generator=gen)
+    packed = torch.cat([obs, action.float().reshape(n, -1), (logp + 0.3 * randn(n))[:, None],
+                        (value + 0.3 * randn(n))[:, None], randn(n, 1),
+                        (value + randn(n))[:, None]], 1)
+    weights = ppo_fused.kernel_weights(dict(model.named_parameters()), head)
+    return weights, ppo_fused.pack_feature_major(packed), a
+
+
+def _assert_buffers_close(got, ref):
+    for g, r in zip(got, ref):
+        g, r = g.cpu().double(), r.cpu().double()
+        tol = 2e-4 * float(r.abs().max()) + 2e-6
+        assert float((g - r).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hidden", [32, 64])
+@pytest.mark.parametrize("head,ent_coef", [("gaussian", 0.0), ("gaussian", 0.01),
+                                           ("categorical", 0.0), ("categorical", 0.01)])
+def test_ppo_grad_kernel_matches_twin(cuda, head, ent_coef, hidden, compute):
+    weights, data, a = _ppo_case(head, 64 * 256, hidden, seed=1)
+    data, weights = data.to(cuda), tuple(w.to(cuda) for w in weights)
+    order = torch.tensor([9, 0, 63, 17, 5, 40, 33, 2], dtype=torch.int32, device=cuda)
+    adv_stats = torch.tensor([0.05, 1.1], device=cuda)
+    kw = dict(clip_eps=0.2, vf_coef=0.5, ent_coef=ent_coef, obs_dim=1, act_dim=a, tile=256,
+              head=head, compute=compute)
+    before = uk.grad_launches
+    g, met = uk.fused_minibatch_grad(data, order, weights, adv_stats, **kw)
+    assert uk.grad_launches == before + 1
+    g_ref, met_ref = uk.fused_minibatch_grad_reference(data, order, weights, adv_stats, **kw)
+    torch.cuda.synchronize()
+    _assert_buffers_close(g, g_ref)
+    np.testing.assert_allclose(met.cpu().numpy(), met_ref.cpu().numpy(), rtol=2e-4, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_grad_norm", [1e6, 1e-3])
+@pytest.mark.parametrize("head", ["gaussian", "categorical"])
+def test_ppo_grad_adam_kernel_matches_twin(cuda, head, max_grad_norm):
+    weights, data, a = _ppo_case(head, 64 * 256, 64, seed=2)
+    data = data.to(cuda)
+    w = uk.merge_weights(tuple(x.to(cuda) for x in weights))
+    gen = torch.Generator().manual_seed(3)
+    m = tuple((0.01 * torch.randn(x.shape, generator=gen)).to(cuda) for x in w)
+    v = tuple((1e-4 * torch.rand(x.shape, generator=gen)).to(cuda) for x in w)
+    order = torch.tensor([3, 1, 60, 12], dtype=torch.int32, device=cuda)
+    adv_stats = torch.tensor([-0.02, 0.9], device=cuda)
+    kw = dict(clip_eps=0.2, vf_coef=0.5, ent_coef=0.01, lr=3e-4, bc1=1 - 0.9 ** 5,
+              bc2=1 - 0.999 ** 5, obs_dim=1, act_dim=a, tile=256, head=head,
+              max_grad_norm=max_grad_norm)
+    before = uk.adam_launches
+    *new, met = uk.fused_minibatch_grad_adam(data, order, w, m, v, adv_stats, **kw)
+    assert uk.adam_launches == before + 1
+    *ref, met_ref = uk.fused_minibatch_grad_adam_reference(data, order, w, m, v, adv_stats, **kw)
+    torch.cuda.synchronize()
+    # the weights through their update (~lr), the moments as they are
+    _assert_buffers_close([n - o for n, o in zip(new[0], w)], [r - o for r, o in zip(ref[0], w)])
+    for got, want in zip(new[1:], ref[1:]):
+        _assert_buffers_close(got, want)
+    np.testing.assert_allclose(met.cpu().numpy(), met_ref.cpu().numpy(), rtol=2e-4, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("adam", [False, True])
+def test_ppo_update_kernels_are_deterministic(cuda, adam):
+    """Stage 2 sums the per-tile partials in index order and no float atomic
+    is used: two identical launches give identical bits."""
+    weights, data, a = _ppo_case("gaussian", 64 * 256, 64, seed=4)
+    data, weights = data.to(cuda), tuple(w.to(cuda) for w in weights)
+    order = torch.arange(0, 64, 2, dtype=torch.int32, device=cuda)
+    stats = torch.tensor([0.0, 1.0], device=cuda)
+    kw = dict(clip_eps=0.2, vf_coef=0.5, ent_coef=0.0, obs_dim=1, act_dim=a, tile=256)
+    if adam:
+        w = uk.merge_weights(weights)
+        zeros = tuple(torch.zeros_like(x) for x in w)
+        runs = [uk.fused_minibatch_grad_adam(data, order, w, zeros, zeros, stats, lr=3e-4,
+                                             bc1=0.1, bc2=0.001, **kw) for _ in range(2)]
+        flat = [torch.cat([x.reshape(-1) for group in r[:3] for x in group] + [r[3]])
+                for r in runs]
+    else:
+        runs = [uk.fused_minibatch_grad(data, order, weights, stats, **kw) for _ in range(2)]
+        flat = [torch.cat([x.reshape(-1) for x in r[0]] + [r[1]]) for r in runs]
+    torch.cuda.synchronize()
+    assert torch.equal(flat[0], flat[1])
