@@ -7,12 +7,13 @@ It builds the hand-written CUDA kernels from csrc/ and drives the port's two
 paths at the JAX bench's sizes: stepping, make("fishing-v1") -> escapement
 -> fused rollout with auto-reset (2^21 envs, 512 steps per call), and PPO
 training on fishing-v1 (16384 envs x 128 steps, 4 epochs x 8 minibatches,
-hidden 64) in its plain and fused-update forms. Phases, each of which raises
-on failure:
+hidden 64) in its plain, fused-update and fused-full forms. Phases, each of
+which raises on failure:
 
 1. device: a CUDA device is required; prints the card's name and power limit;
-2. build: nvcc builds csrc/rollout_kernel.cu and csrc/ppo_update_kernel.cu,
-   one process per source, started together (prints the seconds);
+2. build: nvcc builds csrc/rollout_kernel.cu, csrc/ppo_update_kernel.cu and
+   csrc/policy_rollout_kernel.cu, one process per source, started together
+   (prints the seconds);
 3. kernel ≡ twin: the kernel against its plain PyTorch twin on the same
    numpy-made noise planes, over every growth model, both noise forms, the
    three policies and schemes, observation noise, cost, collapse penalty,
@@ -23,8 +24,8 @@ on failure:
    episode-accounting checks, the twin from the same seed, and env-steps/s
    of both;
 6. main path, engine tier: `measure(mode="engine")`;
-7. the PPO update kernels' build: seconds, and ptxas registers, shared
-   memory and spills;
+7. the PPO kernels' build (update kernels and policy rollout): seconds,
+   and ptxas registers, shared memory and spills;
 8. K2 (fused minibatch gradient) ≡ its twin at full width: numpy-made
    packed data [8, 2^21], one minibatch of 128 random tiles of 2048, both
    heads (fishing-v1 Gaussian, fishing-v0 categorical with 3 actions),
@@ -35,7 +36,19 @@ on failure:
     update + fused_adam (K3) from one set of weights, with launch counting;
     fused ≡ plain after one step at 1 epoch x 1 minibatch; the learning
     agreement of off and update + fused_adam over 20 iterations; ms per
-    iteration and env-steps/s of each form.
+    iteration and env-steps/s of each form;
+11. K4 (policy rollout) ≡ its twin at B=16384, T=128, hidden 64: continuous
+    fishing-v1, relative fishing-v0, proportional with 8 actions,
+    fishing-may-obs-v1 (observation noise) and the mixture, each with the
+    obs fold on and off, in float32 and bfloat16, from numpy-made noise
+    planes and from a seed;
+12. K4 ≡ the port's plain rollout path (collect_rollout + compute_gae +
+    _pack) on the same planes, Gaussian head;
+13. main path, fused-full training: train_step in the forms full (K4 + K2)
+    and full + fused_adam (K4 + K3) with launch counting (one K4 launch per
+    iteration); full + fused_adam ≡ update + fused_adam after one step at
+    1 x 1 from the same planes; the learning agreement of off and full +
+    fused_adam over 20 iterations; ms per iteration and env-steps/s.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Any failure exits non-zero before either.
@@ -77,6 +90,28 @@ GRAD_RTOL, GRAD_ATOL, MET_RTOL = 2e-4, 2e-6, 2e-4
 # of tests/test_update_kernel.py's own bar), and the learning agreement of
 # scripts/validate_fused_training.py --agreement
 STEP_RTOL, STEP_ATOL, AGREE_TOL = 5e-4, 1e-6, 0.25
+# K4 vs twin (or the plain path), same inputs: float32 with a different libm,
+# FMA contraction and summation order, carried through 128 dependent steps
+# and the GAE pass (which sums ~1/(1 - gamma lambda) ~ 17 terms), so every
+# packed row and end state agrees to 1e-4 absolute, the statistics (sums
+# over 2^21 samples) to rtol 1e-4; t, ep_len and the done count exactly.
+# Under bfloat16 a one-ulp difference of a tanh can move an input of a
+# 2H-contraction to the neighbouring bf16 value (a relative step of 2^-8),
+# and the env carries that on: the largest error may reach 5e-3 (the sums
+# 1e-3 relative), while the mean error stays at 1e-4, which a rounding
+# misplaced for every sample would not meet.
+K4_ATOL, K4_STATS_RTOL = 1e-4, 1e-4
+K4_BF16_ATOL, K4_BF16_MEAN_ATOL, K4_BF16_STATS_RTOL = 5e-3, 1e-4, 1e-3
+# An env leaves the twin's trajectory when a rounding difference carries it
+# across a discontinuity: a categorical draw whose u lies within rounding of
+# a CDF boundary, or a quota within rounding of the whole stock, which
+# harvests it all (a collapse) in one and not in the other; ~2^21 samples
+# meet such a boundary a few times in float32 and more often in bfloat16.
+# Such envs (a differing class, an error above the bound, t or ep_len) are
+# counted, shown at the step where they leave, left out of the comparison,
+# and may be at most 1e-3 of B.
+K4_MAX_LEFT_FRAC = 1e-3
+ROWS = ("obs", "action", "logp", "value", "advantage", "return")
 
 
 def fail(msg):
@@ -93,6 +128,14 @@ def card_label():
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()
     return out[0].strip()
+
+
+def sm_clock_mhz():
+    """The card's SM clock now, as nvidia-smi reads it."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
 
 
 def cuda_ms(fn, reps):
@@ -219,6 +262,89 @@ def parity_cases(gtt):
     return cases
 
 
+def k4_setup(gtt, ppo, ppo_fused, uk, rng, env_id, dev, **overrides):
+    """An env at the PPO width: jittered random weights (the Gaussian mean
+    shifted to -0.5 so that envs outlive their first harvest), desynchronised
+    start states and numpy-made noise planes [za or u, zp(, nf)]."""
+    env, params = gtt.make(env_id, **overrides)
+    cfg = env.config
+    gauss = cfg.scheme == "continuous"
+    a = 1 if gauss else cfg.n_actions
+    model = ppo.ActorCritic(1, a, gauss, 64, generator=torch.Generator().manual_seed(5))
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(torch.from_numpy(0.05 * rng.standard_normal(p.shape).astype(np.float32)))
+        if gauss:
+            model.pi_mean.bias.sub_(0.5)
+            model.log_std.fill_(-1.0)
+    head = "gaussian" if gauss else "categorical"
+    merged = tuple(x.to(dev) for x in uk.merge_weights(
+        ppo_fused.kernel_weights(dict(model.named_parameters()), head)))
+    B, T = B_PPO, T_PPO
+    tmax = int(params.Tmax)
+    f32 = lambda x: torch.from_numpy(x.astype(np.float32)).to(dev)  # noqa: E731
+    state = (f32(rng.uniform(0.3, 1.2, B)),
+             torch.from_numpy(rng.integers(0, tmax, B).astype(np.int32)).to(dev),
+             f32(rng.uniform(0.0, 0.05, B)), f32(rng.uniform(0.0, 3.0, B)),
+             torch.from_numpy(rng.integers(0, tmax, B).astype(np.int32)).to(dev))
+    obs_noise = float(params.sigma_m) > 0
+    planes = [rng.standard_normal((T, B)) if gauss else rng.random((T, B)),
+              rng.standard_normal((T, B))]
+    if obs_noise:
+        planes.append(np.exp(float(params.sigma_m) * rng.standard_normal((T, B))))
+    kw = dict(growth=cfg.growth, noise_form=cfg.noise_form, scheme=cfg.scheme,
+              n_actions=cfg.n_actions, obs_noise=obs_noise)
+    return env, params, model, merged, state, f32(np.stack(planes)), kw
+
+
+def compare_k4(ker, ref, what, categorical, bf16=False, B=B_PPO, T=T_PPO):
+    """K4 result vs the twin's: returns (largest float error, envs left out
+    because they left the twin's trajectory)."""
+    P, R = ker.packed_t.view(8, T, B), ref.packed_t.view(8, T, B)
+    atol = K4_BF16_ATOL if bf16 else K4_ATOL
+    step_err = (P[:6] - R[:6]).abs().amax(0)                     # [T, B]
+    same = (step_err.amax(0) <= atol) & (ker.t == ref.t) & (ker.ep_len == ref.ep_len)
+    if categorical:
+        same &= (P[1] == R[1]).all(0)
+    flipped = B - int(same.sum())
+    for e in (~same).nonzero()[:2, 0].tolist():
+        off = (step_err[:, e] > atol).nonzero()
+        k = int(off[0, 0]) if off.numel() else T - 1
+        print(f"  {what}: env {e} leaves at step {k}: (obs, action, logp, value) kernel "
+              f"{[round(v, 6) for v in P[:4, k, e].tolist()]} twin "
+              f"{[round(v, 6) for v in R[:4, k, e].tolist()]}")
+    if flipped > K4_MAX_LEFT_FRAC * B:
+        fail(f"{what}: {flipped} of {B} envs left the twin's trajectory")
+    if bool(P[6:].any()):
+        fail(f"{what}: rows 6-7 are not zero")
+    pairs = {name: (P[r][:, same], R[r][:, same]) for r, name in enumerate(ROWS)}
+    for name in ("stock", "harvest", "ep_ret"):
+        pairs[name] = (getattr(ker, name)[same], getattr(ref, name)[same])
+    errs = {}
+    for name, (got, want) in pairs.items():
+        diff = (got.double() - want.double()).abs()
+        errs[name] = float(diff.max())
+        if not errs[name] <= atol:
+            fail(f"{what}: {name} max abs err {errs[name]:.3g}")
+        if bf16 and not float(diff.mean()) <= K4_BF16_MEAN_ATOL:
+            fail(f"{what}: {name} mean abs err {float(diff.mean()):.3g} > {K4_BF16_MEAN_ATOL}")
+    for name in ("t", "ep_len"):
+        if not torch.equal(getattr(ker, name)[same], getattr(ref, name)[same]):
+            fail(f"{what}: {name} differs")
+    nd, nd_ref = float(ker.stats[0]), float(ref.stats[0])
+    if abs(nd - nd_ref) > flipped * T:
+        fail(f"{what}: done count {nd} vs twin {nd_ref} ({flipped} envs left)")
+    # an env that left moves each sum by at most a few times its share, 1/B
+    rtol = (K4_BF16_STATS_RTOL if bf16 else K4_STATS_RTOL) + 4 * flipped / B
+    bad = ((ker.stats[1:].double() - ref.stats[1:].double()).abs()
+           > rtol * ref.stats[1:].double().abs() + 1e-3)
+    if bool(bad.any()):
+        fail(f"{what}: stats {ker.stats.tolist()} vs twin {ref.stats.tolist()}")
+    if ker.next_offset != ref.next_offset:
+        fail(f"{what}: next_offset {ker.next_offset} != {ref.next_offset}")
+    return max(errs.values()), flipped
+
+
 def main():
     # ---------------------------------------------------------------- 1
     if not torch.cuda.is_available():
@@ -229,17 +355,20 @@ def main():
     from gym_fishing_tpu_torch.agents.policies import escapement
     from gym_fishing_tpu_torch.bench import measure
     from gym_fishing_tpu_torch.agents import ppo, ppo_fused
-    from gym_fishing_tpu_torch.batch import batched_reset
+    from gym_fishing_tpu_torch.batch import BatchState, batched_reset
+    from gym_fishing_tpu_torch.core.types import EnvState
     from gym_fishing_tpu_torch.bench import measure_ppo_train
     from gym_fishing_tpu_torch.kernels import _build
+    from gym_fishing_tpu_torch.kernels import policy_rollout_kernel as pk
     from gym_fishing_tpu_torch.kernels import ppo_update_kernel as uk
     from gym_fishing_tpu_torch.kernels import rollout_kernel as rk
 
     def reset_counts():
-        rk.launches = uk.grad_launches = uk.adam_launches = 0
+        rk.launches = uk.grad_launches = uk.adam_launches = pk.launches = 0
 
     def counts():
-        return {"rollout": rk.launches, "grad": uk.grad_launches, "adam": uk.adam_launches}
+        return {"rollout": rk.launches, "grad": uk.grad_launches, "adam": uk.adam_launches,
+                "policy": pk.launches}
 
     if "jax" in sys.modules:
         fail("jax was imported")
@@ -254,7 +383,8 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False  # the twins' matmuls in full float32
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    build_s = build_all({"rollout_kernel": rk, "ppo_update_kernel": uk})
+    build_s = build_all({"rollout_kernel": rk, "ppo_update_kernel": uk,
+                         "policy_rollout_kernel": pk})
     print(f"phase 2: built and loaded {len(build_s)} libraries in parallel in "
           f"{time.perf_counter() - t0:.2f} s")
     print(f"phase 2: {_build.library_path('rollout_kernel').name} in "
@@ -361,14 +491,17 @@ def main():
         state = (out.stock, out.t, out.ep_ret, out.next_offset)
         return out
 
+    # measure() first: its 6 calls also bring the card to its working clocks
+    # after phase 4's host-side work, which the window below would see
+    timed = measure(mode="kernel", num_envs=B_MAIN, num_steps=T_MAIN, iters=5, warmup=1,
+                    seed=seed + 1)
     call()  # warm-up, also held against the twin below
     torch.cuda.synchronize()
     host0 = time.perf_counter()
     ker_ms, last = cuda_ms(call, n_calls - 1)
     last.ep_ret.reshape(-1)[0].item()
     host_s = time.perf_counter() - host0
-    timed = measure(mode="kernel", num_envs=B_MAIN, num_steps=T_MAIN, iters=5, warmup=1,
-                    seed=seed + 1)
+    sm_clock = sm_clock_mhz()
     launched = counts()["rollout"]
     if launched != n_calls + 6:
         fail(f"launch counter {launched} != {n_calls + 6} calls")
@@ -394,8 +527,8 @@ def main():
     main_err = compare(calls[0][2], ref, "main path vs twin", stock_atol=1e-4,
                        reward_atol=SUM_ATOL_512)
     steps = B_MAIN * T_MAIN
-    print(f"phase 5: kernel {ker_ms:.3f} ms/call (CUDA events), "
-          f"{steps * (n_calls - 1) / host_s:.4g} env-steps/s (host clock, "
+    print(f"phase 5: kernel {ker_ms:.3f} ms/call (CUDA events; SM clock {sm_clock} just "
+          f"after), {steps * (n_calls - 1) / host_s:.4g} env-steps/s (host clock, "
           f"{n_calls - 1} chained calls); measure(mode='kernel'): "
           f"{timed['ms_per_call']:.3f} ms/call, {timed['steps_per_s']:.4g} env-steps/s; "
           f"B={B_MAIN} T={T_MAIN} {label}")
@@ -411,9 +544,10 @@ def main():
           f"env-steps/s, reward sum {eng['reward_sum']:.6g}; B={B_MAIN} T=64 {label}")
 
     # ---------------------------------------------------------------- 7
-    print(f"phase 7: {_build.library_path('ppo_update_kernel').name} in "
-          f"{build_s['ppo_update_kernel']:.2f} s (built beside rollout_kernel in phase 2)")
-    print_ptxas(_build, "ppo_update_kernel")
+    for name in ("ppo_update_kernel", "policy_rollout_kernel"):
+        print(f"phase 7: {_build.library_path(name).name} in {build_s[name]:.2f} s (built "
+              "beside rollout_kernel in phase 2)")
+        print_ptxas(_build, name)
 
     # ---------------------------------------------------------------- 8
     rng = np.random.default_rng(7)
@@ -493,7 +627,8 @@ def main():
         res = measure_ppo_train(num_envs=B_PPO, num_steps=T_PPO, iters=3, warmup=1,
                                 device=dev, **kw)
         got = counts()
-        if {k: got[k] for k in ("grad", "adam")} != expect[name] or got["rollout"]:
+        if ({k: got[k] for k in ("grad", "adam")} != expect[name] or got["rollout"]
+                or got["policy"]):
             fail(f"train_step {name}: launches {got}, expected {expect[name]} "
                  "(32 per iteration over 1 warm-up + 3 timed iterations)")
         train_launches[name] = got
@@ -504,13 +639,16 @@ def main():
     env, params = make("fishing-v1", sigma=0.05, device=dev)
     ts0 = ppo.make_train_state(env, ppo.PPOConfig(), torch.Generator().manual_seed(11), dev)
 
+    host_params = make("fishing-v1", sigma=0.05)[1]   # K4 reads them without a sync
+
     def run(cfg, iterations, seed=5):
         ts = ts0.clone()
         gen = torch.Generator(device=dev).manual_seed(seed)
-        bstate = batched_reset(env, params, cfg.num_envs)
+        p = host_params if cfg.fused_rollout else params
+        bstate = batched_reset(env, p, cfg.num_envs, dev)
         hist = []
         for _ in range(iterations):
-            ts, bstate, met = ppo.train_step(env, params, cfg, ts, bstate, gen)
+            ts, bstate, met = ppo.train_step(env, p, cfg, ts, bstate, gen)
             hist.append({k: float(x) for k, x in met.items()})
         for name_, p in ts.model.named_parameters():
             if not bool(torch.isfinite(p).all()):
@@ -551,6 +689,134 @@ def main():
         fail(f"last-5 mean episode returns differ by {gap:.4f} > {AGREE_TOL}")
     print(f"phase 10: agreement gap {gap:.4f} <= {AGREE_TOL}")
 
+    # --------------------------------------------------------------- 11
+    rng = np.random.default_rng(11)
+    k4_err, k4_flips = 0.0, 0
+    k4_ms = k4_plain_ms = k4_clock = None
+    t11 = time.perf_counter()
+    for label_c, env_id, overrides in (
+        ("continuous fishing-v1", "fishing-v1", dict(sigma=0.1)),
+        ("relative fishing-v0", "fishing-v0", dict(sigma=0.1)),
+        ("proportional n_actions=8", "fishing-v0", dict(sigma=0.1, n_actions=8)),
+        ("obs noise fishing-may-obs-v1", "fishing-may-obs-v1", {}),
+        ("mixture(allen)", "fishing-mixture-v1", dict(sigma=0.1, model_idx=3)),
+    ):
+        _, k_params, _, merged, state, planes, kw = k4_setup(gtt, ppo, ppo_fused, uk, rng,
+                                                             env_id, dev, **overrides)
+        for fold in (False, True):
+            for compute in ("float32", "bfloat16"):
+                for source in ("planes", "seed"):
+                    seed_off = (2026, 7) if source == "seed" else (0, 0)
+                    scal = ppo_fused.rollout_scalars(k_params, *seed_off)
+                    args = (*state, merged, scal, T_PPO)
+                    kw_c = dict(kw, fold_obs=fold, compute=compute,
+                                noise=planes if source == "planes" else None)
+                    ker = pk.policy_rollout(*args, **kw_c)
+                    ref = pk.policy_rollout_reference(*args, **kw_c)
+                    torch.cuda.synchronize()
+                    what = f"K4 {label_c} fold={fold} {compute} {source}"
+                    err, flips = compare_k4(ker, ref, what, kw["scheme"] != "continuous",
+                                            compute == "bfloat16")
+                    k4_err, k4_flips = max(k4_err, err), k4_flips + flips
+                    print(f"phase 11: {what:66s} max abs err {err:.3g}, envs left {flips}")
+                    if (env_id == "fishing-v1" and fold and compute == "float32"
+                            and source == "seed"):
+                        k4_ms, _ = cuda_ms(lambda: pk.policy_rollout(*args, **kw_c), 20)
+                        k4_clock = sm_clock_mhz()
+                        k4_plain_ms, _ = cuda_ms(
+                            lambda: pk.policy_rollout_reference(*args, **kw_c), 2)
+    print(f"phase 11: K4 {k4_ms:.3f} ms (SM clock {k4_clock} just after), twin "
+          f"{k4_plain_ms:.1f} ms per rollout of B={B_PPO} T={T_PPO} hidden=64 (CUDA events, "
+          f"continuous, fold, float32); 40 cases in "
+          f"{time.perf_counter() - t11:.1f} s; {k4_flips} envs left the twin's trajectory in "
+          f"all {label}")
+
+    # --------------------------------------------------------------- 12
+    for env_id, fold in (("fishing-v1", True), ("fishing-may-obs-v1", False)):
+        k_env, k_params, model, _, state, _, kw = k4_setup(gtt, ppo, ppo_fused, uk, rng,
+                                                           env_id, dev)
+        model = model.to(dev)
+        cfg = ppo.PPOConfig(num_envs=B_PPO, num_steps=T_PPO, rollout_fold_obs=fold)
+        bstate = BatchState(env=EnvState(stock=state[0], harvest=state[2], t=state[1]),
+                            episode_return=state[3], episode_length=state[4])
+        act = torch.from_numpy(rng.standard_normal((T_PPO, B_PPO, 1)).astype(np.float32)).to(dev)
+        env_n = torch.from_numpy(rng.standard_normal((T_PPO, 2, B_PPO)).astype(np.float32)).to(dev)
+        roll, _ = ppo_fused.fused_rollout_collect(
+            k_env, k_params, cfg, ppo.TrainState(model=model, m={}, v={}), bstate,
+            noise=ppo_fused.rollout_noise_from_draws(act, env_n, float(k_params.sigma_m),
+                                                     kw["obs_noise"]))
+        b2, _, traj, last = ppo.collect_rollout(k_env, k_params.astype(torch.float32, dev), cfg,
+                                                model, bstate, act_noise=act, env_noise=env_n)
+        adv, ret = ppo.compute_gae(cfg, traj, last)
+        packed = ppo._pack(traj, adv, ret).T
+        done = traj.done.float()
+        plain = pk.PolicyRollout(
+            torch.cat([packed, torch.zeros_like(packed[:2])]), b2.env.stock, b2.env.t,
+            b2.env.harvest, b2.episode_return, b2.episode_length,
+            torch.stack([done.sum(), (traj.episode_return * done).sum(),
+                         (traj.episode_length.float() * done).sum(), traj.reward.sum()]),
+            roll.next_offset)
+        torch.cuda.synchronize()
+        err, _ = compare_k4(roll, plain, f"K4 vs plain path {env_id} fold={fold}", False)
+        k4_err = max(k4_err, err)
+        print(f"phase 12: K4 ≡ collect_rollout + compute_gae + _pack, {env_id} fold={fold}: "
+              f"max abs err {err:.3g}; B={B_PPO} T={T_PPO}")
+
+    # --------------------------------------------------------------- 13
+    forms13 = {"full": dict(fused="full"), "full+adam": dict(fused="full", fused_adam=True)}
+    expect13 = {"full": {"grad": 4 * 32, "adam": 0, "policy": 4},
+                "full+adam": {"grad": 0, "adam": 4 * 32, "policy": 4}}
+    for name, kw in forms13.items():
+        reset_counts()
+        res = measure_ppo_train(num_envs=B_PPO, num_steps=T_PPO, iters=3, warmup=1,
+                                device=dev, **kw)
+        got = counts()
+        if {k: got[k] for k in ("grad", "adam", "policy")} != expect13[name] or got["rollout"]:
+            fail(f"train_step {name}: launches {got}, expected {expect13[name]} (one K4 and "
+                 "32 update launches per iteration over 1 warm-up + 3 timed iterations)")
+        train_launches[name] = got
+        print(f"phase 13: train_step {name:12s} {res['seconds'] / res['iters'] * 1e3:.1f} "
+              f"ms/iter, {res['steps_per_s']:.4g} env-steps/s (host clock, 3 chained "
+              f"iterations after 1 warm-up); launches {got}; rollout flags "
+              f"{res['rollout_flags']}; B={B_PPO} T={T_PPO} 4x8 hidden=64 {label}")
+    # full + fused_adam ≡ update + fused_adam after one step, the same planes
+    one_cfg = dataclasses.replace(base, fused_update=True, fused_adam=True)
+    act = torch.from_numpy(rng.standard_normal((T_PPO, B_PPO, 1)).astype(np.float32)).to(dev)
+    env_n = torch.from_numpy(rng.standard_normal((T_PPO, 2, B_PPO)).astype(np.float32)).to(dev)
+    perms = [torch.from_numpy(rng.permutation(N_PPO // TILE).astype(np.int32)).to(dev)]
+    upd, _, _ = ppo.train_step(env, params, one_cfg, ts0.clone(),
+                               batched_reset(env, params, B_PPO), perms=perms, act_noise=act,
+                               env_noise=env_n)
+    full, _, _ = ppo.train_step(
+        env, host_params, dataclasses.replace(one_cfg, fused_rollout=True), ts0.clone(),
+        batched_reset(env, host_params, B_PPO, dev), perms=perms,
+        rollout_noise=ppo_fused.rollout_noise_from_draws(act, env_n, 0.0, False))
+    full_err = 0.0
+    for (pname, p), q in zip(full.model.named_parameters(), upd.model.parameters()):
+        p, q = p.detach(), q.detach()
+        err = float((p - q).abs().max())
+        if not bool(((p - q).abs() <= STEP_ATOL + STEP_RTOL * q.abs()).all()):
+            fail(f"one step at 1x1, full+adam vs update+adam: {pname} max abs err {err:.3g}")
+        full_err = max(full_err, err)
+    print(f"phase 13: full+adam ≡ update+adam after one step at 1 epoch x 1 minibatch from "
+          f"the same planes, N={N_PPO}: max abs param err {full_err:.3g} (rtol {STEP_RTOL}, "
+          f"atol {STEP_ATOL})")
+    cfg = ppo.PPOConfig(num_envs=B_PPO, num_steps=T_PPO, fused_update=True, fused_adam=True,
+                        fused_rollout=True)
+    t0 = time.perf_counter()
+    _, hist = run(cfg, 20)
+    rets = np.array([h["episode_return"] for h in hist])
+    first, last = float(np.nanmean(rets[:5])), float(np.nanmean(rets[-5:]))
+    if not last > first:
+        fail(f"full+adam: mean episode return did not rise ({first:.4f} -> {last:.4f})")
+    print(f"phase 13: agreement {'full+adam':12s} episode return first5 {first:.4f} -> last5 "
+          f"{last:.4f} over 20 iterations ({time.perf_counter() - t0:.1f} s)")
+    gap = abs(curves["off"][1] - last)
+    if not gap <= AGREE_TOL:
+        fail(f"last-5 mean episode returns of off and full+adam differ by {gap:.4f} > "
+             f"{AGREE_TOL}")
+    print(f"phase 13: agreement gap off vs full+adam {gap:.4f} <= {AGREE_TOL}")
+
     if "jax" in sys.modules:
         fail("jax was imported")
     print(json.dumps({"kernels": [
@@ -583,6 +849,16 @@ def main():
             "max_abs_err": adam_err,
             "ms": adam_ms,
             "plain_ms": adam_plain_ms,
+        },
+        {
+            "name": "policy_rollout_kernel",
+            "route": "cuda",
+            "source": "gym_fishing_tpu_torch/csrc/policy_rollout_kernel.cu",
+            "replaces": "gym_fishing_tpu/kernels/policy_rollout_kernel.py:86",
+            "launches": train_launches["full+adam"]["policy"],
+            "max_abs_err": k4_err,
+            "ms": k4_ms,
+            "plain_ms": k4_plain_ms,
         },
     ]}))
     # the run drives one device, cuda:0

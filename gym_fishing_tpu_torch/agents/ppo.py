@@ -3,22 +3,28 @@
 Counterpart of ``gym_fishing_tpu/agents/ppo.py``. One iteration is
 `collect_rollout` (policy forward, sampling, batched step with auto-reset),
 `compute_gae`, packing into one ``[N, C]`` sample matrix, and
-``epochs x num_minibatches`` clipped-PPO updates, in one of two forms:
+``epochs x num_minibatches`` clipped-PPO updates, in one of these forms:
 
 - plain (``fused_update=False``): `ppo_loss` under autograd, then
   clip-by-global-norm and Adam written by hand to optax's semantics
   (`apply_gradients`);
-- fused (``fused_update=True``): every minibatch gradient through the fused
-  update kernel K2 (``agents/ppo_fused.fused_epoch_scan``), or with
+- fused update (``fused_update=True``): every minibatch gradient through the
+  fused update kernel K2 (``agents/ppo_fused.fused_epoch_scan``), or with
   ``fused_adam`` gradient + clip + Adam through K3
-  (``fused_epoch_scan_adam``).
+  (``fused_epoch_scan_adam``);
+- fused rollout (``fused_rollout=True``, with ``fused_update``): rollout,
+  GAE and packing in one launch of the policy-rollout kernel K4
+  (``agents/ppo_fused.fused_rollout_collect``), whose packed output feeds
+  K2 or K3 directly.
 
 Randomness comes from one `torch.Generator` on the rollout's device: action
 normals (Gaussian head) or Gumbel noise (categorical head, Gumbel-max
 sampling), the env's (2, B) noise plane per step, and one permutation per
-epoch. Parity tests inject all of them instead: ``act_noise [T, B, A]``,
-``env_noise [T, 2, B]`` and ``perms`` (one permutation per epoch: of the N
-samples in the plain form, of the tiles in the fused forms).
+epoch; the fused rollout takes its Philox seed and offset from the same
+generator's state. Parity tests inject all of them instead: ``act_noise
+[T, B, A]``, ``env_noise [T, 2, B]`` (plain rollout), ``rollout_noise``
+(the fused rollout's planes) and ``perms`` (one permutation per epoch: of
+the N samples in the plain form, of the tiles in the fused forms).
 
 The Adam count is a Python int, so the learning rate and the bias
 corrections are host numbers and an iteration queues on the device without
@@ -69,13 +75,17 @@ class PPOConfig:
     compute_dtype: str = "float32"
     # every minibatch gradient through the fused update kernel (K2)
     fused_update: bool = False
-    # rollout + GAE + packing through the policy-rollout kernel (K4): not
-    # ported yet, raises
+    # with fused_update: rollout + GAE + packing in one launch of the
+    # policy-rollout kernel (K4); scalar observations only
     fused_rollout: bool = False
-    # options of the policy-rollout kernel, kept for config parity with the
-    # JAX package; read once fused_rollout is ported
+    # accepted for config parity and changes no value: the port's rollout
+    # noise is counter-based (Philox), so drawing it ahead of the steps or
+    # inside them gives the same numbers, and the kernel draws inside
     rollout_pregen_noise: bool = True
+    # K4 feeds the clipped raw measurement through w1/K, b1 - w1 instead of
+    # the obs (equal up to float32 rounding)
     rollout_fold_obs: bool = True
+    # a TPU ablation of the GAE pass; not ported, raises
     rollout_vector_gae: bool = False
     # with fused_update: gradient + clip + Adam in one kernel per minibatch
     # (K3); the optimizer state is read and written once per train step
@@ -350,56 +360,82 @@ def _pack(traj: Transition, advantages, returns) -> torch.Tensor:
                       fl2(traj.value), fl2(advantages), fl2(returns)], dim=1)
 
 
-def _episode_metrics(traj: Transition) -> Dict[str, torch.Tensor]:
-    done_f = traj.done.float()
-    n_done = done_f.sum()
+def _stats_metrics(stats: torch.Tensor, n: int) -> Dict[str, torch.Tensor]:
+    """The iteration's episode metrics from its sums over n samples:
+    (n_done, sum of returns and of lengths at done, sum of rewards), as the
+    fused rollout returns them."""
+    n_done = stats[0]
     denom = torch.clamp(n_done, min=1.0)
     nan = torch.full_like(n_done, float("nan"))
     return {
-        "episode_return": torch.where(
-            n_done > 0, (traj.episode_return * done_f).sum() / denom, nan),
-        "episode_length": torch.where(
-            n_done > 0, (traj.episode_length.float() * done_f).sum() / denom, nan),
-        "mean_reward": traj.reward.mean(),
+        "episode_return": torch.where(n_done > 0, stats[1] / denom, nan),
+        "episode_length": torch.where(n_done > 0, stats[2] / denom, nan),
+        "mean_reward": stats[3] / n,
     }
+
+
+def _episode_metrics(traj: Transition) -> Dict[str, torch.Tensor]:
+    done_f = traj.done.float()
+    stats = torch.stack([done_f.sum(), (traj.episode_return * done_f).sum(),
+                         (traj.episode_length.float() * done_f).sum(), traj.reward.sum()])
+    return _stats_metrics(stats, traj.reward.numel())
 
 
 def train_step(env: Env, env_params: EnvParams, cfg: PPOConfig, ts: TrainState,
                bstate: BatchState, generator: Optional[torch.Generator] = None,
                perms: Optional[Sequence[torch.Tensor]] = None,
                act_noise: Optional[torch.Tensor] = None,
-               env_noise: Optional[torch.Tensor] = None):
+               env_noise: Optional[torch.Tensor] = None,
+               rollout_noise: Optional[torch.Tensor] = None):
     """One PPO iteration (rollout + GAE + epochs of minibatch updates).
 
     Updates `ts` in place and returns (ts, bstate, metrics), the metrics as
     0-d tensors on the device (means over all minibatches, plus the
-    iteration's episode statistics)."""
-    if cfg.fused_rollout:
-        raise NotImplementedError(
-            "fused_rollout needs the policy-rollout kernel (K4, "
-            "gym_fishing_tpu/kernels/policy_rollout_kernel.py), which is not ported yet")
+    iteration's episode statistics). `act_noise` and `env_noise` replace
+    the plain rollout's draws, `rollout_noise` (planes of
+    kernels/policy_rollout_kernel.py) the fused rollout's."""
     if cfg.shuffle != "exact":
         raise NotImplementedError(f"shuffle={cfg.shuffle!r} is not ported; use 'exact'")
+    if cfg.rollout_vector_gae:
+        raise NotImplementedError("rollout_vector_gae is not ported; the GAE pass is sequential")
     continuous = _continuous(env)
     if perms is not None and len(perms) != cfg.epochs:
         raise ValueError(f"perms needs one permutation per epoch ({cfg.epochs})")
 
+    if cfg.fused_update:
+        from gym_fishing_tpu_torch.agents import ppo_fused
+
     # the two named ranges are what bench/profile.py reads from a trace
-    with torch.profiler.record_function("train_step/rollout"):
-        bstate, _, traj, last_value = collect_rollout(env, env_params, cfg, ts.model, bstate,
-                                                      generator, act_noise, env_noise)
-        advantages, returns = compute_gae(cfg, traj, last_value)
-        packed = _pack(traj, advantages, returns)
-    obs_dim = traj.obs.shape[-1]
-    act_dim = packed.shape[1] - obs_dim - 4
+    if cfg.fused_rollout:
+        if not cfg.fused_update:
+            raise NotImplementedError("fused_rollout requires fused_update=True")
+        if env.observation_space.shape != (1,):
+            raise NotImplementedError("fused_rollout supports scalar observations only")
+        if act_noise is not None or env_noise is not None:
+            raise ValueError("the fused rollout takes its draws as rollout_noise planes")
+        with torch.profiler.record_function("train_step/rollout"):
+            roll, bstate = ppo_fused.fused_rollout_collect(env, env_params, cfg, ts, bstate,
+                                                           generator, rollout_noise)
+        packed_t, traj = roll.packed_t, None
+        obs_dim = act_dim = 1
+    else:
+        if rollout_noise is not None:
+            raise ValueError("rollout_noise is the fused rollout's; use act_noise, env_noise")
+        with torch.profiler.record_function("train_step/rollout"):
+            bstate, _, traj, last_value = collect_rollout(env, env_params, cfg, ts.model,
+                                                          bstate, generator, act_noise,
+                                                          env_noise)
+            advantages, returns = compute_gae(cfg, traj, last_value)
+            packed = _pack(traj, advantages, returns)
+        obs_dim = traj.obs.shape[-1]
+        act_dim = packed.shape[1] - obs_dim - 4
 
     with torch.profiler.record_function("train_step/update"):
         if cfg.fused_update:
-            from gym_fishing_tpu_torch.agents import ppo_fused
-
             head = "gaussian" if continuous else "categorical"
             kern_act_dim = act_dim if continuous else env.config.n_actions
-            packed_t = ppo_fused.pack_feature_major(packed)
+            if traj is not None:
+                packed_t = ppo_fused.pack_feature_major(packed)
             scan = (ppo_fused.fused_epoch_scan_adam if cfg.fused_adam
                     else ppo_fused.fused_epoch_scan)
             metrics = scan(cfg, ts, packed_t, obs_dim, kern_act_dim, generator, head=head,
@@ -408,7 +444,10 @@ def train_step(env: Env, env_params: EnvParams, cfg: PPOConfig, ts: TrainState,
             metrics = _plain_epochs(cfg, ts, packed, obs_dim, act_dim, continuous, generator,
                                     perms)
     metrics = {k: v.mean() for k, v in metrics.items()}
-    metrics.update(_episode_metrics(traj))
+    if traj is None:
+        metrics.update(_stats_metrics(roll.stats, cfg.num_steps * cfg.num_envs))
+    else:
+        metrics.update(_episode_metrics(traj))
     return ts, bstate, metrics
 
 
@@ -443,7 +482,9 @@ def train(env: Env, cfg: PPOConfig, seed: int = 0, iterations: int = 32,
     `seed` + 1. Returns (ts, history of float metrics per iteration)."""
     device = torch.device("cpu" if device is None else device)
     if env_params is None:
-        env_params = env.params(device=device)
+        # the fused rollout reads the env params on the host, where they
+        # cost no sync; the plain rollout steps with them on the device
+        env_params = env.params(device=None if cfg.fused_rollout else device)
     ts = make_train_state(env, cfg, torch.Generator().manual_seed(seed), device)
     generator = torch.Generator(device=device).manual_seed(seed + 1)
     bstate = batched_reset(env, env_params, cfg.num_envs, device)

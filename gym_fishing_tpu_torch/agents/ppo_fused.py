@@ -1,7 +1,7 @@
-"""Glue between the ActorCritic parameters and the fused update kernels.
+"""Glue between the ActorCritic parameters and the fused kernels.
 
-Counterpart of the update half of ``gym_fishing_tpu/agents/ppo_fused.py``.
-The kernels (``kernels/ppo_update_kernel.py``) want kernel-layout weights
+Counterpart of ``gym_fishing_tpu/agents/ppo_fused.py``. The update kernels
+(``kernels/ppo_update_kernel.py``) want kernel-layout weights
 (``[in, out]`` matrices, ``[n, 1]`` biases, merged block-diagonally) and the
 feature-major ``[C_PAD, N]`` sample matrix; `torch.nn.Linear` stores
 ``[out, in]`` and 1-D biases. The arrays are tiny (~17k floats), so the
@@ -9,15 +9,29 @@ relayout costs little next to the pass over the samples.
 
 Parameters travel as a name -> tensor mapping (``dict(model.named_parameters())``
 or Adam's moments, which share the names), the counterpart of the flax tree.
+
+`fused_rollout_collect` runs the policy-rollout kernel
+(``kernels/policy_rollout_kernel.py``, K4) in place of collect_rollout +
+compute_gae + packing; its packed output feeds the update kernels directly.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Sequence
+import math
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 
 from gym_fishing_tpu_torch.agents.ppo import apply_gradients, learning_rate
+from gym_fishing_tpu_torch.batch.batch import BatchState
+from gym_fishing_tpu_torch.core.types import EnvParams, EnvState
+from gym_fishing_tpu_torch.kernels.policy_rollout_kernel import (
+    FLOAT_FIELDS,
+    PolicyRollout,
+    RolloutScalars,
+    draws_per_call,
+    policy_rollout,
+)
 from gym_fishing_tpu_torch.kernels.ppo_update_kernel import (
     ADAM_B1,
     ADAM_B2,
@@ -248,3 +262,124 @@ def fused_epoch_scan_adam(cfg, ts, packed_t: torch.Tensor, obs_dim: int, act_dim
         "approx_kl": met[:, 2],
         "loss": met[:, 0] + cfg.vf_coef * met[:, 1] - cfg.ent_coef * entropy,
     }
+
+
+# ------------------------------------------------------------ fused rollout
+
+# XORed into the generator's seed to key the rollout's Philox stream, so it
+# never coincides with torch's own Philox draws from the same generator
+_ROLLOUT_KEY = 0x9E3779B97F4A7C15
+
+
+def rollout_scalars(params: EnvParams, seed: int, offset: int = 0) -> RolloutScalars:
+    """EnvParams -> the policy-rollout kernel's typed scalar record, with
+    the Philox seed and offset (the 22-slot f32 vector of the JAX kernel).
+
+    The fields are read to the host in one transfer: one sync if `params`
+    lie on the card, none for host params. Per-env parameters (shape
+    (num_envs,)) do not fit the record and raise."""
+    names = FLOAT_FIELDS + ("Tmax", "model_idx")
+    vals = []
+    for name in names:
+        v = torch.as_tensor(getattr(params, name))
+        if v.numel() != 1:
+            raise ValueError(f"the fused rollout takes scalar env params; {name} has shape "
+                             f"{tuple(v.shape)}")
+        vals.append(v.to(device=params.device, dtype=torch.float64).reshape(()))
+    host = dict(zip(names, torch.stack(vals).tolist()))
+    return RolloutScalars(**{n: host[n] for n in FLOAT_FIELDS}, Tmax=int(host["Tmax"]),
+                          model_idx=int(math.floor(host["model_idx"])), seed=seed,
+                          offset=offset)
+
+
+def rollout_seed_offset(generator: Optional[torch.Generator], device,
+                        num_steps: int) -> Tuple[int, int]:
+    """(seed, offset) of the next rollout's Philox stream, taken from
+    `generator`'s state without a host sync, and the generator advanced
+    past the `num_steps` counters the rollout uses.
+
+    A CUDA generator gives its seed (keyed apart from torch's own stream)
+    and its Philox offset; a CPU generator, which has no offset, draws a
+    fresh 63-bit seed. None means the device's default generator."""
+    device = torch.device(device)
+    if generator is None and device.type == "cuda":
+        index = torch.cuda.current_device() if device.index is None else device.index
+        generator = torch.cuda.default_generators[index]
+    elif generator is None:
+        generator = torch.default_generator
+    if generator.device.type == "cuda":
+        offset = generator.get_offset()
+        # torch's Philox offsets advance in multiples of 4
+        generator.set_offset(offset + -(-draws_per_call(num_steps) // 4) * 4)
+        return generator.initial_seed() ^ _ROLLOUT_KEY, offset
+    return int(torch.randint(0, (1 << 63) - 1, (), generator=generator)), 0
+
+
+def rollout_noise_from_draws(act_noise: torch.Tensor, env_noise: torch.Tensor, sigma_m: float,
+                             obs_noise: bool) -> torch.Tensor:
+    """The plain rollout's injected draws for the Gaussian head (act_noise
+    [T, B, 1], env_noise [T, 2, B]) as the policy-rollout kernel's noise
+    planes: [action z, process z] and, with obs noise, exp(sigma_m eta)."""
+    planes = [act_noise[:, :, 0], env_noise[:, 0]]
+    if obs_noise:
+        planes.append(torch.exp(torch.tensor(sigma_m, dtype=torch.float32) * env_noise[:, 1]))
+    return torch.stack(planes).float().contiguous()
+
+
+def _concrete_sigma_m(params: EnvParams) -> None:
+    """Refuse a sigma_m that cannot decide the obs-noise path on the host:
+    missing, per-env, symbolic, or under a tracer."""
+    sm = params.sigma_m
+    if (sm is None or torch.jit.is_tracing() or torch.compiler.is_compiling()
+            or (isinstance(sm, torch.Tensor) and (sm.device.type == "meta" or sm.numel() != 1))):
+        raise NotImplementedError(
+            "fused_rollout needs a concrete scalar sigma_m to decide the obs-noise kernel "
+            "path; pass env params with real scalar values, outside any tracing")
+
+
+def fused_rollout_collect(env, env_params: EnvParams, cfg, ts, bstate: BatchState,
+                          generator: Optional[torch.Generator] = None,
+                          noise: Optional[torch.Tensor] = None
+                          ) -> Tuple[PolicyRollout, BatchState]:
+    """Run the policy-rollout kernel and rebuild the BatchState.
+
+    Returns (PolicyRollout, next BatchState). The kernel replaces
+    collect_rollout + compute_gae + packing for every decode scheme (the
+    Gaussian head for continuous, the categorical head otherwise). The
+    Philox seed and offset come from `generator` (`rollout_seed_offset`);
+    `noise` planes replace them. obs_noise is on when sigma_m > 0. Pass
+    host `env_params` to keep the call free of host syncs."""
+    _concrete_sigma_m(env_params)
+    scheme = env.config.scheme
+    head = "gaussian" if scheme == "continuous" else "categorical"
+    device = bstate.episode_return.device
+    seed, offset = ((0, 0) if noise is not None
+                    else rollout_seed_offset(generator, device, cfg.num_steps))
+    scalars = rollout_scalars(env_params, seed, offset)
+    roll = policy_rollout(
+        bstate.env.stock.float().contiguous(),
+        bstate.env.t.to(torch.int32).contiguous(),
+        bstate.env.harvest.float().contiguous(),
+        bstate.episode_return.float().contiguous(),
+        bstate.episode_length.to(torch.int32).contiguous(),
+        merge_weights(kernel_weights(ts.params(), head)),
+        scalars,
+        cfg.num_steps,
+        growth=env.config.growth,
+        noise_form=env.config.noise_form,
+        gamma=cfg.gamma,
+        gae_lambda=cfg.gae_lambda,
+        scheme=scheme,
+        n_actions=env.config.n_actions,
+        obs_noise=scalars.sigma_m > 0.0,
+        compute=cfg.compute_dtype,
+        fold_obs=cfg.rollout_fold_obs,
+        noise=noise,
+    )
+    dtype = env_params.dtype
+    new_bstate = BatchState(
+        env=EnvState(stock=roll.stock.to(dtype), harvest=roll.harvest.to(dtype), t=roll.t),
+        episode_return=roll.ep_ret.to(dtype),
+        episode_length=roll.ep_len,
+    )
+    return roll, new_bstate

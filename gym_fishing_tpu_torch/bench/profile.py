@@ -5,10 +5,11 @@ then under the profiler, and reports per iteration: the host-clock time of
 each window, the device's busy time (the sum of kernel durations in the
 trace) and its idle share of the unprofiled window (the profiler slows the
 host's launches, not the kernels), the two ranges `train_step` names
-(``train_step/rollout``: rollout + GAE + packing; ``train_step/update``: the
-epochs of minibatch updates) on the host and as spans on the device, the
-kernel launches, and the kernels that take the most device time. On a CPU
-device the trace holds no kernels and the device fields are None.
+(``train_step/rollout``: rollout + GAE + packing, one K4 launch in the
+``full`` forms; ``train_step/update``: the epochs of minibatch updates) on
+the host and as spans on the device, the kernel launches, and the kernels
+that take the most device time. On a CPU device the trace holds no kernels
+and the device fields are None.
 """
 
 from __future__ import annotations
@@ -20,9 +21,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from gym_fishing_tpu_torch.agents import ppo
-from gym_fishing_tpu_torch.batch import batched_reset
-from gym_fishing_tpu_torch.bench.throughput import _device, _device_name, _finish
-from gym_fishing_tpu_torch.registry import make
+from gym_fishing_tpu_torch.bench.throughput import _device, _device_name, _finish, ppo_setup
 
 RANGES = ("train_step/rollout", "train_step/update")
 
@@ -31,13 +30,11 @@ def ppo_breakdown(num_envs: int = 16384, num_steps: int = 128, fused: str = "off
                   fused_adam: bool = False, iters: int = 2, warmup: int = 1,
                   device="cuda", seed: int = 0, top: int = 6) -> dict:
     """Profile `iters` chained PPO iterations after `warmup` (see module doc)."""
+    if fused not in ("off", "update", "full"):
+        raise ValueError(f"unknown fused form {fused!r}")
     device = _device(device)
-    env, params = make("fishing-v1", sigma=0.05, device=device)
-    cfg = ppo.PPOConfig(num_envs=num_envs, num_steps=num_steps, fused_update=fused == "update",
-                        fused_adam=fused_adam)
-    ts = ppo.make_train_state(env, cfg, torch.Generator().manual_seed(seed), device)
-    gen = torch.Generator(device=device).manual_seed(seed)
-    bstate = batched_reset(env, params, num_envs)
+    env, params, cfg, ts, gen, bstate = ppo_setup(num_envs, num_steps, 0.05, fused, fused_adam,
+                                                  "float32", device, seed)
     for _ in range(warmup):
         ts, bstate, metrics = ppo.train_step(env, params, cfg, ts, bstate, gen)
         _finish(metrics["loss"])

@@ -149,6 +149,21 @@ def _time_kernel(env_id, num_envs, num_steps, iters, warmup, sigma, device, seed
     return time.perf_counter() - t0, total
 
 
+def ppo_setup(num_envs, num_steps, sigma, fused, fused_adam, compute_dtype, device, seed):
+    """fishing-v1, its params, the PPOConfig of a `fused` form, a fresh
+    train state, the device generator and the reset batch state. The fused
+    rollout gets host params, which its kernel reads without a sync; the
+    other forms step with params on the device."""
+    env, params = make("fishing-v1", sigma=sigma,
+                       device=None if fused == "full" else device)
+    cfg = ppo.PPOConfig(num_envs=num_envs, num_steps=num_steps, fused_update=fused != "off",
+                        fused_rollout=fused == "full", fused_adam=fused_adam,
+                        compute_dtype=compute_dtype)
+    ts = ppo.make_train_state(env, cfg, torch.Generator().manual_seed(seed), device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return env, params, cfg, ts, gen, batched_reset(env, params, num_envs, device)
+
+
 def measure_ppo_train(
     num_envs: int = 16384,
     num_steps: int = 128,
@@ -166,21 +181,15 @@ def measure_ppo_train(
 
     ``fused="off"``: the plain form (autograd + hand-written clip and Adam).
     ``fused="update"``: every minibatch gradient through K2, or with
-    `fused_adam` gradient + clip + Adam through K3. ``fused="full"`` needs
-    the policy-rollout kernel (K4), which is not ported yet.
+    `fused_adam` gradient + clip + Adam through K3. ``fused="full"``: as
+    ``update``, with rollout + GAE + packing in one launch of the
+    policy-rollout kernel (K4).
     """
-    if fused == "full":
-        raise NotImplementedError("fused='full' needs the policy-rollout kernel (K4), "
-                                  "which is not ported yet")
-    if fused not in ("off", "update"):
+    if fused not in ("off", "update", "full"):
         raise ValueError(f"unknown fused form {fused!r}")
     device = _device(device)
-    env, params = make("fishing-v1", sigma=sigma, device=device)
-    cfg = ppo.PPOConfig(num_envs=num_envs, num_steps=num_steps, fused_update=fused == "update",
-                        fused_adam=fused_adam, compute_dtype=compute_dtype)
-    ts = ppo.make_train_state(env, cfg, torch.Generator().manual_seed(seed), device)
-    gen = torch.Generator(device=device).manual_seed(seed)
-    bstate = batched_reset(env, params, num_envs)
+    env, params, cfg, ts, gen, bstate = ppo_setup(num_envs, num_steps, sigma, fused, fused_adam,
+                                                  compute_dtype, device, seed)
 
     for _ in range(warmup):
         ts, bstate, metrics = ppo.train_step(env, params, cfg, ts, bstate, gen)
@@ -195,8 +204,10 @@ def measure_ppo_train(
     steps_per_s = num_envs * num_steps * iters / dt
     return {
         "mode": f"ppo-{fused}" + ("+adam" if fused_adam else ""),
-        # options of the fused rollout, which no form here runs
-        "rollout_flags": {"pregen_noise": False, "fold_obs": False, "vector_gae": False},
+        # the options of the fused rollout that ran: its noise is drawn
+        # inside the kernel, never pre-generated
+        "rollout_flags": {"pregen_noise": False, "fold_obs": cfg.fused_rollout and
+                          cfg.rollout_fold_obs, "vector_gae": False},
         "compute_dtype": cfg.compute_dtype,
         "device": _device_name(device),
         "num_envs": num_envs,

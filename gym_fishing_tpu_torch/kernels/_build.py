@@ -7,8 +7,9 @@ builds it in seconds:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -Xptxas -v -o _build/<name>_<hash>.so csrc/<name>.cu
 
-The library is named after a hash of the source and the flags, so an edit
-rebuilds on first use. Nothing is built or loaded at import time: `load` is
+The library is named after a hash of the source, every shared header
+(``csrc/*.cuh``) and the flags, so an edit to any of them rebuilds on first
+use. Nothing is built or loaded at import time: `load` is
 called by a kernel wrapper the first time it is given a CUDA tensor.
 """
 
@@ -48,9 +49,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}_{digest[:16]}.so"
+    """Where the library of ``csrc/<name>.cu`` is built, named after a hash
+    of that source, every ``csrc/*.cuh`` and the nvcc flags."""
+    h = hashlib.sha256()
+    for path in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        h.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}_{h.hexdigest()[:16]}.so"
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain twins, on the card: the
-rollout kernel (K1) and the fused PPO update kernels (K2, K3).
+rollout kernel (K1), the fused PPO update kernels (K2, K3) and the fused
+policy rollout (K4).
 
 These tests need a CUDA device and skip without one. They import neither
 JAX nor tests/conftest.py's JAX setup, so on a machine with a card and no
@@ -11,7 +12,13 @@ Tolerances, K1: float32 with a different libm, FMA contraction and
 operation order, so values agree to rounding (stock atol 1e-5, sums over 64
 steps atol 1e-4) while t and ep_count agree exactly. K2/K3: each gradient
 buffer within 2e-4 * max|twin| + 2e-6 and the metric sums within rtol 2e-4,
-since float32 sums over thousands of samples run in another order.
+since float32 sums over thousands of samples run in another order. K4: the
+packed rows and end states within 1e-4 (rounding carried through the
+dependent steps and the GAE pass), t and ep_len exactly, and under bfloat16
+within 5e-3 (a mean of 1e-4); an env that a rounding difference carries
+across a discontinuity (a categorical CDF boundary, a quota that harvests
+the whole stock) follows another trajectory, so such envs (at most 1e-3 of
+them) are left out of the comparison.
 """
 
 import numpy as np
@@ -21,6 +28,7 @@ import torch
 import gym_fishing_tpu_torch as gtt
 from gym_fishing_tpu_torch.agents import ppo_fused
 from gym_fishing_tpu_torch.agents.ppo import ActorCritic, sample_action
+from gym_fishing_tpu_torch.kernels import policy_rollout_kernel as pk
 from gym_fishing_tpu_torch.kernels import ppo_update_kernel as uk
 from gym_fishing_tpu_torch.kernels import rollout_kernel as rk
 
@@ -181,3 +189,94 @@ def test_ppo_update_kernels_are_deterministic(cuda, adam):
         flat = [torch.cat([x.reshape(-1) for x in r[0]] + [r[1]]) for r in runs]
     torch.cuda.synchronize()
     assert torch.equal(flat[0], flat[1])
+
+
+def _k4_case(env_id, hidden, source, dev, B=2048 + 5, T=32, **overrides):
+    """Jittered random weights, desynchronised start states and either noise
+    planes or a seed: (positional args, keyword args) of policy_rollout."""
+    env, params = gtt.make(env_id, **overrides)
+    cfg = env.config
+    gauss = cfg.scheme == "continuous"
+    a = 1 if gauss else cfg.n_actions
+    gen = torch.Generator().manual_seed(7)
+    model = ActorCritic(1, a, gauss, hidden, generator=gen)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=gen))
+        if gauss:
+            model.pi_mean.bias.sub_(0.5)
+    merged = tuple(x.to(dev) for x in uk.merge_weights(ppo_fused.kernel_weights(
+        dict(model.named_parameters()), "gaussian" if gauss else "categorical")))
+    rng = np.random.default_rng(1)
+    tmax = int(params.Tmax)
+    state = (torch.from_numpy(rng.uniform(0.3, 1.2, B).astype(np.float32)).to(dev),
+             torch.from_numpy(rng.integers(0, tmax, B).astype(np.int32)).to(dev),
+             torch.full((B,), 0.02, device=dev), torch.zeros(B, device=dev),
+             torch.from_numpy(rng.integers(0, tmax, B).astype(np.int32)).to(dev))
+    obs_noise = float(params.sigma_m) > 0
+    kw = dict(growth=cfg.growth, noise_form=cfg.noise_form, scheme=cfg.scheme,
+              n_actions=cfg.n_actions, obs_noise=obs_noise, fold_obs=True)
+    if source == "planes":
+        planes = [rng.standard_normal((T, B)) if gauss else rng.random((T, B)),
+                  rng.standard_normal((T, B))]
+        if obs_noise:
+            planes.append(np.exp(float(params.sigma_m) * rng.standard_normal((T, B))))
+        kw["noise"] = torch.from_numpy(np.stack(planes).astype(np.float32)).to(dev)
+    seed = (0, 0) if source == "planes" else (99, 3)
+    return (*state, merged, ppo_fused.rollout_scalars(params, *seed), T), kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+@pytest.mark.parametrize("source", ["planes", "philox"])
+@pytest.mark.parametrize("env_id,hidden,overrides", [
+    ("fishing-v1", 64, dict(sigma=0.1)),
+    ("fishing-v0", 64, dict(sigma=0.1)),
+    ("fishing-v0", 32, dict(sigma=0.1, n_actions=8)),
+    ("fishing-may-obs-v1", 64, {}),
+])
+def test_policy_rollout_kernel_matches_twin(cuda, env_id, hidden, overrides, source, compute):
+    args, kw = _k4_case(env_id, hidden, source, cuda, **overrides)
+    kw["compute"] = compute
+    before = pk.launches
+    ker = pk.policy_rollout(*args, **kw)
+    assert pk.launches == before + 1
+    ref = pk.policy_rollout_reference(*args, **kw)
+    torch.cuda.synchronize()
+    T, B = args[-1], args[0].shape[0]
+    P, R = ker.packed_t.view(8, T, B), ref.packed_t.view(8, T, B)
+    # bf16: a one-ulp tanh difference can move a rounded input by 2^-8, so
+    # the largest error is 5e-3 and the mean stays 1e-4; envs that rounding
+    # carries across a discontinuity (a categorical CDF boundary, harvesting
+    # the whole stock) are left out, at most 1e-3 of them (see chip_smoke.py)
+    atol = 5e-3 if compute == "bfloat16" else 1e-4
+    same = ((P[:6] - R[:6]).abs().amax((0, 1)) <= atol) & (ker.t == ref.t)
+    if env_id == "fishing-v0":
+        same &= (P[1] == R[1]).all(0)
+    assert int((~same).sum()) <= 1e-3 * B
+    pairs = [(P[r][:, same], R[r][:, same]) for r in range(6)]
+    pairs += [(getattr(ker, n)[same], getattr(ref, n)[same]) for n in ("stock", "harvest",
+                                                                       "ep_ret")]
+    for got, want in pairs:
+        diff = (got.double() - want.double()).abs()
+        assert float(diff.max()) <= atol and float(diff.mean()) <= 1e-4
+    assert not P[6:].any()
+    for name in ("t", "ep_len"):
+        assert torch.equal(getattr(ker, name)[same], getattr(ref, name)[same])
+    if bool(same.all()):
+        assert float(ker.stats[0]) == float(ref.stats[0])
+        np.testing.assert_allclose(ker.stats.cpu().numpy(), ref.stats.cpu().numpy(),
+                                   rtol=1e-3 if compute == "bfloat16" else 1e-4, atol=1e-3)
+    assert ker.next_offset == ref.next_offset == (3 + T if source == "philox" else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("env_id", ["fishing-v1", "fishing-v0"])
+def test_policy_rollout_kernel_is_deterministic(cuda, env_id):
+    """The statistics are summed per CTA and then over the CTAs in index
+    order, with no float atomics: two identical calls give identical bits."""
+    args, kw = _k4_case(env_id, 64, "philox", cuda, sigma=0.1)
+    a, b = (pk.policy_rollout(*args, **kw) for _ in range(2))
+    torch.cuda.synchronize()
+    for x, y in zip(a[:-1], b[:-1]):
+        assert torch.equal(x, y)

@@ -1,0 +1,404 @@
+"""The port's fused policy rollout (K4) on the CPU, where its wrapper runs the
+plain twin `policy_rollout_reference`, and the fused-full train step.
+
+- Twin vs JAX `ppo_fused.fused_rollout_collect(..., interpret=True)` at the
+  JAX test's sizes (B=256, T=8, hidden 32) over the 7 cases of
+  tests/test_policy_rollout_kernel.py, fold on and off, from the same
+  jittered weights (converted from the flax tree, never re-seeded). The
+  Mosaic interpreter's PRNG yields zero bits on the CPU, so the JAX kernel
+  draws z = 0, u = 1 and nf = 1: the twin is fed those planes. Tolerances
+  are the JAX test's: packed rows rtol 2e-5 / atol 1e-5, stock rtol 1e-6,
+  t and ep_len exact, stats rtol 1e-5 / atol 1e-4.
+- Twin vs the port's plain collect_rollout + compute_gae + _pack on the same
+  non-zero numpy-made planes (Gaussian head), in float32: the two run the
+  same arithmetic in another order (merged vs split towers), so values
+  agree to 1e-5.
+- The twin from a seed: deterministic, `next_offset` chaining draws fresh
+  numbers, Gaussian z-scores are N(0, 1) and categorical classes follow the
+  softmax.
+- The fused-full train step against JAX's (interpret mode) from the same
+  weights, draws and tile permutations; its refusals; a finite step per
+  head; and the build hash over the shared headers.
+
+The CUDA kernel itself is held against the twin on the card by
+tests/test_torch_cuda.py and chip_smoke.py.
+"""
+
+import dataclasses
+import math
+import shutil
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from test_torch_ppo import _assert_steps_agree, _port_state
+
+from gym_fishing_tpu import registry
+from gym_fishing_tpu.agents import ppo as jppo
+from gym_fishing_tpu.agents import ppo_fused as jfused
+from gym_fishing_tpu.batch import batched_reset as j_batched_reset
+from gym_fishing_tpu.core.types import EnvState as JEnvState
+import gym_fishing_tpu_torch as gtt
+from gym_fishing_tpu_torch.agents import ppo, ppo_fused
+from gym_fishing_tpu_torch.batch import batched_reset
+from gym_fishing_tpu_torch.convert import (
+    actor_critic_from_numpy,
+    batch_state_from_numpy,
+    params_from_numpy,
+)
+from gym_fishing_tpu_torch.kernels import _build
+from gym_fishing_tpu_torch.kernels import policy_rollout_kernel as pk
+from gym_fishing_tpu_torch.kernels.ppo_update_kernel import merge_weights
+
+torch.set_num_threads(1)
+
+JAX_CASES = [   # tests/test_policy_rollout_kernel.py:115-132
+    ("fishing-v1", dict(sigma=0.05, Tmax=5)),
+    ("fishing-ricker-v1", dict(sigma=0.1, Tmax=6, cost=0.1, r_drift=0.01)),
+    ("fishing-may-v1", dict(sigma=0.0, Tmax=7, collapse_penalty=1.0)),
+    ("fishing-v0", dict(sigma=0.05, Tmax=5)),
+    ("fishing-v0", dict(n_actions=8, sigma=0.1, Tmax=6, cost=0.05)),
+    ("fishing-may-obs-v1", dict(Tmax=6)),
+    ("fishing-mixture-v1", dict(model_idx=3, sigma=0.05, Tmax=5)),
+]
+
+
+def _np(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def _port_params(jparams):
+    return params_from_numpy(
+        {f.name: np.asarray(getattr(jparams, f.name)) for f in dataclasses.fields(jparams)},
+        torch.float32, "cpu")
+
+
+def _port_bstate(jb):
+    return batch_state_from_numpy(dict(
+        stock=np.asarray(jb.env.stock), harvest=np.asarray(jb.env.harvest),
+        t=np.asarray(jb.env.t), episode_return=np.asarray(jb.episode_return),
+        episode_length=np.asarray(jb.episode_length)))
+
+
+def _jax_case(env_id, overrides, fold, num_envs=256, num_steps=8, **cfg_extra):
+    """The JAX test's setup (tests/test_policy_rollout_kernel.py:138-168):
+    jittered weights and desynchronised instances."""
+    env, params = registry.make(env_id, dtype=jnp.float32, **overrides)
+    cfg = jppo.PPOConfig(num_envs=num_envs, num_steps=num_steps, hidden=32,
+                         rollout_fold_obs=fold, **cfg_extra)
+    ts = jppo.make_train_state(env, cfg, jax.random.key(0))
+    ts = ts.replace(params=jax.tree.map(
+        lambda x: x + 0.03 * jnp.cos(jnp.arange(x.size, dtype=jnp.float32)).reshape(x.shape),
+        ts.params))
+    bstate = j_batched_reset(env, params, num_envs)
+    bstate = bstate.replace(
+        env=JEnvState(
+            stock=bstate.env.stock * (0.5 + jnp.linspace(0, 1, num_envs, dtype=jnp.float32)),
+            harvest=bstate.env.harvest
+            * (0.5 + jnp.linspace(0, 1.5, num_envs, dtype=jnp.float32)),
+            t=(jnp.arange(num_envs) % int(params.Tmax)).astype(jnp.int32),
+        ),
+        episode_length=(jnp.arange(num_envs) % int(params.Tmax)).astype(jnp.int32),
+    )
+    return env, params, cfg, ts, bstate
+
+
+def _z0_planes(scheme, obs_noise, T, B):
+    """The Mosaic interpreter's draws: z = 0, u = 1, nf = 1."""
+    first = torch.zeros if scheme == "continuous" else torch.ones
+    planes = [first((T, B)), torch.zeros((T, B))]
+    if obs_noise:
+        planes.append(torch.ones((T, B)))
+    return torch.stack(planes)
+
+
+@pytest.mark.parametrize("fold", [False, True])
+@pytest.mark.parametrize("env_id,overrides", JAX_CASES)
+def test_twin_matches_jax_kernel_z0(env_id, overrides, fold):
+    jenv, jparams, jcfg, jts, jb = _jax_case(env_id, overrides, fold)
+    jroll, jnext = jfused.fused_rollout_collect(jenv, jparams, jcfg, jts, jb,
+                                                jax.random.key(0), interpret=True)
+
+    env, _ = gtt.make(env_id, **overrides)
+    params = _port_params(jparams)
+    cfg = ppo.PPOConfig(**dataclasses.asdict(jcfg))
+    ts = ppo.TrainState(model=actor_critic_from_numpy(_np(jts.params)), m={}, v={})
+    obs_noise = float(params.sigma_m) > 0
+    before = pk.launches
+    roll, nxt = ppo_fused.fused_rollout_collect(
+        env, params, cfg, ts, _port_bstate(jb),
+        noise=_z0_planes(env.config.scheme, obs_noise, cfg.num_steps, cfg.num_envs))
+    assert pk.launches == before   # the twin ran, not the kernel
+    names = ("obs", "action", "logp", "value", "advantage", "return", "pad", "pad")
+    for r, name in enumerate(names):
+        np.testing.assert_allclose(roll.packed_t[r].numpy(), np.asarray(jroll.packed_t[r]),
+                                   rtol=2e-5, atol=1e-5, err_msg=f"packed row {name}")
+    np.testing.assert_allclose(nxt.env.stock.numpy(), np.asarray(jnext.env.stock),
+                               rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(nxt.env.harvest.numpy(), np.asarray(jnext.env.harvest),
+                               rtol=1e-6, atol=1e-7)
+    np.testing.assert_array_equal(nxt.env.t.numpy(), np.asarray(jnext.env.t))
+    np.testing.assert_allclose(nxt.episode_return.numpy(), np.asarray(jnext.episode_return),
+                               rtol=1e-6, atol=1e-6)
+    np.testing.assert_array_equal(nxt.episode_length.numpy(),
+                                  np.asarray(jnext.episode_length))
+    np.testing.assert_allclose(roll.stats.numpy(), np.asarray(jroll.stats), rtol=1e-5,
+                               atol=1e-4)
+    assert float(roll.stats[0]) > 0   # episodes ended inside the window
+
+
+def _plain_case(env_id, fold, B=96, T=24):
+    env, params = gtt.make(env_id, sigma=0.1, Tmax=10)
+    cfg = ppo.PPOConfig(num_envs=B, num_steps=T, hidden=32, rollout_fold_obs=fold)
+    ts = ppo.make_train_state(env, cfg, torch.Generator().manual_seed(3))
+    rng = np.random.default_rng(5)
+    with torch.no_grad():
+        for p in ts.model.parameters():
+            p.add_(torch.from_numpy(0.1 * rng.standard_normal(p.shape).astype(np.float32)))
+    bstate = batched_reset(env, params, B)
+    bstate = bstate.replace(
+        env=bstate.env.replace(
+            stock=torch.from_numpy(rng.uniform(0.2, 1.4, B).astype(np.float32)),
+            t=torch.from_numpy(rng.integers(0, 10, B).astype(np.int32))),
+        episode_return=torch.from_numpy(rng.uniform(0, 2, B).astype(np.float32)))
+    act_noise = torch.from_numpy(rng.standard_normal((T, B, 1)).astype(np.float32))
+    env_noise = torch.from_numpy(rng.standard_normal((T, 2, B)).astype(np.float32))
+    return env, params, cfg, ts, bstate, act_noise, env_noise
+
+
+@pytest.mark.parametrize("fold", [False, True])
+@pytest.mark.parametrize("env_id", ["fishing-v1", "fishing-may-obs-v1"])
+def test_twin_matches_plain_rollout_path(env_id, fold):
+    env, params, cfg, ts, bstate, act_noise, env_noise = _plain_case(env_id, fold)
+    obs_noise = float(params.sigma_m) > 0
+    roll, nxt = ppo_fused.fused_rollout_collect(
+        env, params, cfg, ts, bstate,
+        noise=ppo_fused.rollout_noise_from_draws(act_noise, env_noise, float(params.sigma_m),
+                                                 obs_noise))
+    b2, _, traj, last = ppo.collect_rollout(env, params, cfg, ts.model, bstate,
+                                            act_noise=act_noise, env_noise=env_noise)
+    adv, ret = ppo.compute_gae(cfg, traj, last)
+    packed = ppo._pack(traj, adv, ret).T
+    np.testing.assert_allclose(roll.packed_t[:6].numpy(), packed.numpy(), rtol=1e-5, atol=1e-5)
+    assert not roll.packed_t[6:].any()
+    for got, want in ((nxt.env.stock, b2.env.stock), (nxt.env.harvest, b2.env.harvest),
+                      (nxt.episode_return, b2.episode_return)):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-6)
+    np.testing.assert_array_equal(nxt.env.t.numpy(), b2.env.t.numpy())
+    np.testing.assert_array_equal(nxt.episode_length.numpy(), b2.episode_length.numpy())
+    done = traj.done.float()
+    want = torch.stack([done.sum(), (traj.episode_return * done).sum(),
+                        (traj.episode_length.float() * done).sum(), traj.reward.sum()])
+    np.testing.assert_allclose(roll.stats.numpy(), want.numpy(), rtol=1e-5, atol=1e-4)
+    assert float(roll.stats[0]) > 0
+
+
+def _seeded(env_id, B=4096, T=8, seed=11, offset=0, fold=False):
+    env, params = gtt.make(env_id, sigma=0.1)
+    cfg = ppo.PPOConfig(num_envs=B, num_steps=T, hidden=32)
+    ts = ppo.make_train_state(env, cfg, torch.Generator().manual_seed(4))
+    head = "gaussian" if env.config.scheme == "continuous" else "categorical"
+    merged = merge_weights(ppo_fused.kernel_weights(ts.params(), head))
+    bstate = batched_reset(env, params, B)
+    bstate = bstate.replace(env=bstate.env.replace(stock=torch.linspace(0.2, 1.8, B)))
+    roll = pk.policy_rollout(
+        bstate.env.stock, bstate.env.t, bstate.env.harvest, bstate.episode_return,
+        bstate.episode_length, merged, ppo_fused.rollout_scalars(params, seed, offset), T,
+        scheme=env.config.scheme, n_actions=env.config.n_actions, fold_obs=fold)
+    return roll, ts.model
+
+
+@pytest.mark.parametrize("env_id", ["fishing-v1", "fishing-v0"])
+def test_seeded_twin_is_deterministic_and_chains(env_id):
+    a, _ = _seeded(env_id)
+    b, _ = _seeded(env_id)
+    assert torch.equal(a.packed_t, b.packed_t) and torch.equal(a.stats, b.stats)
+    assert a.next_offset == pk.draws_per_call(8) == 8
+    c, _ = _seeded(env_id, offset=a.next_offset)
+    assert c.next_offset == 16
+    # same start state, fresh draws: the actions (row 1) differ
+    assert float((c.packed_t[1] == a.packed_t[1]).float().mean()) < (
+        0.001 if env_id == "fishing-v1" else 0.7)
+
+
+def test_seeded_gaussian_draws_are_standard_normal():
+    roll, model = _seeded("fishing-v1", fold=False)
+    obs, act = roll.packed_t[0], roll.packed_t[1]
+    with torch.no_grad():
+        (mean, log_std), _ = model(obs[:, None])
+    log_std = log_std.detach()
+    z = ((act - mean[:, 0]) / torch.exp(log_std)).double()
+    n = z.numel()
+    assert abs(float(z.mean())) < 5 / math.sqrt(n)
+    assert abs(float(z.std()) - 1) < 5 * math.sqrt(0.5 / n)
+    # logp is the Gaussian density at z
+    want = -0.5 * z * z - float(log_std) - 0.5 * pk.LOG_2PI
+    np.testing.assert_allclose(roll.packed_t[2].double().numpy(), want.numpy(), atol=1e-5)
+
+
+def test_seeded_categorical_classes_follow_the_softmax():
+    roll, model = _seeded("fishing-v0", fold=False)
+    obs, act = roll.packed_t[0], roll.packed_t[1].long()
+    with torch.no_grad():
+        (logits,), _ = model(obs[:, None])
+    probs = torch.softmax(logits.double(), -1)
+    counts = torch.bincount(act, minlength=3).double()
+    expect = probs.sum(0)
+    sd = torch.sqrt((probs * (1 - probs)).sum(0))
+    assert bool(((counts - expect).abs() < 5 * sd + 1).all()), (counts, expect)
+    logp = torch.log(probs).gather(1, act[:, None])[:, 0]
+    np.testing.assert_allclose(roll.packed_t[2].double().numpy(), logp.numpy(), atol=1e-5)
+
+
+# --------------------------------------------------------------- train step
+
+def _full_step_pair(head, form):
+    """One JAX fused-full train_step (kernels in interpret mode: the rollout
+    draws z = 0, u = 1) and the port's from the same weights and start
+    state, the z = 0 planes and JAX's tile permutations. The Gaussian mean
+    starts near -0.5 so that envs outlive a step and the advantages spread
+    (identical samples would make the advantage std 0)."""
+    env_id = {"gaussian": "fishing-v1", "categorical": "fishing-v0"}[head]
+    jenv, jparams, cfg, ts0, jb = _jax_case(
+        env_id, dict(sigma=0.1, Tmax=10), True, num_envs=128, num_steps=16, epochs=2,
+        num_minibatches=2, ent_coef=0.01, fused_update=True, fused_rollout=True,
+        fused_adam=form == "adam")
+    if head == "gaussian":
+        tree = _np(ts0.params)
+        tree["params"]["pi_mean"]["bias"] = tree["params"]["pi_mean"]["bias"] - 0.5
+        ts0 = ts0.replace(params=jax.tree.map(jnp.asarray, tree))
+    key = jax.random.key(17)
+    j_ts, _, j_met = jax.jit(
+        lambda ts, bs, k: jppo.train_step(jenv, jparams, cfg, ts, bs, k)
+    )(ts0, jb, key)
+
+    _, k_perm = jax.random.split(key)
+    n = cfg.num_envs * cfg.num_steps
+    tile = next(t for t in (2048, 1024, 512, 256, 128) if (n // cfg.num_minibatches) % t == 0)
+    perms = [torch.from_numpy(np.array(jax.random.permutation(k, n // tile)))
+             for k in jax.random.split(k_perm, cfg.epochs)]
+    env, _ = gtt.make(env_id, sigma=0.1, Tmax=10)
+    ts, _, met = ppo.train_step(
+        env, _port_params(jparams), ppo.PPOConfig(**dataclasses.asdict(cfg)), _port_state(ts0),
+        _port_bstate(jb), perms=perms,
+        rollout_noise=_z0_planes(env.config.scheme, False, cfg.num_steps, cfg.num_envs))
+    assert 1 < float(met["episode_length"]) <= 10 and float(met["v_loss"]) > 0
+    return (j_ts, j_met), (ts, met)
+
+
+@pytest.mark.parametrize("head,form", [("gaussian", "adam"), ("categorical", "update")])
+def test_full_train_step_matches_jax(head, form):
+    _assert_steps_agree(_full_step_pair(head, form))
+
+
+def test_full_matches_update_form_from_the_same_draws():
+    """full + fused_adam ≡ update + fused_adam after one step at 1 epoch x 1
+    minibatch, the rollout fed the same planes."""
+    env, params = gtt.make("fishing-v1", sigma=0.1, Tmax=10)
+    B, T = 128, 16
+    base = ppo.PPOConfig(num_envs=B, num_steps=T, epochs=1, num_minibatches=1, hidden=32,
+                         fused_update=True, fused_adam=True, rollout_fold_obs=False)
+    ts0 = ppo.make_train_state(env, base, torch.Generator().manual_seed(2))
+    rng = np.random.default_rng(8)
+    act = torch.from_numpy(rng.standard_normal((T, B, 1)).astype(np.float32))
+    env_n = torch.from_numpy(rng.standard_normal((T, 2, B)).astype(np.float32))
+    perms = [torch.zeros(1, dtype=torch.int32)]
+    upd, _, m_upd = ppo.train_step(env, params, base, ts0.clone(), batched_reset(env, params, B),
+                                   perms=perms, act_noise=act, env_noise=env_n)
+    full, _, m_full = ppo.train_step(
+        env, params, dataclasses.replace(base, fused_rollout=True), ts0.clone(),
+        batched_reset(env, params, B), perms=perms,
+        rollout_noise=ppo_fused.rollout_noise_from_draws(act, env_n, 0.0, False))
+    for p, q in zip(full.model.parameters(), upd.model.parameters()):
+        np.testing.assert_allclose(p.detach().numpy(), q.detach().numpy(), rtol=5e-4, atol=1e-6)
+    for name, want in m_upd.items():
+        np.testing.assert_allclose(float(m_full[name]), float(want), rtol=1e-4, atol=1e-6,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("adam", [False, True])
+@pytest.mark.parametrize("env_id,overrides", [
+    ("fishing-v1", {}), ("fishing-v0", dict(ent_coef=0.01)), ("fishing-mixture-v1", {}),
+])
+def test_full_train_step_is_finite(env_id, overrides, adam):
+    env, params = gtt.make(env_id, sigma=0.05, model_idx=1) if "mixture" in env_id else (
+        gtt.make(env_id, sigma=0.05))
+    cfg = ppo.PPOConfig(num_envs=128, num_steps=16, epochs=2, num_minibatches=2, hidden=32,
+                        fused_update=True, fused_rollout=True, fused_adam=adam, **overrides)
+    ts = ppo.make_train_state(env, cfg, torch.Generator().manual_seed(0))
+    bstate = batched_reset(env, params, cfg.num_envs)
+    gen = torch.Generator().manual_seed(1)
+    for _ in range(2):
+        ts, bstate, met = ppo.train_step(env, params, cfg, ts, bstate, gen)
+    assert math.isfinite(float(met["loss"])) and math.isfinite(float(met["mean_reward"]))
+    assert all(bool(torch.isfinite(p).all()) for p in ts.model.parameters())
+    assert ts.step == 2 * cfg.epochs * cfg.num_minibatches
+
+
+def test_train_runs_the_full_form():
+    env, _ = gtt.make("fishing-v1", sigma=0.05)
+    cfg = ppo.PPOConfig(num_envs=128, num_steps=16, epochs=2, num_minibatches=2, hidden=32,
+                        fused_update=True, fused_rollout=True, fused_adam=True)
+    ts, hist = ppo.train(env, cfg, seed=2, iterations=2)
+    assert len(hist) == 2 and all(math.isfinite(h["loss"]) for h in hist)
+    assert ts.count == 2 * cfg.epochs * cfg.num_minibatches
+
+
+def test_fused_rollout_refusals():
+    env, params = gtt.make("fishing-v1")
+    ts = ppo.make_train_state(env, ppo.PPOConfig(hidden=32), torch.Generator().manual_seed(0))
+    bstate = batched_reset(env, params, 16)
+    cases = [
+        (ppo.PPOConfig(num_envs=16, num_steps=4, fused_rollout=True), NotImplementedError,
+         "requires fused_update"),
+        (ppo.PPOConfig(num_envs=16, num_steps=4, fused_update=True, fused_rollout=True,
+                       rollout_vector_gae=True), NotImplementedError, "vector_gae"),
+    ]
+    for cfg, exc, match in cases:
+        with pytest.raises(exc, match=match):
+            ppo.train_step(env, params, cfg, ts, bstate, torch.Generator())
+    cfg = ppo.PPOConfig(num_envs=16, num_steps=4, fused_update=True, fused_rollout=True)
+    per_env = params.replace(sigma_m=torch.full((16,), 0.1))
+    with pytest.raises(NotImplementedError, match="sigma_m"):
+        ppo.train_step(env, per_env, cfg, ts, bstate, torch.Generator())
+    with pytest.raises(ValueError, match="rollout_noise"):
+        ppo.train_step(env, params, cfg, ts, bstate, torch.Generator(),
+                       act_noise=torch.zeros(4, 16, 1))
+
+
+def test_rollout_seed_offset_advances_without_replay():
+    gen = torch.Generator().manual_seed(3)
+    s1, o1 = ppo_fused.rollout_seed_offset(gen, "cpu", 8)
+    s2, o2 = ppo_fused.rollout_seed_offset(gen, "cpu", 8)
+    assert s1 != s2 and o1 == o2 == 0 and 0 <= s1 < 1 << 63
+    gen = torch.Generator().manual_seed(3)
+    assert ppo_fused.rollout_seed_offset(gen, "cpu", 8)[0] == s1
+
+
+def test_rollout_scalars_reads_the_params():
+    _, params = gtt.make("fishing-mixture-v1", model_idx=4, Tmax=30, sigma_m=0.2)
+    s = ppo_fused.rollout_scalars(params, seed=2**64 - 1, offset=5)
+    assert (s.Tmax, s.model_idx, s.seed, s.offset) == (30, 4, 2**64 - 1, 5)
+    assert s.K == float(params.K) and s.sigma_m == pytest.approx(0.2)
+    with pytest.raises(ValueError, match="unsigned"):
+        _seeded("fishing-v1", B=8, seed=-1)
+
+
+# -------------------------------------------------------------------- build
+
+def test_header_edit_changes_the_library_path(tmp_path, monkeypatch):
+    """A source that includes csrc/*.cuh is rebuilt when a header changes:
+    the library's name hashes every header. No nvcc runs."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    names = ("rollout_kernel", "ppo_update_kernel", "policy_rollout_kernel")
+    before = {n: _build.library_path(n) for n in names}
+    assert before == {n: _build.library_path(n) for n in names}   # stable
+    header = csrc / "merged_mlp.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {n: _build.library_path(n) for n in names}
+    assert all(after[n] != before[n] for n in names)
+    assert not any(p.exists() for p in after.values())

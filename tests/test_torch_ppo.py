@@ -293,12 +293,13 @@ def test_unported_options_raise():
     env, params = gtt.make("fishing-v1")
     ts = ppo.make_train_state(env, ppo.PPOConfig(hidden=32), torch.Generator().manual_seed(0))
     bstate = batched_reset(env, params, 16)
-    for cfg, match in ((ppo.PPOConfig(num_envs=16, fused_update=True, fused_rollout=True), "K4"),
+    for cfg, match in ((ppo.PPOConfig(num_envs=16, fused_update=True, fused_rollout=True,
+                                      rollout_vector_gae=True), "vector_gae"),
                        (ppo.PPOConfig(num_envs=16, shuffle="affine"), "affine")):
         with pytest.raises(NotImplementedError, match=match):
             ppo.train_step(env, params, cfg, ts, bstate, torch.Generator())
-    with pytest.raises(NotImplementedError, match="K4"):
-        measure_ppo_train(num_envs=16, num_steps=8, fused="full", device="cpu")
+    with pytest.raises(ValueError, match="unknown fused form"):
+        measure_ppo_train(num_envs=16, num_steps=8, fused="xla", device="cpu")
 
 
 @pytest.mark.parametrize("form", ["off", "update", "adam"])
@@ -335,13 +336,16 @@ def test_train_and_policy(env_id):
 
 
 @pytest.mark.parametrize("fused,fused_adam", [("off", False), ("update", False),
-                                              ("update", True)])
+                                              ("update", True), ("full", False),
+                                              ("full", True)])
 def test_measure_ppo_train_on_cpu_when_asked(fused, fused_adam):
     res = measure_ppo_train(num_envs=64, num_steps=32, iters=1, warmup=1, fused=fused,
                             fused_adam=fused_adam, device="cpu")
     assert res["device"] == "cpu" and res["mode"] == f"ppo-{fused}" + (
         "+adam" if fused_adam else "")
     assert res["steps_per_s"] > 0 and res["epochs"] == 4 and res["num_minibatches"] == 8
+    assert res["rollout_flags"] == {"pregen_noise": False, "fold_obs": fused == "full",
+                                    "vector_gae": False}
 
 
 def test_ppo_breakdown_reads_the_train_step_ranges_on_cpu():
@@ -353,3 +357,12 @@ def test_ppo_breakdown_reads_the_train_step_ranges_on_cpu():
     assert all(r["host_ms"] > 0 for r in res["ranges"].values())
     # a CPU run measures no device time and says so
     assert res["device_busy_ms_per_iter"] is None and res["idle_share"] is None
+
+
+def test_ppo_breakdown_takes_the_full_form_on_cpu():
+    from gym_fishing_tpu_torch.bench.profile import RANGES, ppo_breakdown
+
+    res = ppo_breakdown(num_envs=128, num_steps=8, fused="full", fused_adam=True, iters=1,
+                        device="cpu")
+    assert res["mode"] == "ppo-full+adam" and set(res["ranges"]) == set(RANGES)
+    assert all(r["host_ms"] > 0 for r in res["ranges"].values())
