@@ -29,9 +29,12 @@ which raises on failure:
 8. K2 (fused minibatch gradient) ≡ its twin at full width: numpy-made
    packed data [8, 2^21], one minibatch of 128 random tiles of 2048, both
    heads (fishing-v1 Gaussian, fishing-v0 categorical with 3 actions),
-   ent_coef 0 and 0.01, compute float32 and bfloat16;
+   ent_coef 0 and 0.01, compute float32 and bfloat16; under float32 also
+   the kernel's error against the twin in float64 beside the float32
+   twin's own; its time in both compute modes beside the least time the
+   card could take, and the three 2H-contractions alone as torch.matmul;
 9. K3 (gradient + clip + Adam) ≡ its twin from non-zero moments at count 5,
-   below and above the clip threshold;
+   below and above the clip threshold, and its time in both compute modes;
 10. main path, training: train_step in the forms off, update (K2) and
     update + fused_adam (K3) from one set of weights, with launch counting;
     fused ≡ plain after one step at 1 epoch x 1 minibatch; the learning
@@ -86,6 +89,14 @@ N_PPO, TILE, MB_TILES = B_PPO * T_PPO, 2048, 128
 # so each buffer agrees to 2e-4 of its largest entry plus 2e-6, and each
 # metric sum to rtol 2e-4.
 GRAD_RTOL, GRAD_ATOL, MET_RTOL = 2e-4, 2e-6, 2e-4
+# compute="float32" must stay float32-accurate: against the twin evaluated in
+# float64, a buffer's error may be at most 4x the float32 twin's own, or 4x
+# two float32 ulps of the buffer's largest entry where the twin happens to
+# land closer (several buffers are single sums that cancel over the samples)
+F64_FACTOR, F64_FLOOR_ULPS = 4.0, 2.0
+# NVIDIA's data sheet for the H100 SXM, dense: float32 outside the tensor
+# cores, bf16 inside them (FLOP/s), device memory (bytes/s)
+PEAK = {"float32": 67e12, "bfloat16": 989e12, "bytes": 3.35e12}
 # fused vs plain params after one step at 1 epoch x 1 minibatch (the mirror
 # of tests/test_update_kernel.py's own bar), and the learning agreement of
 # scripts/validate_fused_training.py --agreement
@@ -147,6 +158,34 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps, out
+
+
+def least_ms(ops_s, nbytes):
+    """(least milliseconds the card could take, which limit): the larger of
+    the operations' time at their peak rates and the bytes' at the memory
+    rate."""
+    ops_ms, bytes_ms = ops_s * 1e3, nbytes / PEAK["bytes"] * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def update_bound(n, obs_dim, hidden, act_dim, compute):
+    """K2/K3 on n samples: the three 2H-contractions per tower (W2c's
+    cross-tower blocks are zero and need no work) at the compute mode's rate,
+    the input layer and the head with their backward in float32; the packed
+    samples read once, the weights read and the gradients written once."""
+    h2, a1 = 2 * hidden, act_dim + 1
+    products = 3 * 2 * h2 * hidden * n
+    rest = (2 * 2 * obs_dim * h2 + 3 * 2 * h2 * a1) * n
+    n_par = obs_dim * h2 + h2 + h2 * h2 + h2 + h2 * a1 + a1 + act_dim
+    return least_ms(products / PEAK[compute] + rest / PEAK["float32"], 4 * (8 * n + 2 * n_par))
+
+
+def rollout_bound(num_envs, num_steps, obs_dim, hidden, act_dim):
+    """K4: the merged forward per env and step in float32 (W2c per tower),
+    36 bytes per env and step written and the state read and written once."""
+    h2, a1 = 2 * hidden, act_dim + 1
+    flop = 2 * (obs_dim * h2 + h2 * hidden + h2 * a1) * num_envs * num_steps
+    return least_ms(flop / PEAK["float32"], 36 * num_envs * num_steps + 40 * num_envs)
 
 
 def build_all(modules):
@@ -228,6 +267,28 @@ def check_buffers(got, want, what):
     return worst
 
 
+def check_float64_bar(uk, got, twin, data, order, weights, stats, kw, what):
+    """compute="float32" keeps float32 accuracy: per buffer, the kernel's error
+    against the twin evaluated in float64 within F64_FACTOR of the float32
+    twin's own (or of F64_FLOOR_ULPS ulps of the buffer's largest entry).
+    Returns (name, kernel error, twin error) of the buffer with the largest
+    kernel error relative to its bar."""
+    merged = uk.merge_weights(weights)
+    exact, _ = uk._grad_merged_reference(
+        data.double(), order, tuple(x.double() for x in merged), stats.double(), **kw)
+    hidden, worst = merged[0].shape[1] // 2, ("", 0.0, 0.0, -1.0)
+    for name, g, t, ex in zip(uk.PPOGrads._fields, got, twin,
+                              uk.unmerge_weights(exact, hidden, kw["act_dim"])):
+        err, err_twin = max_err(g, ex), max_err(t, ex)
+        bar = F64_FACTOR * max(err_twin, F64_FLOOR_ULPS * float(ex.abs().max()) * 2.0 ** -23)
+        if not err <= bar:
+            fail(f"{what}: {name} error against float64 {err:.3g} > {bar:.3g} (float32 twin "
+                 f"{err_twin:.3g})")
+        if bar > 0 and err / bar > worst[3]:
+            worst = (name, err, err_twin, err / bar)
+    return worst[:3]
+
+
 def check_metrics(met, met_ref, what):
     bad = (met.double() - met_ref.double()).abs() > MET_RTOL * met_ref.double().abs() + 1e-6
     if bool(bad.any()):
@@ -241,7 +302,7 @@ def parity_cases(gtt):
     def add(label, env_id, policy="escapement", param=0.5, floor=0.3, **overrides):
         overrides.setdefault("sigma", 0.1)
         overrides.setdefault("Tmax", 13)
-        env, params = gtt.make(env_id, **overrides)
+        env, params = gtt.make(env_id, device="cpu", **overrides)  # K1 reads them on the host
         cases.append((label, env, params, policy, param, float(params.sigma_m) > 0, floor))
 
     for growth, r in (("logistic", 0.3), ("ricker", 0.3), ("beverton_holt", 0.3),
@@ -266,7 +327,7 @@ def k4_setup(gtt, ppo, ppo_fused, uk, rng, env_id, dev, **overrides):
     """An env at the PPO width: jittered random weights (the Gaussian mean
     shifted to -0.5 so that envs outlive their first harvest), desynchronised
     start states and numpy-made noise planes [za or u, zp(, nf)]."""
-    env, params = gtt.make(env_id, **overrides)
+    env, params = gtt.make(env_id, device="cpu", **overrides)  # K4 reads them on the host
     cfg = env.config
     gauss = cfg.scheme == "continuous"
     a = 1 if gauss else cfg.n_actions
@@ -413,7 +474,7 @@ def main():
         worst = max(worst, err)
         print(f"phase 3: {label_c:34s} max abs err {err:.3g}")
     # two chained calls carrying ep_ret and harvest (relative scheme)
-    env, params = gtt.make("fishing-v0", sigma=0.1, Tmax=13)
+    env, params = gtt.make("fishing-v0", sigma=0.1, Tmax=13, device="cpu")
     stock = torch.from_numpy(rng.uniform(0.3, 1.2, n).astype(np.float32)).to(dev)
     t = torch.zeros(n, dtype=torch.int32, device=dev)
     kw = dict(scheme="relative")
@@ -462,7 +523,7 @@ def main():
     if not all(checks.values()):
         fail(f"Philox stream checks: {checks}")
     # chained rollout calls draw fresh numbers
-    env, params = make("fishing-v1", sigma=0.1)
+    env, params = make("fishing-v1", sigma=0.1, device="cpu")
     stock = torch.full((n,), 0.75, device=dev)
     t = torch.zeros(n, dtype=torch.int32, device=dev)
     a = rk.rollout(stock, t, params, "escapement", 0.5, 8, seed=3)
@@ -471,7 +532,7 @@ def main():
         fail("a chained call replayed the previous call's noise")
 
     # ---------------------------------------------------------------- 5
-    env, params = make("fishing-v1", sigma=0.05)
+    env, params = make("fishing-v1", sigma=0.05, device="cpu")
     x_star = float(escapement(env, params).x_star)
     seed = 2026
     stock0 = torch.full((B_MAIN,), float(params.init_state), dtype=torch.float32, device=dev)
@@ -555,7 +616,8 @@ def main():
                                                                          "categorical")}
     order = torch.from_numpy(rng.permutation(N_PPO // TILE)[:MB_TILES].astype(np.int32)).to(dev)
     grad_err = 0.0
-    grad_ms = grad_plain_ms = None
+    grad_ms, grad_plain_ms = {}, {}
+    n_mb = MB_TILES * TILE
     for head, (weights, data, a) in cases.items():
         adv = data[4, order.long()[:, None] * TILE + torch.arange(TILE, device=dev)]
         stats = torch.stack([adv.mean(), 1.0 / (adv.std(correction=0) + 1e-8)])
@@ -571,18 +633,42 @@ def main():
                 err = check_buffers(g, g_ref, what)
                 check_metrics(met, met_ref, what)
                 grad_err = max(grad_err, err)
-                print(f"phase 8: {what:40s} max abs err {err:.3g}")
-                if head == "gaussian" and ent_coef == 0.0 and compute == "float32":
-                    grad_ms, _ = cuda_ms(lambda: uk.fused_minibatch_grad(
+                line = f"phase 8: {what:40s} max abs err {err:.3g}"
+                if compute == "float32":
+                    worst64 = check_float64_bar(uk, g, g_ref, data, order, weights, stats, kw,
+                                                what)
+                    line += (f"; against float64, worst buffer {worst64[0]}: kernel "
+                             f"{worst64[1]:.3g}, float32 twin {worst64[2]:.3g}")
+                print(line)
+                if head == "gaussian" and ent_coef == 0.0:
+                    grad_ms[compute], _ = cuda_ms(lambda: uk.fused_minibatch_grad(
                         data, order, weights, stats, **kw), 20)
-                    grad_plain_ms, _ = cuda_ms(lambda: uk.fused_minibatch_grad_reference(
-                        data, order, weights, stats, **kw), 5)
-    print(f"phase 8: K2 {grad_ms:.3f} ms, twin {grad_plain_ms:.3f} ms per minibatch of "
-          f"{MB_TILES} x {TILE} samples (CUDA events); N={N_PPO} hidden=64 {label}")
+                    grad_plain_ms[compute], _ = cuda_ms(
+                        lambda: uk.fused_minibatch_grad_reference(data, order, weights, stats,
+                                                                  **kw), 5)
+    # one PyTorch call computes none of K2; its three 2H-contractions alone, as
+    # the merged [n, 2H] x [2H, 2H] products a library would be given
+    lib_ms = {}
+    xa = torch.from_numpy(rng.standard_normal((n_mb, 128)).astype(np.float32)).to(dev)
+    xb = torch.from_numpy(rng.standard_normal((n_mb, 128)).astype(np.float32)).to(dev)
+    wm = torch.from_numpy(rng.standard_normal((128, 128)).astype(np.float32)).to(dev)
+    for compute, ty in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        a_, b_, w_ = xa.to(ty), xb.to(ty), wm.to(ty)
+        three = lambda: (a_ @ w_, a_.T @ b_, b_ @ w_.T)  # noqa: E731
+        three()
+        lib_ms[compute], _ = cuda_ms(three, 10)
+    del xa, xb, wm
+    grad_bound = {c: update_bound(n_mb, 1, 64, 1, c) for c in grad_ms}
+    for c in grad_ms:
+        print(f"phase 8: K2 {c}: {grad_ms[c]:.3f} ms, twin {grad_plain_ms[c]:.3f} ms per "
+              f"minibatch of {MB_TILES} x {TILE} samples (CUDA events); bound "
+              f"{grad_bound[c][0]:.4f} ms by {grad_bound[c][1]} (share "
+              f"{grad_bound[c][0] / grad_ms[c]:.3f}); the three products alone as torch.matmul "
+              f"{lib_ms[c]:.3f} ms; N={N_PPO} hidden=64 {label}")
 
     # ---------------------------------------------------------------- 9
     adam_err = 0.0
-    adam_ms = adam_plain_ms = None
+    adam_ms, adam_plain_ms = {}, {}
     for head, (weights, data, a) in cases.items():
         w = uk.merge_weights(weights)
         m = tuple(torch.from_numpy(0.01 * rng.standard_normal(x.shape).astype(np.float32))
@@ -608,12 +694,18 @@ def main():
             adam_err = max(adam_err, err)
             print(f"phase 9: {what:40s} max abs err {err:.3g}")
             if head == "gaussian" and max_grad_norm == 1e-3:
-                adam_ms, _ = cuda_ms(lambda: uk.fused_minibatch_grad_adam(
-                    data, order, w, m, v, stats, **kw), 20)
-                adam_plain_ms, _ = cuda_ms(lambda: uk.fused_minibatch_grad_adam_reference(
-                    data, order, w, m, v, stats, **kw), 5)
-    print(f"phase 9: K3 {adam_ms:.3f} ms, twin {adam_plain_ms:.3f} ms per minibatch of "
-          f"{MB_TILES} x {TILE} samples (CUDA events); {label}")
+                for compute in ("float32", "bfloat16"):
+                    kw_c = dict(kw, compute=compute)
+                    adam_ms[compute], _ = cuda_ms(lambda: uk.fused_minibatch_grad_adam(
+                        data, order, w, m, v, stats, **kw_c), 20)
+                    adam_plain_ms[compute], _ = cuda_ms(
+                        lambda: uk.fused_minibatch_grad_adam_reference(
+                            data, order, w, m, v, stats, **kw_c), 5)
+    for c in adam_ms:
+        print(f"phase 9: K3 {c}: {adam_ms[c]:.3f} ms, twin {adam_plain_ms[c]:.3f} ms per "
+              f"minibatch of {MB_TILES} x {TILE} samples (CUDA events); bound "
+              f"{grad_bound[c][0]:.4f} ms by {grad_bound[c][1]} (share "
+              f"{grad_bound[c][0] / adam_ms[c]:.3f}); {label}")
     del cases
 
     # --------------------------------------------------------------- 10
@@ -624,8 +716,7 @@ def main():
     train_launches = {}
     for name, kw in forms.items():
         reset_counts()
-        res = measure_ppo_train(num_envs=B_PPO, num_steps=T_PPO, iters=3, warmup=1,
-                                device=dev, **kw)
+        res = measure_ppo_train(num_envs=B_PPO, num_steps=T_PPO, iters=3, warmup=1, **kw)
         got = counts()
         if ({k: got[k] for k in ("grad", "adam")} != expect[name] or got["rollout"]
                 or got["policy"]):
@@ -636,10 +727,12 @@ def main():
               f"ms/iter, {res['steps_per_s']:.4g} env-steps/s (host clock, 3 chained "
               f"iterations after 1 warm-up); launches {got}; B={B_PPO} T={T_PPO} 4x8 "
               f"hidden=64 {label}")
-    env, params = make("fishing-v1", sigma=0.05, device=dev)
-    ts0 = ppo.make_train_state(env, ppo.PPOConfig(), torch.Generator().manual_seed(11), dev)
+    env, params = make("fishing-v1", sigma=0.05)   # no device given: the card
+    ts0 = ppo.make_train_state(env, ppo.PPOConfig(), torch.Generator().manual_seed(11))
+    if params.device != dev or next(ts0.model.parameters()).device != dev:
+        fail("make and make_train_state without a device did not land on the card")
 
-    host_params = make("fishing-v1", sigma=0.05)[1]   # K4 reads them without a sync
+    host_params = make("fishing-v1", sigma=0.05, device="cpu")[1]   # K4 reads them without a sync
 
     def run(cfg, iterations, seed=5):
         ts = ts0.clone()
@@ -725,6 +818,9 @@ def main():
                         k4_clock = sm_clock_mhz()
                         k4_plain_ms, _ = cuda_ms(
                             lambda: pk.policy_rollout_reference(*args, **kw_c), 2)
+    k4_bound = rollout_bound(B_PPO, T_PPO, 1, 64, 1)
+    print(f"phase 11: K4 bound {k4_bound[0]:.4f} ms by {k4_bound[1]} (share "
+          f"{k4_bound[0] / k4_ms:.3f})")
     print(f"phase 11: K4 {k4_ms:.3f} ms (SM clock {k4_clock} just after), twin "
           f"{k4_plain_ms:.1f} ms per rollout of B={B_PPO} T={T_PPO} hidden=64 (CUDA events, "
           f"continuous, fold, float32); 40 cases in "
@@ -768,8 +864,7 @@ def main():
                 "full+adam": {"grad": 0, "adam": 4 * 32, "policy": 4}}
     for name, kw in forms13.items():
         reset_counts()
-        res = measure_ppo_train(num_envs=B_PPO, num_steps=T_PPO, iters=3, warmup=1,
-                                device=dev, **kw)
+        res = measure_ppo_train(num_envs=B_PPO, num_steps=T_PPO, iters=3, warmup=1, **kw)
         got = counts()
         if {k: got[k] for k in ("grad", "adam", "policy")} != expect13[name] or got["rollout"]:
             fail(f"train_step {name}: launches {got}, expected {expect13[name]} (one K4 and "
@@ -829,6 +924,12 @@ def main():
             "max_abs_err": max(worst, main_err),
             "ms": ker_ms,
             "plain_ms": plain_ms,
+            # 44 bytes per env and call; its operations are mostly Philox
+            # integer work and special functions, which have no peak in the
+            # data sheet's table
+            "bound_ms": least_ms(0.0, 44 * B_MAIN)[0],
+            "bound_by": "bytes",
+            "library_ms": None,
         },
         {
             "name": "ppo_grad_kernel",
@@ -837,8 +938,12 @@ def main():
             "replaces": "gym_fishing_tpu/kernels/ppo_update_kernel.py:114",
             "launches": train_launches["update"]["grad"],
             "max_abs_err": grad_err,
-            "ms": grad_ms,
-            "plain_ms": grad_plain_ms,
+            "ms": grad_ms["float32"],
+            "plain_ms": grad_plain_ms["float32"],
+            "bound_ms": grad_bound["float32"][0],
+            "bound_by": grad_bound["float32"][1],
+            "library_ms": lib_ms["float32"],
+            "library_note": "the three 2H-contractions only",
         },
         {
             "name": "ppo_grad_adam_kernel",
@@ -847,8 +952,12 @@ def main():
             "replaces": "gym_fishing_tpu/kernels/ppo_update_kernel.py:455",
             "launches": train_launches["update+adam"]["adam"],
             "max_abs_err": adam_err,
-            "ms": adam_ms,
-            "plain_ms": adam_plain_ms,
+            "ms": adam_ms["float32"],
+            "plain_ms": adam_plain_ms["float32"],
+            "bound_ms": grad_bound["float32"][0],
+            "bound_by": grad_bound["float32"][1],
+            "library_ms": lib_ms["float32"],
+            "library_note": "the three 2H-contractions only",
         },
         {
             "name": "policy_rollout_kernel",
@@ -859,6 +968,9 @@ def main():
             "max_abs_err": k4_err,
             "ms": k4_ms,
             "plain_ms": k4_plain_ms,
+            "bound_ms": k4_bound[0],
+            "bound_by": k4_bound[1],
+            "library_ms": None,
         },
     ]}))
     # the run drives one device, cuda:0

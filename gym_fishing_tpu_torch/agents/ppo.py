@@ -45,6 +45,7 @@ from torch import nn
 from gym_fishing_tpu_torch.batch import BatchState, batched_reset, batched_step
 from gym_fishing_tpu_torch.core.env import Env
 from gym_fishing_tpu_torch.core.types import EnvParams
+from gym_fishing_tpu_torch.device import resolve
 from gym_fishing_tpu_torch.kernels.ppo_update_kernel import (
     ADAM_B1,
     ADAM_B2,
@@ -218,7 +219,8 @@ def _continuous(env: Env) -> bool:
 def make_train_state(env: Env, cfg: PPOConfig, generator: Optional[torch.Generator] = None,
                      device=None) -> TrainState:
     """A fresh network (orthogonal init from the CPU `generator`) on `device`
-    with zero Adam moments."""
+    (default: the card) with zero Adam moments."""
+    device = resolve(device)
     continuous = _continuous(env)
     model = ActorCritic(
         obs_dim=env.observation_space.shape[0],
@@ -476,15 +478,15 @@ def _plain_epochs(cfg, ts, packed, obs_dim, act_dim, continuous, generator, perm
 
 def train(env: Env, cfg: PPOConfig, seed: int = 0, iterations: int = 32,
           env_params: Optional[EnvParams] = None, verbose: bool = False, device=None):
-    """Host loop over `train_step` on `device` (default: the CPU). The
+    """Host loop over `train_step` on `device` (default: the card). The
     network is initialised from a CPU generator seeded with `seed`; the
     rollout and the shuffles draw from a generator on `device` seeded with
     `seed` + 1. Returns (ts, history of float metrics per iteration)."""
-    device = torch.device("cpu" if device is None else device)
+    device = resolve(device)
     if env_params is None:
         # the fused rollout reads the env params on the host, where they
         # cost no sync; the plain rollout steps with them on the device
-        env_params = env.params(device=None if cfg.fused_rollout else device)
+        env_params = env.params(device="cpu" if cfg.fused_rollout else device)
     ts = make_train_state(env, cfg, torch.Generator().manual_seed(seed), device)
     generator = torch.Generator(device=device).manual_seed(seed + 1)
     bstate = batched_reset(env, env_params, cfg.num_envs, device)

@@ -21,18 +21,19 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from gym_fishing_tpu_torch.agents import ppo
-from gym_fishing_tpu_torch.bench.throughput import _device, _device_name, _finish, ppo_setup
+from gym_fishing_tpu_torch.bench.throughput import _device_name, _finish, ppo_setup
+from gym_fishing_tpu_torch.device import resolve
 
 RANGES = ("train_step/rollout", "train_step/update")
 
 
 def ppo_breakdown(num_envs: int = 16384, num_steps: int = 128, fused: str = "off",
                   fused_adam: bool = False, iters: int = 2, warmup: int = 1,
-                  device="cuda", seed: int = 0, top: int = 6) -> dict:
+                  device=None, seed: int = 0, top: int = 6) -> dict:
     """Profile `iters` chained PPO iterations after `warmup` (see module doc)."""
     if fused not in ("off", "update", "full"):
         raise ValueError(f"unknown fused form {fused!r}")
-    device = _device(device)
+    device = resolve(device)
     env, params, cfg, ts, gen, bstate = ppo_setup(num_envs, num_steps, 0.05, fused, fused_adam,
                                                   "float32", device, seed)
     for _ in range(warmup):

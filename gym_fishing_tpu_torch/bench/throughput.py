@@ -24,6 +24,7 @@ import torch
 from gym_fishing_tpu_torch.agents import ppo
 from gym_fishing_tpu_torch.agents.policies import escapement
 from gym_fishing_tpu_torch.batch import batched_reset, batched_step
+from gym_fishing_tpu_torch.device import resolve
 from gym_fishing_tpu_torch.kernels import rollout_kernel
 from gym_fishing_tpu_torch.registry import make
 
@@ -39,13 +40,6 @@ def _finish(x: torch.Tensor) -> float:
     return float(x.reshape(-1)[0].item())
 
 
-def _device(device) -> torch.device:
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("measure: no CUDA device")
-    return device
-
-
 def _device_name(device: torch.device) -> str:
     return torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
 
@@ -58,7 +52,7 @@ def measure(
     warmup: int = 3,
     sigma: float = 0.05,
     mode: str = "engine",
-    device="cuda",
+    device=None,
     seed: int = 0,
 ) -> dict:
     """Time `iters` chained rollouts of `num_steps` steps of `num_envs` envs.
@@ -69,7 +63,7 @@ def measure(
     rollout kernel (`kernels.rollout_kernel.rollout`) under the same policy,
     chaining stock, t, the in-flight return and the Philox offset.
     """
-    device = _device(device)
+    device = resolve(device)
     if mode == "engine":
         seconds, reward = _time_engine(env_id, num_envs, num_steps, iters, warmup, sigma,
                                        device, seed)
@@ -107,7 +101,7 @@ def _time_engine(env_id, num_envs, num_steps, iters, warmup, sigma, device, seed
             total = total + ts.reward.sum()
         return state, total
 
-    state = batched_reset(env, params, num_envs)
+    state = batched_reset(env, params, num_envs, device)
     for _ in range(warmup):
         state, total = run(state)
     if warmup:
@@ -120,7 +114,7 @@ def _time_engine(env_id, num_envs, num_steps, iters, warmup, sigma, device, seed
 
 
 def _time_kernel(env_id, num_envs, num_steps, iters, warmup, sigma, device, seed):
-    env, params = make(env_id, sigma=sigma)  # host params: read once per launch
+    env, params = make(env_id, sigma=sigma, device="cpu")  # host params: read once per launch
     x_star = float(escapement(env, params).x_star)
     cfg = env.config
     stock = torch.full((num_envs,), float(params.init_state), dtype=torch.float32, device=device)
@@ -155,7 +149,7 @@ def ppo_setup(num_envs, num_steps, sigma, fused, fused_adam, compute_dtype, devi
     rollout gets host params, which its kernel reads without a sync; the
     other forms step with params on the device."""
     env, params = make("fishing-v1", sigma=sigma,
-                       device=None if fused == "full" else device)
+                       device="cpu" if fused == "full" else device)
     cfg = ppo.PPOConfig(num_envs=num_envs, num_steps=num_steps, fused_update=fused != "off",
                         fused_rollout=fused == "full", fused_adam=fused_adam,
                         compute_dtype=compute_dtype)
@@ -173,7 +167,7 @@ def measure_ppo_train(
     fused: str = "off",
     fused_adam: bool = False,
     compute_dtype: str = "float32",
-    device="cuda",
+    device=None,
     seed: int = 0,
 ) -> dict:
     """Time whole PPO iterations (rollout + GAE + 4 x 8 minibatch updates)
@@ -187,7 +181,7 @@ def measure_ppo_train(
     """
     if fused not in ("off", "update", "full"):
         raise ValueError(f"unknown fused form {fused!r}")
-    device = _device(device)
+    device = resolve(device)
     env, params, cfg, ts, gen, bstate = ppo_setup(num_envs, num_steps, sigma, fused, fused_adam,
                                                   compute_dtype, device, seed)
 

@@ -1,0 +1,135 @@
+"""Time stages 1 and 2 of the fused PPO update kernels (K2's whole work, and
+K3's without its optimizer stage) per minibatch, at the bench's shapes.
+
+    python gym_fishing_tpu_torch/bench/update_kernels.py [--root DIR] [--reps N] [--errors]
+
+One minibatch is 128 random tiles of 2048 samples out of the packed buffer
+[8, 2^21] of 16384 envs x 128 steps, hidden 64, Gaussian head, timed with
+CUDA events over `--reps` launches after a warm-up, for compute float32 and
+bfloat16. The launcher is called below the wrapper (no weight merging), so
+the time is the two kernels' and the workspace allocation's.
+
+`--root` names the checkout whose ``gym_fishing_tpu_torch`` is imported
+(default: the one this file lies in), so the same inputs can time two
+versions of the kernel in turns on one card, one process each. Prints one
+JSON line; needs a CUDA device.
+
+With `--errors` it times nothing and prints instead, for compute float32,
+each gradient buffer's largest error against the twin evaluated in float64,
+kernel / float32 twin, in float32 ulps of the buffer's largest entry: both
+heads, hidden 32 and 64, two seeds, 64 tiles of 256 samples. An entry is
+marked ``!`` where the kernel's error is above 4 times the larger of the
+twin's and 2 ulps.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+N, TILE, MB_TILES, HIDDEN = 16384 * 128, 2048, 128, 64
+
+
+def error_table(uk, ppo, ppo_fused, dev) -> None:
+    for head in uk.HEADS:
+        gauss, a = head == "gaussian", 1 if head == "gaussian" else 3
+        for hidden in (32, 64):
+            for seed in (6, 7):
+                gen = torch.Generator().manual_seed(seed)
+                randn = lambda *shape: torch.randn(*shape, generator=gen)  # noqa: E731
+                n = 64 * 256
+                model = ppo.ActorCritic(1, a, gauss, hidden, generator=gen)
+                with torch.no_grad():
+                    for p in model.parameters():
+                        p.add_(0.05 * randn(*p.shape))
+                    if gauss:
+                        model.log_std.fill_(-0.4)
+                    obs = 0.7 * randn(n, 1)
+                    dist, value = model(obs)
+                    action, logp = ppo.sample_action(dist, gauss, generator=gen)
+                packed = torch.cat([
+                    obs, action.float().reshape(n, -1), (logp + 0.3 * randn(n))[:, None],
+                    (value + 0.3 * randn(n))[:, None], randn(n, 1),
+                    (value + randn(n))[:, None]], 1)
+                weights = tuple(w.to(dev) for w in ppo_fused.kernel_weights(
+                    dict(model.named_parameters()), head))
+                data = ppo_fused.pack_feature_major(packed).to(dev)
+                order = torch.arange(0, 64, dtype=torch.int32, device=dev)
+                stats = torch.tensor([0.05, 1.1], device=dev)
+                kw = dict(clip_eps=0.2, vf_coef=0.5, ent_coef=0.01, obs_dim=1, act_dim=a,
+                          tile=256, head=head, compute="float32")
+                got, _ = uk.fused_minibatch_grad(data, order, weights, stats, **kw)
+                twin, _ = uk.fused_minibatch_grad_reference(data, order, weights, stats, **kw)
+                exact, _ = uk._grad_merged_reference(
+                    data.double(), order,
+                    tuple(x.double() for x in uk.merge_weights(weights)), stats.double(), **kw)
+                cells = []
+                for name, g, t, ex in zip(uk.PPOGrads._fields, got, twin,
+                                          uk.unmerge_weights(exact, hidden, a)):
+                    ulp = float(ex.abs().max()) * 2.0 ** -23
+                    if ulp == 0.0:
+                        continue
+                    e, et = float((g - ex).abs().max()) / ulp, float((t - ex).abs().max()) / ulp
+                    cells.append(f"{name} {e:.0f}/{et:.0f}" + ("!" if e > 4 * max(et, 2) else ""))
+                print(f"{head} hidden={hidden} seed={seed}:", " ".join(cells))
+
+
+def main() -> None:
+    here = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", default=here)
+    ap.add_argument("--reps", type=int, default=50)
+    ap.add_argument("--errors", action="store_true")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("update_kernels: needs a CUDA device")
+    sys.path.insert(0, os.path.abspath(args.root))
+    from gym_fishing_tpu_torch.agents import ppo, ppo_fused
+    from gym_fishing_tpu_torch.kernels import ppo_update_kernel as uk
+
+    dev = torch.device("cuda", 0)
+    if args.errors:
+        error_table(uk, ppo, ppo_fused, dev)
+        return
+    rng = np.random.default_rng(7)
+    model = ppo.ActorCritic(1, 1, True, HIDDEN, generator=torch.Generator().manual_seed(3))
+    weights = ppo_fused.kernel_weights(dict(model.named_parameters()), "gaussian")
+    w_flat = uk.flatten_merged(uk.merge_weights(tuple(x.detach().to(dev) for x in weights)))
+    rows = rng.standard_normal((uk.C_PAD, N)).astype(np.float32)
+    rows[0] *= 0.7
+    rows[2] = -1.0 + 0.3 * rows[2]
+    rows[6:] = 0.0
+    data = torch.from_numpy(rows).to(dev)
+    order = torch.from_numpy(rng.permutation(N // TILE)[:MB_TILES].astype(np.int32)).to(dev)
+    stats = torch.tensor([0.0, 1.0], device=dev)
+
+    out = {"root": os.path.abspath(args.root), "reps": args.reps,
+           "card": subprocess.run(
+               ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+               capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]}
+    for compute in uk.COMPUTES:
+        scal = dict(clip_eps=0.2, vf_coef=0.5, ent_coef=0.0, obs_dim=1, act_dim=1, tile=TILE,
+                    head="gaussian", compute=compute)
+        run = lambda: uk._launch(data, order, w_flat, stats, HIDDEN, **scal)  # noqa: E731
+        for _ in range(5):
+            gout = run()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(args.reps):
+            gout = run()
+        end.record()
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(gout).all()):
+            raise SystemExit(f"update_kernels: non-finite output under {compute}")
+        out[f"{compute}_ms"] = start.elapsed_time(end) / args.reps
+    print(json.dumps(out))
+
+
+if __name__ == "__main__":
+    main()

@@ -28,6 +28,7 @@ import torch
 from gym_fishing_tpu_torch.agents.ppo import ActorCritic
 from gym_fishing_tpu_torch.batch.batch import BatchState
 from gym_fishing_tpu_torch.core.types import EnvParams, EnvState
+from gym_fishing_tpu_torch.device import resolve
 
 _PARAM_FIELDS = tuple(f.name for f in dataclasses.fields(EnvParams))
 _BATCH_FIELDS = ("stock", "harvest", "t", "episode_return", "episode_length")
@@ -42,17 +43,20 @@ def _check_keys(fields: Mapping, expected) -> None:
 
 def params_from_numpy(fields: Mapping[str, np.ndarray], dtype=torch.float32,
                       device=None) -> EnvParams:
-    """EnvParams from one numpy array per field (Tmax and model_idx int32)."""
+    """EnvParams from one numpy array per field (Tmax and model_idx int32),
+    on `device` (default: the card)."""
     _check_keys(fields, _PARAM_FIELDS)
     return EnvParams(**{k: torch.as_tensor(np.array(v)) for k, v in fields.items()}).astype(
-        dtype, device
+        dtype, resolve(device)
     )
 
 
 def batch_state_from_numpy(fields: Mapping[str, np.ndarray], dtype=torch.float32,
                            device=None) -> BatchState:
-    """BatchState from numpy arrays shaped (num_envs,) (t, episode_length int32)."""
+    """BatchState from numpy arrays shaped (num_envs,) (t, episode_length
+    int32), on `device` (default: the card)."""
     _check_keys(fields, _BATCH_FIELDS)
+    device = resolve(device)
 
     def cast(name, ty):
         return torch.as_tensor(np.array(fields[name]), device=device).to(ty).contiguous()
@@ -84,7 +88,9 @@ def _named_from_flax(tree: Mapping) -> Dict[str, np.ndarray]:
 
 def actor_critic_from_numpy(tree: Mapping, compute_dtype=torch.float32,
                             device=None) -> ActorCritic:
-    """A port ActorCritic loaded with the flax parameter tree's values."""
+    """A port ActorCritic loaded with the flax parameter tree's values, on
+    `device` (default: the card)."""
+    device = resolve(device)
     named = _named_from_flax(tree)
     continuous = "pi_mean.weight" in named
     head = named["pi_mean.weight" if continuous else "pi_logits.weight"]

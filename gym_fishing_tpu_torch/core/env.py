@@ -23,6 +23,7 @@ from typing import Optional, Tuple
 import torch
 
 from gym_fishing_tpu_torch.core.types import EnvConfig, EnvParams, EnvState, TimeStep
+from gym_fishing_tpu_torch.device import resolve
 from gym_fishing_tpu_torch.dynamics.growth import get_growth_fn
 from gym_fishing_tpu_torch.dynamics.noise import apply_process_noise
 from gym_fishing_tpu_torch.spaces.scaling import (
@@ -149,9 +150,10 @@ class Env:
         return encode_action(self.config, params, state.harvest, quota)
 
     def params(self, dtype=torch.float32, device=None, **overrides) -> EnvParams:
-        """Default params cast to `dtype` on `device`, with overrides applied."""
+        """Default params cast to `dtype` on `device` (default: the card),
+        with overrides applied."""
         p = self.default_params.replace(**overrides) if overrides else self.default_params
-        return p.astype(dtype, device)
+        return p.astype(dtype, resolve(device))
 
 
 def make_env(

@@ -17,38 +17,73 @@
 // surrogate and clipped value loss, and the hand-derived backward, summed into
 // the 7 merged gradient buffers and 4 metric sums.
 //
-// What bounds it on this card: float32 FMA throughput. Per sample the three
-// 2H-contractions (forward through W2c, dW2c, and the gradient into h1) cost
-// 3 x 2 x 128 x 128 = 98,304 FLOP at hidden = 64, against 32 bytes of input
-// read once; the rank-1 input layer and the (A+1)-wide head add ~2%. A
-// minibatch of 2^18 samples is ~2.6e10 FLOP (computed) against 8 MB read, so
-// memory is far from the limit.
+// What bounds it on this card: operations, not bytes. The three
+// 2H-contractions (forward through W2c, dW2c, and the gradient into h1) are
+// nearly all of the work against 32 bytes of input a sample. The TPU kernel
+// runs them on the merged [2H, 2H] matrix because that is its matrix unit's
+// shape; W2c's cross-tower blocks are zero and no parameter, so here each
+// product runs per tower over H: 3 x 2 x 128 x 64 = 49,152 FLOP a sample at
+// hidden = 64, 1.3e10 FLOP for a minibatch of 2^18 samples against 8 MB. What
+// stays beside the products is float32 work of the same order: 2 x 2H tanhf
+// per sample, the (A+1)-wide head and its backward, and the loss.
 //
 // What the design does about it:
-// - Stage 1: one CTA of 256 threads per visited tile (tile_order picks the
-//   tile, so shuffling stays zero-copy). W2c and its transpose sit in
-//   shared memory (2 x 64 KiB at 2H = 128, above the 48 KiB default, hence
-//   cudaFuncSetAttribute); the tile streams through in chunks of 32 samples
-//   whose activations stay in shared memory. The products are register-tiled
-//   (4 samples x 4 outputs per thread for the two activation products,
-//   8 x 8 of dW2c per thread, accumulated in registers over the whole tile).
-//   Each CTA writes its partial gradients and metric sums to a workspace
-//   row [G, P + 4].
-// - Stage 2: one thread per gradient entry sums the G rows in index order.
+// - Stage 1: kSplit CTAs of 512 threads (16 warps) per visited tile
+//   (tile_order picks the tile, so shuffling stays zero-copy); each CTA takes
+//   a contiguous share of the tile's chunks of 64 samples, whose float32
+//   activations stay in shared memory (the tanh derivatives use the
+//   unrounded values). A chunk takes 5 block barriers under bf16 and 6 under
+//   float32; the next chunk's samples are fetched while this one computes.
+//   * compute = bfloat16: the three products run on the tensor cores through
+//     the wmma fragments of mma_tiles.cuh, bf16 inputs with float32 sums. One
+//     copy of W2c sits in shared memory as bf16: the forward product reads
+//     it row-major and the backward product g_p1 = g_p2 W2c^T reads the same
+//     buffer column-major. The thread that produces h1 or g_p2 also writes
+//     the rounded copy the products read. A warp owns a [16, 2H/4] tile of
+//     each activation product and applies the bias, tanh or tanh derivative
+//     to its own tile after store_matrix_sync; dW2c stays in accumulator
+//     fragments over all chunks.
+//   * compute = float32: the products are float32 FMA, register-tiled
+//     (4 samples x 4 outputs a thread for the activation products, 4 x 4 of a
+//     dW2c block a thread, kept over all chunks), reading the towers' blocks
+//     of W2c and of its transpose (together the size of one merged copy).
+//     The note on numerics says why not the tensor cores.
+//   * both: the head, its backward and the loss are float32 FMA: a warp
+//     takes 4 samples of the chunk for the head, 8 lanes a sample, and 4 of
+//     its lanes their loss, whose sums stay in shared memory. Column sums
+//     (db1c, db2c, dW1c) accumulate in registers of threads that keep one
+//     column for the whole tile. 128 registers a thread is all that 512
+//     threads leave, so the loss recomputes the class probabilities instead
+//     of keeping them.
+//   Each CTA writes its partial gradients and metric sums to a workspace row
+//   [G * kSplit, P + 4].
+// - Stage 2: one thread per gradient entry sums the rows in index order.
 //   No float atomics anywhere, so two identical steps give identical bits.
 // - Stage 3 (K3 only): one CTA takes the masked global norm in a fixed
 //   reduction order, clips, and applies Adam to the ~17k merged parameters.
 //
-// Numerics: float32 IEEE arithmetic (FMA contraction allowed, no TF32, no
-// --use_fast_math). Under compute = bfloat16 the inputs of the three
-// 2H-contractions are rounded with __float2bfloat16_rn and summed in float32,
-// as the TPU kernel's bf16 inputs with f32 accumulation.
+// Numerics: float32 IEEE arithmetic (FMA contraction allowed, no
+// --use_fast_math). compute = bfloat16: product inputs rounded with
+// __float2bfloat16_rn (W2c once, h1 and g_p2 per chunk), as the TPU kernel's
+// bf16 inputs with f32 accumulation. compute = float32 uses no TF32: a single
+// TF32 pass keeps three digits, and the split product
+// lo_a hi_b + hi_a lo_b + hi_a hi_b (hi = tf32(a), lo = tf32(a - hi)) was
+// built and measured on the H100 and not kept. The tensor core adds into its
+// accumulator rounding towards zero, so every h2 comes out a few 2^-24
+// small, the value head inherits the shrink, and the value tower's gradients,
+// sums of (value - return) terms that cancel over the samples, collect it:
+// their error against float64 was 2-5 times the float32 twin's, and it went
+// back to the twin's own when the forward product alone ran as FMA. With
+// W2c's zero blocks skipped the FMA products were also the faster ones.
+// The cross-tower blocks of W2c must be zero, as merge_weights builds them
+// and K3's masked update keeps them: stage 1 traps on any other input.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "merged_mlp.cuh"
+#include "mma_tiles.cuh"
 
 struct GradParams {
   float clip_eps, vf_coef, inv_n, ent_coef;
@@ -68,64 +103,147 @@ enum { FLOAT32 = 0, BFLOAT16 = 1 };
 
 #define LOG_2PI_F 1.8378770664093453f
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
-constexpr int kChunk = 32;  // samples per chunk
+constexpr int kChunk = 64;  // samples per chunk
+constexpr int kSplit = 2;   // CTAs (workspace rows) per visited tile
 constexpr int kRows = 8;    // C_PAD
 constexpr int kMaxD = 4;
 constexpr int kMaxA = 16;   // logits width
 constexpr int kMaxA1 = kMaxA + 1;
 constexpr int kMaxGaussA = 3;  // Gaussian action columns that fit 8 rows
+constexpr int kSPW = kChunk / kWarps;  // samples per warp in the head and the loss
+constexpr int kMet = 8;  // floats per loss thread: 4 metric sums, then dlog_std
+static_assert(kRows * kChunk == kThreads, "a chunk of packed samples is one element a thread");
+static_assert(kChunk == 64 && kWarps == 16, "the tiling of the products assumes 4 x 4 warps");
+static_assert(4 + kMaxGaussA <= kMet && kSPW * 8 == 32, "loss threads");
 
-// Shared-memory plan of stage 1 (offsets in floats).
-template <int H2>
+constexpr size_t align_up(size_t x) { return (x + 127) / 128 * 128; }
+
+// Shared-memory plan of stage 1: byte offsets of the aligned regions, then
+// float offsets inside the last one.
+template <int H2, bool BF>
 struct Smem {
-  static constexpr int LD = kActLD<H2>;
-  static constexpr int W2 = 0;                       // [H2][H2]
-  static constexpr int W2T = W2 + H2 * H2;           // [H2][H2]
-  static constexpr int H1 = W2T + H2 * H2;           // [kChunk][LD]
-  static constexpr int B = H1 + kChunk * LD;         // h2, then g_p1
-  static constexpr int G = B + kChunk * LD;          // g_p2
-  static constexpr int W1 = G + kChunk * LD;         // [kMaxD][H2]
+  static constexpr int H = H2 / 2;
+  static constexpr int LD = kActLD<H2>;  // row stride of a float32 activation buffer
+  static constexpr int LDB = H2 + 8;     // bf16: row stride of W2c and of the rounded copies
+  static constexpr int LDT = H + 4;      // float32: row stride of a tower's block
+  // bf16: W2c as bf16 [H2][LDB]. float32: the towers' blocks of W2c, float
+  // [2][H][LDT], then of its transpose, the same shape.
+  static constexpr size_t W2 = 0;
+  static constexpr size_t W2_BYTES = BF ? 2 * H2 * LDB : sizeof(float) * 4 * H * LDT;
+  static constexpr size_t ACT = align_up(W2 + W2_BYTES);  // float [3][kChunk][LD]
+  // bf16 only: bf16 [2][kChunk][LDB], the rounded h1 and g_p2
+  static constexpr size_t RND = align_up(ACT + sizeof(float) * 3 * kChunk * LD);
+  static constexpr size_t REST = align_up(RND + (BF ? 2 * 2 * kChunk * LDB : 0));
+  static constexpr int WH = 0;                       // [A1][H2], Whc transposed
+  static constexpr int DWH = WH + kMaxA1 * H2;       // [2][A1][H2] accumulators, by chunk half
+  static constexpr int BH = DWH + 2 * kMaxA1 * H2;
+  static constexpr int DBH = BH + 32;                // dbhc accumulators
+  static constexpr int LS = DBH + 32;
+  static constexpr int IV = LS + 32;                 // exp(-2 log_std)
+  static constexpr int W1 = IV + 32;                 // [kMaxD][H2]
   static constexpr int B1 = W1 + kMaxD * H2;
   static constexpr int B2 = B1 + H2;
-  static constexpr int WH = B2 + H2;                 // [H2][A1]
-  static constexpr int BH = WH + H2 * kMaxA1;
-  static constexpr int LS = BH + kMaxA1;
-  static constexpr int X = LS + kMaxA;               // [kRows][kChunk]
-  static constexpr int OUT = X + kRows * kChunk;     // [kChunk][kMaxA1]
+  static constexpr int MET = B2 + H2;                // [kChunk][kMet]: the loss threads' sums
+  static constexpr int X = MET + kChunk * kMet;      // [2][kRows][kChunk], double-buffered
+  static constexpr int OUT = X + 2 * kRows * kChunk; // [kChunk][kMaxA1]
   static constexpr int GTOP = OUT + kChunk * kMaxA1; // [kChunk][kMaxA1]
-  static constexpr int DWH = GTOP + kChunk * kMaxA1; // [H2][A1] accumulators
-  static constexpr int TOTAL = DWH + H2 * kMaxA1;
-  static constexpr size_t BYTES = sizeof(float) * TOTAL;
+  static constexpr int N_REST = GTOP + kChunk * kMaxA1;
+  static constexpr size_t BYTES = REST + sizeof(float) * N_REST;
+  // after the last chunk the activation buffers hold dW2c [H2][LD], then the
+  // per-thread partial column sums
+  static constexpr int SCR_B2 = H2 * LD, SCR_B1 = SCR_B2 + kThreads, SCR_W1 = SCR_B1 + kThreads;
+  static_assert(SCR_W1 + kMaxD * kThreads <= 3 * kChunk * LD, "scratch exceeds the activations");
+  static_assert(kMaxA1 <= 32 && kMaxA <= 32, "bhc and log_std slots");
 };
-static_assert(Smem<128>::BYTES <= 232448, "stage 1 exceeds the shared memory of a CTA");
+static_assert(Smem<128, false>::BYTES <= 232448 && Smem<128, true>::BYTES <= 232448,
+              "stage 1 exceeds the shared memory of a CTA");
+
+// Float32 FMA product of a chunk's activations with one tower's block:
+// acc[i][c] = sum over the tower's H2 / 2 rows j of A[s0 + i][k0 + j] *
+// Bt[tower][j][c0 - k0 + c], for 4 samples and H2 / 32 columns of this
+// thread, k0 the first column of c0's tower. A is [samples][kActLD<H2>], Bt
+// the towers' blocks [2][H2 / 2][ldt].
+template <int H2>
+__device__ __forceinline__ void tower_product(const float* __restrict__ A,
+                                              const float* __restrict__ Bt, int ldt, int s0,
+                                              int c0, float (&acc)[4][H2 / 32]) {
+  constexpr int LD = kActLD<H2>, CPT = H2 / 32, H = H2 / 2;
+  const int k0 = c0 < H ? 0 : H;
+  const float* a0 = A + s0 * LD + k0;
+  const float* b0 = Bt + k0 * ldt + (c0 - k0);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) acc[i][c] = 0.0f;
+#pragma unroll 2
+  for (int j = 0; j < H; j += 4) {
+    float a[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) load_row<4>(a0 + i * LD + j, a[i]);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      float b[CPT];
+      load_row<CPT>(b0 + (j + q) * ldt, b);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < CPT; ++c) acc[i][c] = fmaf(a[i][q], b[c], acc[i][c]);
+    }
+  }
+}
 
 template <int H2, bool BF>
 __global__ void __launch_bounds__(kThreads, 1)
     ppo_grad_tiles(const GradParams p, const float* __restrict__ data,
                    const int* __restrict__ order, const float* __restrict__ w,
                    const float* __restrict__ adv_stats, float* __restrict__ ws) {
-  extern __shared__ __align__(16) float sm[];
-  using S = Smem<H2>;
-  constexpr int LD = S::LD;
-  constexpr int CPT = H2 / 32;   // columns per thread in the activation products
-  constexpr int RW = H2 / 16;    // dW2c thread tile is RW x RW
-  float* sW2 = sm + S::W2;
-  float* sW2T = sm + S::W2T;
-  float* sH1 = sm + S::H1;
-  float* sB = sm + S::B;
-  float* sG = sm + S::G;
-  float* sW1 = sm + S::W1;
-  float* sb1 = sm + S::B1;
-  float* sb2 = sm + S::B2;
-  float* sWh = sm + S::WH;
-  float* sbh = sm + S::BH;
-  float* sls = sm + S::LS;
-  float* sX = sm + S::X;
-  float* sOut = sm + S::OUT;
-  float* sGtop = sm + S::GTOP;
-  float* sdWh = sm + S::DWH;
+  namespace wmma = nvcuda::wmma;
+  extern __shared__ __align__(128) unsigned char smem[];
+  using S = Smem<H2, BF>;
+  // W2c is block diagonal (policy tower, value tower), so every product runs
+  // per tower over H = H2 / 2: half the work of the merged matrix.
+  constexpr int H = H2 / 2, LD = S::LD, LDB = S::LDB, LDT = S::LDT;
+  constexpr int SSTEP = kThreads / H2;  // sample stride of a thread in the elementwise passes
+  constexpr int EPT = kChunk / SSTEP;   // its samples per chunk
+  // bf16: the warps tile an activation product 4 x 4
+  constexpr int CW = H2 / 4;     // columns of a warp's tile
+  constexpr int NF = CW / 16;    // its 16-wide fragments
+  constexpr int RG = 32 / CW;    // lanes that share a column of that tile
+  constexpr int RPL = 16 / RG;   // rows per lane there
+  constexpr int NW2 = H / 32;    // a warp's tile of a dW2c block is 1 x NW2 fragments
+  constexpr int WPT = (H / 16) * (H / 16) / NW2;  // warps that share one tower's block
+  // float32: a thread's tile of an activation product is 4 samples x CPT
+  // columns, and of a dW2c block 4 x 4 (at hidden = 32 a quarter of the threads)
+  constexpr int CPT = H2 / 32;
+  constexpr int T = H / 4, T2 = T * T;
+  static_assert(CW % 16 == 0 && 32 % CW == 0 && 4 * RG == SSTEP && H % CW == 0 &&
+                    2 * WPT <= kWarps && 2 * T2 <= kThreads,
+                "tiling");
+
+  float* sH1 = reinterpret_cast<float*>(smem + S::ACT);
+  float* sB = sH1 + kChunk * LD;   // h2, then the backward product before its derivative
+  float* sG = sB + kChunk * LD;    // g_p2
+  __nv_bfloat16* bW2 = reinterpret_cast<__nv_bfloat16*>(smem + S::W2);   // bf16 only
+  __nv_bfloat16* bH1 = reinterpret_cast<__nv_bfloat16*>(smem + S::RND);  // bf16 only
+  __nv_bfloat16* bG = bH1 + kChunk * LDB;                                // bf16 only
+  float* fW2 = reinterpret_cast<float*>(smem + S::W2);  // float32 only
+  float* fW2T = fW2 + 2 * H * LDT;                      // float32 only
+  float* rest = reinterpret_cast<float*>(smem + S::REST);
+  float* sWhT = rest + S::WH;
+  float* sdWh = rest + S::DWH;
+  float* sbh = rest + S::BH;
+  float* sdbh = rest + S::DBH;
+  float* sls = rest + S::LS;
+  float* siv = rest + S::IV;
+  float* sW1 = rest + S::W1;
+  float* sb1 = rest + S::B1;
+  float* sb2 = rest + S::B2;
+  float* sMet = rest + S::MET;
+  float* sX = rest + S::X;
+  float* sOut = rest + S::OUT;
+  float* sGtop = rest + S::GTOP;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int D = p.obs_dim, A = p.act_dim, A1 = A + 1;
@@ -133,119 +251,177 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int na = gauss ? A : 1;
   const Layout L = make_layout(D, H2, A);
   const long long N = p.n_cols;
-  const int tile_idx = order[blockIdx.x];
+  const int tile_idx = order[blockIdx.x / kSplit];
   if (tile_idx < 0 || (long long)(tile_idx + 1) * p.tile > N) __trap();
+  // this CTA's share of the tile's chunks
+  const int part = blockIdx.x % kSplit, n_chunks = p.tile / kChunk;
+  const int c_begin = part * n_chunks / kSplit, c_end = (part + 1) * n_chunks / kSplit;
   const long long base = (long long)tile_idx * p.tile;
 
   for (int i = tid; i < H2 * H2; i += kThreads) {
-    const float v = in_round<BF>(w[L.w2 + i]);
-    sW2[i] = v;
-    sW2T[(i % H2) * H2 + i / H2] = v;
+    const float v = w[L.w2 + i];
+    const int r = i / H2, c = i % H2;
+    if ((r < H) != (c < H)) {
+      // the cross-tower blocks are zero by construction (merge_weights) and
+      // stay so under K3's masked update; the products rely on it
+      if (v != 0.0f) __trap();
+      if constexpr (BF) bW2[r * LDB + c] = __float2bfloat16_rn(0.0f);
+    } else if constexpr (BF) {
+      bW2[r * LDB + c] = __float2bfloat16_rn(v);
+    } else {
+      // block [tower][row in tower][column in tower]; r is tower * H + row
+      fW2[r * LDT + c % H] = v;
+      fW2T[(r / H * H + c % H) * LDT + r % H] = v;
+    }
   }
+  for (int i = tid; i < H2 * A1; i += kThreads) sWhT[(i % A1) * H2 + i / A1] = w[L.wh + i];
+  for (int i = tid; i < 2 * kMaxA1 * H2; i += kThreads) sdWh[i] = 0.0f;
   for (int i = tid; i < D * H2; i += kThreads) sW1[i] = w[L.w1 + i];
   for (int i = tid; i < H2; i += kThreads) {
     sb1[i] = w[L.b1 + i];
     sb2[i] = w[L.b2 + i];
   }
-  for (int i = tid; i < H2 * A1; i += kThreads) {
-    sWh[i] = w[L.wh + i];
-    sdWh[i] = 0.0f;
+  for (int i = tid; i < kChunk * kMet; i += kThreads) sMet[i] = 0.0f;
+  for (int i = tid; i < A1; i += kThreads) {
+    sbh[i] = w[L.bh + i];
+    sdbh[i] = 0.0f;
   }
-  for (int i = tid; i < A1; i += kThreads) sbh[i] = w[L.bh + i];
-  for (int i = tid; i < A; i += kThreads) sls[i] = w[L.ls + i];
+  for (int i = tid; i < A; i += kThreads) {
+    sls[i] = w[L.ls + i];
+    siv[i] = expf(-2.0f * w[L.ls + i]);
+  }
   const float adv_mu = adv_stats[0], adv_inv_std = adv_stats[1];
   const float eps = p.clip_eps, inv_n = p.inv_n;
   const float g_value_scale = p.vf_coef * inv_n, ent_scale = p.ent_coef * inv_n;
 
-  // accumulators that persist over the tile's chunks
-  const int j0 = (tid >> 4) * RW, k0 = (tid & 15) * RW;
-  float acc_w2[RW][RW];
+  // The elementwise passes: this thread keeps column ecol and the samples
+  // es0, es0 + SSTEP, ... of every chunk.
+  const int ecol = tid % H2, es0 = tid / H2;
+  // bf16, the activation products: this warp's tile is rows trow.. (16
+  // samples) by columns tcol.. (CW), of the tower whose first row of W2c is
+  // tk0; afterwards lane keeps column pcol, rows prow.. (RPL).
+  const int trow = (warp / 4) * 16, tcol = (warp % 4) * CW, tk0 = tcol < H ? 0 : H;
+  const int pcol = tcol + lane % CW, prow = trow + (lane / CW) * RPL;
+  // bf16, dW2c: this warp's NW2 fragments of its tower's block start at row
+  // wrow, column wcol (at hidden = 32 the blocks are 8 fragments for 16 warps)
+  const bool w2_warp = warp < 2 * WPT;
+  const int wrow = warp / WPT * H + (warp % WPT / 2) * 16;
+  const int wcol = warp / WPT * H + (warp % WPT % 2) * NW2 * 16;
+  // float32, the activation products: samples fs0.. (4) by columns fc0.. (CPT)
+  const int fs0 = warp * 4, fc0 = lane * CPT;
+  // float32, dW2c: rows fj0.. (4) by columns fk0.. (4) of this thread's tower
+  const bool w2_thread = tid < 2 * T2;
+  const int fj0 = tid / T2 * H + (tid % T2 / T) * 4, fk0 = tid / T2 * H + (tid % T) * 4;
+
+  // accumulators that persist over the chunks (the loss threads' sums and
+  // dWhc, dbhc are in shared memory); of the two for dW2c a mode uses one
+  AccFrag acc_w2[NW2];
+  float facc_w2[4][4];
+  if constexpr (BF) {
+    zero_frags(acc_w2);
+  } else {
 #pragma unroll
-  for (int i = 0; i < RW; ++i)
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int c = 0; c < RW; ++c) acc_w2[i][c] = 0.0f;
-  float acc_b1 = 0.0f, acc_b2 = 0.0f, acc_bh = 0.0f;
+      for (int c = 0; c < 4; ++c) facc_w2[i][c] = 0.0f;
+  }
+  float acc_b1 = 0.0f, acc_b2 = 0.0f;
   float acc_w1[kMaxD] = {0.0f, 0.0f, 0.0f, 0.0f};
-  float met[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  float dls[kMaxGaussA] = {0.0f, 0.0f, 0.0f};
-  const int s0 = warp * 4, c0 = lane * CPT;
+
+  // one packed element per thread: row tid / kChunk, sample tid % kChunk
+  const float* xsrc = data + (long long)(tid / kChunk) * N + base + tid % kChunk;
+  if (c_begin < c_end) sX[tid] = xsrc[(long long)c_begin * kChunk];
   __syncthreads();
 
-  for (int chunk = 0; chunk < p.tile / kChunk; ++chunk) {
-    const long long col0 = base + (long long)chunk * kChunk;
-    for (int i = tid; i < kRows * kChunk; i += kThreads)
-      sX[i] = data[(long long)(i / kChunk) * N + col0 + i % kChunk];
-    __syncthreads();
+  for (int chunk = c_begin; chunk < c_end; ++chunk) {
+    const float* x = sX + ((chunk - c_begin) & 1) * (kRows * kChunk);
+    float* x_next = sX + ((chunk - c_begin + 1) & 1) * (kRows * kChunk);
+    // the next chunk's element, in flight until the head phase stores it
+    float x_pre = 0.0f;
+    if (chunk + 1 < c_end) x_pre = xsrc[(long long)(chunk + 1) * kChunk];
 
     // h1 = tanh(W1c^T x + b1c)
-    for (int i = tid; i < kChunk * H2; i += kThreads) {
-      const int s = i / H2, j = i % H2;
+#pragma unroll 2
+    for (int e = 0; e < EPT; ++e) {
+      const int s = es0 + e * SSTEP;
       float z = 0.0f;
-      for (int d = 0; d < D; ++d) z = fmaf(sW1[d * H2 + j], sX[d * kChunk + s], z);
-      sH1[s * LD + j] = tanhf(z + sb1[j]);
+      for (int d = 0; d < D; ++d) z = fmaf(sW1[d * H2 + ecol], x[d * kChunk + s], z);
+      const float h = tanhf(z + sb1[ecol]);
+      sH1[s * LD + ecol] = h;
+      if constexpr (BF) bH1[s * LDB + ecol] = __float2bfloat16_rn(h);
     }
     __syncthreads();
 
     // h2 = tanh(W2c^T h1 + b2c)
-    {
+    if constexpr (BF) {
+      AccFrag acc[NF];
+      zero_frags(acc);
+      mma_tiles<wmma::row_major, wmma::row_major, NF, H / kMmaK>(
+          bH1 + trow * LDB + tk0, LDB, kMmaK, bW2 + tk0 * LDB + tcol, LDB, kMmaK * LDB, 16, acc);
+#pragma unroll
+      for (int f = 0; f < NF; ++f)
+        wmma::store_matrix_sync(sB + trow * LD + tcol + f * 16, acc[f], LD, wmma::mem_row_major);
+      __syncwarp();
+#pragma unroll 2
+      for (int r = 0; r < RPL; ++r) {
+        float* h = sB + (prow + r) * LD + pcol;
+        *h = tanhf(*h + sb2[pcol]);
+      }
+    } else {
       float acc[4][CPT];
-      chunk_product<H2, BF>(sH1, sW2, s0, c0, acc);
+      tower_product<H2>(sH1, fW2, LDT, fs0, fc0, acc);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int c = 0; c < CPT; ++c)
-          sB[(s0 + i) * LD + c0 + c] = tanhf(acc[i][c] + sb2[c0 + c]);
+          sB[(fs0 + i) * LD + fc0 + c] = tanhf(acc[i][c] + sb2[fc0 + c]);
     }
     __syncthreads();
 
-    // heads: out[s][a] = Whc[:, a] . h2[s] + bhc[a], one warp per (s, a)
-    for (int q = warp; q < kChunk * A1; q += kWarps) {
-      const int s = q / A1, a = q % A1;
-      float z = 0.0f;
-      for (int k = lane; k < H2; k += 32) z = fmaf(sWh[k * A1 + a], sB[s * LD + k], z);
-      z = warp_sum(z);
-      if (lane == 0) sOut[s * kMaxA1 + a] = z + sbh[a];
+    // heads: out[s][a] = Whc[:, a] . h2[s] + bhc[a] for the warp's kSPW
+    // samples, 8 lanes a sample
+    if (chunk + 1 < c_end) x_next[tid] = x_pre;
+    {
+      const int s = warp * kSPW + lane / 8, kk = lane % 8;
+      for (int a = 0; a < A1; ++a) {
+        float z = 0.0f;
+#pragma unroll 4
+        for (int k = kk; k < H2; k += 8) z = fmaf(sWhT[a * H2 + k], sB[s * LD + k], z);
+        z += __shfl_xor_sync(0xffffffffu, z, 4);
+        z += __shfl_xor_sync(0xffffffffu, z, 2);
+        z += __shfl_xor_sync(0xffffffffu, z, 1);
+        if (kk == 0) sOut[s * kMaxA1 + a] = z + sbh[a];
+      }
     }
-    __syncthreads();
+    __syncwarp();
 
-    // per-sample loss and the gradient at the head's outputs (warp 0)
-    if (warp == 0) {
-      const int s = lane;
-      const float* x = sX + s;
-      const float old_logp = x[(D + na) * kChunk], old_v = x[(D + na + 1) * kChunk];
-      const float adv = x[(D + na + 2) * kChunk], ret = x[(D + na + 3) * kChunk];
+    // per-sample loss and the gradient at the head's outputs (kSPW lanes a warp)
+    if (lane < kSPW) {
+      const int s = warp * kSPW + lane;
+      const float* xs = x + s;
+      const float old_logp = xs[(D + na) * kChunk], old_v = xs[(D + na + 1) * kChunk];
+      const float adv = xs[(D + na + 2) * kChunk], ret = xs[(D + na + 3) * kChunk];
       const float* out = sOut + s * kMaxA1;
       const float value = out[A];
       float* gtop = sGtop + s * kMaxA1;
-      float logp = 0.0f, ent = 0.0f;
-      float diff[kMaxGaussA], inv_var[kMaxGaussA];
-      float logp_all[kMaxA], probs[kMaxA];
+      float* m = sMet + s * kMet;  // this thread's sums: 4 metrics, then dlog_std
+      float logp = 0.0f, ent = 0.0f, mx = 0.0f, lse = 0.0f;
       if (gauss) {
-#pragma unroll
-        for (int a = 0; a < kMaxGaussA; ++a) {
-          if (a < A) {
-            inv_var[a] = expf(-2.0f * sls[a]);
-            diff[a] = x[(D + a) * kChunk] - out[a];
-            logp += -0.5f * (diff[a] * diff[a] * inv_var[a] + 2.0f * sls[a] + LOG_2PI_F);
-          }
+        for (int a = 0; a < A; ++a) {
+          const float diff = xs[(D + a) * kChunk] - out[a];
+          logp += -0.5f * (diff * diff * siv[a] + 2.0f * sls[a] + LOG_2PI_F);
         }
       } else {
-        float mx = out[0];
+        mx = out[0];
         for (int a = 1; a < A; ++a) mx = fmaxf(mx, out[a]);
         float se = 0.0f;
-#pragma unroll
-        for (int a = 0; a < kMaxA; ++a)
-          if (a < A) se += expf(out[a] - mx);
-        const float lse = logf(se);
-        const float act = x[D * kChunk];
-#pragma unroll
-        for (int a = 0; a < kMaxA; ++a) {
-          if (a < A) {
-            logp_all[a] = (out[a] - mx) - lse;
-            probs[a] = expf(logp_all[a]);
-            if ((float)a == act) logp += logp_all[a];
-            ent -= probs[a] * logp_all[a];
-          }
+        for (int a = 0; a < A; ++a) se += expf(out[a] - mx);
+        lse = logf(se);
+        const float act = xs[D * kChunk];
+        for (int a = 0; a < A; ++a) {
+          const float logp_a = (out[a] - mx) - lse;
+          if ((float)a == act) logp += logp_a;
+          ent -= expf(logp_a) * logp_a;
         }
       }
       const float logr = logp - old_logp;
@@ -261,136 +437,191 @@ __global__ void __launch_bounds__(kThreads, 1)
       const bool inside_v = dv > -eps && dv < eps;
       const float g_value =
           (e1 * e1 >= e2 * e2 ? e1 : (inside_v ? e2 : 0.0f)) * g_value_scale;
-      met[0] -= fminf(u1, u2);
-      met[1] += 0.5f * fmaxf(e1 * e1, e2 * e2);
-      met[2] += ratio - 1.0f - logr;
-      met[3] += gauss ? value : ent;
+      m[0] -= fminf(u1, u2);
+      m[1] += 0.5f * fmaxf(e1 * e1, e2 * e2);
+      m[2] += ratio - 1.0f - logr;
+      m[3] += gauss ? value : ent;
       if (gauss) {
-#pragma unroll
-        for (int a = 0; a < kMaxGaussA; ++a) {
-          if (a < A) {
-            gtop[a] = g_logp * diff[a] * inv_var[a];
-            dls[a] += g_logp * (diff[a] * diff[a] * inv_var[a] - 1.0f);
-          }
+        for (int a = 0; a < A; ++a) {
+          const float diff = xs[(D + a) * kChunk] - out[a];
+          gtop[a] = g_logp * diff * siv[a];
+          m[4 + a] += g_logp * (diff * diff * siv[a] - 1.0f);
         }
       } else {
-        const float act = x[D * kChunk];
-#pragma unroll
-        for (int a = 0; a < kMaxA; ++a) {
-          if (a < A) {
-            const float onehot = (float)a == act ? 1.0f : 0.0f;
-            gtop[a] = g_logp * (onehot - probs[a]) + ent_scale * probs[a] * (logp_all[a] + ent);
-          }
+        const float act = xs[D * kChunk];
+        for (int a = 0; a < A; ++a) {
+          const float logp_a = (out[a] - mx) - lse;
+          const float prob = expf(logp_a);
+          const float onehot = (float)a == act ? 1.0f : 0.0f;
+          gtop[a] = g_logp * (onehot - prob) + ent_scale * prob * (logp_a + ent);
         }
       }
       gtop[A] = g_value;
     }
     __syncthreads();
 
-    // head backward: dWhc, dbhc and g_p2 = (Whc g_top) * (1 - h2^2)
-    for (int q = tid; q < H2 * A1; q += kThreads) {
-      const int k = q / A1, a = q % A1;
-      float z = 0.0f;
-      for (int s = 0; s < kChunk; ++s) z = fmaf(sB[s * LD + k], sGtop[s * kMaxA1 + a], z);
-      sdWh[q] += z;
+    // head backward: dWhc, dbhc and g_p2 = (Whc g_top) * (1 - h2^2), db2c
+    for (int it = tid; it < 2 * H2 * A1; it += kThreads) {
+      // entry (a, k) over one half of the chunk's samples, two sums in flight
+      const int half = it / (H2 * A1), q = it % (H2 * A1);
+      const int a = q / H2, k = q % H2;
+      const float* h2 = sB + half * (kChunk / 2) * LD + k;
+      const float* gt = sGtop + half * (kChunk / 2) * kMaxA1 + a;
+      float z0 = 0.0f, z1 = 0.0f;
+#pragma unroll 4
+      for (int s = 0; s < kChunk / 2; s += 2) {
+        z0 = fmaf(h2[s * LD], gt[s * kMaxA1], z0);
+        z1 = fmaf(h2[(s + 1) * LD], gt[(s + 1) * kMaxA1], z1);
+      }
+      sdWh[half * (kMaxA1 * H2) + q] += z0 + z1;
     }
-    if (tid < A1) {
+    if (tid >= kThreads - A1) {
+      const int a = kThreads - 1 - tid;
       float z = 0.0f;
-      for (int s = 0; s < kChunk; ++s) z += sGtop[s * kMaxA1 + tid];
-      acc_bh += z;
+      for (int s = 0; s < kChunk; ++s) z += sGtop[s * kMaxA1 + a];
+      sdbh[a] += z;
     }
-    for (int i = tid; i < kChunk * H2; i += kThreads) {
-      const int s = i / H2, k = i % H2;
-      float g = 0.0f;
-      for (int a = 0; a < A1; ++a) g = fmaf(sWh[k * A1 + a], sGtop[s * kMaxA1 + a], g);
-      const float h2 = sB[s * LD + k];
-      sG[s * LD + k] = g * (1.0f - h2 * h2);
+    float g2[EPT];
+#pragma unroll
+    for (int e = 0; e < EPT; ++e) g2[e] = 0.0f;
+    for (int a = 0; a < A1; ++a) {
+      const float wh = sWhT[a * H2 + ecol];
+#pragma unroll
+      for (int e = 0; e < EPT; ++e)
+        g2[e] = fmaf(wh, sGtop[(es0 + e * SSTEP) * kMaxA1 + a], g2[e]);
+    }
+#pragma unroll
+    for (int e = 0; e < EPT; ++e) {
+      const int s = es0 + e * SSTEP;
+      const float h2 = sB[s * LD + ecol];
+      const float g = g2[e] * (1.0f - h2 * h2);
+      sG[s * LD + ecol] = g;
+      if constexpr (BF) bG[s * LDB + ecol] = __float2bfloat16_rn(g);
+      acc_b2 += g;
     }
     __syncthreads();
 
-    // dW2c += h1^T g_p2 (registers), db2c, and g_p1 = (W2c g_p2) * (1 - h1^2)
-#pragma unroll 4
-    for (int s = 0; s < kChunk; ++s) {
-      float a[RW], b[RW];
-      load_row<RW>(sH1 + s * LD + j0, a);
-      load_row<RW>(sG + s * LD + k0, b);
+    // dW2c += h1^T g_p2, and g_p1 = (g_p2 W2c^T) * (1 - h1^2), which is
+    // consumed where it is made: db1c, dW1c
+    if constexpr (BF) {
+      if (w2_warp)
+        mma_tiles<wmma::col_major, wmma::row_major, NW2, kChunk / kMmaK>(
+            bH1 + wrow, LDB, kMmaK * LDB, bG + wcol, LDB, kMmaK * LDB, 16, acc_w2);
+      AccFrag acc[NF];
+      zero_frags(acc);
+      mma_tiles<wmma::row_major, wmma::col_major, NF, H / kMmaK>(
+          bG + trow * LDB + tk0, LDB, kMmaK, bW2 + tcol * LDB + tk0, LDB, kMmaK, 16 * LDB, acc);
 #pragma unroll
-      for (int i = 0; i < RW; ++i) {
-        const float ai = in_round<BF>(a[i]);
+      for (int f = 0; f < NF; ++f)
+        wmma::store_matrix_sync(sB + trow * LD + tcol + f * 16, acc[f], LD, wmma::mem_row_major);
+      __syncwarp();
 #pragma unroll
-        for (int c = 0; c < RW; ++c) acc_w2[i][c] = fmaf(ai, in_round<BF>(b[c]), acc_w2[i][c]);
+      for (int r = 0; r < RPL; ++r) {
+        const int s = prow + r;
+        const float h1 = sH1[s * LD + pcol];
+        const float g = sB[s * LD + pcol] * (1.0f - h1 * h1);
+        acc_b1 += g;
+#pragma unroll
+        for (int d = 0; d < kMaxD; ++d)
+          if (d < D) acc_w1[d] = fmaf(x[d * kChunk + s], g, acc_w1[d]);
       }
-    }
-    if (tid < H2) {
-      float z = 0.0f;
-      for (int s = 0; s < kChunk; ++s) z += sG[s * LD + tid];
-      acc_b2 += z;
-    }
-    {
+    } else {
+      if (w2_thread) {
+#pragma unroll 4
+        for (int s = 0; s < kChunk; ++s) {
+          float a[4], b[4];
+          load_row<4>(sH1 + s * LD + fj0, a);
+          load_row<4>(sG + s * LD + fk0, b);
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) facc_w2[i][c] = fmaf(a[i], b[c], facc_w2[i][c]);
+        }
+      }
       float acc[4][CPT];
-      chunk_product<H2, BF>(sG, sW2T, s0, c0, acc);
+      tower_product<H2>(sG, fW2T, LDT, fs0, fc0, acc);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int c = 0; c < CPT; ++c) {
-          const float h1 = sH1[(s0 + i) * LD + c0 + c];
-          sB[(s0 + i) * LD + c0 + c] = acc[i][c] * (1.0f - h1 * h1);
-        }
-    }
-    __syncthreads();
-
-    // input layer: db1c, dW1c
-    if (tid < H2) {
-      float zb = 0.0f, zw[kMaxD] = {0.0f, 0.0f, 0.0f, 0.0f};
-      for (int s = 0; s < kChunk; ++s) {
-        const float g = sB[s * LD + tid];
-        zb += g;
+        for (int c = 0; c < CPT; ++c) sB[(fs0 + i) * LD + fc0 + c] = acc[i][c];
+      __syncthreads();
+#pragma unroll
+      for (int e = 0; e < EPT; ++e) {
+        const int s = es0 + e * SSTEP;
+        const float h1 = sH1[s * LD + ecol];
+        const float g = sB[s * LD + ecol] * (1.0f - h1 * h1);
+        acc_b1 += g;
 #pragma unroll
         for (int d = 0; d < kMaxD; ++d)
-          if (d < D) zw[d] = fmaf(sX[d * kChunk + s], g, zw[d]);
+          if (d < D) acc_w1[d] = fmaf(x[d * kChunk + s], g, acc_w1[d]);
       }
-      acc_b1 += zb;
-#pragma unroll
-      for (int d = 0; d < kMaxD; ++d) acc_w1[d] += zw[d];
     }
     __syncthreads();
   }
 
-  // this tile's partial sums -> workspace row blockIdx.x
+  // This CTA's partial sums -> workspace row blockIdx.x. The activation
+  // buffers are free now: dW2c goes through them, and the per-thread column
+  // sums are added there in a fixed order.
+  float* stage = sH1;
+  if constexpr (BF) {
+    if (w2_warp) {
+#pragma unroll
+      for (int f = 0; f < NW2; ++f)
+        wmma::store_matrix_sync(stage + wrow * LD + wcol + f * 16, acc_w2[f], LD,
+                                wmma::mem_row_major);
+    }
+  } else if (w2_thread) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) stage[(fj0 + i) * LD + fk0 + c] = facc_w2[i][c];
+  }
+  stage[S::SCR_B2 + tid] = acc_b2;
+  {
+    // SSTEP threads shared each column of g_p1, as they did of g_p2
+    const int slot = BF ? ((warp / 4) * RG + lane / CW) * H2 + pcol : tid;
+    stage[S::SCR_B1 + slot] = acc_b1;
+#pragma unroll
+    for (int d = 0; d < kMaxD; ++d) stage[S::SCR_W1 + d * kThreads + slot] = acc_w1[d];
+  }
+  __syncthreads();
+
   float* out = ws + (long long)blockIdx.x * (L.P + 4);
-#pragma unroll
-  for (int i = 0; i < RW; ++i)
-#pragma unroll
-    for (int c = 0; c < RW; ++c) out[L.w2 + (j0 + i) * H2 + k0 + c] = acc_w2[i][c];
+  for (int i = tid; i < H2 * H2; i += kThreads)  // the cross-tower blocks are no parameters
+    out[L.w2 + i] = (i / H2 < H) == (i % H2 < H) ? stage[(i / H2) * LD + i % H2] : 0.0f;
   if (tid < H2) {
-    out[L.b1 + tid] = acc_b1;
-    out[L.b2 + tid] = acc_b2;
+    float zb1 = 0.0f, zb2 = 0.0f, zw[kMaxD] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int c = 0; c < SSTEP; ++c) {
+      zb1 += stage[S::SCR_B1 + c * H2 + tid];
+      zb2 += stage[S::SCR_B2 + c * H2 + tid];
+#pragma unroll
+      for (int d = 0; d < kMaxD; ++d) zw[d] += stage[S::SCR_W1 + d * kThreads + c * H2 + tid];
+    }
+    out[L.b1 + tid] = zb1;
+    out[L.b2 + tid] = zb2;
 #pragma unroll
     for (int d = 0; d < kMaxD; ++d)
-      if (d < D) out[L.w1 + d * H2 + tid] = acc_w1[d];
+      if (d < D) out[L.w1 + d * H2 + tid] = zw[d];
   }
-  for (int q = tid; q < H2 * A1; q += kThreads) out[L.wh + q] = sdWh[q];
-  if (tid < A1) out[L.bh + tid] = acc_bh;
-  if (warp == 0) {
-#pragma unroll
-    for (int m = 0; m < 4; ++m) met[m] = warp_sum(met[m]);
-#pragma unroll
-    for (int a = 0; a < kMaxGaussA; ++a) dls[a] = warp_sum(dls[a]);
-    if (lane == 0) {
-#pragma unroll
-      for (int m = 0; m < 4; ++m) out[L.P + m] = met[m];
-      if (gauss) {
-#pragma unroll
-        for (int a = 0; a < kMaxGaussA; ++a)
-          if (a < A) out[L.ls + a] = dls[a];
-      } else {
-        for (int a = 0; a < A; ++a) out[L.ls + a] = 0.0f;  // no log_std parameter
-      }
+  for (int q = tid; q < H2 * A1; q += kThreads) {
+    const int e = (q % A1) * H2 + q / A1;
+    out[L.wh + q] = sdWh[e] + sdWh[kMaxA1 * H2 + e];
+  }
+  if (tid >= kThreads - A1) out[L.bh + kThreads - 1 - tid] = sdbh[kThreads - 1 - tid];
+  if (warp == 1 && lane < 4 + A) {
+    // metric sums, then dlog_std (zero for the categorical head: no such parameter)
+    float z = 0.0f;
+    if (lane < 4 || gauss)
+      for (int s = 0; s < kChunk; ++s) z += sMet[s * kMet + lane];
+    if (lane < 4) {
+      out[L.P + lane] = z;
+    } else {
+      out[L.ls + lane - 4] = z;
     }
   }
 }
 
-// Stage 2: out[i] = sum over the G workspace rows, in row order.
+// Stage 2: out[i] = sum over the G workspace rows (kSplit per visited tile), in row order.
 __global__ void __launch_bounds__(256) reduce_rows(const float* __restrict__ ws, int G, int PW,
                                                    float* __restrict__ out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -472,12 +703,12 @@ static int check_params(const GradParams* p) {
 template <int H2, bool BF>
 static int launch_tiles(const GradParams* p, const float* data, const int* order,
                         const float* w, const float* adv, float* ws, cudaStream_t st) {
-  const cudaError_t e = cudaFuncSetAttribute(ppo_grad_tiles<H2, BF>,
-                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                             (int)Smem<H2>::BYTES);
+  constexpr size_t bytes = Smem<H2, BF>::BYTES;
+  const cudaError_t e = cudaFuncSetAttribute(
+      ppo_grad_tiles<H2, BF>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return (int)e;
-  ppo_grad_tiles<H2, BF><<<p->num_tiles, kThreads, Smem<H2>::BYTES, st>>>(*p, data, order, w,
-                                                                          adv, ws);
+  ppo_grad_tiles<H2, BF><<<p->num_tiles * kSplit, kThreads, bytes, st>>>(*p, data, order, w,
+                                                                         adv, ws);
   return (int)cudaGetLastError();
 }
 
@@ -495,7 +726,7 @@ static int grad_stages(const GradParams* p, const float* data, const int* order,
              : launch_tiles<64, false>(p, data, order, w, adv, ws, st);
   if (err) return err;
   const int PW = make_layout(p->obs_dim, 2 * p->hidden, p->act_dim).P + 4;
-  reduce_rows<<<(PW + 255) / 256, 256, 0, st>>>(ws, p->num_tiles, PW, gout);
+  reduce_rows<<<(PW + 255) / 256, 256, 0, st>>>(ws, p->num_tiles * kSplit, PW, gout);
   return (int)cudaGetLastError();
 }
 
@@ -519,6 +750,12 @@ extern "C" int ppo_grad_adam_launch(const GradParams* p, const AdamParams* q, co
 extern "C" int ppo_grad_params_size(void) { return (int)sizeof(GradParams); }
 
 extern "C" int ppo_adam_params_size(void) { return (int)sizeof(AdamParams); }
+
+// The grid plan the wrapper sizes the workspace by: samples per chunk, and
+// workspace rows per visited tile.
+extern "C" int ppo_grad_chunk(void) { return kChunk; }
+
+extern "C" int ppo_grad_split(void) { return kSplit; }
 
 extern "C" const char* cuda_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);

@@ -20,6 +20,29 @@ K3 then masks the cross-tower blocks, clips by global norm and applies Adam.
   through W2c, dW2c and the gradient into h1) take bf16-rounded inputs and
   sum in float32, in both kernel and twin.
 
+On the card the work is bound by operations, not bytes, and almost all of
+them are the three 2H-contractions. W2c's cross-tower blocks are zero and
+no parameter, so the kernel's stage 1 runs each product per tower (49 152
+FLOP against 32 bytes per sample at hidden 64, half the merged matrix's):
+on the tensor cores under ``compute="bfloat16"`` (``csrc/mma_tiles.cuh``,
+bf16 inputs, float32 sums), and as register-tiled float32 FMA under
+``compute="float32"``. The float32 mode uses no TF32: one pass keeps three
+digits, and the split product that `split3_matmul_reference` states (three
+TF32 passes of ``hi = tf32(a)`` and ``lo = tf32(a - hi)``) was measured on
+the H100 and not kept, because the tensor cores' accumulator rounds towards
+zero and the value tower's cancelling sums collect that bias (the kernel
+source's note on numerics has the numbers). Each visited tile is shared by
+`KERNEL_SPLIT` CTAs of 16 warps that walk chunks of `KERNEL_CHUNK` samples;
+every CTA writes one workspace row (`stage1_rows`), stage 2 sums the rows in
+index order (no float atomics: identical calls give identical bits), and
+K3's stage 3 clips and applies Adam in one CTA. What bounds the kernel
+beside the products is the float32 work around them: the tanh of both
+hidden layers, the head and the loss.
+
+The kernel takes merged weights whose cross-tower blocks of W2c are zero, as
+`merge_weights` builds them and K3's masked update keeps them, and traps on
+any other; the twins take any W2c.
+
 The advantage statistics ``adv_stats = (mu, 1/(std + 1e-8))`` arrive as a
 2-element tensor on the data's device, so a minibatch loop never syncs with
 the host; lr and the Adam bias corrections are host floats derived from the
@@ -53,7 +76,8 @@ ADAM_EPS = 1e-5
 KERNEL_HIDDEN = (32, 64)
 KERNEL_MAX_OBS_DIM = 4
 KERNEL_MAX_ACT_DIM = 16
-KERNEL_CHUNK = 32  # samples per chunk inside a tile
+KERNEL_CHUNK = 64  # samples per chunk inside a tile
+KERNEL_SPLIT = 2   # CTAs, and workspace rows, per visited tile
 
 _SOURCE = "ppo_update_kernel"
 
@@ -191,14 +215,19 @@ def _check(data, tile_order, merged, adv_stats, obs_dim, act_dim, tile, head, co
     if data.device.type == "cuda":
         if not all(x.is_contiguous() for x in (data, tile_order, adv_stats)):
             raise ValueError("data, tile_order and adv_stats must be contiguous")
-        if hidden not in KERNEL_HIDDEN:
-            raise ValueError(f"the CUDA kernel takes hidden in {KERNEL_HIDDEN}, not {hidden}")
-        if obs_dim > KERNEL_MAX_OBS_DIM or act_dim > KERNEL_MAX_ACT_DIM:
-            raise ValueError("the CUDA kernel takes obs_dim <= "
-                             f"{KERNEL_MAX_OBS_DIM} and act_dim <= {KERNEL_MAX_ACT_DIM}")
-        if tile % KERNEL_CHUNK:
-            raise ValueError(f"the CUDA kernel takes tiles that are multiples of {KERNEL_CHUNK}")
+        check_kernel_limits(hidden, obs_dim, act_dim, tile)
     return hidden
+
+
+def check_kernel_limits(hidden: int, obs_dim: int, act_dim: int, tile: int) -> None:
+    """Raise on sizes the CUDA kernel does not take (the twin takes any)."""
+    if hidden not in KERNEL_HIDDEN:
+        raise ValueError(f"the CUDA kernel takes hidden in {KERNEL_HIDDEN}, not {hidden}")
+    if obs_dim > KERNEL_MAX_OBS_DIM or act_dim > KERNEL_MAX_ACT_DIM:
+        raise ValueError("the CUDA kernel takes obs_dim <= "
+                         f"{KERNEL_MAX_OBS_DIM} and act_dim <= {KERNEL_MAX_ACT_DIM}")
+    if tile % KERNEL_CHUNK:
+        raise ValueError(f"the CUDA kernel takes tiles that are multiples of {KERNEL_CHUNK}")
 
 
 def _check_adam(data, tile_order, merged_w, merged_m, merged_v, adv_stats, obs_dim, act_dim,
@@ -314,15 +343,22 @@ def _grad_params(data, tile_order, hidden, clip_eps, vf_coef, ent_coef, obs_dim,
     )
 
 
+def stage1_rows(num_tiles: int) -> int:
+    """Rows of stage 1's workspace: one per CTA, `KERNEL_SPLIT` CTAs per
+    visited tile, each taking a contiguous share of the tile's chunks."""
+    return num_tiles * KERNEL_SPLIT
+
+
 def _launch(data, tile_order, w_flat, adv_stats, hidden, adam=None, **scal):
-    """Stage 1 (one CTA per visited tile -> partials), stage 2 (fixed-order
-    reduce) and, with ``adam = (AdamParams, m, v, w_out, m_out, v_out)``,
+    """Stage 1 (`KERNEL_SPLIT` CTAs per visited tile -> partials), stage 2
+    (fixed-order reduce) and, with ``adam = (AdamParams, m, v, w_out, m_out, v_out)``,
     stage 3 (clip + Adam into the outputs). Returns the reduced [P + 4]
     buffer: merged gradients, then the 4 metric sums. A tile index outside
     the data traps the kernel (checking it here would sync with the card)."""
     p = _grad_params(data, tile_order, hidden, **scal)
     n_par = w_flat.numel()
-    ws = torch.empty((tile_order.shape[0], n_par + 4), dtype=torch.float32, device=data.device)
+    ws = torch.empty((stage1_rows(tile_order.shape[0]), n_par + 4), dtype=torch.float32,
+                     device=data.device)
     gout = torch.empty((n_par + 4,), dtype=torch.float32, device=data.device)
     lib = library()
     ptr = lambda x: x.data_ptr()  # noqa: E731
@@ -352,6 +388,8 @@ def library() -> ctypes.CDLL:
         raise RuntimeError("struct GradParams and _GradParams disagree in size")
     if lib.ppo_adam_params_size() != ctypes.sizeof(_AdamParams):
         raise RuntimeError("struct AdamParams and _AdamParams disagree in size")
+    if (lib.ppo_grad_chunk(), lib.ppo_grad_split()) != (KERNEL_CHUNK, KERNEL_SPLIT):
+        raise RuntimeError("the kernel's chunk and split disagree with KERNEL_CHUNK, KERNEL_SPLIT")
     ptr = ctypes.c_void_p
     lib.ppo_grad_launch.argtypes = [ptr] * 8
     lib.ppo_grad_launch.restype = ctypes.c_int
@@ -364,6 +402,27 @@ def library() -> ctypes.CDLL:
 
 def _bf16_round(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).to(torch.float32)
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> the nearest TF32 value (10 mantissa bits), ties away from
+    zero, as ``cvt.rna.tf32.f32`` rounds: add half a TF32 ulp to the
+    magnitude's bits and clear the 13 low bits."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def split3_matmul_reference(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` as three TF32 passes would take a float32 product on the
+    tensor cores: each input split into ``hi = tf32(x)`` and
+    ``lo = tf32(x - hi)``, then ``(lo_a hi_b + hi_a lo_b) + hi_a hi_b`` with
+    float32 sums. Only ``lo_a lo_b`` (2^-22 relative) is dropped, so with
+    sums rounded to nearest it is as accurate as a float32 product; a single
+    pass is not. States the arithmetic that was measured for the float32 mode
+    (see the module note); nothing on the main path calls it."""
+    a_hi, b_hi = tf32_round(a), tf32_round(b)
+    a_lo, b_lo = tf32_round(a - a_hi), tf32_round(b - b_hi)
+    return (a_lo @ b_hi + a_hi @ b_lo) + a_hi @ b_hi
 
 
 def _grad_merged_reference(data, tile_order, merged, adv_stats, *, clip_eps, vf_coef,

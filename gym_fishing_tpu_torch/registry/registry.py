@@ -20,6 +20,7 @@ import torch
 
 from gym_fishing_tpu_torch.core.env import Env
 from gym_fishing_tpu_torch.core.types import EnvConfig, EnvParams
+from gym_fishing_tpu_torch.device import resolve
 
 _STATIC_KEYS = ("growth", "noise_form", "scheme", "n_actions")
 _PARAM_KEYS = tuple(f.name for f in dataclasses.fields(EnvParams))
@@ -44,8 +45,10 @@ def make(
 
     Static overrides (growth, noise_form, scheme, n_actions) rebuild the
     EnvConfig; everything else overrides EnvParams fields. Params are returned
-    as tensors of `dtype` on `device` (default: the CPU).
+    as tensors of `dtype` on `device` (default: the card; without one this
+    raises, and ``device="cpu"`` asks for the CPU).
     """
+    device = resolve(device)
     if env_id not in _REGISTRY:
         raise ValueError(f"unknown env id {env_id!r}; known: {registered_ids()}")
     config, params = _REGISTRY[env_id]

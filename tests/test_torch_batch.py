@@ -9,6 +9,7 @@ same x*, MSY harvest and actions.
 """
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -24,6 +25,10 @@ from gym_fishing_tpu.batch import batched_step as j_step
 from gym_fishing_tpu_torch.agents import policies as tpol
 from gym_fishing_tpu_torch.batch import batched_reset, batched_step, batched_step_xi, rollout
 from gym_fishing_tpu_torch.convert import batch_state_from_numpy, params_from_numpy
+
+# the port's entry points default to the card; these tests run on the CPU
+make = functools.partial(gtt.make, device="cpu")
+batch_state_from_numpy = functools.partial(batch_state_from_numpy, device="cpu")
 
 torch.set_num_threads(1)
 
@@ -54,7 +59,7 @@ def flat_state(bs):
 ])
 def test_batched_step_autoreset_matches_jax(env_id, overrides, dtype, atol):
     jenv, jp = gft.make(env_id, dtype=getattr(jnp, dtype), **overrides)
-    tenv, tp = gtt.make(env_id, dtype=getattr(torch, dtype), **overrides)
+    tenv, tp = make(env_id, dtype=getattr(torch, dtype), **overrides)
     jstate = j_reset(jenv, jp, B)
     tstate = batched_reset(tenv, tp, B)
     rng = np.random.default_rng(0)
@@ -86,7 +91,7 @@ def test_batched_step_resumes_from_converted_jax_state():
     """A JAX BatchState carried across with convert.batch_state_from_numpy
     steps on identically."""
     jenv, jp = gft.make("fishing-v1", dtype=jnp.float64, sigma=0.1, Tmax=5)
-    tenv, _ = gtt.make("fishing-v1", dtype=torch.float64, sigma=0.1, Tmax=5)
+    tenv, _ = make("fishing-v1", dtype=torch.float64, sigma=0.1, Tmax=5)
     tp = params_from_numpy(jax_fields(jp), torch.float64, "cpu")
     jstate = j_reset(jenv, jp, B)
     key = jax.random.key(2)
@@ -108,7 +113,7 @@ def test_batched_step_resumes_from_converted_jax_state():
 
 def test_batched_reset_matches_jax():
     jenv, jp = gft.make("fishing-v0", dtype=jnp.float64)
-    tenv, tp = gtt.make("fishing-v0", dtype=torch.float64)
+    tenv, tp = make("fishing-v0", dtype=torch.float64)
     js, ts = j_reset(jenv, jp, 5), batched_reset(tenv, tp, 5)
     got = flat_state(ts)
     for name, ref in flat_state(js).items():
@@ -117,7 +122,7 @@ def test_batched_reset_matches_jax():
 
 
 def test_batched_step_xi_equals_independent_singles():
-    env, params = gtt.make("fishing-v1", dtype=torch.float64, sigma=0.1)
+    env, params = make("fishing-v1", dtype=torch.float64, sigma=0.1)
     rng = np.random.default_rng(0)
     state = batched_reset(env, params, 16).env
     state = state.replace(stock=torch.tensor(rng.uniform(0.2, 1.5, 16)))
@@ -133,7 +138,7 @@ def test_batched_step_xi_equals_independent_singles():
 
 
 def test_autoreset_resets_done_instances():
-    env, params = gtt.make("fishing-v1", dtype=torch.float64, sigma=0.0, Tmax=5)
+    env, params = make("fishing-v1", dtype=torch.float64, sigma=0.0, Tmax=5)
     state = batched_reset(env, params, 4)
     actions = torch.tensor([[1.0], [-1.0], [-1.0], [-1.0]], dtype=torch.float64)
     state, ts = batched_step(env, params, state, actions, torch.zeros(2, 4, dtype=torch.float64))
@@ -149,7 +154,7 @@ def test_autoreset_resets_done_instances():
 
 
 def test_rollout_shapes_and_generator_determinism():
-    env, params = gtt.make("fishing-v2", sigma=0.05, Tmax=7)  # logistic + obs noise
+    env, params = make("fishing-v2", sigma=0.05, Tmax=7)  # logistic + obs noise
     T = 10
 
     def policy(obs, gen):  # quota <= 0.05: sustainable, no collapse
@@ -177,7 +182,7 @@ def test_rollout_shapes_and_generator_determinism():
                                     "fishing-myers-v1", "fishing-may-v1", "fishing-mixture-v0"])
 def test_policies_match_jax(env_id, dtype):
     jenv, jp = gft.make(env_id, dtype=getattr(jnp, dtype))
-    tenv, tp = gtt.make(env_id, dtype=getattr(torch, dtype))
+    tenv, tp = make(env_id, dtype=getattr(torch, dtype))
     # The grid and its argmax agree exactly; the surplus there goes through
     # each library's exp/pow, which may differ in the last ulp.
     rtol = 1e-12 if dtype == "float64" else 1e-6
@@ -201,13 +206,13 @@ def test_policies_match_jax(env_id, dtype):
 
 
 def test_logistic_msy_is_closed_form():
-    env, params = gtt.make("fishing-v1", dtype=torch.float64)
+    env, params = make("fishing-v1", dtype=torch.float64)
     x_star, msy_h = tpol.surplus_production_msy(env, params)
     assert float(x_star) == 0.5 and float(msy_h) == pytest.approx(0.075, abs=1e-12)
 
 
 def test_user_action_prompts_for_a_quota(monkeypatch):
-    env, params = gtt.make("fishing-v1")
+    env, params = make("fishing-v1")
     monkeypatch.setattr("builtins.input", lambda prompt: "0.25")
     action, state = tpol.user_action(env, params).predict(np.zeros((1, 1), np.float32))
     assert state is None

@@ -12,7 +12,12 @@ Tolerances, K1: float32 with a different libm, FMA contraction and
 operation order, so values agree to rounding (stock atol 1e-5, sums over 64
 steps atol 1e-4) while t and ep_count agree exactly. K2/K3: each gradient
 buffer within 2e-4 * max|twin| + 2e-6 and the metric sums within rtol 2e-4,
-since float32 sums over thousands of samples run in another order. K4: the
+since float32 sums over thousands of samples run in another order; under
+compute="float32" the kernel's split-TF32 products must also keep float32
+accuracy: against the twin evaluated in float64, each buffer's error is at
+most 4x the float32 twin's own (or two float32 ulps of the buffer's largest
+entry, where the twin happens to land closer than that: several buffers are
+single sums that cancel over the samples). K4: the
 packed rows and end states within 1e-4 (rounding carried through the
 dependent steps and the GAE pass), t and ep_len exactly, and under bfloat16
 within 5e-3 (a mean of 1e-4); an env that a rounding difference carries
@@ -61,7 +66,7 @@ def _assert_close(ker, ref):
     ("fishing-may-obs-v1", "escapement", 0.4),
 ])
 def test_kernel_matches_twin(cuda, env_id, policy, param, source):
-    env, params = gtt.make(env_id, sigma=0.1, Tmax=13)
+    env, params = gtt.make(env_id, sigma=0.1, Tmax=13, device="cpu")  # the kernel reads them
     cfg = env.config
     obs_noise = float(params.sigma_m) > 0
     n, T = 4096 + 37, 64
@@ -141,6 +146,35 @@ def test_ppo_grad_kernel_matches_twin(cuda, head, ent_coef, hidden, compute):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("hidden", [32, 64])
+@pytest.mark.parametrize("head", ["gaussian", "categorical"])
+def test_ppo_grad_kernel_float32_keeps_float32_accuracy(cuda, head, hidden):
+    """The float32 mode stays float32-accurate: a TF32 pass in any of its
+    products would keep three digits and fail this bar by ~1000x, and even
+    the tensor cores' truncating accumulator fails it in the value tower."""
+    weights, data, a = _ppo_case(head, 64 * 256, hidden, seed=6)
+    data, weights = data.to(cuda), tuple(w.to(cuda) for w in weights)
+    order = torch.arange(0, 64, dtype=torch.int32, device=cuda)
+    adv_stats = torch.tensor([0.05, 1.1], device=cuda)
+    kw = dict(clip_eps=0.2, vf_coef=0.5, ent_coef=0.01, obs_dim=1, act_dim=a, tile=256,
+              head=head, compute="float32")
+    g, _ = uk.fused_minibatch_grad(data, order, weights, adv_stats, **kw)
+    twin, _ = uk.fused_minibatch_grad_reference(data, order, weights, adv_stats, **kw)
+    exact, _ = uk._grad_merged_reference(
+        data.double(), order, tuple(x.double() for x in uk.merge_weights(weights)),
+        adv_stats.double(), **kw)
+    torch.cuda.synchronize()
+    over = {}
+    for name, got, tw, ex in zip(uk.PPOGrads._fields, g, twin,
+                                 uk.unmerge_weights(exact, hidden, a)):
+        err, err_twin = float((got - ex).abs().max()), float((tw - ex).abs().max())
+        ulp = float(ex.abs().max()) * 2.0 ** -23
+        if not err <= 4 * max(err_twin, 2 * ulp):
+            over[name] = (err, err_twin, ulp)
+    assert not over, over
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("max_grad_norm", [1e6, 1e-3])
 @pytest.mark.parametrize("head", ["gaussian", "categorical"])
 def test_ppo_grad_adam_kernel_matches_twin(cuda, head, max_grad_norm):
@@ -194,7 +228,7 @@ def test_ppo_update_kernels_are_deterministic(cuda, adam):
 def _k4_case(env_id, hidden, source, dev, B=2048 + 5, T=32, **overrides):
     """Jittered random weights, desynchronised start states and either noise
     planes or a seed: (positional args, keyword args) of policy_rollout."""
-    env, params = gtt.make(env_id, **overrides)
+    env, params = gtt.make(env_id, device="cpu", **overrides)  # the kernel reads them
     cfg = env.config
     gauss = cfg.scheme == "continuous"
     a = 1 if gauss else cfg.n_actions

@@ -10,6 +10,7 @@ decode/encode tie rules and the spaces.
 """
 
 import dataclasses
+import functools
 import zlib
 
 import jax
@@ -25,6 +26,9 @@ from gym_fishing_tpu.oracle import oracle as orc
 from gym_fishing_tpu.spaces import scaling as jscaling
 from gym_fishing_tpu_torch.spaces import Box, Discrete
 from gym_fishing_tpu_torch.spaces import scaling as tscaling
+
+# the port's entry points default to the card; these tests run on the CPU
+make = functools.partial(gtt.make, device="cpu")
 
 torch.set_num_threads(1)
 
@@ -147,7 +151,7 @@ def test_collapse_penalty_exactness():
 
 
 def test_seeded_step_is_deterministic_per_generator():
-    env, params = gtt.make("fishing-may-obs-v1", dtype=torch.float64)
+    env, params = make("fishing-may-obs-v1", dtype=torch.float64)
     state = env.reset(params)
     a = torch.tensor([-0.5], dtype=torch.float64)
     s1, t1 = env.step(params, state, a, torch.Generator().manual_seed(3))
@@ -168,7 +172,7 @@ def test_registry_ids_match_jax():
 @pytest.mark.parametrize("env_id", gft.registered_ids())
 def test_registry_defaults_match_jax(env_id):
     jenv, jparams = gft.make(env_id, dtype=jnp.float64)
-    tenv, tparams = gtt.make(env_id, dtype=torch.float64)
+    tenv, tparams = make(env_id, dtype=torch.float64)
     assert dataclasses.asdict(tenv.config) == dataclasses.asdict(jenv.config)
     for f in dataclasses.fields(jparams):
         jv, tv = np.asarray(getattr(jparams, f.name)), getattr(tparams, f.name)
@@ -185,7 +189,7 @@ def test_registry_defaults_match_jax(env_id):
 ])
 def test_make_overrides_match_jax(overrides):
     jenv, jparams = gft.make("fishing-v0", dtype=jnp.float32, **overrides)
-    tenv, tparams = gtt.make("fishing-v0", **overrides)
+    tenv, tparams = make("fishing-v0", **overrides)
     assert dataclasses.asdict(tenv.config) == dataclasses.asdict(jenv.config)
     for f in dataclasses.fields(jparams):
         assert float(getattr(tparams, f.name)) == float(np.asarray(getattr(jparams, f.name)))
@@ -193,9 +197,9 @@ def test_make_overrides_match_jax(overrides):
 
 def test_make_rejects_unknown():
     with pytest.raises(TypeError, match="unknown override"):
-        gtt.make("fishing-v1", bogus=1.0)
+        make("fishing-v1", bogus=1.0)
     with pytest.raises(ValueError, match="unknown env id"):
-        gtt.make("fishing-v3")
+        make("fishing-v3")
     with pytest.raises(ValueError, match="already registered"):
         gtt.register("fishing-v1", gtt.EnvConfig())
 
@@ -215,7 +219,7 @@ def test_proportional_encode_rounds_half_to_even_like_jax(ratio):
     """quota * n / K at a tie rounds to the even action on both sides."""
     n = 8
     jenv, jp = gft.make("fishing-v0", dtype=jnp.float64, n_actions=n)
-    tenv, tp = gtt.make("fishing-v0", dtype=torch.float64, n_actions=n)
+    tenv, tp = make("fishing-v0", dtype=torch.float64, n_actions=n)
     q = ratio / n  # K = 1
     ja = jscaling.encode_action(jenv.config, jp, jnp.float64(0.1), jnp.float64(q))
     ta = tscaling.encode_action(tenv.config, tp, torch.tensor(0.1, dtype=torch.float64),
@@ -229,7 +233,7 @@ def test_relative_encode_keeps_first_index_on_ties_like_jax(quota, expected):
     """h = 1.25 gives candidates 1.25, 1.5, 1.0 exactly; 1.375 and 1.125 are
     exact ties with candidate 0, which wins on both sides."""
     jenv, jp = gft.make("fishing-v0", dtype=jnp.float64)
-    tenv, tp = gtt.make("fishing-v0", dtype=torch.float64)
+    tenv, tp = make("fishing-v0", dtype=torch.float64)
     ja = jscaling.encode_action(jenv.config, jp, jnp.asarray([1.25]), jnp.asarray([quota]))
     ta = tscaling.encode_action(tenv.config, tp, torch.tensor([1.25], dtype=torch.float64),
                                 torch.tensor([quota], dtype=torch.float64))
@@ -239,7 +243,7 @@ def test_relative_encode_keeps_first_index_on_ties_like_jax(quota, expected):
 @pytest.mark.parametrize("env_id", ["fishing-v0", "fishing-v1"])
 def test_env_utilities_match_jax(env_id):
     jenv, jp = gft.make(env_id, dtype=jnp.float64)
-    tenv, tp = gtt.make(env_id, dtype=torch.float64)
+    tenv, tp = make(env_id, dtype=torch.float64)
     stocks = np.linspace(0.0, 2.5, 11)
     jstate = jenv.reset(jp).replace(stock=jnp.asarray(stocks),
                                     harvest=jnp.full(11, 0.05))
@@ -259,14 +263,14 @@ def test_env_utilities_match_jax(env_id):
 
 
 def test_spaces():
-    tenv, _ = gtt.make("fishing-v1")
+    tenv, _ = make("fishing-v1")
     g = torch.Generator().manual_seed(0)
     box = tenv.action_space
     assert isinstance(box, Box) and tenv.observation_space == Box(-1.0, 1.0, (1,))
     for _ in range(20):
         x = box.sample(g)
         assert x.shape == (1,) and x.dtype == torch.float32 and box.contains(x.numpy())
-    disc = gtt.make("fishing-v0")[0].action_space
+    disc = make("fishing-v0")[0].action_space
     assert disc == Discrete(3)
     draws = {int(disc.sample(g)) for _ in range(60)}
     assert draws == {0, 1, 2} and disc.contains(2) and not disc.contains(3)

@@ -25,6 +25,7 @@ tests/test_torch_cuda.py and chip_smoke.py.
 """
 
 import dataclasses
+import functools
 import math
 import shutil
 
@@ -51,6 +52,13 @@ from gym_fishing_tpu_torch.convert import (
 from gym_fishing_tpu_torch.kernels import _build
 from gym_fishing_tpu_torch.kernels import policy_rollout_kernel as pk
 from gym_fishing_tpu_torch.kernels.ppo_update_kernel import merge_weights
+
+# the port's entry points default to the card; these tests run on the CPU
+make = functools.partial(gtt.make, device="cpu")
+make_train_state = functools.partial(ppo.make_train_state, device="cpu")
+train = functools.partial(ppo.train, device="cpu")
+actor_critic_from_numpy = functools.partial(actor_critic_from_numpy, device="cpu")
+batch_state_from_numpy = functools.partial(batch_state_from_numpy, device="cpu")
 
 torch.set_num_threads(1)
 
@@ -121,7 +129,7 @@ def test_twin_matches_jax_kernel_z0(env_id, overrides, fold):
     jroll, jnext = jfused.fused_rollout_collect(jenv, jparams, jcfg, jts, jb,
                                                 jax.random.key(0), interpret=True)
 
-    env, _ = gtt.make(env_id, **overrides)
+    env, _ = make(env_id, **overrides)
     params = _port_params(jparams)
     cfg = ppo.PPOConfig(**dataclasses.asdict(jcfg))
     ts = ppo.TrainState(model=actor_critic_from_numpy(_np(jts.params)), m={}, v={})
@@ -150,9 +158,9 @@ def test_twin_matches_jax_kernel_z0(env_id, overrides, fold):
 
 
 def _plain_case(env_id, fold, B=96, T=24):
-    env, params = gtt.make(env_id, sigma=0.1, Tmax=10)
+    env, params = make(env_id, sigma=0.1, Tmax=10)
     cfg = ppo.PPOConfig(num_envs=B, num_steps=T, hidden=32, rollout_fold_obs=fold)
-    ts = ppo.make_train_state(env, cfg, torch.Generator().manual_seed(3))
+    ts = make_train_state(env, cfg, torch.Generator().manual_seed(3))
     rng = np.random.default_rng(5)
     with torch.no_grad():
         for p in ts.model.parameters():
@@ -196,9 +204,9 @@ def test_twin_matches_plain_rollout_path(env_id, fold):
 
 
 def _seeded(env_id, B=4096, T=8, seed=11, offset=0, fold=False):
-    env, params = gtt.make(env_id, sigma=0.1)
+    env, params = make(env_id, sigma=0.1)
     cfg = ppo.PPOConfig(num_envs=B, num_steps=T, hidden=32)
-    ts = ppo.make_train_state(env, cfg, torch.Generator().manual_seed(4))
+    ts = make_train_state(env, cfg, torch.Generator().manual_seed(4))
     head = "gaussian" if env.config.scheme == "continuous" else "categorical"
     merged = merge_weights(ppo_fused.kernel_weights(ts.params(), head))
     bstate = batched_reset(env, params, B)
@@ -279,7 +287,7 @@ def _full_step_pair(head, form):
     tile = next(t for t in (2048, 1024, 512, 256, 128) if (n // cfg.num_minibatches) % t == 0)
     perms = [torch.from_numpy(np.array(jax.random.permutation(k, n // tile)))
              for k in jax.random.split(k_perm, cfg.epochs)]
-    env, _ = gtt.make(env_id, sigma=0.1, Tmax=10)
+    env, _ = make(env_id, sigma=0.1, Tmax=10)
     ts, _, met = ppo.train_step(
         env, _port_params(jparams), ppo.PPOConfig(**dataclasses.asdict(cfg)), _port_state(ts0),
         _port_bstate(jb), perms=perms,
@@ -296,11 +304,11 @@ def test_full_train_step_matches_jax(head, form):
 def test_full_matches_update_form_from_the_same_draws():
     """full + fused_adam ≡ update + fused_adam after one step at 1 epoch x 1
     minibatch, the rollout fed the same planes."""
-    env, params = gtt.make("fishing-v1", sigma=0.1, Tmax=10)
+    env, params = make("fishing-v1", sigma=0.1, Tmax=10)
     B, T = 128, 16
     base = ppo.PPOConfig(num_envs=B, num_steps=T, epochs=1, num_minibatches=1, hidden=32,
                          fused_update=True, fused_adam=True, rollout_fold_obs=False)
-    ts0 = ppo.make_train_state(env, base, torch.Generator().manual_seed(2))
+    ts0 = make_train_state(env, base, torch.Generator().manual_seed(2))
     rng = np.random.default_rng(8)
     act = torch.from_numpy(rng.standard_normal((T, B, 1)).astype(np.float32))
     env_n = torch.from_numpy(rng.standard_normal((T, 2, B)).astype(np.float32))
@@ -323,11 +331,11 @@ def test_full_matches_update_form_from_the_same_draws():
     ("fishing-v1", {}), ("fishing-v0", dict(ent_coef=0.01)), ("fishing-mixture-v1", {}),
 ])
 def test_full_train_step_is_finite(env_id, overrides, adam):
-    env, params = gtt.make(env_id, sigma=0.05, model_idx=1) if "mixture" in env_id else (
-        gtt.make(env_id, sigma=0.05))
+    env, params = make(env_id, sigma=0.05, model_idx=1) if "mixture" in env_id else (
+        make(env_id, sigma=0.05))
     cfg = ppo.PPOConfig(num_envs=128, num_steps=16, epochs=2, num_minibatches=2, hidden=32,
                         fused_update=True, fused_rollout=True, fused_adam=adam, **overrides)
-    ts = ppo.make_train_state(env, cfg, torch.Generator().manual_seed(0))
+    ts = make_train_state(env, cfg, torch.Generator().manual_seed(0))
     bstate = batched_reset(env, params, cfg.num_envs)
     gen = torch.Generator().manual_seed(1)
     for _ in range(2):
@@ -338,17 +346,17 @@ def test_full_train_step_is_finite(env_id, overrides, adam):
 
 
 def test_train_runs_the_full_form():
-    env, _ = gtt.make("fishing-v1", sigma=0.05)
+    env, _ = make("fishing-v1", sigma=0.05)
     cfg = ppo.PPOConfig(num_envs=128, num_steps=16, epochs=2, num_minibatches=2, hidden=32,
                         fused_update=True, fused_rollout=True, fused_adam=True)
-    ts, hist = ppo.train(env, cfg, seed=2, iterations=2)
+    ts, hist = train(env, cfg, seed=2, iterations=2)
     assert len(hist) == 2 and all(math.isfinite(h["loss"]) for h in hist)
     assert ts.count == 2 * cfg.epochs * cfg.num_minibatches
 
 
 def test_fused_rollout_refusals():
-    env, params = gtt.make("fishing-v1")
-    ts = ppo.make_train_state(env, ppo.PPOConfig(hidden=32), torch.Generator().manual_seed(0))
+    env, params = make("fishing-v1")
+    ts = make_train_state(env, ppo.PPOConfig(hidden=32), torch.Generator().manual_seed(0))
     bstate = batched_reset(env, params, 16)
     cases = [
         (ppo.PPOConfig(num_envs=16, num_steps=4, fused_rollout=True), NotImplementedError,
@@ -378,7 +386,7 @@ def test_rollout_seed_offset_advances_without_replay():
 
 
 def test_rollout_scalars_reads_the_params():
-    _, params = gtt.make("fishing-mixture-v1", model_idx=4, Tmax=30, sigma_m=0.2)
+    _, params = make("fishing-mixture-v1", model_idx=4, Tmax=30, sigma_m=0.2)
     s = ppo_fused.rollout_scalars(params, seed=2**64 - 1, offset=5)
     assert (s.Tmax, s.model_idx, s.seed, s.offset) == (30, 4, 2**64 - 1, 5)
     assert s.K == float(params.K) and s.sigma_m == pytest.approx(0.2)

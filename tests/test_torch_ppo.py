@@ -14,6 +14,7 @@ gradient's size, so parameters agree at rtol 2e-4 / atol 5e-6.
 """
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -35,6 +36,12 @@ from gym_fishing_tpu_torch.convert import (
     actor_critic_to_numpy,
     adam_state_from_numpy,
 )
+
+# the port's entry points default to the card; these tests run on the CPU
+make = functools.partial(gtt.make, device="cpu")
+make_train_state = functools.partial(ppo.make_train_state, device="cpu")
+train = functools.partial(ppo.train, device="cpu")
+actor_critic_from_numpy = functools.partial(actor_critic_from_numpy, device="cpu")
 
 torch.set_num_threads(1)
 
@@ -217,7 +224,7 @@ def test_collect_rollout_and_gae_match_jax(head):
         assert bool((jax.random.categorical(k, logits)
                      == jnp.argmax(logits + jax.random.gumbel(k, logits.shape), -1)).all())
 
-    env, params = gtt.make(env_id, sigma=0.1, Tmax=10)
+    env, params = make(env_id, sigma=0.1, Tmax=10)
     pcfg = ppo.PPOConfig(**dataclasses.asdict(cfg))
     model = actor_critic_from_numpy(_np(ts.params))
     _, _, traj, last = ppo.collect_rollout(env, params, pcfg, model,
@@ -262,7 +269,7 @@ def _step_pair(head, form, **overrides):
         size = n // next(t for t in (2048, 1024, 512, 256, 128) if mb % t == 0)
     perms = [torch.from_numpy(np.array(jax.random.permutation(k, size)))
              for k in jax.random.split(k_perm, cfg.epochs)]
-    env, params = gtt.make(env_id, sigma=0.1)
+    env, params = make(env_id, sigma=0.1)
     ts = _port_state(ts0)
     ts, _, met = ppo.train_step(env, params, ppo.PPOConfig(**dataclasses.asdict(cfg)), ts,
                                 batched_reset(env, params, cfg.num_envs), perms=perms,
@@ -290,8 +297,8 @@ def test_plain_train_step_matches_jax(head, anneal):
 
 
 def test_unported_options_raise():
-    env, params = gtt.make("fishing-v1")
-    ts = ppo.make_train_state(env, ppo.PPOConfig(hidden=32), torch.Generator().manual_seed(0))
+    env, params = make("fishing-v1")
+    ts = make_train_state(env, ppo.PPOConfig(hidden=32), torch.Generator().manual_seed(0))
     bstate = batched_reset(env, params, 16)
     for cfg, match in ((ppo.PPOConfig(num_envs=16, fused_update=True, fused_rollout=True,
                                       rollout_vector_gae=True), "vector_gae"),
@@ -306,10 +313,10 @@ def test_unported_options_raise():
 def test_train_step_is_deterministic(form):
     """Two identical train steps give identical bits (the CUDA kernels sum
     in a fixed order too: no float atomics)."""
-    env, params = gtt.make("fishing-v1", sigma=0.1)
+    env, params = make("fishing-v1", sigma=0.1)
     cfg = ppo.PPOConfig(num_envs=32, num_steps=16, epochs=2, num_minibatches=2, hidden=32,
                         fused_update=form != "off", fused_adam=form == "adam")
-    ts0 = ppo.make_train_state(env, cfg, torch.Generator().manual_seed(0))
+    ts0 = make_train_state(env, cfg, torch.Generator().manual_seed(0))
     outs = []
     for _ in range(2):
         ts, _, met = ppo.train_step(env, params, cfg, ts0.clone(),
@@ -325,10 +332,10 @@ def test_train_step_is_deterministic(form):
 
 @pytest.mark.parametrize("env_id", ["fishing-v1", "fishing-v0"])
 def test_train_and_policy(env_id):
-    env, params = gtt.make(env_id, sigma=0.05)
+    env, params = make(env_id, sigma=0.05)
     cfg = ppo.PPOConfig(num_envs=64, num_steps=32, epochs=2, num_minibatches=4, hidden=32,
                         fused_update=True, fused_adam=env_id == "fishing-v1")
-    ts, hist = ppo.train(env, cfg, seed=1, iterations=2, env_params=params)
+    ts, hist = train(env, cfg, seed=1, iterations=2, env_params=params)
     assert len(hist) == 2 and np.isfinite(hist[-1]["loss"])
     assert ts.count == ts.step == 2 * cfg.epochs * cfg.num_minibatches
     act, state = ppo.PPOPolicy(env, ts).predict(np.zeros((5, 1), np.float32))

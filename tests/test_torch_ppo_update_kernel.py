@@ -8,6 +8,7 @@ file's own bar) and whole epoch scans at rtol 1e-4 / atol 2e-6.
 """
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -27,6 +28,9 @@ from gym_fishing_tpu_torch.convert import (
 )
 from gym_fishing_tpu_torch.kernels import _build
 from gym_fishing_tpu_torch.kernels import ppo_update_kernel as uk
+
+# the port's entry points default to the card; these tests run on the CPU
+actor_critic_from_numpy = functools.partial(actor_critic_from_numpy, device="cpu")
 
 torch.set_num_threads(1)
 

@@ -18,6 +18,7 @@ tests/test_torch_cuda.py and chip_smoke.py.
 """
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -33,6 +34,9 @@ from gym_fishing_tpu_torch.batch import batched_reset, batched_step
 from gym_fishing_tpu_torch.convert import params_from_numpy
 from gym_fishing_tpu_torch.kernels import rollout_kernel as rk
 from gym_fishing_tpu_torch.spaces.scaling import encode_action
+
+# the port's entry points default to the card; these tests run on the CPU
+make = functools.partial(gtt.make, device="cpu")
 
 torch.set_num_threads(1)
 
@@ -276,7 +280,7 @@ def planes(seed, n, T):
                  ("allen", 0.3), ("myers", 2.0), ("may", 0.75), ("mixture", 0.3)]
 )
 def test_twin_matches_port_engine_with_noise_planes(growth, r, noise_form):
-    env, params = gtt.make("fishing-v1", sigma=0.1, r=r, growth=growth,
+    env, params = make("fishing-v1", sigma=0.1, r=r, growth=growth,
                            noise_form=noise_form, Tmax=13, model_idx=1)
     stock0 = uniform_stock(7)
     noise = planes(8, 1, 30)
@@ -303,7 +307,7 @@ def test_twin_matches_port_engine_with_noise_planes(growth, r, noise_form):
     ],
 )
 def test_twin_matches_port_engine_schemes_and_obs_noise(env_id, scheme, policy, param, overrides):
-    env, params = gtt.make(env_id, sigma=0.1, Tmax=11, **overrides)
+    env, params = make(env_id, sigma=0.1, Tmax=11, **overrides)
     assert env.config.scheme == scheme
     obs_noise = float(params.sigma_m) > 0
     quota_fn = {
@@ -329,7 +333,7 @@ def test_kernel_policy_reads_unclipped_stock_unlike_engine_obs():
     an obs clipped to [-1, 1], i.e. at most 2K of stock. Under myers at r=3
     (asymptote rK = 3) noise lifts the stock past 2K: exactly the envs that
     passed 2K part, the others agree."""
-    env, params = gtt.make("fishing-myers-v1", sigma=0.03, Tmax=50)
+    env, params = make("fishing-myers-v1", sigma=0.03, Tmax=50)
     assert float(params.r) == 3.0
     pol = escapement(env, params)
     noise = planes(12, 1, 6)
@@ -391,7 +395,7 @@ def test_twin_seeded_stream_is_the_documented_draw_order(obs_noise, T):
     """From a seed the twin uses Philox block (env, offset + d): without
     obs_noise its four normals feed four steps, with it the pairs (z, eta)
     feed two. Rebuilt as planes, the same stream gives the same rollout."""
-    env, params = gtt.make("fishing-v1", sigma=0.1, sigma_m=0.1, Tmax=5)
+    env, params = make("fishing-v1", sigma=0.1, sigma_m=0.1, Tmax=5)
     stock0 = uniform_stock(11)
     seed, offset = 2**40 + 3, 2**33 - 1
     idx = torch.arange(B, dtype=torch.int64)
@@ -409,7 +413,7 @@ def test_twin_seeded_stream_is_the_documented_draw_order(obs_noise, T):
 
 
 def test_chained_calls_draw_fresh_noise():
-    env, params = gtt.make("fishing-v1", sigma=0.1)
+    env, params = make("fishing-v1", sigma=0.1)
     stock = torch.full((B,), 0.75)
     t = torch.zeros(B, dtype=torch.int32)
     first = rk.rollout(stock, t, params, "escapement", 0.5, 10, seed=1, offset=0)
@@ -439,7 +443,7 @@ def test_chained_calls_draw_fresh_noise():
     ],
 )
 def test_wrapper_rejects_bad_arguments(change, message):
-    env, params = gtt.make("fishing-v1")
+    env, params = make("fishing-v1")
     args = dict(stock=torch.zeros(B), t=torch.zeros(B, dtype=torch.int32), params=params,
                 policy="escapement", policy_param=0.5, num_steps=10)
     args.update(change)
@@ -448,7 +452,7 @@ def test_wrapper_rejects_bad_arguments(change, message):
 
 
 def test_wrapper_accepts_ragged_batch_and_counts_no_cpu_launch():
-    env, params = gtt.make("fishing-v1")
+    env, params = make("fishing-v1")
     before = rk.launches
     out = rk.rollout(torch.full((37,), 0.75), torch.zeros(37, dtype=torch.int32), params,
                      "escapement", 0.5, 4, seed=5)

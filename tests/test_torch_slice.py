@@ -10,6 +10,7 @@
 """
 
 import dataclasses
+import functools
 import os
 import shutil
 import subprocess
@@ -28,6 +29,9 @@ from gym_fishing_tpu_torch.agents.policies import escapement
 from gym_fishing_tpu_torch.bench import measure
 from gym_fishing_tpu_torch.kernels import _build
 from gym_fishing_tpu_torch.kernels import rollout_kernel as rk
+
+# the port's entry points default to the card; these tests run on the CPU
+make = functools.partial(gtt.make, device="cpu")
 
 torch.set_num_threads(1)
 
@@ -49,7 +53,7 @@ def test_main_path_two_chained_rollouts_match_jax():
         stock, t, ep = out.stock, out.t, out.ep_ret
         jax_out.append(out)
 
-    env, params = gtt.make("fishing-v1")
+    env, params = make("fishing-v1")
     x_star = float(escapement(env, params).x_star)
     assert x_star == jx_star
     stock = torch.full((B,), float(params.init_state))
@@ -95,7 +99,7 @@ def test_cpu_wrapper_never_loads_the_library(monkeypatch):
         raise AssertionError(f"tried to build/load {name}")
 
     monkeypatch.setattr(_build, "load", refuse)
-    env, params = gtt.make("fishing-v1")
+    env, params = make("fishing-v1")
     before = rk.launches
     out = rk.rollout(torch.full((40,), 0.75), torch.zeros(40, dtype=torch.int32), params,
                      "escapement", 0.5, 8, seed=1)
@@ -142,7 +146,7 @@ def test_params_from_numpy_round_trips_jax_params():
     _, jp = gft.make("fishing-mixture-v1", dtype=jnp.float32, model_idx=4, Tmax=30)
     fields = {f.name: np.asarray(getattr(jp, f.name)) for f in dataclasses.fields(jp)}
     tp = params_from_numpy(fields, torch.float32, "cpu")
-    _, ref = gtt.make("fishing-mixture-v1", model_idx=4, Tmax=30)
+    _, ref = make("fishing-mixture-v1", model_idx=4, Tmax=30)
     for f in dataclasses.fields(tp):
         a, b = getattr(tp, f.name), getattr(ref, f.name)
         assert a.dtype == b.dtype and float(a) == float(b), f.name
