@@ -25,7 +25,9 @@ which raises on failure:
    of both;
 6. main path, engine tier: `measure(mode="engine")`;
 7. the PPO kernels' build (update kernels and policy rollout): seconds,
-   and ptxas registers, shared memory and spills;
+   ptxas registers, shared memory and spills, and the tensor-core
+   instructions (HMMA) in the policy rollout's machine code: some under
+   bfloat16, none under float32;
 8. K2 (fused minibatch gradient) ≡ its twin at full width: numpy-made
    packed data [8, 2^21], one minibatch of 128 random tiles of 2048, both
    heads (fishing-v1 Gaussian, fishing-v0 categorical with 3 actions),
@@ -44,14 +46,18 @@ which raises on failure:
     fishing-v1, relative fishing-v0, proportional with 8 actions,
     fishing-may-obs-v1 (observation noise) and the mixture, each with the
     obs fold on and off, in float32 and bfloat16, from numpy-made noise
-    planes and from a seed;
+    planes and from a seed; its time in both compute modes beside the least
+    time the card could take, and at B=8448 beside B=16384;
 12. K4 ≡ the port's plain rollout path (collect_rollout + compute_gae +
     _pack) on the same planes, Gaussian head;
 13. main path, fused-full training: train_step in the forms full (K4 + K2)
     and full + fused_adam (K4 + K3) with launch counting (one K4 launch per
     iteration); full + fused_adam ≡ update + fused_adam after one step at
     1 x 1 from the same planes; the learning agreement of off and full +
-    fused_adam over 20 iterations; ms per iteration and env-steps/s.
+    fused_adam over 20 iterations; ms per iteration and env-steps/s; then
+    full + fused_adam under compute_dtype="bfloat16": its launches and ms
+    per iteration, the same one-step comparison and the agreement with the
+    float32 plain form.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Any failure exits non-zero before either.
@@ -83,6 +89,7 @@ REWARD_ATOL = 1e-4  # sums over 64 steps
 SUM_ATOL_512 = 2e-3
 # PPO: the bench's buffer (16384 envs x 128 steps) and one minibatch of it
 B_PPO, T_PPO = 16384, 128
+B_K4_PART = 8448   # 264 x 32 envs
 N_PPO, TILE, MB_TILES = B_PPO * T_PPO, 2048, 128
 # K2/K3 vs twin: float32 sums over 2^18 samples in another order (per-chunk
 # partials, then per tile, then over 128 tiles, against one torch reduction),
@@ -97,6 +104,34 @@ F64_FACTOR, F64_FLOOR_ULPS = 4.0, 2.0
 # NVIDIA's data sheet for the H100 SXM, dense: float32 outside the tensor
 # cores, bf16 inside them (FLOP/s), device memory (bytes/s)
 PEAK = {"float32": 67e12, "bfloat16": 989e12, "bytes": 3.35e12}
+# Per SM and clock the card gives 128 float32 results, 64 of 32-bit integer
+# arithmetic and logic, 16 special-function results (rcp, rsqrt, sin, cos, lg2,
+# ex2), and its 4 schedulers start 128 lane-operations of all kinds together
+# (NVIDIA's table of arithmetic instruction throughput for compute capability
+# 9.0); 132 SMs at the data sheet's 1980 MHz, which is where PEAK's 67e12
+# comes from. The pipes work side by side, so operations of several kinds
+# take at least the longest of the pipes' times and of the schedulers' time
+# for all of them.
+SM_CLOCKS_PER_S = 132 * 1.98e9
+PER_SM_CLOCK = {"float32": 128, "int32": 64, "special": 16, "all": 128}
+# What K1's function needs per env and step on the main path's configuration
+# (fishing-v1: logistic, escapement, continuous, additive noise, no obs
+# noise), counted from the algorithm and not from any compilation of it:
+# - a quarter of a Philox4x32-10 block: per round two 32 x 32 -> 64-bit
+#   multiplies and two three-input xors, 40 integer operations a block (the
+#   key schedule is the same for every env and is not counted), 10 a step;
+# - one uniform (a shift and an or; one float32 subtract);
+# - half a Box-Muller pair: of a pair's lg2, rsqrt, sin and cos, 2 special
+#   results; of its five float32 multiplies (the two scalings, rad x cos,
+#   rad x sin, sqrt from rsqrt), 2.5;
+# - the step: quota and harvest (4 float32), r + drift x float(t) (one
+#   conversion on the integer pipe, one FMA), logistic growth with x/K taken
+#   as one multiply (4), the noise (2), the clamp at 0 and the collapse test
+#   (3), the reward with its penalty (5), the two running sums (2), the
+#   reset's selects and episode sum (3); t + 1, its compare, the or, the
+#   episode count and t's select (5 integer).
+K1_OPS = {"float32": 1 + 2.5 + 4 + 1 + 4 + 2 + 3 + 5 + 2 + 3, "int32": 10 + 2 + 1 + 5,
+          "special": 2}
 # fused vs plain params after one step at 1 epoch x 1 minibatch (the mirror
 # of tests/test_update_kernel.py's own bar), and the learning agreement of
 # scripts/validate_fused_training.py --agreement
@@ -113,6 +148,19 @@ STEP_RTOL, STEP_ATOL, AGREE_TOL = 5e-4, 1e-6, 0.25
 # misplaced for every sample would not meet.
 K4_ATOL, K4_STATS_RTOL = 1e-4, 1e-4
 K4_BF16_ATOL, K4_BF16_MEAN_ATOL, K4_BF16_STATS_RTOL = 5e-3, 1e-4, 1e-3
+# full + fused_adam against update + fused_adam after one step at 1 x 1 under
+# compute_dtype="bfloat16": the fused rollout rounds the inputs of its
+# products to bf16 and the plain rollout of the update form does not, so the
+# two minibatches differ by K4's bf16 bars above. Adam's first step moves
+# every parameter by nearly lr = 3e-4 times its gradient's sign, so the two
+# forms are held by the step each took (p - p0): on an NVIDIA H100 80GB HBM3
+# the steps differed by 8.39e-8 at most and 7.47e-9 in the mean, and the bars
+# leave a factor of ~20 over those two readings: 2e-6 (lr / 150) for every
+# parameter and 1e-7 for the mean. A sign that differs in one parameter
+# (2 lr = 6e-4) or a rollout whose bf16 rounding moves the gradients' ratios
+# does not meet them. A first Adam step does not see the gradient's scale:
+# phases 8 and 9 hold that.
+STEP_BF16_ATOL, STEP_BF16_MEAN_ATOL = 2e-6, 1e-7
 # An env leaves the twin's trajectory when a rounding difference carries it
 # across a discontinuity: a categorical draw whose u lies within rounding of
 # a CDF boundary, or a quota within rounding of the whole stock, which
@@ -150,14 +198,17 @@ def sm_clock_mhz():
 
 
 def cuda_ms(fn, reps):
-    """Device milliseconds per call of `fn`, from CUDA events."""
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
+    """Device milliseconds per call of `fn`: the median over `reps` calls, each
+    between its own pair of CUDA events, so that a pause of the host between
+    two calls (the host's cores are shared) is in no call's time."""
+    pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+             for _ in range(reps)]
+    for start, end in pairs:
+        start.record()
         out = fn()
-    end.record()
+        end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps, out
+    return float(np.median([start.elapsed_time(end) for start, end in pairs])), out
 
 
 def least_ms(ops_s, nbytes):
@@ -166,6 +217,13 @@ def least_ms(ops_s, nbytes):
     rate."""
     ops_ms, bytes_ms = ops_s * 1e3, nbytes / PEAK["bytes"] * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def pipes_s(ops):
+    """Least seconds for `ops`, {pipe of PER_SM_CLOCK: operations}: the pipes
+    overlap, so the longest pipe's time, or the schedulers' time for all of them."""
+    times = [n / (PER_SM_CLOCK[pipe] * SM_CLOCKS_PER_S) for pipe, n in ops.items()]
+    return max(*times, sum(ops.values()) / (PER_SM_CLOCK["all"] * SM_CLOCKS_PER_S))
 
 
 def update_bound(n, obs_dim, hidden, act_dim, compute):
@@ -180,12 +238,45 @@ def update_bound(n, obs_dim, hidden, act_dim, compute):
     return least_ms(products / PEAK[compute] + rest / PEAK["float32"], 4 * (8 * n + 2 * n_par))
 
 
-def rollout_bound(num_envs, num_steps, obs_dim, hidden, act_dim):
-    """K4: the merged forward per env and step in float32 (W2c per tower),
-    36 bytes per env and step written and the state read and written once."""
-    h2, a1 = 2 * hidden, act_dim + 1
-    flop = 2 * (obs_dim * h2 + h2 * hidden + h2 * a1) * num_envs * num_steps
-    return least_ms(flop / PEAK["float32"], 36 * num_envs * num_steps + 40 * num_envs)
+def rollout_bound(num_envs, num_steps, obs_dim, hidden, act_dim, compute):
+    """K4: per env and step the two H-contractions per tower (through W2c and
+    Whc) at the compute mode's rate, the input layer in float32, and 4H tanh
+    on the special-function units, one result each (a floor: an IEEE tanhf
+    takes more). The tensor cores, the float32 pipe and the special-function
+    units work side by side, so the operations take the longest of the three
+    and not their sum. 36 bytes per env and step written and the state read
+    and written once."""
+    h2, a1, n = 2 * hidden, act_dim + 1, num_envs * num_steps
+    products = 2 * (h2 * hidden + hidden * a1) * n
+    by_pipe = {compute: products / PEAK[compute]}
+    by_pipe["float32"] = by_pipe.get("float32", 0.0) + 2 * obs_dim * h2 * n / PEAK["float32"]
+    by_pipe["special"] = pipes_s({"special": 2 * h2 * n})
+    return least_ms(max(by_pipe.values()), 36 * n + 40 * num_envs)
+
+
+def rollout_kernel_bound(num_envs, num_steps):
+    """K1 on the main path's configuration: K1_OPS per env and step on their
+    pipes; 44 bytes per env and call."""
+    n = num_envs * num_steps
+    return least_ms(pipes_s({pipe: k * n for pipe, k in K1_OPS.items()}), 44 * num_envs)
+
+
+def hmma_counts(_build, name):
+    """{mangled name: HMMA instructions} of every instantiation of the kernel
+    `name` in the machine code of the built library csrc/<name>.cu."""
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(_build.library_path(name))],
+                          capture_output=True, text=True, timeout=300, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split(":", 1)[1].strip()
+            fn = fn if name in fn else None
+            if fn:
+                counts[fn] = 0
+        elif fn and "HMMA" in line:
+            counts[fn] += 1
+    return counts
 
 
 def build_all(modules):
@@ -323,7 +414,7 @@ def parity_cases(gtt):
     return cases
 
 
-def k4_setup(gtt, ppo, ppo_fused, uk, rng, env_id, dev, **overrides):
+def k4_setup(gtt, ppo, ppo_fused, rng, env_id, dev, **overrides):
     """An env at the PPO width: jittered random weights (the Gaussian mean
     shifted to -0.5 so that envs outlive their first harvest), desynchronised
     start states and numpy-made noise planes [za or u, zp(, nf)]."""
@@ -339,8 +430,8 @@ def k4_setup(gtt, ppo, ppo_fused, uk, rng, env_id, dev, **overrides):
             model.pi_mean.bias.sub_(0.5)
             model.log_std.fill_(-1.0)
     head = "gaussian" if gauss else "categorical"
-    merged = tuple(x.to(dev) for x in uk.merge_weights(
-        ppo_fused.kernel_weights(dict(model.named_parameters()), head)))
+    weights = tuple(x.detach().to(dev) for x in ppo_fused.kernel_weights(
+        dict(model.named_parameters()), head))
     B, T = B_PPO, T_PPO
     tmax = int(params.Tmax)
     f32 = lambda x: torch.from_numpy(x.astype(np.float32)).to(dev)  # noqa: E731
@@ -355,7 +446,7 @@ def k4_setup(gtt, ppo, ppo_fused, uk, rng, env_id, dev, **overrides):
         planes.append(np.exp(float(params.sigma_m) * rng.standard_normal((T, B))))
     kw = dict(growth=cfg.growth, noise_form=cfg.noise_form, scheme=cfg.scheme,
               n_actions=cfg.n_actions, obs_noise=obs_noise)
-    return env, params, model, merged, state, f32(np.stack(planes)), kw
+    return env, params, model, weights, state, f32(np.stack(planes)), kw
 
 
 def compare_k4(ker, ref, what, categorical, bf16=False, B=B_PPO, T=T_PPO):
@@ -593,6 +684,10 @@ def main():
           f"{n_calls - 1} chained calls); measure(mode='kernel'): "
           f"{timed['ms_per_call']:.3f} ms/call, {timed['steps_per_s']:.4g} env-steps/s; "
           f"B={B_MAIN} T={T_MAIN} {label}")
+    k1_bound = rollout_kernel_bound(B_MAIN, T_MAIN)
+    print(f"phase 5: K1 bound {k1_bound[0]:.4f} ms by {k1_bound[1]}: {K1_OPS} per env and "
+          f"step, counted from the algorithm, on their pipes (share "
+          f"{k1_bound[0] / ker_ms:.3f}); by bytes {least_ms(0.0, 44 * B_MAIN)[0]:.4f} ms")
     print(f"phase 5: twin {plain_ms:.1f} ms/call (CUDA events), "
           f"{steps / plain_ms * 1e3:.4g} env-steps/s; kernel vs twin max abs err "
           f"{main_err:.3g}; B={B_MAIN} T={T_MAIN} {label}")
@@ -609,6 +704,12 @@ def main():
         print(f"phase 7: {_build.library_path(name).name} in {build_s[name]:.2f} s (built "
               "beside rollout_kernel in phase 2)")
         print_ptxas(_build, name)
+    for fn, n_hmma in hmma_counts(_build, "policy_rollout_kernel").items():
+        bf16 = "Lb1E" in fn   # the mangled template argument BF = true
+        print(f"phase 7: {fn[:40]} ({'bfloat16' if bf16 else 'float32'}): {n_hmma} HMMA")
+        if (n_hmma > 0) != bf16:
+            fail(f"{fn}: {n_hmma} HMMA instructions under "
+                 f"{'bfloat16' if bf16 else 'float32'}")
 
     # ---------------------------------------------------------------- 8
     rng = np.random.default_rng(7)
@@ -785,7 +886,7 @@ def main():
     # --------------------------------------------------------------- 11
     rng = np.random.default_rng(11)
     k4_err, k4_flips = 0.0, 0
-    k4_ms = k4_plain_ms = k4_clock = None
+    k4_ms, k4_plain_ms, k4_clock, k4_part_ms = {}, {}, {}, {}
     t11 = time.perf_counter()
     for label_c, env_id, overrides in (
         ("continuous fishing-v1", "fishing-v1", dict(sigma=0.1)),
@@ -794,14 +895,14 @@ def main():
         ("obs noise fishing-may-obs-v1", "fishing-may-obs-v1", {}),
         ("mixture(allen)", "fishing-mixture-v1", dict(sigma=0.1, model_idx=3)),
     ):
-        _, k_params, _, merged, state, planes, kw = k4_setup(gtt, ppo, ppo_fused, uk, rng,
-                                                             env_id, dev, **overrides)
+        _, k_params, _, weights, state, planes, kw = k4_setup(gtt, ppo, ppo_fused, rng,
+                                                              env_id, dev, **overrides)
         for fold in (False, True):
             for compute in ("float32", "bfloat16"):
                 for source in ("planes", "seed"):
                     seed_off = (2026, 7) if source == "seed" else (0, 0)
                     scal = ppo_fused.rollout_scalars(k_params, *seed_off)
-                    args = (*state, merged, scal, T_PPO)
+                    args = (*state, weights, scal, T_PPO)
                     kw_c = dict(kw, fold_obs=fold, compute=compute,
                                 noise=planes if source == "planes" else None)
                     ker = pk.policy_rollout(*args, **kw_c)
@@ -812,25 +913,30 @@ def main():
                                             compute == "bfloat16")
                     k4_err, k4_flips = max(k4_err, err), k4_flips + flips
                     print(f"phase 11: {what:66s} max abs err {err:.3g}, envs left {flips}")
-                    if (env_id == "fishing-v1" and fold and compute == "float32"
-                            and source == "seed"):
-                        k4_ms, _ = cuda_ms(lambda: pk.policy_rollout(*args, **kw_c), 20)
-                        k4_clock = sm_clock_mhz()
-                        k4_plain_ms, _ = cuda_ms(
+                    if env_id == "fishing-v1" and fold and source == "seed":
+                        k4_ms[compute], _ = cuda_ms(lambda: pk.policy_rollout(*args, **kw_c),
+                                                    20)
+                        k4_clock[compute] = sm_clock_mhz()
+                        k4_plain_ms[compute], _ = cuda_ms(
                             lambda: pk.policy_rollout_reference(*args, **kw_c), 2)
-    k4_bound = rollout_bound(B_PPO, T_PPO, 1, 64, 1)
-    print(f"phase 11: K4 bound {k4_bound[0]:.4f} ms by {k4_bound[1]} (share "
-          f"{k4_bound[0] / k4_ms:.3f})")
-    print(f"phase 11: K4 {k4_ms:.3f} ms (SM clock {k4_clock} just after), twin "
-          f"{k4_plain_ms:.1f} ms per rollout of B={B_PPO} T={T_PPO} hidden=64 (CUDA events, "
-          f"continuous, fold, float32); 40 cases in "
-          f"{time.perf_counter() - t11:.1f} s; {k4_flips} envs left the twin's trajectory in "
-          f"all {label}")
+                        # the kernel that took 32 envs a CTA at two CTAs an SM ran
+                        # 8448 envs as one full wave and 16384 as 1.94
+                        part = tuple(x[:B_K4_PART] for x in state)
+                        k4_part_ms[compute], _ = cuda_ms(lambda: pk.policy_rollout(
+                            *part, weights, scal, T_PPO, **kw_c), 20)
+    k4_bound = {c: rollout_bound(B_PPO, T_PPO, 1, 64, 1, c) for c in k4_ms}
+    for c in k4_ms:
+        print(f"phase 11: K4 {c}: {k4_ms[c]:.3f} ms (SM clock {k4_clock[c]} just after), twin "
+              f"{k4_plain_ms[c]:.1f} ms per rollout of B={B_PPO} T={T_PPO} hidden=64 (CUDA "
+              f"events, continuous, fold, from a seed); bound {k4_bound[c][0]:.4f} ms by "
+              f"{k4_bound[c][1]} (share {k4_bound[c][0] / k4_ms[c]:.3f}); at B={B_K4_PART}: "
+              f"{k4_part_ms[c]:.3f} ms {label}")
+    print(f"phase 11: 40 cases in {time.perf_counter() - t11:.1f} s; {k4_flips} envs left "
+          f"the twin's trajectory in all")
 
     # --------------------------------------------------------------- 12
     for env_id, fold in (("fishing-v1", True), ("fishing-may-obs-v1", False)):
-        k_env, k_params, model, _, state, _, kw = k4_setup(gtt, ppo, ppo_fused, uk, rng,
-                                                           env_id, dev)
+        k_env, k_params, model, _, state, _, kw = k4_setup(gtt, ppo, ppo_fused, rng, env_id, dev)
         model = model.to(dev)
         cfg = ppo.PPOConfig(num_envs=B_PPO, num_steps=T_PPO, rollout_fold_obs=fold)
         bstate = BatchState(env=EnvState(stock=state[0], harvest=state[2], t=state[1]),
@@ -859,9 +965,12 @@ def main():
               f"max abs err {err:.3g}; B={B_PPO} T={T_PPO}")
 
     # --------------------------------------------------------------- 13
-    forms13 = {"full": dict(fused="full"), "full+adam": dict(fused="full", fused_adam=True)}
+    forms13 = {"full": dict(fused="full"), "full+adam": dict(fused="full", fused_adam=True),
+               "full+adam bfloat16": dict(fused="full", fused_adam=True,
+                                          compute_dtype="bfloat16")}
     expect13 = {"full": {"grad": 4 * 32, "adam": 0, "policy": 4},
                 "full+adam": {"grad": 0, "adam": 4 * 32, "policy": 4}}
+    expect13["full+adam bfloat16"] = expect13["full+adam"]
     for name, kw in forms13.items():
         reset_counts()
         res = measure_ppo_train(num_envs=B_PPO, num_steps=T_PPO, iters=3, warmup=1, **kw)
@@ -870,47 +979,62 @@ def main():
             fail(f"train_step {name}: launches {got}, expected {expect13[name]} (one K4 and "
                  "32 update launches per iteration over 1 warm-up + 3 timed iterations)")
         train_launches[name] = got
-        print(f"phase 13: train_step {name:12s} {res['seconds'] / res['iters'] * 1e3:.1f} "
+        print(f"phase 13: train_step {name:18s} {res['seconds'] / res['iters'] * 1e3:.1f} "
               f"ms/iter, {res['steps_per_s']:.4g} env-steps/s (host clock, 3 chained "
               f"iterations after 1 warm-up); launches {got}; rollout flags "
-              f"{res['rollout_flags']}; B={B_PPO} T={T_PPO} 4x8 hidden=64 {label}")
+              f"{res['rollout_flags']}; compute {res['compute_dtype']}; B={B_PPO} T={T_PPO} "
+              f"4x8 hidden=64 {label}")
     # full + fused_adam ≡ update + fused_adam after one step, the same planes
-    one_cfg = dataclasses.replace(base, fused_update=True, fused_adam=True)
     act = torch.from_numpy(rng.standard_normal((T_PPO, B_PPO, 1)).astype(np.float32)).to(dev)
     env_n = torch.from_numpy(rng.standard_normal((T_PPO, 2, B_PPO)).astype(np.float32)).to(dev)
     perms = [torch.from_numpy(rng.permutation(N_PPO // TILE).astype(np.int32)).to(dev)]
-    upd, _, _ = ppo.train_step(env, params, one_cfg, ts0.clone(),
-                               batched_reset(env, params, B_PPO), perms=perms, act_noise=act,
-                               env_noise=env_n)
-    full, _, _ = ppo.train_step(
-        env, host_params, dataclasses.replace(one_cfg, fused_rollout=True), ts0.clone(),
-        batched_reset(env, host_params, B_PPO, dev), perms=perms,
-        rollout_noise=ppo_fused.rollout_noise_from_draws(act, env_n, 0.0, False))
-    full_err = 0.0
-    for (pname, p), q in zip(full.model.named_parameters(), upd.model.parameters()):
-        p, q = p.detach(), q.detach()
-        err = float((p - q).abs().max())
-        if not bool(((p - q).abs() <= STEP_ATOL + STEP_RTOL * q.abs()).all()):
-            fail(f"one step at 1x1, full+adam vs update+adam: {pname} max abs err {err:.3g}")
-        full_err = max(full_err, err)
-    print(f"phase 13: full+adam ≡ update+adam after one step at 1 epoch x 1 minibatch from "
-          f"the same planes, N={N_PPO}: max abs param err {full_err:.3g} (rtol {STEP_RTOL}, "
-          f"atol {STEP_ATOL})")
-    cfg = ppo.PPOConfig(num_envs=B_PPO, num_steps=T_PPO, fused_update=True, fused_adam=True,
-                        fused_rollout=True)
-    t0 = time.perf_counter()
-    _, hist = run(cfg, 20)
-    rets = np.array([h["episode_return"] for h in hist])
-    first, last = float(np.nanmean(rets[:5])), float(np.nanmean(rets[-5:]))
-    if not last > first:
-        fail(f"full+adam: mean episode return did not rise ({first:.4f} -> {last:.4f})")
-    print(f"phase 13: agreement {'full+adam':12s} episode return first5 {first:.4f} -> last5 "
-          f"{last:.4f} over 20 iterations ({time.perf_counter() - t0:.1f} s)")
-    gap = abs(curves["off"][1] - last)
-    if not gap <= AGREE_TOL:
-        fail(f"last-5 mean episode returns of off and full+adam differ by {gap:.4f} > "
-             f"{AGREE_TOL}")
-    print(f"phase 13: agreement gap off vs full+adam {gap:.4f} <= {AGREE_TOL}")
+    for compute in ("float32", "bfloat16"):
+        one_cfg = dataclasses.replace(base, fused_update=True, fused_adam=True,
+                                      compute_dtype=compute)
+        upd, _, _ = ppo.train_step(env, params, one_cfg, ts0.clone(),
+                                   batched_reset(env, params, B_PPO), perms=perms,
+                                   act_noise=act, env_noise=env_n)
+        full, _, _ = ppo.train_step(
+            env, host_params, dataclasses.replace(one_cfg, fused_rollout=True), ts0.clone(),
+            batched_reset(env, host_params, B_PPO, dev), perms=perms,
+            rollout_noise=ppo_fused.rollout_noise_from_draws(act, env_n, 0.0, False))
+        full_err, dist, count = 0.0, 0.0, 0
+        for (pname, p), q, p0 in zip(full.model.named_parameters(), upd.model.parameters(),
+                                     ts0.model.parameters()):
+            # the steps the two forms took from the same weights
+            diff = ((p.detach() - p0.detach()) - (q.detach() - p0.detach())).abs()
+            err = float(diff.max())
+            bound = (STEP_BF16_ATOL if compute == "bfloat16"
+                     else STEP_ATOL + STEP_RTOL * q.detach().abs())
+            if not bool((diff <= bound).all()):
+                fail(f"one step at 1x1 under {compute}, full+adam vs update+adam: {pname} max "
+                     f"abs err {err:.3g}")
+            full_err, dist, count = max(full_err, err), dist + float(diff.sum()), count + p.numel()
+        if compute == "bfloat16" and not dist / count <= STEP_BF16_MEAN_ATOL:
+            fail(f"one step at 1x1 under bfloat16, full+adam vs update+adam: mean abs err of "
+                 f"the step {dist / count:.3g} > {STEP_BF16_MEAN_ATOL}")
+        bar = (f"atol {STEP_BF16_ATOL}, mean {dist / count:.3g} <= {STEP_BF16_MEAN_ATOL}"
+               if compute == "bfloat16" else f"rtol {STEP_RTOL}, atol {STEP_ATOL}")
+        print(f"phase 13: full+adam ≡ update+adam after one step at 1 epoch x 1 minibatch from "
+              f"the same planes under {compute}, N={N_PPO}: max abs err of the step "
+              f"{full_err:.3g} ({bar})")
+    for compute in ("float32", "bfloat16"):
+        name = f"full+adam {compute}"
+        cfg = ppo.PPOConfig(num_envs=B_PPO, num_steps=T_PPO, fused_update=True, fused_adam=True,
+                            fused_rollout=True, compute_dtype=compute)
+        t0 = time.perf_counter()
+        _, hist = run(cfg, 20)
+        rets = np.array([h["episode_return"] for h in hist])
+        first, last = float(np.nanmean(rets[:5])), float(np.nanmean(rets[-5:]))
+        if not last > first:
+            fail(f"{name}: mean episode return did not rise ({first:.4f} -> {last:.4f})")
+        print(f"phase 13: agreement {name:18s} episode return first5 {first:.4f} -> last5 "
+              f"{last:.4f} over 20 iterations ({time.perf_counter() - t0:.1f} s)")
+        gap = abs(curves["off"][1] - last)
+        if not gap <= AGREE_TOL:
+            fail(f"last-5 mean episode returns of off (float32) and {name} differ by "
+                 f"{gap:.4f} > {AGREE_TOL}")
+        print(f"phase 13: agreement gap off (float32) vs {name} {gap:.4f} <= {AGREE_TOL}")
 
     if "jax" in sys.modules:
         fail("jax was imported")
@@ -924,11 +1048,10 @@ def main():
             "max_abs_err": max(worst, main_err),
             "ms": ker_ms,
             "plain_ms": plain_ms,
-            # 44 bytes per env and call; its operations are mostly Philox
-            # integer work and special functions, which have no peak in the
-            # data sheet's table
-            "bound_ms": least_ms(0.0, 44 * B_MAIN)[0],
-            "bound_by": "bytes",
+            # the larger of 44 bytes per env and call and of the operations
+            # its function needs on their pipes (see K1_OPS)
+            "bound_ms": k1_bound[0],
+            "bound_by": k1_bound[1],
             "library_ms": None,
         },
         {
@@ -966,11 +1089,13 @@ def main():
             "replaces": "gym_fishing_tpu/kernels/policy_rollout_kernel.py:86",
             "launches": train_launches["full+adam"]["policy"],
             "max_abs_err": k4_err,
-            "ms": k4_ms,
-            "plain_ms": k4_plain_ms,
-            "bound_ms": k4_bound[0],
-            "bound_by": k4_bound[1],
+            "ms": k4_ms["float32"],
+            "plain_ms": k4_plain_ms["float32"],
+            "bound_ms": k4_bound["float32"][0],
+            "bound_by": k4_bound["float32"][1],
             "library_ms": None,
+            "bfloat16_ms": k4_ms["bfloat16"],
+            "bfloat16_bound_ms": k4_bound["bfloat16"][0],
         },
     ]}))
     # the run drives one device, cuda:0

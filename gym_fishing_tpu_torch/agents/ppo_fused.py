@@ -362,7 +362,7 @@ def fused_rollout_collect(env, env_params: EnvParams, cfg, ts, bstate: BatchStat
         bstate.env.harvest.float().contiguous(),
         bstate.episode_return.float().contiguous(),
         bstate.episode_length.to(torch.int32).contiguous(),
-        merge_weights(kernel_weights(ts.params(), head)),
+        kernel_weights(ts.params(), head),
         scalars,
         cfg.num_steps,
         growth=env.config.growth,

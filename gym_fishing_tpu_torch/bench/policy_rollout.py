@@ -1,0 +1,199 @@
+"""Time the fused PPO policy rollout kernel (K4) alone, at the bench's shapes.
+
+    python gym_fishing_tpu_torch/bench/policy_rollout.py [--root DIR] [--envs B,B,...] [--reps N]
+                                                         [--errors] [--phases]
+
+One rollout is T = 128 steps of fishing-v1 (continuous decode, Gaussian head,
+hidden 64, the obs map folded into the input layer, noise drawn inside the
+kernel from a seed), timed with CUDA events over `--reps` calls of the
+wrapper after a warm-up, for compute float32 and bfloat16 and for every
+batch size in `--envs` (default 8448 and 16384: 8448 envs were one full wave
+of the kernel that took 32 envs a CTA at two CTAs an SM, 16384 is the PPO
+bench's batch). The wrapper makes no host sync, so the time is the kernel's,
+its statistics reduction's, and the weights' merging and the output
+allocation's on the card.
+
+`--root` names the checkout whose ``gym_fishing_tpu_torch`` is imported
+(default: the one this file lies in), so the same inputs can time two
+versions of the kernel in turns on one card, one process each (a version
+whose wrapper takes the merged weights is given those). Prints one
+JSON line with the times, the SM clock after each and a checksum of the
+packed rows; needs a CUDA device.
+
+With `--errors` each result also holds the kernel's error against the plain
+twin from the same seed: the envs that left the twin's trajectory (an error
+above 1e-4 under float32, 5e-3 under bfloat16, or another t), and over the
+others the largest and the mean absolute error of each packed row.
+
+With `--phases` it times nothing of the shipped kernel: it builds an
+instrumented copy (into the gitignored ``_build/``) in which lane 0 of warp
+0 of every CTA reads ``clock64()`` at the kernel's entry, before a step's
+forward, after it, after the step's tail (sampling, decode, dynamics,
+stores) and after the GAE pass, and writes the four sums in place of the
+CTA's statistics, which the copy therefore gets wrong. Prints, per compute
+mode at B = 16384, the cycles a warp spends before its first step (loading
+the weights), per step in its forward and in its tail, and after its last
+step (the bootstrap forward and the GAE pass), averaged over the CTAs:
+elapsed cycles of one warp among the 16 that share an SM, not its own
+instructions.
+"""
+
+from __future__ import annotations
+
+import argparse
+import inspect
+import json
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+T, HIDDEN = 128, 64
+
+
+def smi(query: str) -> str:
+    return subprocess.run(["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def instrument(source: str) -> str:
+    """`source` with the clocks added; raises if an anchor is not found."""
+    edits = [
+        ("  extern __shared__ __align__(16) float sm[];\n",
+         "  extern __shared__ __align__(16) float sm[];\n"
+         "  const long long c_entry = clock64();\n"),
+        ("  for (int t = 0; t < T; ++t) {\n    forward(inp);\n",
+         "  long long cyc_fwd = 0, cyc_tail = 0;\n  const long long c_loop = clock64();\n"
+         "  for (int t = 0; t < T; ++t) {\n"
+         "    const long long c0 = clock64();\n    forward(inp);\n"
+         "    const long long c1 = clock64();\n"),
+        ("    // the next forward overwrites the head outputs this step's tail read\n"
+         "    __syncwarp();\n",
+         "    __syncwarp();\n    cyc_fwd += c1 - c0;\n    cyc_tail += clock64() - c1;\n"),
+        ("    st[3] = srw;\n  }\n",
+         "    st[3] = srw;\n  }\n  if (tid == 0) {\n"
+         "    sm[L_::STAT] = (float)(c_loop - c_entry);\n"
+         "    sm[L_::STAT + 1] = (float)cyc_fwd;\n    sm[L_::STAT + 2] = (float)cyc_tail;\n"
+         "    sm[L_::STAT + 3] = (float)(clock64() - c_loop - cyc_fwd - cyc_tail);\n  }\n"),
+        ("    for (int s = 0; s < kEnvs; ++s) z += sm[L_::STAT + s * kStats + tid];\n",
+         "    z = sm[L_::STAT + tid];\n"),
+    ]
+    for old, new in edits:
+        if source.count(old) != 1:
+            raise RuntimeError(f"the rollout kernel's source has no single {old!r}")
+        source = source.replace(old, new)
+    return source
+
+
+def phases(state_of, weights, scal) -> None:
+    from gym_fishing_tpu_torch.kernels import _build
+    from gym_fishing_tpu_torch.kernels import policy_rollout_kernel as pk
+    from gym_fishing_tpu_torch.kernels import ppo_update_kernel as uk
+
+    csrc = _build.BUILD_DIR / "rollout_phases_csrc"
+    shutil.rmtree(csrc, ignore_errors=True)
+    _build.BUILD_DIR.mkdir(exist_ok=True)
+    shutil.copytree(_build.CSRC, csrc)
+    path = Path(csrc) / "policy_rollout_kernel.cu"
+    path.write_text(instrument(path.read_text()))
+    _build.CSRC = csrc   # this process builds and loads the instrumented copy only
+    B = 16384
+    state = state_of(B)
+    ctas = -(-B // pk.KERNEL_ENVS_PER_CTA)
+    out = {"card": smi("name,power.limit"), "B": B, "T": T, "hidden": HIDDEN}
+    for compute in uk.COMPUTES:
+        for _ in range(3):
+            roll = pk.policy_rollout(*state, weights, scal, T, fold_obs=True, compute=compute)
+        torch.cuda.synchronize()
+        before, fwd, tail, after = (float(v) / ctas for v in roll.stats)
+        out[compute] = {"cycles_before_first_step": before, "forward_cycles_per_step": fwd / T,
+                        "tail_cycles_per_step": tail / T, "cycles_after_last_step": after}
+    print(json.dumps(out))
+
+
+def main() -> None:
+    here = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", default=here)
+    ap.add_argument("--envs", default="8448,16384")
+    ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--errors", action="store_true")
+    ap.add_argument("--phases", action="store_true")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("policy_rollout: needs a CUDA device")
+    sys.path.insert(0, os.path.abspath(args.root))
+    import gym_fishing_tpu_torch as gtt
+    from gym_fishing_tpu_torch.agents import ppo, ppo_fused
+    from gym_fishing_tpu_torch.kernels import policy_rollout_kernel as pk
+    from gym_fishing_tpu_torch.kernels import ppo_update_kernel as uk
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(11)
+    _, params = gtt.make("fishing-v1", sigma=0.1, device="cpu")  # the kernel reads them on the host
+    model = ppo.ActorCritic(1, 1, True, HIDDEN, generator=torch.Generator().manual_seed(5))
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(torch.from_numpy(0.05 * rng.standard_normal(p.shape).astype(np.float32)))
+        model.pi_mean.bias.sub_(0.5)   # envs outlive their first harvest
+        model.log_std.fill_(-1.0)
+    weights = tuple(x.detach().to(dev) for x in ppo_fused.kernel_weights(
+        dict(model.named_parameters()), "gaussian"))
+    if "merged" in inspect.signature(pk.policy_rollout).parameters:
+        weights = uk.merge_weights(weights)
+    scal = ppo_fused.rollout_scalars(params, 2026, 7)
+    tmax = int(params.Tmax)
+
+    def state_of(B):
+        f32 = lambda x: torch.from_numpy(x.astype(np.float32)).to(dev)  # noqa: E731
+        i32 = lambda x: torch.from_numpy(x.astype(np.int32)).to(dev)  # noqa: E731
+        return (f32(rng.uniform(0.3, 1.2, B)), i32(rng.integers(0, tmax, B)),
+                f32(rng.uniform(0.0, 0.05, B)), f32(rng.uniform(0.0, 3.0, B)),
+                i32(rng.integers(0, tmax, B)))
+
+    if args.phases:
+        phases(state_of, weights, scal)
+        return
+    out = {"root": os.path.abspath(args.root), "reps": args.reps, "T": T, "hidden": HIDDEN,
+           "card": smi("name,power.limit")}
+    for B in (int(b) for b in args.envs.split(",")):
+        state = state_of(B)
+        for compute in uk.COMPUTES:
+            run = lambda: pk.policy_rollout(  # noqa: E731
+                *state, weights, scal, T, growth="logistic", noise_form="additive",
+                scheme="continuous", fold_obs=True, compute=compute)
+            for _ in range(3):
+                roll = run()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(args.reps):
+                roll = run()
+            end.record()
+            torch.cuda.synchronize()
+            if not bool(torch.isfinite(roll.packed_t).all()):
+                raise SystemExit(f"policy_rollout: non-finite output under {compute} at B={B}")
+            out[f"B={B} {compute}"] = {
+                "ms": start.elapsed_time(end) / args.reps, "sm_clock": smi("clocks.sm"),
+                "packed_sum": float(roll.packed_t.double().sum()),
+                "stats": [float(v) for v in roll.stats]}
+            if args.errors:
+                ref = pk.policy_rollout_reference(
+                    *state, weights, scal, T, growth="logistic", noise_form="additive",
+                    scheme="continuous", fold_obs=True, compute=compute)
+                err = (roll.packed_t - ref.packed_t).abs().view(8, T, B)[:6]
+                same = ((err.amax((0, 1)) <= (5e-3 if compute == "bfloat16" else 1e-4))
+                        & (roll.t == ref.t))
+                out[f"B={B} {compute}"]["errors"] = {
+                    "envs_left": B - int(same.sum()),
+                    "max": [float(v) for v in err[:, :, same].amax((1, 2))],
+                    "mean": [float(v) for v in err[:, :, same].double().mean((1, 2))]}
+    print(json.dumps(out))
+
+
+if __name__ == "__main__":
+    main()

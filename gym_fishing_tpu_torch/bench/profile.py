@@ -29,13 +29,14 @@ RANGES = ("train_step/rollout", "train_step/update")
 
 def ppo_breakdown(num_envs: int = 16384, num_steps: int = 128, fused: str = "off",
                   fused_adam: bool = False, iters: int = 2, warmup: int = 1,
-                  device=None, seed: int = 0, top: int = 6) -> dict:
+                  device=None, seed: int = 0, top: int = 6,
+                  compute_dtype: str = "float32") -> dict:
     """Profile `iters` chained PPO iterations after `warmup` (see module doc)."""
     if fused not in ("off", "update", "full"):
         raise ValueError(f"unknown fused form {fused!r}")
     device = resolve(device)
     env, params, cfg, ts, gen, bstate = ppo_setup(num_envs, num_steps, 0.05, fused, fused_adam,
-                                                  "float32", device, seed)
+                                                  compute_dtype, device, seed)
     for _ in range(warmup):
         ts, bstate, metrics = ppo.train_step(env, params, cfg, ts, bstate, gen)
         _finish(metrics["loss"])
@@ -69,6 +70,7 @@ def ppo_breakdown(num_envs: int = 16384, num_steps: int = 128, fused: str = "off
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / iters or None
     return {
         "mode": f"ppo-{fused}" + ("+adam" if fused_adam else ""),
+        "compute_dtype": compute_dtype,
         "device": _device_name(device),
         "num_envs": num_envs,
         "num_steps": num_steps,

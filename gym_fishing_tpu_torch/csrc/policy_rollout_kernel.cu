@@ -26,22 +26,42 @@
 // rewards) are summed per CTA, then over the CTAs in index order by a second
 // launch: no float atomics, so two identical calls give identical bits.
 //
-// What bounds it on this card: the product through W2c, 2 x 128 x 128 =
-// 32,768 FLOP per env and step at hidden 64 (6.9e10 FLOP at B = 16384,
-// T = 128), issued as float32 FMAs, and the latency of T dependent steps. Per
-// env and step the kernel moves 24 bytes (rows 0-3 and 6-7) and reads 12 back
-// in the GAE pass, ~100 MB per call at that size, so memory is not the limit.
+// What bounds it on this card: operations and the latency of T dependent
+// steps, not bytes (36 bytes per env and step against 2 x 2H x H = 16,384
+// FLOP in the product through W2c at hidden 64 and 4H = 256 tanh). W2c and
+// Whc are block diagonal (policy tower, value tower): the TPU kernel
+// multiplies the merged [2H, 2H] matrix because that is its matrix unit's
+// shape, here each product runs per tower over H, half the work. The kernel
+// traps on a non-zero cross-tower entry, which merge_weights never builds.
 //
-// What the design does about it: a CTA of 256 threads takes 32 envs, and each
-// warp owns 4 of them for the whole rollout. W2c (64 KiB at 2H = 128) sits in
-// shared memory once per CTA; a warp's activations [4][2H] are written and
-// read only by that warp, so a step needs no block-wide barrier, only
-// __syncwarp between its phases: the rank-1 input layer (all 32 lanes), the
-// register-tiled product through W2c (merged_mlp.cuh::chunk_product, 4 envs x
-// 2H/32 columns per lane), the (A+1)-wide head by warp sums, then lanes 0-3 run
-// sampling, decode and dynamics for their env, holding its state in registers
-// from the first step to the last. Two CTAs fit an SM (~109 KiB of shared
-// memory each), so 16 warps per SM hide each other's latency.
+// What the design does about it. A warp owns 8 envs for the whole rollout:
+// their state stays in the registers of lanes 0-7, which run sampling, decode
+// and dynamics and store each packed row as one 32-byte run. A CTA is 8 warps
+// (64 envs) and keeps the weights in shared memory; nothing is shared between
+// warps, so a step has no block barrier, only __syncwarp. Two CTAs fit an SM
+// (at most 128 registers a thread), so B = 16384 is 256 CTAs in one wave on
+// 132 SMs, 16 warps an SM: a step of one warp is a chain of ~64 tanhf a lane,
+// its product and ~250 dependent instructions of the tail, and each scheduler
+// has four such warps to interleave. (With 4 envs a warp the tail ran twice
+// as often for the same envs on half as many lanes, and B = 16384 took 1.94
+// waves of 264 resident CTAs.)
+// - compute = float32: float32 FMA. Lanes 0-15 take the policy tower, lanes
+//   16-31 the value tower, each lane 8 envs x H/16 columns: per 4 rows of a
+//   tower's block a lane makes 8 broadcast LDS.128 of h1 and 4 LDS.128 of
+//   the block for 128 FMA (a 4 x 4 tile over the merged matrix needed 8 for
+//   64, half of them against zeros). h2 stays in registers; the head is a
+//   per-lane partial sum and one transposing butterfly over the tower's 16
+//   lanes per output (8 shuffles for 8 envs).
+// - compute = bfloat16: the two H-contractions per tower run on the tensor
+//   cores, mma.sync m16n8k16 with bf16 inputs and float32 sums. The 8 envs
+//   are rows 0-7 of the M = 16 tile (rows 8-15 are zero: the tensor cores
+//   are not what bounds the step, the tanh are), the hidden units lie on N
+//   and K. A layer's accumulator fragment, after bias, tanh and rounding, is
+//   the next product's A fragment in the same registers of the same lane, so
+//   no activation goes through shared memory; the B fragments are 32-bit
+//   loads from W2c^T and Whc^T kept in shared memory as bf16 with a row
+//   stride of H + 8, which no two lanes of a load share a bank under.
+// The GAE pass reads rows 3, 6, 7 eight steps at a time before it needs them.
 //
 // RNG: one Philox4x32-10 block per env and step, key = 64-bit seed, counter =
 // (env, offset + t) (fishing_dynamics.cuh). Gaussian head: (u0, u1) give the
@@ -51,11 +71,13 @@
 // (nf = exp(sigma_m eta)) replace Philox for parity tests.
 //
 // Numerics: float32 IEEE arithmetic (FMA contraction allowed, no
-// --use_fast_math). Under compute = bfloat16 the inputs of the two
-// 2H-contractions (W2c and h1, Whc and h2) are rounded with
-// __float2bfloat16_rn and summed in float32, as the TPU kernel's bf16 inputs
-// with f32 accumulation; the input layer, the tanh, sampling and dynamics stay
-// float32.
+// --use_fast_math, IEEE tanhf in both modes). Under compute = bfloat16 the
+// inputs of the two H-contractions (W2c and h1, Whc and h2) are rounded with
+// round-to-nearest-even and summed in float32 by the tensor cores, as the TPU
+// kernel's bf16 inputs with f32 accumulation; the input layer, the tanh,
+// sampling and dynamics stay float32. compute = float32 uses no tensor core:
+// TF32 keeps three digits, and its split form was measured on this card for
+// the update kernels as slower and biased (see ppo_update_kernel.cu).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -78,93 +100,255 @@ static_assert(sizeof(PolicyRolloutParams) == 160, "PolicyRolloutParams layout mu
 enum { FLOAT32 = 0, BFLOAT16 = 1 };
 
 #define LOG_2PI_F 1.8378770664093453f
+#define FULL_MASK 0xffffffffu
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kEnvsPerWarp = 4;  // chunk_product's samples per warp
+constexpr int kEnvsPerWarp = 8;
 constexpr int kEnvs = kWarps * kEnvsPerWarp;  // envs per CTA
 constexpr int kMaxA = 16;   // logits width
 constexpr int kMaxA1 = kMaxA + 1;
 constexpr int kStats = 4;   // n_done, sum ep_ret at done, sum ep_len at done, sum reward
+constexpr int kGaeRun = 8;  // steps of the GAE pass whose rows are read together
+// bf16: rows of Whc^T as the head's B operand: 16 policy outputs, then the
+// value row and 7 rows of zeros (two n-tiles and one)
+constexpr int kHeadRows = kMaxA + 8;
+static_assert(kMaxA == 16, "the bf16 head takes at most two n-tiles of policy outputs");
 
-// Shared-memory plan (offsets in floats).
-template <int H2>
+constexpr int align4(int x) { return (x + 3) / 4 * 4; }
+
+// Shared-memory plan (offsets in floats; every region 16-byte aligned).
+template <int H, bool BF>
 struct RollSmem {
-  static constexpr int LD = kActLD<H2>;
-  static constexpr int W2 = 0;                        // [H2][H2]
-  static constexpr int H1 = W2 + H2 * H2;             // [kEnvs][LD]
-  static constexpr int HH = H1 + kEnvs * LD;          // [kEnvs][LD] h2
-  static constexpr int W1 = HH + kEnvs * LD;          // [H2] (folded when fold_obs)
+  static constexpr int H2 = 2 * H;
+  static constexpr int LDT = H + 4;      // float32: a tower's stride inside an h1 row
+  static constexpr int LDH = 2 * LDT;    // float32: row stride of h1
+  static constexpr int LDB = H + 8;      // bf16: row stride of W2c^T and Whc^T, in bf16
+  // float32: the towers' blocks of W2c [2][H][H]; bf16: their transposes as
+  // bf16 [2][H][LDB], then Whc^T as bf16 [kHeadRows][LDB]
+  static constexpr int W2 = 0;
+  static constexpr int W2_FLOATS = BF ? (2 * H + kHeadRows) * LDB / 2 : 2 * H * H;
+  static constexpr int H1 = W2 + W2_FLOATS;                   // float32 only: [kEnvs][LDH]
+  static constexpr int WHT = H1 + (BF ? 0 : kEnvs * LDH);     // float32 only: [kMaxA1][H2]
+  static constexpr int W1 = WHT + (BF ? 0 : kMaxA1 * H2);     // [H2] (folded when fold_obs)
   static constexpr int B1 = W1 + H2;
   static constexpr int B2 = B1 + H2;
-  static constexpr int WHT = B2 + H2;                 // [kMaxA1][H2] Whc transposed
-  static constexpr int BH = WHT + kMaxA1 * H2;        // [kMaxA1]
-  static constexpr int OUT = BH + kMaxA1;             // [kEnvs][kMaxA1]
-  static constexpr int STAT = OUT + kEnvs * kMaxA1;   // [kEnvs][kStats]
+  static constexpr int BH = B2 + H2;                          // [kMaxA1]
+  static constexpr int OUT = BH + align4(kMaxA1);             // [kEnvs][kMaxA1]
+  static constexpr int STAT = OUT + align4(kEnvs * kMaxA1);   // [kEnvs][kStats]
   static constexpr int TOTAL = STAT + kEnvs * kStats;
   static constexpr size_t BYTES = sizeof(float) * TOTAL;
+  static_assert((2 * H + kHeadRows) * LDB % 2 == 0 && W2_FLOATS % 4 == 0, "alignment");
 };
 // two CTAs per SM: 2 x (BYTES + 1 KiB reserved) within the SM's 228 KiB
-static_assert(2 * (RollSmem<128>::BYTES + 1024) <= 233472, "two CTAs must fit an SM");
+static_assert(2 * (RollSmem<64, false>::BYTES + 1024) <= 233472 &&
+                  2 * (RollSmem<64, true>::BYTES + 1024) <= 233472,
+              "two CTAs must fit an SM");
 
-struct SmemPtrs {
-  float *w2, *h1, *hh, *w1, *b1, *b2, *wht, *bh, *out, *stat;
-};
-
-// One warp's forward for its 4 envs (inputs in lanes 0-3 of `inp`): fills
-// out[s][a] for a in [a_begin, A1) of the warp's rows s0..s0+3.
-template <int H2, bool BF>
-__device__ __forceinline__ void warp_forward(const SmemPtrs& S, int s0, int lane, float inp,
-                                             int a_begin, int A1) {
-  constexpr int LD = kActLD<H2>;
-  constexpr int CPT = H2 / 32;
-  // rank-1 input layer, written as the twin computes it: w * m + b, then tanh
-#pragma unroll
-  for (int i = 0; i < kEnvsPerWarp; ++i) {
-    const float m = __shfl_sync(0xffffffffu, inp, i);
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) {
-      const int j = lane + 32 * c;
-      S.h1[(s0 + i) * LD + j] = tanhf(__fadd_rn(__fmul_rn(S.w1[j], m), S.b1[j]));
-    }
+template <int N>
+__device__ __forceinline__ void store_row(float* p, const float (&v)[N]) {
+  static_assert(N == 2 || N == 4, "row width");
+  if constexpr (N == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
   }
-  __syncwarp();
+}
+
+// Sums each v[e] over the 16 lanes of this lane's half-warp, halving the envs
+// a lane keeps at every exchange; returns the sum of env (lane >> 1) & 7. The
+// order of the additions is fixed.
+__device__ __forceinline__ float tower_sums(const float (&v)[kEnvsPerWarp], int lane) {
+  const bool b3 = lane & 8, b2 = lane & 4, b1 = lane & 2;
+  float w[4], x[2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float keep = b3 ? v[i + 4] : v[i], send = b3 ? v[i] : v[i + 4];
+    w[i] = keep + __shfl_xor_sync(FULL_MASK, send, 8);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float keep = b2 ? w[i + 2] : w[i], send = b2 ? w[i] : w[i + 2];
+    x[i] = keep + __shfl_xor_sync(FULL_MASK, send, 4);
+  }
+  const float keep = b1 ? x[1] : x[0], send = b1 ? x[0] : x[1];
+  const float y = keep + __shfl_xor_sync(FULL_MASK, send, 2);
+  return y + __shfl_xor_sync(FULL_MASK, y, 1);
+}
+
+// One warp's float32 forward for its 8 envs (inputs in lanes 0-7 of `inp`):
+// fills out[e][a] for a in [0, A] of the warp's rows. sm is the CTA's shared
+// memory, h1 and out this warp's rows of it.
+template <int H>
+__device__ __forceinline__ void warp_forward_f32(const float* sm, float* h1, float* out, int lane,
+                                                 float inp, int A) {
+  using L_ = RollSmem<H, false>;
+  constexpr int H2 = 2 * H, CPL = H / 16, LDT = L_::LDT, LDH = L_::LDH;
+  const int tower = lane >> 4, c0 = (lane & 15) * CPL;
+  const int col = tower * H + c0;  // this lane's first column of the merged layers
   {
-    const int c0 = lane * CPT;
-    float acc[4][CPT];
-    chunk_product<H2, BF>(S.h1, S.w2, s0, c0, acc);
+    // rank-1 input layer, written as the twin computes it: w * m + b, then tanh
+    float w1[CPL], b1[CPL];
+    load_row<CPL>(sm + L_::W1 + col, w1);
+    load_row<CPL>(sm + L_::B1 + col, b1);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int e = 0; e < kEnvsPerWarp; ++e) {
+      const float m = __shfl_sync(FULL_MASK, inp, e);
+      float v[CPL];
 #pragma unroll
-      for (int c = 0; c < CPT; ++c)
-        S.hh[(s0 + i) * LD + c0 + c] = tanhf(acc[i][c] + S.b2[c0 + c]);
+      for (int c = 0; c < CPL; ++c) v[c] = tanhf(__fadd_rn(__fmul_rn(w1[c], m), b1[c]));
+      store_row<CPL>(h1 + e * LDH + tower * LDT + c0, v);
+    }
   }
   __syncwarp();
-  // heads: one warp sum per (env, output)
-  for (int a = a_begin; a < A1; ++a) {
-    float z[kEnvsPerWarp];
+  float acc[kEnvsPerWarp][CPL];
 #pragma unroll
-    for (int i = 0; i < kEnvsPerWarp; ++i) {
-      float acc = 0.0f;
+  for (int e = 0; e < kEnvsPerWarp; ++e)
 #pragma unroll
-      for (int c = 0; c < CPT; ++c) {
-        const int k = lane + 32 * c;
-        acc = fmaf(in_round<BF>(S.hh[(s0 + i) * LD + k]), S.wht[a * H2 + k], acc);
+    for (int c = 0; c < CPL; ++c) acc[e][c] = 0.0f;
+  {
+    const float* a0 = h1 + tower * LDT;
+    const float* b0 = sm + L_::W2 + tower * H * H + c0;
+#pragma unroll 2
+    for (int j = 0; j < H; j += 4) {
+      float a[kEnvsPerWarp][4];
+#pragma unroll
+      for (int e = 0; e < kEnvsPerWarp; ++e) load_row<4>(a0 + e * LDH + j, a[e]);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        float b[CPL];
+        load_row<CPL>(b0 + (j + q) * H, b);
+#pragma unroll
+        for (int e = 0; e < kEnvsPerWarp; ++e)
+#pragma unroll
+          for (int c = 0; c < CPL; ++c) acc[e][c] = fmaf(a[e][q], b[c], acc[e][c]);
       }
-      z[i] = warp_sum(acc);
     }
-    if (lane < kEnvsPerWarp) {
-      float mine = z[0];
+  }
+  {
+    float b2[CPL];
+    load_row<CPL>(sm + L_::B2 + col, b2);
 #pragma unroll
-      for (int i = 1; i < kEnvsPerWarp; ++i)
-        if (lane == i) mine = z[i];
-      S.out[(s0 + lane) * kMaxA1 + a] = mine + S.bh[a];
+    for (int e = 0; e < kEnvsPerWarp; ++e)
+#pragma unroll
+      for (int c = 0; c < CPL; ++c) acc[e][c] = tanhf(acc[e][c] + b2[c]);
+  }
+  // heads: the policy half sums output o of its tower, the value half the
+  // value (again for every o > 0, stored once)
+  for (int o = 0; o < A; ++o) {
+    const int a = tower == 0 ? o : A;
+    float wh[CPL], v[kEnvsPerWarp];
+    load_row<CPL>(sm + L_::WHT + a * H2 + col, wh);
+#pragma unroll
+    for (int e = 0; e < kEnvsPerWarp; ++e) {
+      v[e] = acc[e][0] * wh[0];
+#pragma unroll
+      for (int c = 1; c < CPL; ++c) v[e] = fmaf(acc[e][c], wh[c], v[e]);
     }
+    const float z = tower_sums(v, lane);
+    if ((lane & 1) == 0 && (tower == 0 || o == 0))
+      out[((lane >> 1) & 7) * kMaxA1 + a] = z + sm[L_::BH + a];
   }
   __syncwarp();
 }
 
-template <int H2, bool BF>
+// Two bf16 values rounded to nearest even from floats, `lo` in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// d += A B on the tensor cores: A [16, 16] bf16 whose rows 8-15 are zero (a_lo:
+// row lane / 4, columns 2 (lane % 4) + {0, 1}; a_hi: the same row, columns + 8),
+// B [16, 8] bf16 (b_lo: rows 2 (lane % 4) + {0, 1} of column lane / 4; b_hi:
+// rows + 8), d [16, 8] float32 (d[0], d[1]: row lane / 4, columns
+// 2 (lane % 4) + {0, 1}; d[2], d[3]: row lane / 4 + 8).
+__device__ __forceinline__ void mma_rows8(float (&d)[4], uint32_t a_lo, uint32_t a_hi,
+                                          uint32_t b_lo, uint32_t b_hi) {
+  const uint32_t zero = 0u;
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a_lo), "r"(zero), "r"(a_hi), "r"(zero), "r"(b_lo), "r"(b_hi));
+}
+
+// d += A B over the KT k-tiles of one n-tile: a[kt] the A fragments, `row` this
+// lane's first element of the B operand's row (stored transposed: row n, k
+// contiguous).
+template <int KT>
+__device__ __forceinline__ void mma_ntile(float (&d)[4], const uint32_t (&a)[KT][2],
+                                          const __nv_bfloat16* row) {
+#pragma unroll
+  for (int kt = 0; kt < KT; ++kt) {
+    const uint32_t b_lo = *reinterpret_cast<const uint32_t*>(row + 16 * kt);
+    const uint32_t b_hi = *reinterpret_cast<const uint32_t*>(row + 16 * kt + 8);
+    mma_rows8(d, a[kt][0], a[kt][1], b_lo, b_hi);
+  }
+}
+
+// One warp's bf16 forward for its 8 envs (inputs in lanes 0-7 of `inp`): fills
+// out[e][a] for a in [0, A] of the warp's rows. Lane l holds env l / 4 and, of
+// every 8 hidden units, the two at 2 (l % 4).
+template <int H>
+__device__ __forceinline__ void warp_forward_bf16(const float* sm, float* out, int lane,
+                                                  float inp, int A) {
+  using L_ = RollSmem<H, true>;
+  constexpr int KT = H / 16, NT = H / 8, LDB = L_::LDB;
+  const int g = lane >> 2, q2 = 2 * (lane & 3);
+  const __nv_bfloat16* w2t = reinterpret_cast<const __nv_bfloat16*>(sm + L_::W2);
+  const __nv_bfloat16* wht = w2t + 2 * H * LDB;
+  const float m = __shfl_sync(FULL_MASK, inp, g);
+  // head sums: policy outputs 0-7, policy outputs 8-15, value
+  float hd[3][4];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) hd[i][c] = 0.0f;
+#pragma unroll
+  for (int t = 0; t < 2; ++t) {
+    // rank-1 input layer, as the twin computes it, straight into A fragments
+    uint32_t a[KT][2];
+#pragma unroll
+    for (int kt = 0; kt < KT; ++kt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int j = t * H + 16 * kt + 8 * half + q2;
+        const float2 w1 = *reinterpret_cast<const float2*>(sm + L_::W1 + j);
+        const float2 b1 = *reinterpret_cast<const float2*>(sm + L_::B1 + j);
+        a[kt][half] = pack_bf16(tanhf(__fadd_rn(__fmul_rn(w1.x, m), b1.x)),
+                                tanhf(__fadd_rn(__fmul_rn(w1.y, m), b1.y)));
+      }
+    // h2 of n-tiles 2 kt and 2 kt + 1 is the head's A fragment of k-tile kt
+    uint32_t h2[KT][2];
+    const __nv_bfloat16* wt = w2t + (t * H + g) * LDB + q2;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      mma_ntile<KT>(d, a, wt + 8 * nt * LDB);
+      const float2 b2 = *reinterpret_cast<const float2*>(sm + L_::B2 + t * H + 8 * nt + q2);
+      h2[nt >> 1][nt & 1] = pack_bf16(tanhf(d[0] + b2.x), tanhf(d[1] + b2.y));
+    }
+    if (t == 0) {
+      mma_ntile<KT>(hd[0], h2, wht + g * LDB + q2);
+      if (A > 8) mma_ntile<KT>(hd[1], h2, wht + (8 + g) * LDB + q2);
+    } else {
+      mma_ntile<KT>(hd[2], h2, wht + (kMaxA + g) * LDB + q2);
+    }
+  }
+  float* mine = out + g * kMaxA1;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int a_out = 8 * i + q2 + c;
+      if (a_out < A) mine[a_out] = hd[i][c] + sm[L_::BH + a_out];
+    }
+  if (q2 == 0) mine[A] = hd[2][0] + sm[L_::BH + A];
+  __syncwarp();
+}
+
+template <int H, bool BF>
 __global__ void __launch_bounds__(kThreads, 2) policy_rollout_kernel(
     const PolicyRolloutParams p, const float* __restrict__ w,
     const float* __restrict__ stock_in, const int* __restrict__ t_in,
@@ -173,9 +357,8 @@ __global__ void __launch_bounds__(kThreads, 2) policy_rollout_kernel(
     float* __restrict__ stock_out, int* __restrict__ t_out, float* __restrict__ hv_out,
     float* __restrict__ ret_out, int* __restrict__ len_out, float* __restrict__ ws) {
   extern __shared__ __align__(16) float sm[];
-  using L_ = RollSmem<H2>;
-  const SmemPtrs S = {sm + L_::W2, sm + L_::H1,  sm + L_::HH, sm + L_::W1,  sm + L_::B1,
-                      sm + L_::B2, sm + L_::WHT, sm + L_::BH, sm + L_::OUT, sm + L_::STAT};
+  using L_ = RollSmem<H, BF>;
+  constexpr int H2 = 2 * H;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const bool gauss = p.scheme == CONTINUOUS;
   const int A = p.act_dim, A1 = A + 1;
@@ -183,17 +366,59 @@ __global__ void __launch_bounds__(kThreads, 2) policy_rollout_kernel(
   const float K = p.K, inv_K = 1.0f / K, two_K = 2.0f * K;
   const bool fold = p.fold_obs != 0, obs_noise = p.obs_noise != 0;
 
-  for (int i = tid; i < H2 * H2; i += kThreads) S.w2[i] = in_round<BF>(w[L.w2 + i]);
+  // The cross-tower blocks of W2c and Whc are zero by construction
+  // (merge_weights) and stay so under the fused update's masked step; the
+  // products rely on it.
+  if constexpr (BF) {
+    __nv_bfloat16* w2t = reinterpret_cast<__nv_bfloat16*>(sm + L_::W2);
+    __nv_bfloat16* wht = w2t + 2 * H * L_::LDB;
+    for (int i = tid; i < kHeadRows * L_::LDB; i += kThreads) wht[i] = __float2bfloat16_rn(0.0f);
+    __syncthreads();
+    for (int i = tid; i < H2 * H2; i += kThreads) {
+      const float v = w[L.w2 + i];
+      const int r = i / H2, c = i % H2;
+      if ((r < H) != (c < H)) {
+        if (v != 0.0f) __trap();
+      } else {
+        w2t[c * L_::LDB + r % H] = __float2bfloat16_rn(v);  // [tower][column][row in tower]
+      }
+    }
+    for (int i = tid; i < H2 * A1; i += kThreads) {
+      const float v = w[L.wh + i];
+      const int r = i / A1, c = i % A1;
+      if ((r < H) != (c < A)) {
+        if (v != 0.0f) __trap();
+      } else {
+        wht[(c < A ? c : kMaxA) * L_::LDB + r % H] = __float2bfloat16_rn(v);
+      }
+    }
+  } else {
+    float* w2 = sm + L_::W2;
+    float* wht = sm + L_::WHT;
+    for (int i = tid; i < H2 * H2; i += kThreads) {
+      const float v = w[L.w2 + i];
+      const int r = i / H2, c = i % H2;
+      if ((r < H) != (c < H)) {
+        if (v != 0.0f) __trap();
+      } else {
+        w2[r * H + c % H] = v;  // [tower][row in tower][column in tower]
+      }
+    }
+    for (int i = tid; i < H2 * A1; i += kThreads) {
+      const float v = w[L.wh + i];
+      const int r = i / A1, c = i % A1;
+      if ((r < H) != (c < A) && v != 0.0f) __trap();
+      wht[c * H2 + r] = v;
+    }
+  }
   for (int i = tid; i < H2; i += kThreads) {
     // fold: obs = clip(m, 0, 2K)/K - 1 enters the input layer as w/K and b - w
     const float w1 = w[L.w1 + i], b1 = w[L.b1 + i];
-    S.w1[i] = fold ? w1 * inv_K : w1;
-    S.b1[i] = fold ? b1 - w1 : b1;
-    S.b2[i] = w[L.b2 + i];
+    sm[L_::W1 + i] = fold ? w1 * inv_K : w1;
+    sm[L_::B1 + i] = fold ? b1 - w1 : b1;
+    sm[L_::B2 + i] = w[L.b2 + i];
   }
-  for (int i = tid; i < H2 * A1; i += kThreads)
-    S.wht[(i % A1) * H2 + i / A1] = in_round<BF>(w[L.wh + i]);
-  for (int i = tid; i < A1; i += kThreads) S.bh[i] = w[L.bh + i];
+  for (int i = tid; i < A1; i += kThreads) sm[L_::BH + i] = w[L.bh + i];
   const float log_std = gauss ? w[L.ls] : 0.0f;
   const float std_a = expf(log_std);
   __syncthreads();
@@ -205,6 +430,16 @@ __global__ void __launch_bounds__(kThreads, 2) policy_rollout_kernel(
   const long long env = (long long)blockIdx.x * kEnvs + s0 + lane;
   const bool active = lane < kEnvsPerWarp && env < B;
   const int model = p.growth == MIXTURE ? p.model_idx : p.growth;
+  float* outw = sm + L_::OUT + s0 * kMaxA1;  // this warp's head outputs [8][kMaxA1]
+  const float* out = outw + (lane & (kEnvsPerWarp - 1)) * kMaxA1;
+
+  auto forward = [&](float m) {
+    if constexpr (BF) {
+      warp_forward_bf16<H>(sm, outw, lane, m, A);
+    } else {
+      warp_forward_f32<H>(sm, sm + L_::H1 + s0 * L_::LDH, outw, lane, m, A);
+    }
+  };
 
   float x = 0.0f, h = 0.0f, cur_ret = 0.0f;
   int tt = 0, cur_len = 0;
@@ -220,9 +455,8 @@ __global__ void __launch_bounds__(kThreads, 2) policy_rollout_kernel(
   float nd = 0.0f, sr = 0.0f, sl = 0.0f, srw = 0.0f;
 
   for (int t = 0; t < T; ++t) {
-    warp_forward<H2, BF>(S, s0, lane, inp, 0, A1);
+    forward(inp);
     if (active) {
-      const float* out = S.out + (s0 + lane) * kMaxA1;
       const float value = out[A];
       const long long col = (long long)t * B + env;
       float za, zp, nf = 1.0f;  // za: action normal (Gaussian) or uniform (categorical)
@@ -324,25 +558,39 @@ __global__ void __launch_bounds__(kThreads, 2) policy_rollout_kernel(
       const float meas = obs_noise && !done ? xn * nf : xn;
       inp = fold ? fminf(fmaxf(meas, 0.0f), two_K) : fminf(fmaxf(meas / K - 1.0f, -1.0f), 1.0f);
     }
+    // the next forward overwrites the head outputs this step's tail read
+    __syncwarp();
   }
 
   // GAE, bootstrapped from the value of the final (post-reset) input
-  warp_forward<H2, BF>(S, s0, lane, inp, A, A1);
+  forward(inp);
   if (active) {
     float gae = 0.0f;
-    float next_value = S.out[(s0 + lane) * kMaxA1 + A];
-    for (int t = T - 1; t >= 0; --t) {
-      const long long col = (long long)t * B + env;
-      const float rew = packed[6 * TB + col];
-      const float nonterm = 1.0f - packed[7 * TB + col];
-      const float value = packed[3 * TB + col];
-      const float delta = rew + p.gamma * next_value * nonterm - value;
-      gae = delta + p.gamma_lambda * nonterm * gae;
-      packed[4 * TB + col] = gae;
-      packed[5 * TB + col] = gae + value;
-      packed[6 * TB + col] = 0.0f;
-      packed[7 * TB + col] = 0.0f;
-      next_value = value;
+    float next_value = out[A];
+    for (int t_hi = T - 1; t_hi >= 0; t_hi -= kGaeRun) {
+      float rew[kGaeRun], nonterm[kGaeRun], value[kGaeRun];
+#pragma unroll
+      for (int j = 0; j < kGaeRun; ++j) {
+        if (t_hi - j >= 0) {
+          const long long col = (long long)(t_hi - j) * B + env;
+          rew[j] = packed[6 * TB + col];
+          nonterm[j] = 1.0f - packed[7 * TB + col];
+          value[j] = packed[3 * TB + col];
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kGaeRun; ++j) {
+        if (t_hi - j >= 0) {
+          const long long col = (long long)(t_hi - j) * B + env;
+          const float delta = rew[j] + p.gamma * next_value * nonterm[j] - value[j];
+          gae = delta + p.gamma_lambda * nonterm[j] * gae;
+          packed[4 * TB + col] = gae;
+          packed[5 * TB + col] = gae + value[j];
+          packed[6 * TB + col] = 0.0f;
+          packed[7 * TB + col] = 0.0f;
+          next_value = value[j];
+        }
+      }
     }
     stock_out[env] = x;
     t_out[env] = tt;
@@ -353,7 +601,7 @@ __global__ void __launch_bounds__(kThreads, 2) policy_rollout_kernel(
 
   // episode statistics: this CTA's sums in env order -> ws row blockIdx.x
   if (lane < kEnvsPerWarp) {
-    float* st = S.stat + (s0 + lane) * kStats;
+    float* st = sm + L_::STAT + (s0 + lane) * kStats;
     st[0] = nd;
     st[1] = sr;
     st[2] = sl;
@@ -362,7 +610,7 @@ __global__ void __launch_bounds__(kThreads, 2) policy_rollout_kernel(
   __syncthreads();
   if (tid < kStats) {
     float z = 0.0f;
-    for (int s = 0; s < kEnvs; ++s) z += S.stat[s * kStats + tid];
+    for (int s = 0; s < kEnvs; ++s) z += sm[L_::STAT + s * kStats + tid];
     ws[(long long)blockIdx.x * kStats + tid] = z;
   }
 }
@@ -373,6 +621,8 @@ __global__ void __launch_bounds__(32) reduce_stats(const float* __restrict__ ws,
   const int m = threadIdx.x;
   if (m >= kStats) return;
   float z = 0.0f;
+  // unrolled so that eight rows are in flight while the sum keeps its order
+#pragma unroll 8
   for (int g = 0; g < G; ++g) z += ws[(long long)g * kStats + m];
   stats[m] = z;
 }
@@ -390,26 +640,26 @@ static int check_params(const PolicyRolloutParams* p) {
   return 0;
 }
 
-template <int H2, bool BF>
+template <int H, bool BF>
 static int launch(const PolicyRolloutParams* p, const float* w, const float* stock_in,
                   const int* t_in, const float* hv_in, const float* ret_in, const int* len_in,
                   const float* noise, float* packed, float* stock_out, int* t_out, float* hv_out,
                   float* ret_out, int* len_out, float* ws, unsigned grid, cudaStream_t st) {
-  cudaError_t e = cudaFuncSetAttribute(policy_rollout_kernel<H2, BF>,
+  cudaError_t e = cudaFuncSetAttribute(policy_rollout_kernel<H, BF>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)RollSmem<H2>::BYTES);
+                                       (int)RollSmem<H, BF>::BYTES);
   if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(policy_rollout_kernel<H2, BF>,
+  e = cudaFuncSetAttribute(policy_rollout_kernel<H, BF>,
                            cudaFuncAttributePreferredSharedMemoryCarveout,
                            (int)cudaSharedmemCarveoutMaxShared);
   if (e != cudaSuccess) return (int)e;
-  policy_rollout_kernel<H2, BF><<<grid, kThreads, RollSmem<H2>::BYTES, st>>>(
+  policy_rollout_kernel<H, BF><<<grid, kThreads, RollSmem<H, BF>::BYTES, st>>>(
       *p, w, stock_in, t_in, hv_in, ret_in, len_in, noise, packed, stock_out, t_out, hv_out,
       ret_out, len_out, ws);
   return (int)cudaGetLastError();
 }
 
-// ws: [ceil(B / 32)][4] scratch; stats: [4].
+// ws: [ceil(B / policy_rollout_envs_per_cta())][4] scratch; stats: [4].
 extern "C" int policy_rollout_launch(const PolicyRolloutParams* p, const float* w,
                                      const float* stock_in, const int* t_in, const float* hv_in,
                                      const float* ret_in, const int* len_in, const float* noise,
@@ -423,14 +673,14 @@ extern "C" int policy_rollout_launch(const PolicyRolloutParams* p, const float* 
   const unsigned grid = (unsigned)((p->num_envs + kEnvs - 1) / kEnvs);
   const bool bf = p->compute == BFLOAT16;
   if (p->hidden == 64)
-    err = bf ? launch<128, true>(p, w, stock_in, t_in, hv_in, ret_in, len_in, noise, packed,
-                                 stock_out, t_out, hv_out, ret_out, len_out, ws, grid, st)
-             : launch<128, false>(p, w, stock_in, t_in, hv_in, ret_in, len_in, noise, packed,
-                                  stock_out, t_out, hv_out, ret_out, len_out, ws, grid, st);
-  else
     err = bf ? launch<64, true>(p, w, stock_in, t_in, hv_in, ret_in, len_in, noise, packed,
                                 stock_out, t_out, hv_out, ret_out, len_out, ws, grid, st)
              : launch<64, false>(p, w, stock_in, t_in, hv_in, ret_in, len_in, noise, packed,
+                                 stock_out, t_out, hv_out, ret_out, len_out, ws, grid, st);
+  else
+    err = bf ? launch<32, true>(p, w, stock_in, t_in, hv_in, ret_in, len_in, noise, packed,
+                                stock_out, t_out, hv_out, ret_out, len_out, ws, grid, st)
+             : launch<32, false>(p, w, stock_in, t_in, hv_in, ret_in, len_in, noise, packed,
                                  stock_out, t_out, hv_out, ret_out, len_out, ws, grid, st);
   if (err) return err;
   reduce_stats<<<1, 32, 0, st>>>(ws, (int)grid, stats);
@@ -438,6 +688,8 @@ extern "C" int policy_rollout_launch(const PolicyRolloutParams* p, const float* 
 }
 
 extern "C" int policy_rollout_params_size(void) { return (int)sizeof(PolicyRolloutParams); }
+
+extern "C" int policy_rollout_envs_per_cta(void) { return kEnvs; }
 
 extern "C" const char* cuda_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);

@@ -1,10 +1,12 @@
 """Fused PPO policy rollout (K4): CUDA kernel and plain twin.
 
 Counterpart of ``gym_fishing_tpu/kernels/policy_rollout_kernel.py``. One call
-runs T steps of B envs under the merged actor-critic (the update kernels'
-block-diagonal layout, ``kernels/ppo_update_kernel.py::merge_weights``):
-forward, Gaussian or inverse-CDF categorical sampling, the continuous,
-proportional or relative decode, the dynamics with auto-reset and
+runs T steps of B envs under the actor-critic, given as the 13 split-tower
+kernel-layout arrays (``agents/ppo_fused.py::kernel_weights``) and merged
+here into the update kernels' block-diagonal layout
+(``kernels/ppo_update_kernel.py::merge_weights``): forward, Gaussian or
+inverse-CDF categorical sampling, the continuous, proportional or relative
+decode, the dynamics with auto-reset and
 observation noise, then the reverse GAE pass, and returns the update
 kernels' packed sample matrix ``[8, T*B]`` (rows: obs, action, logp, value,
 advantage, return, two zero rows; sample ``t*B + env``), the final env
@@ -25,8 +27,14 @@ Semantics are the JAX kernel's: the first input is noise-free; with
 decode looks up ``harvest * RELATIVE_MULTIPLIERS[a]``; the carried harvest
 is the pre-min quota under the relative scheme and the realised harvest
 otherwise; GAE bootstraps from the value of the final post-reset input.
-Under ``compute="bfloat16"`` the inputs of the two 2H-contractions (W2c and
-h1, Whc and h2) are rounded to bf16 and summed in float32.
+Under ``compute="bfloat16"`` the inputs of the two H-contractions per tower
+(W2c and h1, Whc and h2) are rounded to bf16 and summed in float32; the
+kernel runs them on the tensor cores.
+
+The kernel multiplies W2c and Whc per tower and relies on their cross-tower
+blocks being zero (it traps on any other). The wrapper and the twin take the
+split towers and merge them themselves, as the JAX wrapper does, so no call
+can hand the kernel such a block.
 
 Noise: Philox4x32-10 with key = `seed` and counter = (env index, `offset` +
 t), one block of four uint32 per env and step (`draws_per_call`). Gaussian
@@ -55,7 +63,7 @@ from gym_fishing_tpu_torch.kernels.ppo_update_kernel import (
     COMPUTES,
     LOG_2PI,
     flatten_merged,
-    merged_shapes,
+    merge_weights,
 )
 from gym_fishing_tpu_torch.kernels.rollout_kernel import (
     _GROWTHS,
@@ -73,7 +81,7 @@ _SOURCE = "policy_rollout_kernel"
 # Limits of the CUDA kernel (the twin takes any size).
 KERNEL_HIDDEN = (32, 64)
 KERNEL_MAX_ACTIONS = 16
-KERNEL_ENVS_PER_CTA = 32
+KERNEL_ENVS_PER_CTA = 64  # sizes the statistics' scratch rows; the library exports its own
 
 # Kernel launches made by `policy_rollout` (the CPU twin does not count).
 launches = 0
@@ -144,7 +152,7 @@ def draws_per_call(num_steps: int) -> int:
     return num_steps
 
 
-def _check(stock, t, harvest, ep_ret, ep_len, merged, scalars, num_steps, growth, noise_form,
+def _check(stock, t, harvest, ep_ret, ep_len, weights, scalars, num_steps, growth, noise_form,
            scheme, n_actions, obs_noise, compute, noise):
     """Validate the arguments; returns (hidden, A) with A the head width
     (1 for the Gaussian head, n_actions for the categorical one)."""
@@ -166,14 +174,15 @@ def _check(stock, t, harvest, ep_ret, ep_len, merged, scalars, num_steps, growth
     A = 1 if scheme == "continuous" else n_actions
     if A < 2 and scheme != "continuous":
         raise ValueError("n_actions must be >= 2")
-    if len(merged) != 7:
-        raise ValueError("merged must hold the 7 merged weight arrays (merge_weights)")
-    hidden = merged[2].shape[0] // 2
+    if len(weights) != 13:
+        raise ValueError("weights must hold the 13 kernel-layout arrays "
+                         "(ppo_fused.kernel_weights)")
+    hidden = weights[0].shape[1]
     expect = [("stock", stock, torch.float32, (B,)), ("t", t, torch.int32, (B,)),
               ("harvest", harvest, torch.float32, (B,)),
               ("ep_ret", ep_ret, torch.float32, (B,)), ("ep_len", ep_len, torch.int32, (B,))]
-    expect += [(f"merged[{i}]", x, torch.float32, shape)
-               for i, (x, shape) in enumerate(zip(merged, merged_shapes(1, hidden, A)))]
+    expect += [(f"weights[{i}]", x, torch.float32, shape)
+               for i, (x, shape) in enumerate(zip(weights, _split_shapes(hidden, A)))]
     if noise is not None:
         expect.append(("noise", noise, torch.float32, (3 if obs_noise else 2, num_steps, B)))
     for name, x, dtype, shape in expect:
@@ -184,14 +193,25 @@ def _check(stock, t, harvest, ep_ret, ep_len, merged, scalars, num_steps, growth
             raise ValueError(f"{name} is on {x.device}, stock on {stock.device}")
     if stock.device.type not in ("cpu", "cuda"):
         raise ValueError(f"runs on CUDA or CPU tensors, not {stock.device}")
-    if stock.device.type == "cuda":
-        if hidden not in KERNEL_HIDDEN:
-            raise ValueError(f"the CUDA kernel takes hidden in {KERNEL_HIDDEN}, not {hidden}")
-        if A > KERNEL_MAX_ACTIONS:
-            raise ValueError(f"the CUDA kernel takes n_actions <= {KERNEL_MAX_ACTIONS}")
-        if not all(x.is_contiguous() for _, x, _, _ in expect):
-            raise ValueError("state, weights and noise must be contiguous")
     return hidden, A
+
+
+def _split_shapes(hidden: int, act_dim: int):
+    """Shapes of the 13 kernel-layout arrays at obs_dim 1: the policy tower
+    (w1, b1, w2, b2, head weight, head bias), log_std, then the value tower."""
+    h, a = hidden, act_dim
+    return [(1, h), (h, 1), (h, h), (h, 1), (h, a), (a, 1), (a, 1),
+            (1, h), (h, 1), (h, h), (h, 1), (h, 1), (1, 1)]
+
+
+def check_kernel_limits(hidden: int, act_dim: int) -> None:
+    """Raise on sizes the CUDA kernel does not take (the twin takes any);
+    `act_dim` is the head width, 1 for the Gaussian head."""
+    if hidden not in KERNEL_HIDDEN:
+        raise ValueError(f"the CUDA kernel takes hidden in {KERNEL_HIDDEN}, not {hidden}")
+    if act_dim > KERNEL_MAX_ACTIONS:
+        raise ValueError(f"the CUDA kernel takes n_actions <= {KERNEL_MAX_ACTIONS}, "
+                         f"not {act_dim}")
 
 
 def policy_rollout(
@@ -200,7 +220,7 @@ def policy_rollout(
     harvest: torch.Tensor,    # (B,) f32 carried harvest
     ep_ret: torch.Tensor,     # (B,) f32 running return
     ep_len: torch.Tensor,     # (B,) i32 running length
-    merged: tuple,            # 7 merged weight arrays (ppo_update_kernel.merge_weights)
+    weights: tuple,           # 13 kernel-layout arrays (ppo_fused.kernel_weights)
     scalars: RolloutScalars,
     num_steps: int,
     *,
@@ -218,9 +238,9 @@ def policy_rollout(
     """Fused `num_steps`-step PPO rollout + GAE of B envs (any B); see
     PolicyRollout and the module doc.
 
-    `scheme` selects the head: "continuous" is the Gaussian head (merged
-    Whc of width 2), "proportional" and "relative" the categorical head of
-    width `n_actions`, whose action row holds the class index. On a CUDA
+    `scheme` selects the head: "continuous" is the Gaussian head (of width
+    1), "proportional" and "relative" the categorical head of width
+    `n_actions`, whose action row holds the class index. On a CUDA
     tensor this launches the kernel on the current stream without
     synchronising; on a CPU tensor it runs `policy_rollout_reference`.
     """
@@ -229,10 +249,14 @@ def policy_rollout(
               scheme=scheme, n_actions=n_actions, obs_noise=obs_noise, compute=compute,
               fold_obs=fold_obs, noise=noise)
     if stock.device.type == "cpu":
-        return policy_rollout_reference(stock, t, harvest, ep_ret, ep_len, merged, scalars,
+        return policy_rollout_reference(stock, t, harvest, ep_ret, ep_len, weights, scalars,
                                         num_steps, **kw)
-    hidden, A = _check(stock, t, harvest, ep_ret, ep_len, merged, scalars, num_steps, growth,
+    hidden, A = _check(stock, t, harvest, ep_ret, ep_len, weights, scalars, num_steps, growth,
                        noise_form, scheme, n_actions, obs_noise, compute, noise)
+    check_kernel_limits(hidden, A)
+    given = (stock, t, harvest, ep_ret, ep_len, *(() if noise is None else (noise,)))
+    if not all(x.is_contiguous() for x in given):
+        raise ValueError("state and noise must be contiguous")
     B = stock.shape[0]
     s = scalars._asdict()
     p = _Params(
@@ -244,7 +268,7 @@ def policy_rollout(
         num_steps=num_steps, pad0=0, num_envs=B, seed=s["seed"], offset=s["offset"],
     )
     dev = stock.device
-    w = flatten_merged(merged)
+    w = flatten_merged(merge_weights(weights))
     packed = torch.empty((PACKED_ROWS, num_steps * B), dtype=torch.float32, device=dev)
     out_f = [torch.empty_like(stock) for _ in range(3)]  # stock, harvest, ep_ret
     out_t, out_len = torch.empty_like(t), torch.empty_like(ep_len)
@@ -273,6 +297,8 @@ def library() -> ctypes.CDLL:
     lib = _build.load(_SOURCE)
     if lib.policy_rollout_params_size() != ctypes.sizeof(_Params):
         raise RuntimeError("struct PolicyRolloutParams and _Params disagree in size")
+    if lib.policy_rollout_envs_per_cta() != KERNEL_ENVS_PER_CTA:
+        raise RuntimeError("csrc/policy_rollout_kernel.cu and KERNEL_ENVS_PER_CTA disagree")
     lib.policy_rollout_launch.argtypes = [ctypes.c_void_p] * 17
     lib.policy_rollout_launch.restype = ctypes.c_int
     return lib
@@ -305,7 +331,7 @@ def policy_rollout_reference(
     harvest: torch.Tensor,
     ep_ret: torch.Tensor,
     ep_len: torch.Tensor,
-    merged: tuple,
+    weights: tuple,
     scalars: RolloutScalars,
     num_steps: int,
     *,
@@ -321,7 +347,7 @@ def policy_rollout_reference(
     noise: Optional[torch.Tensor] = None,
 ) -> PolicyRollout:
     """Plain PyTorch twin of the kernel: same signature, outputs and noise."""
-    _, A = _check(stock, t, harvest, ep_ret, ep_len, merged, scalars, num_steps, growth,
+    _, A = _check(stock, t, harvest, ep_ret, ep_len, weights, scalars, num_steps, growth,
                   noise_form, scheme, n_actions, obs_noise, compute, noise)
     dev, f32 = stock.device, torch.float32
     B, T = stock.shape[0], num_steps
@@ -338,7 +364,7 @@ def policy_rollout_reference(
     rnd = ((lambda x: x.to(torch.bfloat16).to(f32)) if compute == "bfloat16"
            else (lambda x: x))
 
-    w1c, b1c, w2c, b2c, whc, bhc, ls = merged
+    w1c, b1c, w2c, b2c, whc, bhc, ls = merge_weights(weights)
     w1, b1 = w1c[0], b1c[:, 0]
     if fold_obs:   # obs = clip(m, 0, 2K)/K - 1 enters the input layer as w/K and b - w
         w1, b1 = w1 * inv_K, b1 - w1

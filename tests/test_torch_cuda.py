@@ -239,8 +239,8 @@ def _k4_case(env_id, hidden, source, dev, B=2048 + 5, T=32, **overrides):
             p.add_(0.05 * torch.randn(p.shape, generator=gen))
         if gauss:
             model.pi_mean.bias.sub_(0.5)
-    merged = tuple(x.to(dev) for x in uk.merge_weights(ppo_fused.kernel_weights(
-        dict(model.named_parameters()), "gaussian" if gauss else "categorical")))
+    weights = tuple(x.detach().to(dev) for x in ppo_fused.kernel_weights(
+        dict(model.named_parameters()), "gaussian" if gauss else "categorical"))
     rng = np.random.default_rng(1)
     tmax = int(params.Tmax)
     state = (torch.from_numpy(rng.uniform(0.3, 1.2, B).astype(np.float32)).to(dev),
@@ -257,7 +257,7 @@ def _k4_case(env_id, hidden, source, dev, B=2048 + 5, T=32, **overrides):
             planes.append(np.exp(float(params.sigma_m) * rng.standard_normal((T, B))))
         kw["noise"] = torch.from_numpy(np.stack(planes).astype(np.float32)).to(dev)
     seed = (0, 0) if source == "planes" else (99, 3)
-    return (*state, merged, ppo_fused.rollout_scalars(params, *seed), T), kw
+    return (*state, weights, ppo_fused.rollout_scalars(params, *seed), T), kw
 
 
 @pytest.mark.cuda
@@ -272,6 +272,11 @@ def _k4_case(env_id, hidden, source, dev, B=2048 + 5, T=32, **overrides):
 def test_policy_rollout_kernel_matches_twin(cuda, env_id, hidden, overrides, source, compute):
     args, kw = _k4_case(env_id, hidden, source, cuda, **overrides)
     kw["compute"] = compute
+    _assert_k4_matches_twin(args, kw, 3 + args[-1] if source == "philox" else 0)
+
+
+def _assert_k4_matches_twin(args, kw, next_offset):
+    compute, categorical = kw["compute"], kw["scheme"] != "continuous"
     before = pk.launches
     ker = pk.policy_rollout(*args, **kw)
     assert pk.launches == before + 1
@@ -285,7 +290,7 @@ def test_policy_rollout_kernel_matches_twin(cuda, env_id, hidden, overrides, sou
     # the whole stock) are left out, at most 1e-3 of them (see chip_smoke.py)
     atol = 5e-3 if compute == "bfloat16" else 1e-4
     same = ((P[:6] - R[:6]).abs().amax((0, 1)) <= atol) & (ker.t == ref.t)
-    if env_id == "fishing-v0":
+    if categorical:
         same &= (P[1] == R[1]).all(0)
     assert int((~same).sum()) <= 1e-3 * B
     pairs = [(P[r][:, same], R[r][:, same]) for r in range(6)]
@@ -301,7 +306,90 @@ def test_policy_rollout_kernel_matches_twin(cuda, env_id, hidden, overrides, sou
         assert float(ker.stats[0]) == float(ref.stats[0])
         np.testing.assert_allclose(ker.stats.cpu().numpy(), ref.stats.cpu().numpy(),
                                    rtol=1e-3 if compute == "bfloat16" else 1e-4, atol=1e-3)
-    assert ker.next_offset == ref.next_offset == (3 + T if source == "philox" else 0)
+    assert ker.next_offset == ref.next_offset == next_offset
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+@pytest.mark.parametrize("env_id", ["fishing-v1", "fishing-v0"])
+@pytest.mark.parametrize("B", [5, 37, 3 * pk.KERNEL_ENVS_PER_CTA + 17])
+def test_policy_rollout_kernel_ragged_batch(cuda, B, env_id, compute):
+    """A batch smaller than one CTA, smaller than one warp's envs, and one
+    that ends inside a warp of its last CTA."""
+    args, kw = _k4_case(env_id, 64, "philox", cuda, B=B, sigma=0.1)
+    kw["compute"] = compute
+    _assert_k4_matches_twin(args, kw, 3 + args[-1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n_actions", [9, 16])
+def test_policy_rollout_kernel_wide_categorical_head(cuda, n_actions, compute):
+    """More than 8 logits: the bf16 head's second n-tile of policy outputs, up
+    to the kernel's limit."""
+    args, kw = _k4_case("fishing-v0", 64, "planes", cuda, sigma=0.1, n_actions=n_actions)
+    kw["compute"] = compute
+    _assert_k4_matches_twin(args, kw, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden", [32, 64])
+def test_policy_rollout_bf16_products_equal_float32_on_exact_inputs(cuda, hidden):
+    """The tensor-core path against the FMA path, without the twin between
+    them. Hidden activations are tanh values and cannot be held representable
+    in bf16 in general, so the case saturates them: W1 = 0 and b1 = +-20
+    make every h1 exactly +-1, and W2 = +-32 with b2 = 16 makes every
+    pre-activation a multiple of 64 plus 16, so every h2 is exactly +-1, its
+    sign decided by the whole product through W2. With the heads rounded to bf16
+    beforehand neither mode rounds anything, and the two kernels differ only
+    in the order of their float32 sums: the float32 bar holds, for no env
+    left out."""
+    args, kw = _k4_case("fishing-v1", hidden, "philox", cuda, sigma=0.1)
+    gen = torch.Generator().manual_seed(hidden)
+
+    def sign(shape):
+        return (torch.randint(0, 2, shape, generator=gen).float() * 2 - 1).to(cuda)
+
+    # per tower: w1, b1, w2, b2, head weight (policy at 0-4, value at 7-11)
+    w = [x.clone() for x in args[5]]
+    for base in (0, 7):
+        w[base].zero_()
+        w[base + 1].copy_(20.0 * sign(w[base + 1].shape))
+        w[base + 2].copy_(32.0 * sign(w[base + 2].shape))
+        w[base + 3].fill_(16.0)
+        w[base + 4].copy_(w[base + 4].to(torch.bfloat16).float())
+    args = (*args[:5], tuple(w), *args[6:])
+    runs = {c: pk.policy_rollout(*args, **dict(kw, compute=c)) for c in ("float32", "bfloat16")}
+    torch.cuda.synchronize()
+    f32, bf16 = runs["float32"], runs["bfloat16"]
+    np.testing.assert_allclose(bf16.packed_t.cpu().numpy(), f32.packed_t.cpu().numpy(),
+                               atol=1e-4, rtol=0)
+    for name in ("stock", "harvest", "ep_ret"):
+        np.testing.assert_allclose(getattr(bf16, name).cpu().numpy(),
+                                   getattr(f32, name).cpu().numpy(), atol=1e-4, rtol=0)
+    assert torch.equal(bf16.t, f32.t) and torch.equal(bf16.ep_len, f32.ep_len)
+    # and the products did decide something: the value is not the bias alone
+    assert float((f32.packed_t[3] - w[12][0, 0]).abs().max()) > 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["merged", "hidden", "n_actions"])
+def test_policy_rollout_wrapper_refuses_before_the_launch(cuda, which):
+    """The kernel relies on zero cross-tower blocks and has fixed sizes: the
+    wrapper takes the split towers only, which it merges itself, and raises
+    on sizes the kernel does not take, so the card never sees such input."""
+    if which == "merged":
+        args, kw = _k4_case("fishing-v1", 64, "philox", cuda, sigma=0.1)
+        args, match = (*args[:5], uk.merge_weights(args[5]), *args[6:]), "13 kernel-layout"
+    elif which == "hidden":
+        (args, kw), match = _k4_case("fishing-v1", 128, "philox", cuda, sigma=0.1), "hidden"
+    else:
+        (args, kw), match = _k4_case("fishing-v0", 64, "philox", cuda, sigma=0.1,
+                                     n_actions=17), "n_actions"
+    before = pk.launches
+    with pytest.raises(ValueError, match=match):
+        pk.policy_rollout(*args, **kw)
+    assert pk.launches == before
 
 
 @pytest.mark.cuda

@@ -19,6 +19,10 @@ plain twin `policy_rollout_reference`, and the fused-full train step.
 - The fused-full train step against JAX's (interpret mode) from the same
   weights, draws and tile permutations; its refusals; a finite step per
   head; and the build hash over the shared headers.
+- What the wrapper refuses before a launch: sizes the CUDA kernel does not
+  take, and anything but the 13 split-tower arrays at their shapes. The
+  kernel multiplies per tower and relies on zero cross-tower blocks; the
+  wrapper merges the towers itself, so no call can hand it another.
 
 The CUDA kernel itself is held against the twin on the card by
 tests/test_torch_cuda.py and chip_smoke.py.
@@ -208,12 +212,12 @@ def _seeded(env_id, B=4096, T=8, seed=11, offset=0, fold=False):
     cfg = ppo.PPOConfig(num_envs=B, num_steps=T, hidden=32)
     ts = make_train_state(env, cfg, torch.Generator().manual_seed(4))
     head = "gaussian" if env.config.scheme == "continuous" else "categorical"
-    merged = merge_weights(ppo_fused.kernel_weights(ts.params(), head))
+    weights = ppo_fused.kernel_weights(ts.params(), head)
     bstate = batched_reset(env, params, B)
     bstate = bstate.replace(env=bstate.env.replace(stock=torch.linspace(0.2, 1.8, B)))
     roll = pk.policy_rollout(
         bstate.env.stock, bstate.env.t, bstate.env.harvest, bstate.episode_return,
-        bstate.episode_length, merged, ppo_fused.rollout_scalars(params, seed, offset), T,
+        bstate.episode_length, weights, ppo_fused.rollout_scalars(params, seed, offset), T,
         scheme=env.config.scheme, n_actions=env.config.n_actions, fold_obs=fold)
     return roll, ts.model
 
@@ -392,6 +396,96 @@ def test_rollout_scalars_reads_the_params():
     assert s.K == float(params.K) and s.sigma_m == pytest.approx(0.2)
     with pytest.raises(ValueError, match="unsigned"):
         _seeded("fishing-v1", B=8, seed=-1)
+
+
+# ------------------------------------------------------- the kernel's limits
+
+@pytest.mark.parametrize("hidden,act_dim,match", [
+    (128, 1, "hidden"), (16, 1, "hidden"), (64, 17, "n_actions"), (32, 33, "n_actions")])
+def test_check_kernel_limits_refuses(hidden, act_dim, match):
+    with pytest.raises(ValueError, match=match):
+        pk.check_kernel_limits(hidden, act_dim)
+
+
+@pytest.mark.parametrize("hidden", pk.KERNEL_HIDDEN)
+@pytest.mark.parametrize("act_dim", [1, 3, pk.KERNEL_MAX_ACTIONS])
+def test_check_kernel_limits_accepts(hidden, act_dim):
+    pk.check_kernel_limits(hidden, act_dim)
+
+
+def _weights(head, hidden=32):
+    env, _ = make("fishing-v1" if head == "gaussian" else "fishing-v0")
+    ts = make_train_state(env, ppo.PPOConfig(hidden=hidden), torch.Generator().manual_seed(2))
+    return (ppo_fused.kernel_weights(ts.params(), head),
+            1 if head == "gaussian" else env.config.n_actions)
+
+
+@pytest.mark.parametrize("head", ["gaussian", "categorical"])
+def test_merge_weights_is_block_diagonal(head):
+    """What the wrapper hands the kernel: the cross-tower blocks of W2c and
+    Whc are zeros, whatever the towers hold."""
+    weights, a = _weights(head)
+    merged = merge_weights(tuple(x + 1.0 for x in weights))   # no zero in any tower
+    assert len(merged) == 7
+    w2c, whc = merged[2], merged[4]
+    h = w2c.shape[0] // 2
+    for cross in (w2c[:h, h:], w2c[h:, :h], whc[:h, a:], whc[h:, :a]):
+        assert cross.numel() and not cross.any()
+    for block in (w2c[:h, :h], w2c[h:, h:], whc[:h, :a], whc[h:, a:]):
+        assert block.all()
+
+
+def _call(weights, head, B=8, T=4):
+    env, params = make("fishing-v1" if head == "gaussian" else "fishing-v0", sigma=0.1)
+    state = (torch.linspace(0.4, 1.1, B), torch.zeros(B, dtype=torch.int32),
+             torch.zeros(B), torch.zeros(B), torch.zeros(B, dtype=torch.int32))
+    return pk.policy_rollout(*state, weights, ppo_fused.rollout_scalars(params, 3), T,
+                             scheme=env.config.scheme, n_actions=env.config.n_actions)
+
+
+@pytest.mark.parametrize("head", ["gaussian", "categorical"])
+@pytest.mark.parametrize("what", ["merged", "short", "w2p", "wv"])
+def test_wrapper_takes_only_the_split_towers(head, what):
+    """Merged arrays, in which a cross-tower block could be anything, a
+    missing array and an array of another shape are refused."""
+    weights, _ = _weights(head)
+    _call(weights, head)
+    if what == "merged":
+        bad = merge_weights(weights)
+    elif what == "short":
+        bad = weights[:-1]
+    else:
+        i = 2 if what == "w2p" else 11
+        bad = (*weights[:i], weights[i][:-1], *weights[i + 1:])
+    with pytest.raises(ValueError, match="13 kernel-layout arrays|must be torch.float32 of"):
+        _call(bad, head)
+
+
+def test_wrapper_computes_the_towers_it_is_given():
+    """A change in the value tower moves the value row and nothing of the
+    policy's; one in the policy tower moves the actions."""
+    weights, _ = _weights("gaussian")
+    base = _call(weights, "gaussian")
+    w2v = weights[9].clone()
+    w2v[0, -1] += 0.5
+    value = _call((*weights[:9], w2v, *weights[10:]), "gaussian")
+    assert torch.equal(base.packed_t[1], value.packed_t[1])          # the actions
+    assert not torch.equal(base.packed_t[3], value.packed_t[3])      # the values
+    w2p = weights[2].clone()
+    w2p[0, -1] += 0.5
+    policy = _call((*weights[:2], w2p, *weights[3:]), "gaussian")
+    assert not torch.equal(base.packed_t[1], policy.packed_t[1])
+    B = 8
+    assert torch.equal(base.packed_t[3, :B], policy.packed_t[3, :B])  # the first values
+
+
+def test_stats_scratch_follows_the_kernels_cta():
+    """The wrapper sizes the statistics' scratch by KERNEL_ENVS_PER_CTA, which
+    `library()` holds against the value the built source exports."""
+    source = (_build.CSRC / "policy_rollout_kernel.cu").read_text()
+    assert f"constexpr int kEnvsPerWarp = {pk.KERNEL_ENVS_PER_CTA // 8};" in source
+    assert "constexpr int kThreads = 256;" in source
+    assert "policy_rollout_envs_per_cta" in source
 
 
 # -------------------------------------------------------------------- build

@@ -31,6 +31,7 @@ import gym_fishing_tpu_torch as gtt
 from gym_fishing_tpu.kernels import make_scalars, pallas_rollout
 from gym_fishing_tpu_torch.agents.policies import escapement
 from gym_fishing_tpu_torch.batch import batched_reset, batched_step
+from gym_fishing_tpu_torch.bench import rollout_instructions
 from gym_fishing_tpu_torch.convert import params_from_numpy
 from gym_fishing_tpu_torch.kernels import rollout_kernel as rk
 from gym_fishing_tpu_torch.spaces.scaling import encode_action
@@ -459,3 +460,53 @@ def test_wrapper_accepts_ragged_batch_and_counts_no_cpu_launch():
     assert out.stock.shape == (37,) and out.stock.dtype == torch.float32
     assert out.t.dtype == torch.int32 and out.ep_count.dtype == torch.int32
     assert rk.launches == before
+
+
+# ------------------------------------------- the instruction count's own parts
+
+def test_specialise_fixes_every_switch_of_the_step():
+    """bench/rollout_instructions.py counts a copy of the kernel with
+    fishing-v1's switches as constants: none may stay a runtime read."""
+    from gym_fishing_tpu_torch.kernels import _build
+
+    source = (_build.CSRC / "rollout_kernel.cu").read_text()
+    fixed = rollout_instructions.specialise(source)
+    for field in ("policy", "scheme", "noise_form", "obs_noise", "has_noise"):
+        assert f"p.{field} " in source or f"p.{field})" in source
+        assert f"p.{field} " not in fixed and f"p.{field})" not in fixed
+    assert "p.policy_param" in fixed and "const int model = LOGISTIC;" in fixed
+    with pytest.raises(RuntimeError, match="has no"):
+        rollout_instructions.specialise("int main() {}")
+
+
+_LISTING = """
+\tFunction : _Z25philox_normal_fill_kernelyyxPf
+        /*0000*/                   MOV R1, c[0x0][0x28] ;
+        /*0010*/                   BRA 0x0 ;
+\tFunction : _Z14rollout_kernel13RolloutParamsPKf
+        /*0000*/                   MOV R1, c[0x0][0x28] ;
+        /*0010*/                   IMAD R2, R3, R4, R5 ;
+        /*0020*/              @!P0 BRA 0x60 ;
+        /*0030*/                   STL [R1], R2 ;
+        /*0040*/                   CALL.REL.NOINC 0x200 ;
+        /*0050*/                   BRA 0x20 ;
+        /*0060*/                   BSSY B0, 0xb0 ;
+        /*0070*/               @P1 BRA 0xa0 ;
+        /*0080*/                   FFMA R2, R2, R2, R2 ;
+        /*0090*/                   BRA 0xa0 ;
+        /*00a0*/                   BSYNC B0 ;
+        /*00b0*/               @P2 BRA 0x10 ;
+        /*00c0*/                   EXIT ;
+"""
+
+
+def test_step_loop_and_fast_path_of_a_listing():
+    loop = rollout_instructions.step_loop(_LISTING)
+    # the widest backward branch of rollout_kernel, not the slow path's own
+    # loop and not the other kernel's
+    assert [a for a, _ in loop] == list(range(0x10, 0xc0, 0x10))
+    fast = rollout_instructions.fast_path(loop)
+    # the leaf block that stores to local memory and calls is jumped over; the
+    # plain conditional branch at 0x70 falls through; the jump at 0x90 is taken
+    assert [a for a, _ in fast] == [0x10, 0x20, 0x60, 0x70, 0x80, 0x90, 0xa0, 0xb0]
+    assert [rollout_instructions.opcode(t) for _, t in fast[:3]] == ["IMAD", "BRA", "BSSY"]
