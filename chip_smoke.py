@@ -11,18 +11,26 @@ hidden 64) in its plain, fused-update and fused-full forms. Phases, each of
 which raises on failure:
 
 1. device: a CUDA device is required; prints the card's name and power limit;
-2. build: nvcc builds csrc/rollout_kernel.cu, csrc/ppo_update_kernel.cu and
-   csrc/policy_rollout_kernel.cu, one process per source, started together
-   (prints the seconds);
+2. build: nvcc builds csrc/ppo_update_kernel.cu, csrc/policy_rollout_kernel.cu
+   and csrc/rollout_kernel.cu, the last once per configuration that phases
+   3-5 launch (its switches are fixed when it is compiled), one process per
+   library, 8 at a time (prints the seconds);
 3. kernel ≡ twin: the kernel against its plain PyTorch twin on the same
    numpy-made noise planes, over every growth model, both noise forms, the
    three policies and schemes, observation noise, cost, collapse penalty,
-   drift and chained calls, at a ragged batch;
+   drift and chained calls, at a ragged batch; then from a seed, where the
+   kernel draws for itself: lognormal noise, observation noise, drift and the
+   relative scheme (which keeps the IEEE draws), with step counts that leave
+   part of a Philox block over. Every value
+   of every compile-time switch must have been launched, each library must
+   report the configuration it was asked for, and a library given another
+   configuration's parameters must refuse them;
 4. Philox stream: >= 2^20 normals through the kernel's own draw path,
    against the twin's stream and N(0, 1);
 5. main path, kernel tier: chained calls with launch counting, sanity and
    episode-accounting checks, the twin from the same seed, and env-steps/s
-   of both;
+   of both; the kernel's least time, which must not exceed the time the
+   schedulers need for the instructions the shipped kernel executes;
 6. main path, engine tier: `measure(mode="engine")`;
 7. the PPO kernels' build (update kernels and policy rollout): seconds,
    ptxas registers, shared memory and spills, and the tensor-core
@@ -114,24 +122,27 @@ PEAK = {"float32": 67e12, "bfloat16": 989e12, "bytes": 3.35e12}
 # for all of them.
 SM_CLOCKS_PER_S = 132 * 1.98e9
 PER_SM_CLOCK = {"float32": 128, "int32": 64, "special": 16, "all": 128}
-# What K1's function needs per env and step on the main path's configuration
-# (fishing-v1: logistic, escapement, continuous, additive noise, no obs
-# noise), counted from the algorithm and not from any compilation of it:
+# What K1's function needs per env and step at the main path's parameters
+# (fishing-v1: logistic, escapement, continuous, additive noise, no obs noise,
+# r_drift = 0, so r is a constant and t is not converted), counted from the
+# algorithm, a multiply with the add it feeds as one operation:
 # - a quarter of a Philox4x32-10 block: per round two 32 x 32 -> 64-bit
 #   multiplies and two three-input xors, 40 integer operations a block (the
 #   key schedule is the same for every env and is not counted), 10 a step;
-# - one uniform (a shift and an or; one float32 subtract);
-# - half a Box-Muller pair: of a pair's lg2, rsqrt, sin and cos, 2 special
-#   results; of its five float32 multiplies (the two scalings, rad x cos,
-#   rad x sin, sqrt from rsqrt), 2.5;
-# - the step: quota and harvest (4 float32), r + drift x float(t) (one
-#   conversion on the integer pipe, one FMA), logistic growth with x/K taken
-#   as one multiply (4), the noise (2), the clamp at 0 and the collapse test
-#   (3), the reward with its penalty (5), the two running sums (2), the
-#   reset's selects and episode sum (3); t + 1, its compare, the or, the
-#   episode count and t's select (5 integer).
-K1_OPS = {"float32": 1 + 2.5 + 4 + 1 + 4 + 2 + 3 + 5 + 2 + 3, "int32": 10 + 2 + 1 + 5,
-          "special": 2}
+# - one uniform: the mantissa under the exponent of 1 (one shift-and-add) and
+#   one float32 subtract;
+# - half a Box-Muller pair: of a pair's lg2, sqrt, sin and cos, 2 special
+#   results; of its four float32 multiplies (the two scalings, rad x cos,
+#   rad x sin), 2;
+# - the step: quota and harvest (4 float32), logistic growth as 1 - x/K in
+#   one multiply-add, r x, and one multiply-add (3), the noise (2), the
+#   collapse test (1; the clamp at 0 changes only an env that resets), the
+#   reward with its penalty (5), the two running sums (2), the reset's
+#   selects and episode sum (3); t + 1, its compare with the collapse folded
+#   in, the episode count and t's select (4 integer).
+# A count of this kind is a floor only while no compilation gets by with
+# fewer: phase 5 holds it against the instructions the shipped kernel executes.
+K1_OPS = {"float32": 1 + 2 + 4 + 3 + 2 + 1 + 5 + 2 + 3, "int32": 10 + 1 + 4, "special": 2}
 # fused vs plain params after one step at 1 epoch x 1 minibatch (the mirror
 # of tests/test_update_kernel.py's own bar), and the learning agreement of
 # scripts/validate_fused_training.py --agreement
@@ -200,9 +211,13 @@ def sm_clock_mhz():
 def cuda_ms(fn, reps):
     """Device milliseconds per call of `fn`: the median over `reps` calls, each
     between its own pair of CUDA events, so that a pause of the host between
-    two calls (the host's cores are shared) is in no call's time."""
+    two calls (the host's cores are shared) is in no call's time. The calls
+    are queued behind a device-side wait of about 30 ms, so that a host that
+    prepares a launch more slowly than the card runs it is in no pair
+    either."""
     pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
              for _ in range(reps)]
+    torch.cuda._sleep(60_000_000)   # SM clocks
     for start, end in pairs:
         start.record()
         out = fn()
@@ -229,13 +244,18 @@ def pipes_s(ops):
 def update_bound(n, obs_dim, hidden, act_dim, compute):
     """K2/K3 on n samples: the three 2H-contractions per tower (W2c's
     cross-tower blocks are zero and need no work) at the compute mode's rate,
-    the input layer and the head with their backward in float32; the packed
-    samples read once, the weights read and the gradients written once."""
+    the input layer and the head with their backward in float32. Under
+    bfloat16 the tensor cores and the float32 pipe work side by side, so the
+    operations take the longer of the two; under float32 both are on one
+    pipe and add. The packed samples read once, the weights read and the
+    gradients written once."""
     h2, a1 = 2 * hidden, act_dim + 1
     products = 3 * 2 * h2 * hidden * n
     rest = (2 * 2 * obs_dim * h2 + 3 * 2 * h2 * a1) * n
     n_par = obs_dim * h2 + h2 + h2 * h2 + h2 + h2 * a1 + a1 + act_dim
-    return least_ms(products / PEAK[compute] + rest / PEAK["float32"], 4 * (8 * n + 2 * n_par))
+    by_pipe = {compute: products / PEAK[compute]}
+    by_pipe["float32"] = by_pipe.get("float32", 0.0) + rest / PEAK["float32"]
+    return least_ms(max(by_pipe.values()), 4 * (8 * n + 2 * n_par))
 
 
 def rollout_bound(num_envs, num_steps, obs_dim, hidden, act_dim, compute):
@@ -261,6 +281,13 @@ def rollout_kernel_bound(num_envs, num_steps):
     return least_ms(pipes_s({pipe: k * n for pipe, k in K1_OPS.items()}), 44 * num_envs)
 
 
+def issue_ms(instructions_per_step, num_envs, num_steps):
+    """Milliseconds the schedulers alone need to start a kernel's
+    instructions (one per lane, env and step) at the rate the bounds assume."""
+    return (instructions_per_step * num_envs * num_steps
+            / (PER_SM_CLOCK["all"] * SM_CLOCKS_PER_S) * 1e3)
+
+
 def hmma_counts(_build, name):
     """{mangled name: HMMA instructions} of every instantiation of the kernel
     `name` in the machine code of the built library csrc/<name>.cu."""
@@ -279,19 +306,21 @@ def hmma_counts(_build, name):
     return counts
 
 
-def build_all(modules):
-    """Build every kernel library at once, one nvcc per source; returns
-    {name: seconds}."""
-    def timed(mod):
+def build_all(jobs):
+    """Run every job of {name: function that builds and loads kernel
+    libraries} at once; returns {name: seconds}."""
+    def timed(job):
         t0 = time.perf_counter()
-        mod.library()
+        job()
         return time.perf_counter() - t0
 
-    with ThreadPoolExecutor(len(modules)) as pool:
-        return dict(zip(modules, pool.map(timed, modules.values())))
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        return dict(zip(jobs, pool.map(timed, jobs.values())))
 
 
 def print_ptxas(_build, name):
+    """The ptxas report of the library built under `name` (a source's name,
+    or a library's file name)."""
     for line in _build.build_log.get(name, "").splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             print("  ptxas:", line.strip())
@@ -414,6 +443,34 @@ def parity_cases(gtt):
     return cases
 
 
+def seeded_cases(gtt):
+    """Cases in which K1 draws for itself, as parity_cases' tuples with the
+    step count appended: 62 and 63 steps leave half a Philox block over."""
+    cases = []
+
+    def add(label, env_id, steps, policy="escapement", param=0.5, **overrides):
+        overrides.setdefault("sigma", 0.1)
+        overrides.setdefault("Tmax", 13)
+        env, params = gtt.make(env_id, device="cpu", **overrides)
+        cases.append((label, env, params, policy, param, float(params.sigma_m) > 0, 0.3, steps))
+
+    add("seeded logistic/additive", "fishing-v1", 62)
+    add("seeded ricker/lognormal", "fishing-v1", 62, growth="ricker", noise_form="lognormal")
+    add("seeded obs_noise (may-obs)", "fishing-may-obs-v1", 63, param=0.4)
+    add("seeded r_drift", "fishing-nonstationary-v1", T_PARITY, Tmax=60)
+    # the discrete schemes draw through the IEEE functions: their own loops and tails
+    add("seeded constant_mortality/relative", "fishing-v0", 62, "constant_mortality", 0.15)
+    add("seeded obs_noise/relative", "fishing-v0", 63, sigma_m=0.1)
+    return cases
+
+
+def case_configuration(rk, env, params, policy, obs_noise, planes):
+    """The compile-time configuration K1 runs a case under."""
+    cfg = env.config
+    return rk.configuration(cfg.growth, int(params.model_idx), cfg.noise_form, policy,
+                            cfg.scheme, obs_noise, planes, float(params.r_drift))
+
+
 def k4_setup(gtt, ppo, ppo_fused, rng, env_id, dev, **overrides):
     """An env at the PPO width: jittered random weights (the Gaussian mean
     shifted to -0.5 so that envs outlive their first harvest), desynchronised
@@ -509,7 +566,7 @@ def main():
     from gym_fishing_tpu_torch.agents import ppo, ppo_fused
     from gym_fishing_tpu_torch.batch import BatchState, batched_reset
     from gym_fishing_tpu_torch.core.types import EnvState
-    from gym_fishing_tpu_torch.bench import measure_ppo_train
+    from gym_fishing_tpu_torch.bench import measure_ppo_train, rollout_instructions
     from gym_fishing_tpu_torch.kernels import _build
     from gym_fishing_tpu_torch.kernels import policy_rollout_kernel as pk
     from gym_fishing_tpu_torch.kernels import ppo_update_kernel as uk
@@ -535,20 +592,34 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False  # the twins' matmuls in full float32
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    build_s = build_all({"rollout_kernel": rk, "ppo_update_kernel": uk,
-                         "policy_rollout_kernel": pk})
-    print(f"phase 2: built and loaded {len(build_s)} libraries in parallel in "
-          f"{time.perf_counter() - t0:.2f} s")
-    print(f"phase 2: {_build.library_path('rollout_kernel').name} in "
-          f"{build_s['rollout_kernel']:.2f} s")
-    print_ptxas(_build, "rollout_kernel")
+    plane_cases, seed_cases = parity_cases(gtt), seeded_cases(gtt)
+    # K1's libraries: the main path's (fishing-v1 under escapement, from a
+    # seed; also phase 4's), each parity case's, and the chained calls'
+    v0 = gtt.make("fishing-v0", sigma=0.1, Tmax=13, device="cpu")
+    k1_configs = {rk.DEFAULT_CONFIGURATION,
+                  case_configuration(rk, *v0, "escapement", False, False)}
+    k1_configs |= {case_configuration(rk, c[1], c[2], c[3], c[5], True) for c in plane_cases}
+    k1_configs |= {case_configuration(rk, c[1], c[2], c[3], c[5], False) for c in seed_cases}
+    build_s = build_all({"rollout_kernel": lambda: rk.build(k1_configs),
+                         "ppo_update_kernel": uk.library, "policy_rollout_kernel": pk.library})
+    main_so = _build.library_path("rollout_kernel", rk.DEFAULT_CONFIGURATION.defines()).name
+    print(f"phase 2: built and loaded {len(k1_configs) + 2} libraries, 8 nvcc at a time, in "
+          f"{time.perf_counter() - t0:.2f} s: {len(k1_configs)} configurations of "
+          f"rollout_kernel in {build_s['rollout_kernel']:.2f} s, ppo_update_kernel in "
+          f"{build_s['ppo_update_kernel']:.2f} s, policy_rollout_kernel in "
+          f"{build_s['policy_rollout_kernel']:.2f} s")
+    print(f"phase 2: {main_so} is fishing-v1 under escapement, noise from a seed: "
+          f"{' '.join(rk.DEFAULT_CONFIGURATION.defines())}")
+    print_ptxas(_build, main_so)
 
     # ---------------------------------------------------------------- 3
     rng = np.random.default_rng(2026)
     worst = 0.0
     n = B_PARITY
-    for label_c, env, params, policy, param, obs_noise, floor in parity_cases(gtt):
+    launched_configs = set()
+    for label_c, env, params, policy, param, obs_noise, floor in plane_cases:
         cfg = env.config
+        launched_configs.add(case_configuration(rk, env, params, policy, obs_noise, True))
         stock = torch.from_numpy(rng.uniform(floor, 1.2, n).astype(np.float32)).to(dev)
         t = torch.from_numpy(rng.integers(0, int(params.Tmax), n).astype(np.int32)).to(dev)
         noise = torch.from_numpy(
@@ -564,8 +635,22 @@ def main():
             fail("collapse_penalty: every step should collapse")
         worst = max(worst, err)
         print(f"phase 3: {label_c:34s} max abs err {err:.3g}")
+    for label_c, env, params, policy, param, obs_noise, floor, steps in seed_cases:
+        cfg = env.config
+        launched_configs.add(case_configuration(rk, env, params, policy, obs_noise, False))
+        stock = torch.from_numpy(rng.uniform(floor, 1.2, n).astype(np.float32)).to(dev)
+        t = torch.from_numpy(rng.integers(0, int(params.Tmax), n).astype(np.int32)).to(dev)
+        kw = dict(growth=cfg.growth, noise_form=cfg.noise_form, scheme=cfg.scheme,
+                  n_actions=cfg.n_actions, obs_noise=obs_noise, seed=11, offset=2**32 - 3)
+        ker = rk.rollout(stock, t, params, policy, param, steps, **kw)
+        ref = rk.rollout_reference(stock, t, params, policy, param, steps, **kw)
+        torch.cuda.synchronize()
+        err = compare(ker, ref, label_c)
+        worst = max(worst, err)
+        print(f"phase 3: {label_c:34s} max abs err {err:.3g} ({steps} steps)")
     # two chained calls carrying ep_ret and harvest (relative scheme)
-    env, params = gtt.make("fishing-v0", sigma=0.1, Tmax=13, device="cpu")
+    env, params = v0
+    launched_configs.add(case_configuration(rk, env, params, "escapement", False, False))
     stock = torch.from_numpy(rng.uniform(0.3, 1.2, n).astype(np.float32)).to(dev)
     t = torch.zeros(n, dtype=torch.int32, device=dev)
     kw = dict(scheme="relative")
@@ -579,6 +664,29 @@ def main():
     err = compare(k2, r2, "chained call 2")
     worst = max(worst, err)
     print(f"phase 3: {'chained relative, seeded':34s} max abs err {err:.3g}")
+    # every value of every compile-time switch was launched, from its own library
+    for field, size in zip(rk.Configuration._fields, rk.CONFIG_SIZES):
+        missing = set(range(size)) - {getattr(c, field) for c in launched_configs}
+        if missing:
+            fail(f"phase 3 launched no configuration with {field} in {sorted(missing)}")
+    n_launches = len(plane_cases) + len(seed_cases) + 2
+    if not launched_configs <= k1_configs or rk.launches != n_launches:
+        fail(f"phase 3: {rk.launches} launches of {len(launched_configs)} configurations, "
+             f"{len(launched_configs - k1_configs)} of them not built in phase 2")
+    # there is no generic kernel: a library refuses another configuration's parameters
+    label_c, env, params, policy, param, obs_noise, floor = plane_cases[1]
+    real_library = rk.library
+    rk.library = lambda config=None: real_library()
+    try:
+        rk.rollout(stock, t, params, policy, param, T_PARITY, growth=env.config.growth)
+    except RuntimeError as exc:
+        refusal = str(exc)
+    else:
+        fail(f"the library of fishing-v1 under escapement took the parameters of {label_c}")
+    finally:
+        rk.library = real_library
+    print(f"phase 3: {len(launched_configs)} configurations launched, each from its own "
+          f"library; another configuration's parameters are refused ({refusal[:60]})")
 
     # ---------------------------------------------------------------- 4
     m = 1 << 20
@@ -688,6 +796,16 @@ def main():
     print(f"phase 5: K1 bound {k1_bound[0]:.4f} ms by {k1_bound[1]}: {K1_OPS} per env and "
           f"step, counted from the algorithm, on their pipes (share "
           f"{k1_bound[0] / ker_ms:.3f}); by bytes {least_ms(0.0, 44 * B_MAIN)[0]:.4f} ms")
+    # a least time that the kernel's own instructions undercut is no least time
+    k1_count = rollout_instructions.instruction_count(rk, _build, None)
+    k1_issue = issue_ms(k1_count["instructions_per_step"], B_MAIN, T_MAIN)
+    print(f"phase 5: the shipped fishing-v1 library executes "
+          f"{k1_count['instructions_per_step']} instructions per env and step "
+          f"({k1_count['mix']} per Philox block of four steps; "
+          f"{k1_count['registers']} registers): the schedulers need {k1_issue:.4f} ms for them")
+    if not k1_issue >= k1_bound[0]:
+        fail(f"K1's bound {k1_bound[0]:.4f} ms is above the {k1_issue:.4f} ms its own "
+             "instructions need: K1_OPS counts more than the function needs")
     print(f"phase 5: twin {plain_ms:.1f} ms/call (CUDA events), "
           f"{steps / plain_ms * 1e3:.4g} env-steps/s; kernel vs twin max abs err "
           f"{main_err:.3g}; B={B_MAIN} T={T_MAIN} {label}")
@@ -1053,6 +1171,9 @@ def main():
             "bound_ms": k1_bound[0],
             "bound_by": k1_bound[1],
             "library_ms": None,
+            "configurations_launched": len(launched_configs),
+            "instructions_per_step": k1_count["instructions_per_step"],
+            "issue_ms": k1_issue,
         },
         {
             "name": "ppo_grad_kernel",
@@ -1067,6 +1188,8 @@ def main():
             "bound_by": grad_bound["float32"][1],
             "library_ms": lib_ms["float32"],
             "library_note": "the three 2H-contractions only",
+            "bfloat16_ms": grad_ms["bfloat16"],
+            "bfloat16_bound_ms": grad_bound["bfloat16"][0],
         },
         {
             "name": "ppo_grad_adam_kernel",
@@ -1081,6 +1204,8 @@ def main():
             "bound_by": grad_bound["float32"][1],
             "library_ms": lib_ms["float32"],
             "library_note": "the three 2H-contractions only",
+            "bfloat16_ms": adam_ms["bfloat16"],
+            "bfloat16_bound_ms": grad_bound["bfloat16"][0],
         },
         {
             "name": "policy_rollout_kernel",

@@ -10,6 +10,13 @@ kernel, including where that kernel differs from the engine: the policy
 reads the unclipped stock, and under a scheme other than relative the
 carried harvest passes through unchanged.
 
+What is uniform for a call is fixed when the kernel is compiled, as a JAX
+trace fixes its static arguments: `configuration` maps a call's switches to
+a `Configuration`, and `library` builds ``csrc/rollout_kernel.cu`` with that
+configuration's ``-D`` flags at its first use (a few seconds of nvcc, into
+the package's ``_build/``) and loads it. There is no generic kernel: a
+configuration either builds or raises.
+
 - `rollout` is the wrapper: on a CUDA tensor it launches the kernel (and
   adds one to `launches`), on a CPU tensor it runs `rollout_reference`.
 - `rollout_reference` is the plain PyTorch twin: a Python loop over the T
@@ -34,7 +41,8 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import NamedTuple, Optional
+from concurrent.futures import ThreadPoolExecutor
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -71,6 +79,44 @@ class KernelRollout(NamedTuple):
     next_offset: int          # Philox offset for the next chained call
 
 
+class Configuration(NamedTuple):
+    """What the kernel fixes at compile time: one library per value."""
+
+    growth: int      # index into GROWTH_MODELS, the mixture already resolved
+    noise_form: int  # index into NOISE_FORMS
+    policy: int      # index into POLICIES
+    scheme: int      # index into SCHEMES
+    obs_noise: int   # 0 or 1
+    planes: int      # 1: noise from pre-generated planes, 0: Philox
+    drift: int       # 1: r_drift != 0
+
+    def defines(self) -> Tuple[str, ...]:
+        """The ``NAME=value`` macros of this configuration."""
+        return tuple(f"{flag}={value}" for flag, value in zip(CONFIG_FLAGS, self))
+
+
+CONFIG_FLAGS = ("K1_GROWTH", "K1_NOISE_FORM", "K1_POLICY", "K1_SCHEME", "K1_OBS_NOISE",
+                "K1_PLANES", "K1_DRIFT")
+# how many values each field of a Configuration takes
+CONFIG_SIZES = Configuration(len(GROWTH_MODELS), len(NOISE_FORMS), len(POLICIES), len(SCHEMES),
+                             2, 2, 2)
+# fishing-v1 under escapement, noise from Philox: the stepping bench's
+DEFAULT_CONFIGURATION = Configuration(0, 0, 0, 0, 0, 0, 0)
+
+
+def configuration(growth: str, model_idx: int, noise_form: str, policy: str, scheme: str,
+                  obs_noise: bool, planes: bool, r_drift: float) -> Configuration:
+    """The compile-time configuration of a call. The mixture is resolved
+    here: its `model_idx` names one of the six models, and an index out of
+    range selects logistic, as the where-chain of the JAX mixture does."""
+    model = _GROWTHS.index(growth)
+    if growth == MIXTURE:
+        model = model_idx if 0 < model_idx < len(GROWTH_MODELS) else 0
+    return Configuration(model, NOISE_FORMS.index(noise_form), POLICIES.index(policy),
+                         SCHEMES.index(scheme), int(bool(obs_noise)), int(bool(planes)),
+                         int(r_drift != 0.0))
+
+
 class _Params(ctypes.Structure):
     """Mirror of `struct RolloutParams` in csrc/rollout_kernel.cu."""
 
@@ -84,12 +130,22 @@ class _Params(ctypes.Structure):
             "Tmax", "model_idx", "n_actions", "growth", "noise_form", "policy", "scheme",
             "obs_noise", "num_steps", "has_noise",
         )]
-        + [("num_envs", ctypes.c_longlong), ("seed", ctypes.c_ulonglong),
-           ("offset", ctypes.c_ulonglong)]
+        + [("num_envs", ctypes.c_longlong), ("offset", ctypes.c_ulonglong),
+           ("keys", (ctypes.c_uint32 * 2) * 10)]   # the seed, as its ten round keys
     )
 
 
 _FLOAT_FIELDS = tuple(n for n, ty in _Params._fields_ if ty is ctypes.c_float)
+
+
+def _round_keys(seed: int):
+    """The ten round keys of Philox4x32-10 under the 64-bit key `seed`
+    (`struct PhiloxKeys`): key + round * Weyl constant, mod 2^32 per half."""
+    keys = ((ctypes.c_uint32 * 2) * 10)()
+    for rnd in range(10):
+        keys[rnd][0] = ((seed & _MASK32) + rnd * _PHILOX_W[0]) & _MASK32
+        keys[rnd][1] = ((seed >> 32) + rnd * _PHILOX_W[1]) & _MASK32
+    return keys
 
 
 def draws_per_call(num_steps: int, obs_noise: bool) -> int:
@@ -194,11 +250,12 @@ def rollout(
         **s, n_actions=n_actions, growth=_GROWTHS.index(growth),
         noise_form=NOISE_FORMS.index(noise_form), policy=POLICIES.index(policy),
         scheme=SCHEMES.index(scheme), obs_noise=int(obs_noise), num_steps=num_steps,
-        has_noise=int(noise is not None), num_envs=B, seed=seed, offset=offset,
+        has_noise=int(noise is not None), num_envs=B, offset=offset, keys=_round_keys(seed),
     )
     out_f = [torch.empty_like(stock) for _ in range(5)]  # stock, ep_ret, reward, eps, harvest
     out_t, out_epc = torch.empty_like(t), torch.empty_like(t)
-    lib = library()
+    lib = library(configuration(growth, s["model_idx"], noise_form, policy, scheme, obs_noise,
+                                noise is not None, p.r_drift))
     with torch.cuda.device(stock.device):
         stream = torch.cuda.current_stream(stock.device).cuda_stream
         err = lib.rollout_launch(
@@ -230,26 +287,77 @@ def philox_normals(seed: int, offset: int, num_envs: int, device) -> torch.Tenso
     lib = library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.philox_normal_fill(seed, offset, num_envs, out.data_ptr(), stream)
+        err = lib.philox_normal_fill(_round_keys(seed), offset, num_envs, out.data_ptr(),
+                                     stream)
     _build.check(lib, err, "philox_normal_fill launch")
     return out
 
 
+def normals_from_bits(bits: torch.Tensor, path: str = "sfu") -> torch.Tensor:
+    """Box-Muller alone: the four N(0,1) of each column of `bits`, a (4, n)
+    int64 tensor of uint32 values (one Philox block a column), as (4, n) f32.
+    On a CUDA tensor `path` picks the kernel's function: "sfu", the rollout's
+    own draw path on the special-function units, or "ieee", the same formulas
+    with IEEE logf, sqrtf and sincosf. On a CPU tensor the twin's float32
+    arithmetic runs whatever the path."""
+    if path not in ("sfu", "ieee"):
+        raise ValueError(f"unknown path {path!r}")
+    if bits.dtype != torch.int64 or bits.dim() != 2 or bits.shape[0] != 4 or bits.shape[1] < 1:
+        raise ValueError(f"bits must be int64 of shape (4, n), got {bits.dtype} "
+                         f"{tuple(bits.shape)}")
+    if bits.device.type == "cpu":
+        return torch.stack(_box_muller_reference(tuple(bits)))
+    words = ((bits + (1 << 31)) % (1 << 32) - (1 << 31)).to(torch.int32).contiguous()
+    out = torch.empty(bits.shape, dtype=torch.float32, device=bits.device)
+    lib = library()
+    with torch.cuda.device(bits.device):
+        stream = torch.cuda.current_stream(bits.device).cuda_stream
+        err = lib.box_muller_fill(words.data_ptr(), bits.shape[1], int(path == "sfu"),
+                                  out.data_ptr(), stream)
+    _build.check(lib, err, "box_muller_fill launch")
+    return out
+
+
+def library(config: Configuration = DEFAULT_CONFIGURATION) -> ctypes.CDLL:
+    """Build (on first use) and load csrc/rollout_kernel.cu for `config`,
+    with its launchers' ctypes signatures set."""
+    return _library(config, ())
+
+
 @functools.cache
-def library() -> ctypes.CDLL:
-    """Build (on first use) and load csrc/rollout_kernel.cu, with its
-    launchers' ctypes signatures set."""
-    lib = _build.load(_SOURCE)
+def _library(config: Configuration, extra_defines: Tuple[str, ...]) -> ctypes.CDLL:
+    """`library` for `config` plus further macros of the source, which no
+    caller in the package passes (the bench measures with one)."""
+    if any(not 0 <= value < size for value, size in zip(config, CONFIG_SIZES)):
+        raise ValueError(f"no such configuration: {config}")
+    lib = _build.load(_SOURCE, config.defines() + extra_defines)
+    for size in (lib.rollout_params_size, lib.rollout_threads):
+        size.argtypes = []
+        size.restype = ctypes.c_int
     if lib.rollout_params_size() != ctypes.sizeof(_Params):
         raise RuntimeError("struct RolloutParams and _Params disagree in size")
+    built = (ctypes.c_int * len(CONFIG_FLAGS))()
+    lib.rollout_configuration.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.rollout_configuration.restype = None
+    lib.rollout_configuration(built)
+    if tuple(built) != tuple(config):
+        raise RuntimeError(f"the library was built for {tuple(built)}, not for {config}")
     ptr = ctypes.c_void_p
     lib.rollout_launch.argtypes = [ptr] * 14
     lib.rollout_launch.restype = ctypes.c_int
-    lib.philox_normal_fill.argtypes = [
-        ctypes.c_ulonglong, ctypes.c_ulonglong, ctypes.c_longlong, ptr, ptr,
-    ]
+    lib.philox_normal_fill.argtypes = [ptr, ctypes.c_ulonglong, ctypes.c_longlong, ptr, ptr]
     lib.philox_normal_fill.restype = ctypes.c_int
+    lib.box_muller_fill.argtypes = [ptr, ctypes.c_longlong, ctypes.c_int, ptr, ptr]
+    lib.box_muller_fill.restype = ctypes.c_int
     return lib
+
+
+def build(configs) -> None:
+    """Build and load the libraries of several configurations at once, one
+    nvcc process each, 8 at a time."""
+    todo = sorted(set(configs))
+    with ThreadPoolExecutor(max(1, min(8, len(todo)))) as pool:
+        list(pool.map(library, todo))
 
 
 # --------------------------------------------------------------------- twin
@@ -288,6 +396,17 @@ def _uniform_from_bits(bits: torch.Tensor) -> torch.Tensor:
     """uint32 (held in int64) -> f32 uniform in (0, 1], as the kernel does."""
     f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
     return 2.0 - f
+
+
+def _box_muller_reference(bits):
+    """Box-Muller of the four uint32 tensors `bits` (held in int64), as
+    `_philox_normals_reference` computes it."""
+    u = [_uniform_from_bits(b) for b in bits]
+    rad0 = torch.sqrt(-2.0 * torch.log(u[0]))
+    th0 = _TWO_PI * u[1]
+    rad1 = torch.sqrt(-2.0 * torch.log(u[2]))
+    th1 = _TWO_PI * u[3]
+    return rad0 * torch.cos(th0), rad0 * torch.sin(th0), rad1 * torch.cos(th1), rad1 * torch.sin(th1)
 
 
 def _philox_normals_reference(seed: int, counter: int, env_idx: torch.Tensor):

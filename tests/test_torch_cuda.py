@@ -9,8 +9,9 @@ JAX they run with:
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances, K1: float32 with a different libm, FMA contraction and
-operation order, so values agree to rounding (stock atol 1e-5, sums over 64
-steps atol 1e-4) while t and ep_count agree exactly. K2/K3: each gradient
+operation order, and under the continuous scheme draws and functions of the
+special-function units, so values agree to rounding (stock atol 1e-5, sums
+over 64 steps atol 1e-4) while t and ep_count agree exactly. K2/K3: each gradient
 buffer within 2e-4 * max|twin| + 2e-6 and the metric sums within rtol 2e-4,
 since float32 sums over thousands of samples run in another order; under
 compute="float32" the kernel's split-TF32 products must also keep float32
@@ -92,6 +93,88 @@ def test_philox_fill_matches_twin_stream(cuda):
     z = rk.philox_normals(seed=5, offset=2**40, num_envs=1 << 16, device=cuda)
     ref = rk.philox_normals(seed=5, offset=2**40, num_envs=1 << 16, device="cpu")
     np.testing.assert_allclose(z.cpu().numpy(), ref.numpy(), atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["sfu", "ieee"])
+def test_draw_path_at_the_ends_of_the_uniform(cuda, path):
+    """Box-Muller on the special-function units where they are weakest: every
+    u within 16 ulps of 1 (where lg2's absolute error would swamp -2 ln u, and
+    a short series takes over) and of 0 (the largest radius, 5.65, times the
+    units' sine and cosine), beside random partners and 2^20 random blocks:
+    no NaN, and within 1e-5 of the twin."""
+    from gym_fishing_tpu_torch.bench.rollout_instructions import box_muller_float64, edge_bits
+
+    bits, n_edge = edge_bits(np.random.default_rng(3))
+    bits = torch.from_numpy(bits[:, :n_edge + (1 << 20)])
+    z = rk.normals_from_bits(bits.to(cuda), path).cpu()
+    ref = rk.normals_from_bits(bits)
+    assert not bool(torch.isnan(z).any())
+    np.testing.assert_allclose(z.numpy(), ref.numpy(), atol=1e-5, rtol=0)
+    exact = torch.stack(box_muller_float64(rk, tuple(bits)))
+    assert float((z.double() - exact).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 37, 255, 257, 3 * 256 + 17])
+def test_rollout_kernel_ragged_batch(cuda, n):
+    """Batches smaller than a warp, one short of and one over a CTA of 256
+    threads, and one that ends inside its last CTA."""
+    env, params = gtt.make("fishing-v1", sigma=0.1, Tmax=13, device="cpu")
+    rng = np.random.default_rng(n)
+    stock = torch.from_numpy(rng.uniform(0.3, 1.2, n).astype(np.float32)).to(cuda)
+    t = torch.from_numpy(rng.integers(0, 13, n).astype(np.int32)).to(cuda)
+    ker = rk.rollout(stock, t, params, "escapement", 0.5, 62, seed=5, offset=2**32 - 2)
+    ref = rk.rollout_reference(stock, t, params, "escapement", 0.5, 62, seed=5,
+                               offset=2**32 - 2)
+    assert ker.stock.shape == (n,)
+    _assert_close(ker, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("env_id,policy,param", [("fishing-v1", "escapement", 0.5),
+                                                 ("fishing-v0", "constant_mortality", 0.15),
+                                                 ("fishing-may-obs-v1", "escapement", 0.4)])
+def test_rollout_kernel_is_deterministic(cuda, env_id, policy, param):
+    """One thread per env and no atomics: the same inputs give the same bits."""
+    env, params = gtt.make(env_id, sigma=0.1, Tmax=13, device="cpu")
+    cfg = env.config
+    n = 4096 + 37
+    stock = torch.from_numpy(np.random.default_rng(1).uniform(0.3, 1.2, n).astype(np.float32))
+    stock, t = stock.to(cuda), torch.zeros(n, dtype=torch.int32, device=cuda)
+    kw = dict(growth=cfg.growth, noise_form=cfg.noise_form, scheme=cfg.scheme,
+              n_actions=cfg.n_actions, obs_noise=float(params.sigma_m) > 0, seed=9, offset=4)
+    a, b = (rk.rollout(stock, t, params, policy, param, 64, **kw) for _ in range(2))
+    torch.cuda.synchronize()
+    for x, y in zip(a[:7], b[:7]):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_a_library_runs_its_own_configuration_only(cuda, monkeypatch):
+    """Each configuration's library reports the switches it was compiled
+    with, and there is no generic kernel behind it: given the parameters of
+    another configuration, the launcher refuses and nothing is launched."""
+    ricker = rk.configuration("ricker", 0, "lognormal", "constant", "relative", False, False, 0.0)
+    for config in (rk.DEFAULT_CONFIGURATION, ricker):
+        built = (rk.ctypes.c_int * len(rk.CONFIG_FLAGS))()
+        rk.library(config).rollout_configuration(built)
+        assert tuple(built) == tuple(config)
+    assert rk.library(ricker) is not rk.library()
+    default = rk.library()
+    monkeypatch.setattr(rk, "library", lambda config=None: default)
+    env, params = gtt.make("fishing-v1", device="cpu")
+    stock = torch.full((64,), 0.75, device=cuda)
+    t = torch.zeros(64, dtype=torch.int32, device=cuda)
+    before = rk.launches
+    for other in (dict(growth="ricker"), dict(noise_form="lognormal"), dict(scheme="relative"),
+                  dict(obs_noise=True), dict(noise=torch.zeros(1, 8, 64, device=cuda))):
+        with pytest.raises(RuntimeError, match="invalid"):
+            rk.rollout(stock, t, params, "escapement", 0.5, 8, **other)
+    with pytest.raises(RuntimeError, match="invalid"):
+        rk.rollout(stock, t, params, "constant", 0.5, 8)
+    assert rk.launches == before
+    assert rk.rollout(stock, t, params, "escapement", 0.5, 8).stock.shape == (64,)
 
 
 def _ppo_case(head, n, hidden, seed):

@@ -465,18 +465,21 @@ def test_wrapper_accepts_ragged_batch_and_counts_no_cpu_launch():
 # ------------------------------------------- the instruction count's own parts
 
 def test_specialise_fixes_every_switch_of_the_step():
-    """bench/rollout_instructions.py counts a copy of the kernel with
-    fishing-v1's switches as constants: none may stay a runtime read."""
+    """bench/rollout_instructions.py counts the shipped fishing-v1 library as
+    it is built, since every switch of the step is a compile-time constant of
+    the source: none may be a runtime read of the parameter struct."""
     from gym_fishing_tpu_torch.kernels import _build
 
     source = (_build.CSRC / "rollout_kernel.cu").read_text()
-    fixed = rollout_instructions.specialise(source)
-    for field in ("policy", "scheme", "noise_form", "obs_noise", "has_noise"):
-        assert f"p.{field} " in source or f"p.{field})" in source
-        assert f"p.{field} " not in fixed and f"p.{field})" not in fixed
-    assert "p.policy_param" in fixed and "const int model = LOGISTIC;" in fixed
-    with pytest.raises(RuntimeError, match="has no"):
-        rollout_instructions.specialise("int main() {}")
+    kernel = source[source.index("struct EnvCarry"):source.index("static int grid_for")]
+    for field in ("policy", "scheme", "noise_form", "obs_noise", "has_noise", "growth",
+                  "model_idx"):
+        assert f"p.{field} " not in kernel and f"p.{field})" not in kernel
+        assert f"p->{field}" in source            # the launcher checks it instead
+    assert "p.policy_param" in kernel and "switch" not in kernel
+    for flag in rk.CONFIG_FLAGS:
+        assert f"#ifndef {flag}\n" in source and flag in kernel
+    assert not hasattr(rollout_instructions, "specialise")
 
 
 _LISTING = """
@@ -510,3 +513,227 @@ def test_step_loop_and_fast_path_of_a_listing():
     # plain conditional branch at 0x70 falls through; the jump at 0x90 is taken
     assert [a for a, _ in fast] == [0x10, 0x20, 0x60, 0x70, 0x80, 0x90, 0xa0, 0xb0]
     assert [rollout_instructions.opcode(t) for _, t in fast[:3]] == ["IMAD", "BRA", "BSSY"]
+
+
+# ------------------------------------------- one library per configuration
+
+_NO_BUILD = "a configuration must be found without building anything"
+
+
+@pytest.mark.parametrize("noise_form", rk.NOISE_FORMS)
+@pytest.mark.parametrize("growth", rk._GROWTHS)
+def test_every_call_maps_to_its_own_configuration(growth, noise_form):
+    """The dispatch key computed on the host: every combination of the
+    switches maps to a configuration whose fields are in range (so its
+    library exists: the source asserts the same ranges), distinct calls map
+    to distinct configurations, and none maps to a generic one."""
+    seen = {}
+    for policy in rk.POLICIES:
+        for scheme in rk.SCHEMES:
+            for obs_noise in (False, True):
+                for planes in (False, True):
+                    for r_drift in (0.0, 1e-3):
+                        cfg = rk.configuration(growth, 2, noise_form, policy, scheme, obs_noise,
+                                               planes, r_drift)
+                        assert all(0 <= v < n for v, n in zip(cfg, rk.CONFIG_SIZES)), cfg
+                        assert cfg.growth == (2 if growth == "mixture"
+                                              else rk.GROWTH_MODELS.index(growth))
+                        assert cfg[1:] == (rk.NOISE_FORMS.index(noise_form),
+                                           rk.POLICIES.index(policy), rk.SCHEMES.index(scheme),
+                                           int(obs_noise), int(planes), int(r_drift != 0))
+                        seen[cfg] = seen.get(cfg, 0) + 1
+    assert len(seen) == 3 * 3 * 2 * 2 * 2 and set(seen.values()) == {1}
+
+
+@pytest.mark.parametrize("model_idx,model", [(-1, 0), (0, 0), (1, 1), (2, 2), (3, 3), (4, 4),
+                                             (5, 5), (6, 0), (7, 0), (100, 0)])
+def test_mixture_is_resolved_on_the_host(model_idx, model):
+    """The mixture's index names one of the six models; out of range it
+    selects logistic, as the where-chain of the JAX mixture does. The
+    configuration never holds the mixture itself."""
+    cfg = rk.configuration("mixture", model_idx, "additive", "escapement", "continuous", False,
+                           False, 0.0)
+    assert cfg.growth == model < len(rk.GROWTH_MODELS)
+    assert cfg == rk.configuration(rk.GROWTH_MODELS[model], 0, "additive", "escapement",
+                                   "continuous", False, False, 0.0)
+
+
+def test_mixture_index_agrees_with_the_twin():
+    """The host's rule and the twin's where-chain pick the same model."""
+    env, params = make("fishing-mixture-v1", sigma=0.0)
+    stock = torch.from_numpy(uniform_stock(3))
+    t = torch.zeros(B, dtype=torch.int32)
+    for model_idx in (-1, 0, 1, 3, 5, 6):
+        p = params.replace(model_idx=torch.tensor(model_idx, dtype=torch.int32))
+        mixed = rk.rollout(stock, t, p, "escapement", 0.5, 4, growth="mixture")
+        cfg = rk.configuration("mixture", model_idx, "additive", "escapement", "continuous",
+                               False, False, 0.0)
+        alone = rk.rollout(stock, t, p, "escapement", 0.5, 4,
+                           growth=rk.GROWTH_MODELS[cfg.growth])
+        torch.testing.assert_close(mixed.stock, alone.stock, rtol=0, atol=0)
+
+
+def test_configuration_defines_and_library_names():
+    from gym_fishing_tpu_torch.kernels import _build
+
+    cfg = rk.configuration("may", 0, "lognormal", "constant", "relative", True, False, 0.1)
+    assert cfg.defines() == ("K1_GROWTH=5", "K1_NOISE_FORM=1", "K1_POLICY=2", "K1_SCHEME=2",
+                             "K1_OBS_NOISE=1", "K1_PLANES=0", "K1_DRIFT=1")
+    assert rk.DEFAULT_CONFIGURATION == rk.configuration(
+        "logistic", 0, "additive", "escapement", "continuous", False, False, 0.0)
+    paths = {_build.library_path("rollout_kernel", c.defines())
+             for c in (cfg, rk.DEFAULT_CONFIGURATION, cfg._replace(drift=0))}
+    paths.add(_build.library_path("rollout_kernel"))
+    paths.add(_build.library_path("rollout_kernel", cfg.defines() + ("K1_IEEE=0",)))
+    assert len(paths) == 5                     # the flags are part of the name
+    source = (_build.CSRC / "rollout_kernel.cu").read_text()
+    listed = source[source.index("const int cfg[7]"):]
+    order = [listed.index(flag) for flag in rk.CONFIG_FLAGS]
+    assert order == sorted(order)              # rollout_configuration reports them in order
+
+
+@pytest.mark.parametrize("bad", [dict(growth=6), dict(growth=-1), dict(noise_form=2),
+                                 dict(policy=3), dict(scheme=3), dict(obs_noise=2),
+                                 dict(planes=-1), dict(drift=2)])
+def test_library_refuses_a_configuration_out_of_range(monkeypatch, bad):
+    """No generic kernel: a configuration outside the source's ranges raises
+    before anything is built."""
+    from gym_fishing_tpu_torch.kernels import _build
+
+    def refuse(*args):
+        raise AssertionError(_NO_BUILD)
+
+    monkeypatch.setattr(_build, "load", refuse)
+    with pytest.raises(ValueError, match="no such configuration"):
+        rk.library(rk.DEFAULT_CONFIGURATION._replace(**bad))
+
+
+def test_params_struct_matches_the_source():
+    """The ctypes mirror follows the struct, the round keys included."""
+    import ctypes
+
+    from gym_fishing_tpu_torch.kernels import _build
+
+    source = (_build.CSRC / "rollout_kernel.cu").read_text()
+    assert f"sizeof(RolloutParams) == {ctypes.sizeof(rk._Params)}" in source
+    assert rk._Params.keys.size == 80 and rk._Params.keys.offset == 128
+
+
+@pytest.mark.parametrize("seed", [0, 7, 2**32 - 1, 2**40 + 3, 2**64 - 1])
+def test_round_keys_are_the_twin_s_key_schedule(seed):
+    keys = rk._round_keys(seed)
+    k0, k1 = seed & 0xFFFFFFFF, seed >> 32
+    for rnd in range(10):
+        if rnd > 0:   # as _philox4x32_10 bumps its key
+            k0 = (k0 + rk._PHILOX_W[0]) & 0xFFFFFFFF
+            k1 = (k1 + rk._PHILOX_W[1]) & 0xFFFFFFFF
+        assert (keys[rnd][0], keys[rnd][1]) == (k0, k1)
+
+
+def test_normals_from_bits_is_the_stream_s_box_muller():
+    idx = torch.arange(B, dtype=torch.int64)
+    seed, counter = 2**40 + 3, 2**33 + 1
+    bits = torch.stack(rk._philox4x32_10(
+        (idx, torch.zeros_like(idx), torch.full_like(idx, counter & 0xFFFFFFFF),
+         torch.full_like(idx, counter >> 32)), (seed & 0xFFFFFFFF, seed >> 32)))
+    z = rk.normals_from_bits(bits)
+    want = torch.stack(rk._philox_normals_reference(seed, counter, idx))
+    torch.testing.assert_close(z, want, rtol=0, atol=0)
+    exact = torch.stack(rollout_instructions.box_muller_float64(rk, tuple(bits)))
+    assert exact.dtype == torch.float64 and float((z.double() - exact).abs().max()) < 5e-6
+    with pytest.raises(ValueError, match="unknown path"):
+        rk.normals_from_bits(bits, "fast")
+    with pytest.raises(ValueError, match="bits must be"):
+        rk.normals_from_bits(bits.to(torch.int32))
+
+
+def test_edge_uniforms_give_finite_draws_in_the_twin():
+    """u = 1 gives a radius of 0 and u = 2^-23 the largest one, about 5.65;
+    the bench's edge blocks hold both ends in both places."""
+    bits, n_edge = rollout_instructions.edge_bits(np.random.default_rng(0))
+    assert bits.shape == (4, n_edge + (1 << 22)) and bits.min() >= 0 and bits.max() < 2**32
+    edge = torch.from_numpy(bits[:, :n_edge])
+    z = rk.normals_from_bits(edge)
+    assert bool(torch.isfinite(z).all())
+    u = rk._uniform_from_bits(edge[0])
+    assert float(u.max()) == 1.0 and float(u.min()) == 2.0 ** -23
+    assert float(z[:2, u == 1.0].abs().max()) == 0.0
+    assert 5.6 < float(torch.hypot(z[0], z[1]).max()) < 5.7
+
+
+def test_float64_rollout_of_the_bench_agrees_with_the_twin(monkeypatch):
+    monkeypatch.setattr(rollout_instructions, "T", 40)
+    env, params = make("fishing-v1", sigma=0.05)
+    x_star = float(escapement(env, params).x_star)
+    stock = torch.from_numpy(uniform_stock(5))
+    t0 = torch.zeros(B, dtype=torch.int32)
+    run = lambda: rk.rollout(stock, t0, params, "escapement", x_star, 40, seed=9)  # noqa: E731
+    table = rollout_instructions.main_path_errors(rk, run, params, x_star, stock, t0, 9)
+    assert set(table) == {"kernel stock", "kernel reward", "twin_float32 stock",
+                          "twin_float32 reward"}
+    assert table["kernel stock"]["max"] < 2e-6 and table["kernel reward"]["max"] < 2e-5
+    assert table["kernel stock"] == table["twin_float32 stock"]   # on the CPU both are the twin
+
+
+_PTXAS = """
+ptxas info    : Compiling entry function '_Z14rollout_kernel13RolloutParamsPKf' for 'sm_90a'
+ptxas info    : Function properties for _Z14rollout_kernel13RolloutParamsPKf
+    8 bytes stack frame, 4 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 37 registers, 744 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z25philox_normal_fill_kernel10PhiloxKeysyxPf' for 'sm_90a'
+ptxas info    : Function properties for _Z25philox_normal_fill_kernel10PhiloxKeysyxPf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 22 registers, 632 bytes cmem[0]
+"""
+
+
+def test_resources_and_occupancy_of_a_build_report():
+    assert rollout_instructions.kernel_resources(_PTXAS) == (37, 12)
+    assert rollout_instructions.kernel_resources("") == (None, 0)
+    # 37 registers are allocated as 40 a thread: 6 CTAs of 256 threads fit in 65536
+    ctas, waves = rollout_instructions.occupancy(37, 256, 132)
+    assert ctas == 6 and waves == pytest.approx(8192 / (6 * 132))
+    assert rollout_instructions.occupancy(32, 256, 132)[0] == 8      # the thread limit
+    assert rollout_instructions.occupancy(45, 256, 132)[0] == 5
+    assert rollout_instructions.occupancy(24, 64, 132)[0] == 32      # the CTA limit
+
+
+def test_bench_hook_sets_the_other_arithmetic(monkeypatch):
+    """--models builds each configuration with K1_IEEE set against its
+    default, through the wrapper's private loader and no global of it."""
+    asked = []
+    monkeypatch.setattr(rk, "_library", lambda config, extra: asked.append((config, extra)))
+    other = rollout_instructions.other_arithmetic(rk)
+    other()
+    other(rk.DEFAULT_CONFIGURATION._replace(scheme=rk.SCHEMES.index("relative")))
+    assert asked == [(rk.DEFAULT_CONFIGURATION, ("K1_IEEE=1",)),
+                     (rk.DEFAULT_CONFIGURATION._replace(scheme=2), ("K1_IEEE=0",))]
+    source = (rollout_instructions.ROOT / "gym_fishing_tpu_torch/csrc/rollout_kernel.cu").read_text()
+    assert "#define K1_IEEE (K1_SCHEME != CONTINUOUS)" in source
+    # the one macro a caller may set beyond the configuration's
+    assert source.count("#ifndef") == len(rk.CONFIG_FLAGS) + 1
+
+
+def test_k1_bound_is_a_count_of_the_main_path():
+    """chip_smoke's operation count of K1: no drift term, the pipes side by
+    side, and below what the shipped kernel was measured to execute."""
+    import chip_smoke as cs
+
+    assert cs.K1_OPS == {"float32": 23, "int32": 15, "special": 2}
+    n = cs.B_MAIN * cs.T_MAIN
+    ms, by = cs.rollout_kernel_bound(cs.B_MAIN, cs.T_MAIN)
+    assert by == "operations"
+    # the schedulers' rate for all 40 is the longest of the pipes' times
+    assert ms == pytest.approx(40 * n / (128 * 132 * 1.98e9) * 1e3)
+    assert ms == pytest.approx(cs.issue_ms(40, cs.B_MAIN, cs.T_MAIN))
+    assert cs.issue_ms(46.25, cs.B_MAIN, cs.T_MAIN) > ms
+    assert cs.rollout_kernel_bound(1, 2)[1] == "bytes"
+
+
+@pytest.mark.parametrize("ops,longest", [
+    ({"float32": 128, "int32": 1}, 129 / 128), ({"int32": 64, "float32": 8}, 1.0),
+    ({"special": 32, "float32": 64, "int32": 32}, 2.0)])
+def test_pipes_overlap_in_the_bound(ops, longest):
+    import chip_smoke as cs
+
+    assert cs.pipes_s(ops) == pytest.approx(longest / cs.SM_CLOCKS_PER_S)
