@@ -3,11 +3,13 @@
 
 Run from the repository root:  python3 chip_smoke.py
 
-It builds the hand-written CUDA kernels from csrc/ and drives the port's two
+It builds the hand-written CUDA kernels from csrc/ and drives the port's
 paths at the JAX bench's sizes: stepping, make("fishing-v1") -> escapement
--> fused rollout with auto-reset (2^21 envs, 512 steps per call), and PPO
+-> fused rollout with auto-reset (2^21 envs, 512 steps per call); PPO
 training on fishing-v1 (16384 envs x 128 steps, 4 epochs x 8 minibatches,
-hidden 64) in its plain, fused-update and fused-full forms. Phases, each of
+hidden 64) in its plain, fused-update and fused-full forms, and on an
+observation window of 4 (the POMDP remedy); checkpoint and resume; the
+evaluation API; model uncertainty and the gym adapters. Phases, each of
 which raises on failure:
 
 1. device: a CUDA device is required; prints the card's name and power limit;
@@ -66,6 +68,31 @@ which raises on failure:
     full + fused_adam under compute_dtype="bfloat16": its launches and ms
     per iteration, the same one-step comparison and the agreement with the
     float32 plain form.
+14. K2/K3 at 16 packed rows (obs windows of 4: 9 fields): ≡ their twins at
+    N = 2^21 for both heads, ent_coef 0 and 0.01, float32 (also against the
+    float64 twin) and bfloat16, under phases 8-9's bars; times in both modes
+    beside the bound and the 8-row times of phases 8-9;
+15. main path of the POMDP remedy: train_step on stack_observations(
+    fishing-may-obs-v1, 4) at 16384 x 128, 4 x 8, hidden 64: update+adam ≡
+    off after one step at 1 x 1 from the same draws in float32 and bfloat16,
+    the forms off, update (4 iterations) and update+adam with launch
+    counting and ms per iteration, and the 20-iteration agreement of off and
+    update+adam;
+16. resume: full+adam on fishing-v1 and phase 15's stacked update+adam run 2
+    iterations, save (utils/checkpoint.py), run 2 more; restored into a fresh
+    state and fresh generators, 2 more iterations give bit-identical weights,
+    moments, count, batch state, generator state and metrics; bytes and
+    seconds of the save and the restore;
+17. evaluation: simulate_mdp's device path (its pandas-free tensor part) for
+    escapement on fishing-v1 and for phase 15's first-step policy on the
+    stacked fishing-v1, 2^16 reps x 100 steps, ≡ the host .predict loop on
+    the first 1024 reps within 1e-6; estimate_policyfn's grid at n = 50;
+18. model uncertainty and adapters: randomized_rollout on fishing-mixture-v1
+    at 2^18 x 128 with the ranges of examples/model_uncertainty.py (every
+    growth model drawn, each within 5 sigma of a uniform share, every field
+    in range); degenerate ranges ≡ batched_step from the same noise, every
+    value; FishingVectorEnv with 16384 envs x 200 steps and GymFishingEnv
+    for one episode.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Any failure exits non-zero before either.
@@ -172,6 +199,20 @@ K4_BF16_ATOL, K4_BF16_MEAN_ATOL, K4_BF16_STATS_RTOL = 5e-3, 1e-4, 1e-3
 # does not meet them. A first Adam step does not see the gradient's scale:
 # phases 8 and 9 hold that.
 STEP_BF16_ATOL, STEP_BF16_MEAN_ATOL = 2e-6, 1e-7
+# update+adam against off after one step at 1 x 1 under compute_dtype=
+# "bfloat16" (phase 15): the same rollout, but two arithmetics: the plain
+# form rounds its hidden layers (inputs, weights, bias add, tanh) to bf16,
+# the kernel only the inputs of its products. Adam's first step divides each
+# gradient entry by its own size, so where a gradient is near zero a
+# rounding difference becomes a step difference of up to lr (on the card
+# 3.08e-5 in pi_mean.weight at N = 2^21), and steps cannot be compared.
+# Under bfloat16 the two forms are held by the gradient itself, Adam's first
+# moment m = (1 - beta1) g: per parameter tensor, |m - m_plain| (L2) within
+# 2^-6 of |m_plain|. The twin against the plain form on the CPU (N = 131 072
+# and 524 288, obs windows of 1 and 4) differed by 1.8e-3 to 3.6e-3, a bf16
+# rounding or two (2^-9 = 2.0e-3); a wrong term of the gradient is of the
+# order of 1.
+GRAD_BF16_RTOL = 2.0 ** -6
 # An env leaves the twin's trajectory when a rounding difference carries it
 # across a discontinuity: a categorical draw whose u lies within rounding of
 # a CDF boundary, or a quota within rounding of the whole stock, which
@@ -248,14 +289,16 @@ def update_bound(n, obs_dim, hidden, act_dim, compute):
     bfloat16 the tensor cores and the float32 pipe work side by side, so the
     operations take the longer of the two; under float32 both are on one
     pipe and add. The packed samples read once, the weights read and the
-    gradients written once."""
+    gradients written once: the packed rows are the fields (obs_dim +
+    act_dim + 4) rounded up to a multiple of 8."""
     h2, a1 = 2 * hidden, act_dim + 1
     products = 3 * 2 * h2 * hidden * n
     rest = (2 * 2 * obs_dim * h2 + 3 * 2 * h2 * a1) * n
     n_par = obs_dim * h2 + h2 + h2 * h2 + h2 + h2 * a1 + a1 + act_dim
+    rows = -(-(obs_dim + act_dim + 4) // 8) * 8
     by_pipe = {compute: products / PEAK[compute]}
     by_pipe["float32"] = by_pipe.get("float32", 0.0) + rest / PEAK["float32"]
-    return least_ms(max(by_pipe.values()), 4 * (8 * n + 2 * n_par))
+    return least_ms(max(by_pipe.values()), 4 * (rows * n + 2 * n_par))
 
 
 def rollout_bound(num_envs, num_steps, obs_dim, hidden, act_dim, compute):
@@ -343,14 +386,16 @@ def compare(ker, ref, what, stock_atol=STOCK_ATOL, reward_atol=REWARD_ATOL):
     return max(errs.values())
 
 
-def ppo_case(ppo, ppo_fused, rng, head, dev):
-    """Jittered random weights and the bench's packed buffer [8, 2^21] drawn
+def ppo_case(ppo, ppo_fused, rng, head, dev, obs_dim=1):
+    """Jittered random weights and the bench's packed buffer [R, 2^21] drawn
     from them with numpy-made noise: (13 kernel-layout weights, data,
-    act_dim). Old log-probs and values are spread so every clip branch is
-    visited."""
+    act_dim). R is 8 at obs_dim 1 and 16 at obs_dim 4 (an observation
+    window of 4). Old log-probs and values are spread so every clip branch
+    is visited."""
     gauss = head == "gaussian"
     a = 1 if gauss else 3
-    model = ppo.ActorCritic(1, a, gauss, 64, generator=torch.Generator().manual_seed(3)).to(dev)
+    model = ppo.ActorCritic(obs_dim, a, gauss, 64,
+                            generator=torch.Generator().manual_seed(3)).to(dev)
     normal = lambda *shape: torch.from_numpy(  # noqa: E731
         rng.standard_normal(shape).astype(np.float32)).to(dev)
     n = N_PPO
@@ -359,7 +404,7 @@ def ppo_case(ppo, ppo_fused, rng, head, dev):
             p.add_(0.05 * normal(*p.shape))
         if gauss:
             model.log_std.fill_(-0.4)
-        obs = 0.7 * normal(n, 1)
+        obs = 0.7 * normal(n, obs_dim)
         dist, value = model(obs)
         if gauss:
             noise = normal(n, 1)
@@ -413,6 +458,25 @@ def check_metrics(met, met_ref, what):
     bad = (met.double() - met_ref.double()).abs() > MET_RTOL * met_ref.double().abs() + 1e-6
     if bool(bad.any()):
         fail(f"{what}: metric sums {met.tolist()} vs twin {met_ref.tolist()}")
+
+
+def resume_leaves(tup):
+    """Every tensor of a training tuple {train_state, batch, generator} by
+    name: weights, Adam's moments, count and step, the batch state's fields
+    (a StackedState's window included) and the generator's state."""
+    ts, bs = tup["train_state"], tup["batch"]
+    out = {f"model/{k}": p.detach() for k, p in ts.model.named_parameters()}
+    out.update({f"m/{k}": x for k, x in ts.m.items()})
+    out.update({f"v/{k}": x for k, x in ts.v.items()})
+    out.update({"count": torch.tensor(ts.count), "step": torch.tensor(ts.step),
+                "generator": tup["generator"].get_state()})
+    env_state = bs.env
+    if hasattr(env_state, "window"):
+        out["window"] = env_state.window
+        env_state = env_state.env
+    out.update({"stock": env_state.stock, "harvest": env_state.harvest, "t": env_state.t,
+                "episode_return": bs.episode_return, "episode_length": bs.episode_length})
+    return out
 
 
 def parity_cases(gtt):
@@ -1154,6 +1218,362 @@ def main():
                  f"{gap:.4f} > {AGREE_TOL}")
         print(f"phase 13: agreement gap off (float32) vs {name} {gap:.4f} <= {AGREE_TOL}")
 
+    # --------------------------------------------------------------- 14
+    # K2/K3 at 16 packed rows: obs windows of 4, so 4 + 1 + 4 = 9 fields
+    rng = np.random.default_rng(14)
+    cases16 = {head: ppo_case(ppo, ppo_fused, rng, head, dev, obs_dim=4)
+               for head in ("gaussian", "categorical")}
+    grad16_err = adam16_err = 0.0
+    grad16_ms, grad16_plain_ms, adam16_ms, adam16_plain_ms = {}, {}, {}, {}
+    for head, (weights, data, a) in cases16.items():
+        if data.shape[0] != 16:
+            fail(f"phase 14: {head} data has {data.shape[0]} rows, not 16")
+        adv = data[4 + 1 + 2, order.long()[:, None] * TILE + torch.arange(TILE, device=dev)]
+        stats = torch.stack([adv.mean(), 1.0 / (adv.std(correction=0) + 1e-8)])
+        w = uk.merge_weights(weights)
+        m = tuple(torch.from_numpy(0.01 * rng.standard_normal(x.shape).astype(np.float32))
+                  .to(dev) for x in w)
+        v = tuple(torch.from_numpy(1e-4 * rng.random(x.shape).astype(np.float32)).to(dev)
+                  for x in w)
+        for ent_coef in (0.0, 0.01):
+            for compute in ("float32", "bfloat16"):
+                kw = dict(clip_eps=0.2, vf_coef=0.5, ent_coef=ent_coef, obs_dim=4, act_dim=a,
+                          tile=TILE, head=head, compute=compute)
+                g, met = uk.fused_minibatch_grad(data, order, weights, stats, **kw)
+                g_ref, met_ref = uk.fused_minibatch_grad_reference(data, order, weights,
+                                                                    stats, **kw)
+                torch.cuda.synchronize()
+                what = f"K2 16 rows {head} ent_coef={ent_coef} {compute}"
+                err = check_buffers(g, g_ref, what)
+                check_metrics(met, met_ref, what)
+                grad16_err = max(grad16_err, err)
+                line = f"phase 14: {what:48s} max abs err {err:.3g}"
+                if compute == "float32":
+                    worst64 = check_float64_bar(uk, g, g_ref, data, order, weights, stats, kw,
+                                                what)
+                    line += (f"; against float64, worst buffer {worst64[0]}: kernel "
+                             f"{worst64[1]:.3g}, float32 twin {worst64[2]:.3g}")
+                print(line)
+                kw3 = dict(kw, lr=3e-4, bc1=1 - 0.9 ** 5, bc2=1 - 0.999 ** 5,
+                           max_grad_norm=1e-3)
+                *new, met3 = uk.fused_minibatch_grad_adam(data, order, w, m, v, stats, **kw3)
+                *ref, met3_ref = uk.fused_minibatch_grad_adam_reference(data, order, w, m, v,
+                                                                       stats, **kw3)
+                torch.cuda.synchronize()
+                what = f"K3 16 rows {head} ent_coef={ent_coef} {compute}"
+                err = max(check_buffers([x - y for x, y in zip(new[0], w)],
+                                        [x - y for x, y in zip(ref[0], w)], what + " dw"),
+                          check_buffers(new[1], ref[1], what + " m"),
+                          check_buffers(new[2], ref[2], what + " v"))
+                check_metrics(met3, met3_ref, what)
+                adam16_err = max(adam16_err, err)
+                print(f"phase 14: {what:48s} max abs err {err:.3g}")
+                if head == "gaussian" and ent_coef == 0.0:   # phase 8's K2 settings
+                    grad16_ms[compute], _ = cuda_ms(lambda: uk.fused_minibatch_grad(
+                        data, order, weights, stats, **kw), 20)
+                    grad16_plain_ms[compute], _ = cuda_ms(
+                        lambda: uk.fused_minibatch_grad_reference(data, order, weights, stats,
+                                                                  **kw), 5)
+                if head == "gaussian" and ent_coef == 0.01:  # phase 9's K3 settings
+                    adam16_ms[compute], _ = cuda_ms(lambda: uk.fused_minibatch_grad_adam(
+                        data, order, w, m, v, stats, **kw3), 20)
+                    adam16_plain_ms[compute], _ = cuda_ms(
+                        lambda: uk.fused_minibatch_grad_adam_reference(
+                            data, order, w, m, v, stats, **kw3), 5)
+    del cases16
+    grad16_bound = {c: update_bound(n_mb, 4, 64, 1, c) for c in grad16_ms}
+    for c in grad16_ms:
+        for name, ms16, ms8, plain in (("K2", grad16_ms[c], grad_ms[c], grad16_plain_ms[c]),
+                                       ("K3", adam16_ms[c], adam_ms[c], adam16_plain_ms[c])):
+            print(f"phase 14: {name} {c} at 16 rows: {ms16:.3f} ms, twin {plain:.3f} ms per "
+                  f"minibatch of {MB_TILES} x {TILE} samples (CUDA events); at 8 rows "
+                  f"(phases 8-9) {ms8:.3f} ms, ratio {ms16 / ms8:.3f}; bound "
+                  f"{grad16_bound[c][0]:.4f} ms by {grad16_bound[c][1]} (share "
+                  f"{grad16_bound[c][0] / ms16:.3f}); obs_dim=4 hidden=64 {label}")
+
+    # --------------------------------------------------------------- 15
+    # the POMDP remedy on the main path: update+adam on a window of 4
+    from gym_fishing_tpu_torch.envs.wrappers import stack_observations
+
+    s_env0, s_params = make("fishing-may-obs-v1")
+    s_env = stack_observations(s_env0, 4)
+
+    def s_init(compute="float32", seed=12):
+        return ppo.make_train_state(s_env, ppo.PPOConfig(compute_dtype=compute),
+                                    torch.Generator().manual_seed(seed))
+
+    def s_run(cfg, iterations, ts, seed=5):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        bstate = batched_reset(s_env, s_params, cfg.num_envs)
+        hist = []
+        t0 = time.perf_counter()
+        for _ in range(iterations):
+            ts, bstate, met = ppo.train_step(s_env, s_params, cfg, ts, bstate, gen)
+            hist.append({k: float(x) for k, x in met.items()})
+        secs = time.perf_counter() - t0
+        for name_, p in ts.model.named_parameters():
+            if not bool(torch.isfinite(p).all()):
+                fail(f"phase 15: non-finite parameter {name_}")
+        return ts, hist, secs
+
+    s_one = {}
+    for compute in ("float32", "bfloat16"):
+        one_cfg = dataclasses.replace(base, compute_dtype=compute)
+        plain, _, _ = s_run(one_cfg, 1, s_init(compute))
+        fused, _, _ = s_run(dataclasses.replace(one_cfg, fused_update=True, fused_adam=True), 1,
+                            s_init(compute))
+        s_one[compute] = fused
+        if compute == "float32":   # phase 10's bars on the parameters
+            s_err = 0.0
+            for (pname, p), q in zip(fused.model.named_parameters(), plain.model.parameters()):
+                p, q = p.detach(), q.detach()
+                s_err = max(s_err, float((p - q).abs().max()))
+                if not bool(((p - q).abs() <= STEP_ATOL + STEP_RTOL * q.abs()).all()):
+                    fail(f"phase 15: one step at 1x1 under float32, update+adam vs off: {pname} "
+                         f"max abs err {float((p - q).abs().max()):.3g}")
+            what = f"max abs param err {s_err:.3g} (rtol {STEP_RTOL}, atol {STEP_ATOL})"
+        else:   # the gradients, through Adam's first moment
+            rel = {k: float((fused.m[k] - plain.m[k]).norm() / plain.m[k].norm())
+                   for k in plain.m}
+            name_ = max(rel, key=rel.get)
+            if not rel[name_] <= GRAD_BF16_RTOL:
+                fail(f"phase 15: one step at 1x1 under bfloat16, update+adam vs off: the first "
+                     f"moment of {name_} differs by {rel[name_]:.3g} of its norm")
+            what = (f"first moment (the gradient) within {rel[name_]:.3g} of its norm in the "
+                    f"worst tensor, {name_} (bar {GRAD_BF16_RTOL:.4g})")
+        print(f"phase 15: stacked fishing-may-obs-v1 (k=4): update+adam ≡ off after one step at "
+              f"1 x 1 from the same draws under {compute}, N={N_PPO}: {what}")
+    s_curves, launches15, s_ms = {}, {}, {}
+    for name, iters in (("off", 20), ("update", 4), ("update+adam", 20)):
+        cfg = ppo.PPOConfig(num_envs=B_PPO, num_steps=T_PPO, fused_update=name != "off",
+                            fused_adam=name == "update+adam")
+        reset_counts()
+        _, hist, secs = s_run(cfg, iters, s_init())
+        launches15[name] = counts()
+        want = {"off": (0, 0), "update": (32 * iters, 0), "update+adam": (0, 32 * iters)}[name]
+        got = launches15[name]
+        if (got["grad"], got["adam"]) != want or got["rollout"] or got["policy"]:
+            fail(f"phase 15: {name} on the stacked env launched {got}, expected (grad, adam) "
+                 f"{want}")
+        rets = np.array([h["episode_return"] for h in hist])
+        s_curves[name] = (float(np.nanmean(rets[:5])), float(np.nanmean(rets[-5:])))
+        s_ms[name] = secs / iters * 1e3
+        print(f"phase 15: stacked {name:12s} {s_ms[name]:.1f} ms/iter (host clock, {iters} "
+              f"iterations, a metric read after each); launches {got}; episode return first5 "
+              f"{s_curves[name][0]:.4f} -> last5 {s_curves[name][1]:.4f}; B={B_PPO} "
+              f"T={T_PPO} 4x8 hidden=64 {label}")
+    gap = abs(s_curves["off"][1] - s_curves["update+adam"][1])
+    if not gap <= AGREE_TOL:
+        fail(f"phase 15: stacked last-5 mean episode returns differ by {gap:.4f} > {AGREE_TOL}")
+    print(f"phase 15: agreement gap off vs update+adam on the stacked env {gap:.4f} <= "
+          f"{AGREE_TOL}")
+
+    # --------------------------------------------------------------- 16
+    # resume: saved after 2 iterations and restored into fresh state and
+    # generators, a run continues bit for bit as the run that never stopped
+    import tempfile
+
+    from gym_fishing_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
+
+    full_cfg = ppo.PPOConfig(num_envs=B_PPO, num_steps=T_PPO, fused_update=True,
+                             fused_rollout=True, fused_adam=True)
+    stacked_cfg = ppo.PPOConfig(num_envs=B_PPO, num_steps=T_PPO, fused_update=True,
+                                fused_adam=True)
+    for what, r_env, r_params, r_cfg in (
+            ("full+adam fishing-v1", env, host_params, full_cfg),
+            ("update+adam stacked fishing-may-obs-v1", s_env, s_params, stacked_cfg)):
+        def fresh(seed):
+            return {"train_state": ppo.make_train_state(r_env, r_cfg,
+                                                        torch.Generator().manual_seed(seed)),
+                    "batch": batched_reset(r_env, r_params, r_cfg.num_envs, dev),
+                    "generator": torch.Generator(device=dev).manual_seed(seed + 1)}
+
+        def iterate(tup, n):
+            ts, bs, gen = tup["train_state"], tup["batch"], tup["generator"]
+            mets = []
+            for _ in range(n):
+                ts, bs, met = ppo.train_step(r_env, r_params, r_cfg, ts, bs, gen)
+                mets.append([float(x) for x in met.values()])
+            return dict(tup, train_state=ts, batch=bs), np.array(mets)
+
+        tup, _ = iterate(fresh(0), 2)
+        with tempfile.TemporaryDirectory() as tmp:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fname = save_checkpoint(tmp, tup, step=2)
+            save_s, nbytes = time.perf_counter() - t0, os.path.getsize(fname)
+            straight, mets = iterate(tup, 2)
+            blank = fresh(9)
+            t0 = time.perf_counter()
+            restored, _ = restore_checkpoint(tmp, blank)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+        resumed, mets_r = iterate(restored, 2)
+        a, b = resume_leaves(straight), resume_leaves(resumed)
+        bad = [k for k in a if a[k].dtype != b[k].dtype or not torch.equal(a[k], b[k])]
+        if bad or not np.array_equal(mets, mets_r, equal_nan=True):
+            fail(f"phase 16: {what}: resumed run differs from the straight run in {bad[:6]} "
+                 f"(metrics equal: {np.array_equal(mets, mets_r, equal_nan=True)})")
+        print(f"phase 16: resume {what}: {len(a)} tensors (weights, m, v, count, step, "
+              f"batch state, generator) and {mets.size} metrics bit-identical after 2 + 2 "
+              f"iterations; save {nbytes} bytes in {save_s * 1e3:.1f} ms, restore "
+              f"{restore_s * 1e3:.1f} ms (host clock); B={B_PPO} T={T_PPO}")
+
+    # --------------------------------------------------------------- 17
+    # evaluation: simulate_mdp's device path against its host .predict loop
+    from gym_fishing_tpu_torch.analysis import simulate as sim
+
+    e_env, e_params = make("fishing-v1")
+    e_reps, e_T, e_host = 1 << 16, 100, 1024
+    e_noise = torch.randn((e_T, 2, e_reps), generator=torch.Generator(device=dev).manual_seed(17),
+                          device=dev)
+
+    class HostOnly:
+        """`.predict` only: simulate_mdp's host loop."""
+
+        def __init__(self, model):
+            self.model = model
+
+        def predict(self, obs, state=None, **kw):
+            return self.model.predict(obs, state)
+
+    pols = {"escapement": (e_env, escapement(e_env, e_params)),
+            "PPO after phase 15's first step": (stack_observations(e_env, 4),
+                                                ppo.PPOPolicy(s_env, s_one["float32"]))}
+    for what, (p_env, pol) in pols.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        obs_d, act_d, rew_d = sim._simulate_steps(p_env, pol, e_reps, e_params, e_T, e_noise)
+        torch.cuda.synchronize()
+        dev_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        obs_h, act_h, rew_h = sim._simulate_host_steps(
+            p_env, HostOnly(pol), e_host, e_params, e_T, e_noise[:, :, :e_host].contiguous())
+        host_s = time.perf_counter() - t0
+        errs = [max_err(x[:, :e_host].cpu(), y) for x, y in
+                ((obs_d, obs_h), (act_d, act_h), (rew_d, rew_h))]
+        if not (max(errs) <= 1e-6 and bool(torch.isfinite(rew_d).all())):
+            fail(f"phase 17: {what}: device path vs host loop on the first {e_host} reps: "
+                 f"(obs, action, reward) max abs err {errs}")
+        ret = float(rew_d.sum(0).mean())
+        print(f"phase 17: simulate {what}: device path {dev_s * 1e3:.1f} ms for {e_reps} reps x "
+              f"{e_T} steps (host clock), host .predict loop {host_s * 1e3:.1f} ms for "
+              f"{e_host} reps; max abs err on those reps {max(errs):.3g}; mean return "
+              f"{ret:.4f} {label}")
+    stocks, grid = sim._policy_grid(e_env, pols["escapement"][1], 1, 50, e_params)
+    x_star = float(pols["escapement"][1].x_star)
+    K = float(e_params.K)
+    want = np.clip(np.maximum(stocks - x_star, 0.0) / K - 1.0, -1.0, 1.0)
+    if len(stocks) != 50 or not np.allclose(grid[0], want, atol=1e-6):
+        fail(f"phase 17: the escapement policy function differs from its rule by "
+             f"{np.abs(grid[0] - want).max():.3g}")
+    _, ppo_grid = sim._policy_grid(stack_observations(e_env, 4), ppo.PPOPolicy(
+        s_env, s_one["float32"]), 1, 50, e_params)
+    print(f"phase 17: estimate_policyfn's grid, n=50: escapement equals its rule (x*={x_star:.4f}); "
+          f"PPO actions in [{ppo_grid[0].min():.3f}, {ppo_grid[0].max():.3f}]")
+
+    # --------------------------------------------------------------- 18
+    # model uncertainty at the example's ranges, then the gym adapters
+    from gym_fishing_tpu_torch.batch import batched_step
+    from gym_fishing_tpu_torch.batch import randomized as rnd
+    from gym_fishing_tpu_torch.core.types import GROWTH_MODELS
+    from gym_fishing_tpu_torch.envs import FishingVectorEnv, GymFishingEnv
+
+    m_env, m_params = make("fishing-mixture-v1")
+    ranges = {"model_idx": (0, len(GROWTH_MODELS) - 1), "r": (0.2, 1.0), "K": (0.7, 1.3),
+              "sigma": (0.0, 0.1)}
+    m_pol = escapement(m_env, m_params)
+    m_policy = lambda obs, g: m_pol.act(obs)  # noqa: E731
+    B18, T18 = 1 << 18, 128
+    gen18 = torch.Generator(device=dev).manual_seed(18)
+    sampler = rnd.make_param_sampler(m_params, ranges)
+    m_state, bp = rnd.randomized_reset(m_env, sampler, B18, gen18)
+
+    def check_draws(bp, what):
+        """Every field within its range; the growth-model shares of the
+        params in use (after a rollout they favour the models whose
+        episodes last longest, so only fresh draws are held to uniform)."""
+        share = torch.bincount(bp.model_idx.long(), minlength=len(GROWTH_MODELS)).double() / B18
+        sd = math.sqrt((1 / 6) * (5 / 6) / B18)
+        if what == "reset" and not bool(((share - 1 / 6).abs() <= 5 * sd).all()):
+            fail(f"phase 18: {what}: growth-model shares {share.tolist()}")
+        for name, (lo, hi) in ranges.items():
+            x = getattr(bp, name).double()
+            if not bool(((x >= lo) & (x <= hi)).all()):
+                fail(f"phase 18: {what}: {name} outside [{lo}, {hi}]")
+        return share
+
+    share0 = check_draws(bp, "reset")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m_state, bp, traj = rnd.randomized_rollout(m_env, sampler, m_policy, m_state, bp, gen18,
+                                               T18)
+    torch.cuda.synchronize()
+    m_s = time.perf_counter() - t0
+    share_end = check_draws(bp, "after the rollout")
+    traj_bytes = sum(x.numel() * x.element_size() for x in vars(traj).values())
+    n_eps = int(traj.done.sum())
+    if not bool(torch.isfinite(traj.reward).all()) or n_eps < B18:
+        fail(f"phase 18: randomized rollout: {n_eps} episodes ended, finite rewards "
+             f"{bool(torch.isfinite(traj.reward).all())}")
+    print(f"phase 18: randomized_rollout fishing-mixture-v1 B={B18} T={T18}: {m_s * 1e3:.1f} ms "
+          f"(host clock), {traj_bytes / 1e9:.3f} GB of trajectory, {n_eps} episodes resampled; "
+          f"model shares drawn at reset {[round(x, 4) for x in share0.tolist()]}, in use at "
+          f"the end {[round(x, 4) for x in share_end.tolist()]} {label}")
+    del traj
+    degenerate = rnd.make_param_sampler(
+        m_params, {k: (float(getattr(m_params, k)),) * 2 for k in ranges})
+    r_state, dbp = rnd.randomized_reset(m_env, degenerate, B18, gen18)
+    b_state = batched_reset(m_env, m_params, B18)
+    noise_gen = torch.Generator(device=dev).manual_seed(19)
+    obs = m_env.get_obs(m_params, b_state.env)
+    n_diff = torch.zeros((), dtype=torch.int64, device=dev)
+    n_done = torch.zeros((), dtype=torch.int64, device=dev)
+    for _ in range(T18):
+        acts = m_pol.act(obs)
+        noise = torch.randn((2, B18), generator=noise_gen, device=dev)
+        r_state, dbp, r_out = rnd.randomized_step(m_env, degenerate, dbp, r_state, acts, noise,
+                                                  gen18)
+        b_state, b_out = batched_step(m_env, m_params, b_state, acts, noise)
+        for f in ("obs", "reward", "done", "collapsed", "quota", "harvest", "episode_return",
+                  "episode_length"):
+            n_diff += (getattr(r_out, f) != getattr(b_out, f)).sum()
+        n_done += b_out.done.sum()
+        obs = b_out.obs
+    if int(n_diff) or int(n_done) < B18:
+        fail(f"phase 18: degenerate ranges vs batched_step: {int(n_diff)} values differ, "
+             f"{int(n_done)} episodes ended")
+    print(f"phase 18: degenerate ranges ≡ batched_step from the same noise over {T18} steps of "
+          f"{B18} envs: every value equal, {int(n_done)} episodes ended")
+    venv = FishingVectorEnv("fishing-v1", num_envs=B_PPO)
+    v_obs, _ = venv.reset(seed=3)
+    v_pol = escapement(venv.env, venv.params)
+    n_term = n_trunc = 0
+    t0 = time.perf_counter()
+    for _ in range(200):
+        action, _ = v_pol.predict(v_obs)
+        v_obs, v_rew, term, trunc, infos = venv.step(action)
+        n_term, n_trunc = n_term + int(term.sum()), n_trunc + int(trunc.sum())
+        if trunc.any() and not (infos["episode_length"][trunc] == venv.Tmax).all():
+            fail("phase 18: FishingVectorEnv truncated an episode before Tmax")
+    v_s = time.perf_counter() - t0
+    if n_term + n_trunc < 2 * B_PPO * 0.99 or not np.isfinite(v_rew).all():
+        fail(f"phase 18: FishingVectorEnv: {n_term} terminated, {n_trunc} truncated in 200 "
+             f"steps of {B_PPO} envs")
+    g_env = GymFishingEnv("fishing-v1")
+    g_pol = escapement(g_env.env, g_env.params)
+    g_obs, done, g_ret, t0 = g_env.reset(), False, 0.0, time.perf_counter()
+    while not done:
+        g_obs, g_r, done, _ = g_env.step(g_pol.predict(g_obs[None])[0][0])
+        g_ret += g_r
+    g_s = time.perf_counter() - t0
+    if g_env.years_passed != g_env.Tmax and g_env.fish_population > 0:
+        fail(f"phase 18: GymFishingEnv's episode ended at t={g_env.years_passed}")
+    print(f"phase 18: FishingVectorEnv {B_PPO} envs x 200 steps in {v_s * 1e3:.1f} ms "
+          f"({n_term} terminated, {n_trunc} truncated; spaces: "
+          f"{hasattr(venv, 'single_action_space')}); GymFishingEnv one episode of "
+          f"{g_env.years_passed} steps in {g_s * 1e3:.1f} ms, return {g_ret:.4f} (host clock)")
+
     if "jax" in sys.modules:
         fail("jax was imported")
     print(json.dumps({"kernels": [
@@ -1206,6 +1626,40 @@ def main():
             "library_note": "the three 2H-contractions only",
             "bfloat16_ms": adam_ms["bfloat16"],
             "bfloat16_bound_ms": grad_bound["bfloat16"][0],
+        },
+        {
+            "name": "ppo_grad_kernel (16 rows)",
+            "route": "cuda",
+            "source": "gym_fishing_tpu_torch/csrc/ppo_update_kernel.cu",
+            "replaces": "gym_fishing_tpu/kernels/ppo_update_kernel.py:114",
+            "launches": launches15["update"]["grad"],
+            "max_abs_err": grad16_err,
+            "ms": grad16_ms["float32"],
+            "plain_ms": grad16_plain_ms["float32"],
+            "bound_ms": grad16_bound["float32"][0],
+            "bound_by": grad16_bound["float32"][1],
+            "library_ms": lib_ms["float32"],
+            "library_note": "the three 2H-contractions only",
+            "bfloat16_ms": grad16_ms["bfloat16"],
+            "bfloat16_bound_ms": grad16_bound["bfloat16"][0],
+            "rows_8_ms": grad_ms["float32"],
+        },
+        {
+            "name": "ppo_grad_adam_kernel (16 rows)",
+            "route": "cuda",
+            "source": "gym_fishing_tpu_torch/csrc/ppo_update_kernel.cu",
+            "replaces": "gym_fishing_tpu/kernels/ppo_update_kernel.py:455",
+            "launches": launches15["update+adam"]["adam"],
+            "max_abs_err": adam16_err,
+            "ms": adam16_ms["float32"],
+            "plain_ms": adam16_plain_ms["float32"],
+            "bound_ms": grad16_bound["float32"][0],
+            "bound_by": grad16_bound["float32"][1],
+            "library_ms": lib_ms["float32"],
+            "library_note": "the three 2H-contractions only",
+            "bfloat16_ms": adam16_ms["bfloat16"],
+            "bfloat16_bound_ms": grad16_bound["bfloat16"][0],
+            "rows_8_ms": adam_ms["float32"],
         },
         {
             "name": "policy_rollout_kernel",

@@ -3,7 +3,7 @@
 Counterpart of ``gym_fishing_tpu/agents/ppo_fused.py``. The update kernels
 (``kernels/ppo_update_kernel.py``) want kernel-layout weights
 (``[in, out]`` matrices, ``[n, 1]`` biases, merged block-diagonally) and the
-feature-major ``[C_PAD, N]`` sample matrix; `torch.nn.Linear` stores
+feature-major ``[R, N]`` sample matrix (R a multiple of 8); `torch.nn.Linear` stores
 ``[out, in]`` and 1-D biases. The arrays are tiny (~17k floats), so the
 relayout costs little next to the pass over the samples.
 
@@ -35,12 +35,12 @@ from gym_fishing_tpu_torch.kernels.policy_rollout_kernel import (
 from gym_fishing_tpu_torch.kernels.ppo_update_kernel import (
     ADAM_B1,
     ADAM_B2,
-    C_PAD,
     LOG_2PI_E,
     PPOGrads,
     fused_minibatch_grad,
     fused_minibatch_grad_adam,
     merge_weights,
+    packed_rows,
     unmerge_weights,
 )
 
@@ -94,12 +94,10 @@ def grads_pytree(g: PPOGrads, params: Mapping[str, torch.Tensor], ent_coef: floa
 
 
 def pack_feature_major(mb: torch.Tensor) -> torch.Tensor:
-    """[N, C] sample-major matrix -> contiguous feature-major [C_PAD, N],
-    zero-padded to C_PAD rows."""
+    """[N, C] sample-major matrix -> contiguous feature-major [R, N],
+    zero-padded to R = ceil(C / 8) * 8 rows, as JAX pads them."""
     n, c = mb.shape
-    if c > C_PAD:
-        raise ValueError(f"{c} fields do not fit {C_PAD} rows")
-    out = torch.zeros((C_PAD, n), dtype=torch.float32, device=mb.device)
+    out = torch.zeros((packed_rows(c), n), dtype=torch.float32, device=mb.device)
     out[:c] = mb.T
     return out
 

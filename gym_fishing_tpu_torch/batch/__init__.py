@@ -6,3 +6,9 @@ from gym_fishing_tpu_torch.batch.batch import (
     batched_step_xi,
     rollout,
 )
+from gym_fishing_tpu_torch.batch.randomized import (
+    make_param_sampler,
+    randomized_reset,
+    randomized_rollout,
+    randomized_step,
+)

@@ -12,6 +12,11 @@ engine makes) or a `torch.Generator` to draw it from.
 Auto-reset: when an instance reports done, its state is where-selected back
 to the initial state in the same step, it observes the noise-free reset
 obs, and the finished episode's return/length are reported in that step.
+
+The env state may be any dataclass of tensors, as JAX's tree maps allow: an
+`EnvState`, or a wrapper's record such as ``StackedState(env, window)``.
+Params are shared by all instances (0-d fields) or per instance (fields
+shaped ``[num_envs]``).
 """
 
 from __future__ import annotations
@@ -22,14 +27,15 @@ from typing import Any, Callable, Optional, Tuple, Union
 import torch
 
 from gym_fishing_tpu_torch.core.env import Env
-from gym_fishing_tpu_torch.core.types import EnvParams, EnvState, TimeStep
+from gym_fishing_tpu_torch.core.tree import tree_leaves, tree_map
+from gym_fishing_tpu_torch.core.types import EnvParams, TimeStep
 
 
 @dataclasses.dataclass(frozen=True)
 class BatchState:
     """Batched env state + per-instance episode accumulators."""
 
-    env: EnvState                  # tensors with leading [num_envs]
+    env: Any                       # EnvState or a wrapper's state, leading [num_envs]
     episode_return: torch.Tensor   # running undiscounted return
     episode_length: torch.Tensor   # running episode length (int32)
 
@@ -37,27 +43,45 @@ class BatchState:
         return dataclasses.replace(self, **kw)
 
 
+def per_instance(params: EnvParams) -> bool:
+    """Whether any field of `params` is per instance (not 0-d)."""
+    return any(torch.as_tensor(x).dim() > 0 for x in tree_leaves(params))
+
+
+def broadcast_params(params: EnvParams, num_envs: int) -> EnvParams:
+    """`params` with every field shaped ``[num_envs]``."""
+    return tree_map(lambda x: torch.as_tensor(x).expand(num_envs), params)
+
+
+def where_done(done: torch.Tensor, init: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
+    """`init` where `done`, else `new`; `done` [B] broadcast over trailing dims."""
+    d = done.reshape(done.shape + (1,) * (new.dim() - done.dim()))
+    return torch.where(d, init, new)
+
+
 def batched_reset(
     env: Env, params: EnvParams, num_envs: int, device=None
 ) -> BatchState:
-    """All-instances initial state on `device` (default: the params' device)."""
+    """All-instances initial state on `device` (default: the params' device):
+    the reset broadcast to a leading ``[num_envs]``, or, with per-instance
+    params, each instance's own reset."""
     device = params.device if device is None else torch.device(device)
-    single = env.reset(params)
-    dtype = params.dtype
-
-    def fill(x):
-        return x.to(device).expand(num_envs).clone()
-
+    if per_instance(params):
+        state = env.reset(broadcast_params(params, num_envs))
+        fill = lambda x: x.to(device).expand((num_envs,) + x.shape[1:])  # noqa: E731
+    else:
+        state = env.reset(params)
+        fill = lambda x: x.to(device).expand((num_envs,) + x.shape)  # noqa: E731
     return BatchState(
-        env=EnvState(stock=fill(single.stock), harvest=fill(single.harvest), t=fill(single.t)),
-        episode_return=torch.zeros((num_envs,), dtype=dtype, device=device),
+        env=tree_map(lambda x: fill(x).clone(memory_format=torch.contiguous_format), state),
+        episode_return=torch.zeros((num_envs,), dtype=params.dtype, device=device),
         episode_length=torch.zeros((num_envs,), dtype=torch.int32, device=device),
     )
 
 
 def batched_step_xi(
-    env: Env, params: EnvParams, state: EnvState, actions, xi, eta
-) -> Tuple[EnvState, TimeStep]:
+    env: Env, params: EnvParams, state: Any, actions, xi, eta
+) -> Tuple[Any, TimeStep]:
     """The injected-noise step over the instance dimension."""
     return env.step_xi(params, state, actions, xi, eta)
 
@@ -93,16 +117,13 @@ def batched_step(
     if autoreset:
         reset_state = env.reset(params)
         done = ts.done
-        env_state = EnvState(
-            stock=torch.where(done, reset_state.stock, env_state.stock),
-            harvest=torch.where(done, reset_state.harvest, env_state.harvest),
-            t=torch.where(done, reset_state.t, env_state.t),
-        )
+        env_state = tree_map(lambda new, init: where_done(done, init, new), env_state,
+                             reset_state)
         # Done instances observe the (noise-free) reset state; everyone else
         # keeps the step's own obs so measurement noise (sigma_m) reaches the
         # policy.
         reset_obs = env.get_obs(params, reset_state)
-        ts = ts.replace(obs=torch.where(done[..., None], reset_obs, ts.obs))
+        ts = ts.replace(obs=where_done(done, reset_obs, ts.obs))
         next_ret = torch.where(done, torch.zeros((), dtype=dtype, device=device), ep_ret)
         next_len = torch.where(done, torch.zeros_like(ep_len), ep_len)
     else:

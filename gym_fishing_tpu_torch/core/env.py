@@ -59,13 +59,15 @@ class Env:
         self, params: EnvParams, generator: Optional[torch.Generator] = None
     ) -> EnvState:
         """Initial state. `generator` accepted for API symmetry (no reset
-        noise — pinned, ORACLE_SEMANTICS.md)."""
+        noise — pinned, ORACLE_SEMANTICS.md). With per-instance params the
+        fields, `t` included, take the params' shape."""
         del generator
         dtype, device = params.dtype, params.device
+        stock = torch.as_tensor(params.init_state, dtype=dtype, device=device)
         return EnvState(
-            stock=torch.as_tensor(params.init_state, dtype=dtype, device=device),
+            stock=stock,
             harvest=torch.as_tensor(params.init_harvest, dtype=dtype, device=device),
-            t=torch.zeros((), dtype=torch.int32, device=device),
+            t=torch.zeros(stock.shape, dtype=torch.int32, device=device),
         )
 
     def step_xi(

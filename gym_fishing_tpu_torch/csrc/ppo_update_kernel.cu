@@ -9,8 +9,9 @@
 // fused_minibatch_grad_adam_reference.
 //
 // What it computes, per visited tile of the feature-major sample matrix
-// data[8, N] (rows: obs[D], action[na], old logp, old value, advantage,
-// return): the merged block-diagonal actor-critic forward
+// data[R, N] (rows: obs[D], action[na], old logp, old value, advantage,
+// return, zero padding; R = 8, 16 or 24, the fields' count rounded up to a
+// multiple of 8): the merged block-diagonal actor-critic forward
 //   h1 = tanh(W1c^T x + b1c), h2 = tanh(W2c^T h1 + b2c), out = Whc^T h2 + bhc
 // (W1c [D, 2H], W2c [2H, 2H], Whc [2H, A+1]; rows of out: policy mean or
 // logits, then the value), the Gaussian or categorical log-prob, the clipped
@@ -33,7 +34,9 @@
 //   a contiguous share of the tile's chunks of 64 samples, whose float32
 //   activations stay in shared memory (the tanh derivatives use the
 //   unrounded values). A chunk takes 5 block barriers under bf16 and 6 under
-//   float32; the next chunk's samples are fetched while this one computes.
+//   float32; the next chunk's R rows of samples are copied into the other
+//   half of a double buffer with cp.async while this one computes, so the
+//   row count costs no registers.
 //   * compute = bfloat16: the three products run on the tensor cores through
 //     the wmma fragments of mma_tiles.cuh, bf16 inputs with float32 sums. One
 //     copy of W2c sits in shared memory as bf16: the forward product reads
@@ -57,8 +60,10 @@
 //     of keeping them.
 //   Each CTA writes its partial gradients and metric sums to a workspace row
 //   [G * kSplit, P + 4].
-// - Stage 2: one thread per gradient entry sums the rows in index order.
-//   No float atomics anywhere, so two identical steps give identical bits.
+// - Stage 2: one thread per gradient entry sums the rows in index order, in
+//   blocks of 16 rows and then the blocks. No float atomics anywhere, so two
+//   identical steps give identical bits. The column sums of stage 1 (db1c,
+//   db2c, dW1c) likewise add each chunk's share to their running sums once.
 // - Stage 3 (K3 only): one CTA takes the masked global norm in a fixed
 //   reduction order, clips, and applies Adam to the ~17k merged parameters.
 //
@@ -87,7 +92,7 @@
 
 struct GradParams {
   float clip_eps, vf_coef, inv_n, ent_coef;
-  int obs_dim, act_dim, head, compute, hidden, tile, num_tiles, pad0;
+  int obs_dim, act_dim, head, compute, hidden, tile, num_tiles, rows;
   long long n_cols;
 };
 static_assert(sizeof(GradParams) == 56, "GradParams layout must match ctypes");
@@ -107,18 +112,28 @@ constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int kChunk = 64;  // samples per chunk
 constexpr int kSplit = 2;   // CTAs (workspace rows) per visited tile
-constexpr int kRows = 8;    // C_PAD
+constexpr int kMaxRows = 24;  // rows of the packed matrix: 8, 16 or 24
 constexpr int kMaxD = 4;
 constexpr int kMaxA = 16;   // logits width
 constexpr int kMaxA1 = kMaxA + 1;
-constexpr int kMaxGaussA = 3;  // Gaussian action columns that fit 8 rows
+constexpr int kMaxGaussA = kMaxA;  // Gaussian action columns: D + A + 4 <= kMaxRows
 constexpr int kSPW = kChunk / kWarps;  // samples per warp in the head and the loss
-constexpr int kMet = 8;  // floats per loss thread: 4 metric sums, then dlog_std
-static_assert(kRows * kChunk == kThreads, "a chunk of packed samples is one element a thread");
+constexpr int kMet = 4 + kMaxGaussA;  // floats per loss thread: 4 metric sums, then dlog_std
 static_assert(kChunk == 64 && kWarps == 16, "the tiling of the products assumes 4 x 4 warps");
-static_assert(4 + kMaxGaussA <= kMet && kSPW * 8 == 32, "loss threads");
+static_assert(4 + kMaxGaussA <= 32 && kSPW * 8 == 32, "loss threads");
 
 constexpr size_t align_up(size_t x) { return (x + 127) / 128 * 128; }
+
+// One float from global to shared memory without passing through a register
+// (cp.async, 4 bytes); complete after cp_async_wait_all in the issuing thread.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
 
 // Shared-memory plan of stage 1: byte offsets of the aligned regions, then
 // float offsets inside the last one.
@@ -146,8 +161,8 @@ struct Smem {
   static constexpr int B1 = W1 + kMaxD * H2;
   static constexpr int B2 = B1 + H2;
   static constexpr int MET = B2 + H2;                // [kChunk][kMet]: the loss threads' sums
-  static constexpr int X = MET + kChunk * kMet;      // [2][kRows][kChunk], double-buffered
-  static constexpr int OUT = X + 2 * kRows * kChunk; // [kChunk][kMaxA1]
+  static constexpr int X = MET + kChunk * kMet;      // [2][kMaxRows][kChunk], double-buffered
+  static constexpr int OUT = X + 2 * kMaxRows * kChunk; // [kChunk][kMaxA1]
   static constexpr int GTOP = OUT + kChunk * kMaxA1; // [kChunk][kMaxA1]
   static constexpr int N_REST = GTOP + kChunk * kMaxA1;
   static constexpr size_t BYTES = REST + sizeof(float) * N_REST;
@@ -328,17 +343,24 @@ __global__ void __launch_bounds__(kThreads, 1)
   float acc_b1 = 0.0f, acc_b2 = 0.0f;
   float acc_w1[kMaxD] = {0.0f, 0.0f, 0.0f, 0.0f};
 
-  // one packed element per thread: row tid / kChunk, sample tid % kChunk
-  const float* xsrc = data + (long long)(tid / kChunk) * N + base + tid % kChunk;
-  if (c_begin < c_end) sX[tid] = xsrc[(long long)c_begin * kChunk];
+  // a chunk's packed samples [R][kChunk] into dst: element e is row
+  // e / kChunk, sample e % kChunk, and this thread copies e = tid, tid +
+  // kThreads, ...
+  const int n_elems = p.rows * kChunk;
+  auto fetch = [&](int chunk, float* dst) {
+    const float* src = data + base + (long long)chunk * kChunk;
+    for (int e = tid; e < n_elems; e += kThreads)
+      cp_async4(dst + e, src + (long long)(e / kChunk) * N + e % kChunk);
+  };
+  if (c_begin < c_end) fetch(c_begin, sX);
+  cp_async_wait_all();
   __syncthreads();
 
   for (int chunk = c_begin; chunk < c_end; ++chunk) {
-    const float* x = sX + ((chunk - c_begin) & 1) * (kRows * kChunk);
-    float* x_next = sX + ((chunk - c_begin + 1) & 1) * (kRows * kChunk);
-    // the next chunk's element, in flight until the head phase stores it
-    float x_pre = 0.0f;
-    if (chunk + 1 < c_end) x_pre = xsrc[(long long)(chunk + 1) * kChunk];
+    const float* x = sX + ((chunk - c_begin) & 1) * (kMaxRows * kChunk);
+    float* x_next = sX + ((chunk - c_begin + 1) & 1) * (kMaxRows * kChunk);
+    // the next chunk's samples, in flight until the chunk's last barrier
+    if (chunk + 1 < c_end) fetch(chunk + 1, x_next);
 
     // h1 = tanh(W1c^T x + b1c)
 #pragma unroll 2
@@ -380,7 +402,6 @@ __global__ void __launch_bounds__(kThreads, 1)
 
     // heads: out[s][a] = Whc[:, a] . h2[s] + bhc[a] for the warp's kSPW
     // samples, 8 lanes a sample
-    if (chunk + 1 < c_end) x_next[tid] = x_pre;
     {
       const int s = warp * kSPW + lane / 8, kk = lane % 8;
       for (int a = 0; a < A1; ++a) {
@@ -490,6 +511,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int e = 0; e < EPT; ++e)
         g2[e] = fmaf(wh, sGtop[(es0 + e * SSTEP) * kMaxA1 + a], g2[e]);
     }
+    float cb2 = 0.0f;  // the chunk's share of db2c, added to the running sum once
 #pragma unroll
     for (int e = 0; e < EPT; ++e) {
       const int s = es0 + e * SSTEP;
@@ -497,8 +519,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       const float g = g2[e] * (1.0f - h2 * h2);
       sG[s * LD + ecol] = g;
       if constexpr (BF) bG[s * LDB + ecol] = __float2bfloat16_rn(g);
-      acc_b2 += g;
+      cb2 += g;
     }
+    acc_b2 += cb2;
     __syncthreads();
 
     // dW2c += h1^T g_p2, and g_p1 = (g_p2 W2c^T) * (1 - h1^2), which is
@@ -515,16 +538,20 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int f = 0; f < NF; ++f)
         wmma::store_matrix_sync(sB + trow * LD + tcol + f * 16, acc[f], LD, wmma::mem_row_major);
       __syncwarp();
+      float cb1 = 0.0f, cw1[kMaxD] = {0.0f, 0.0f, 0.0f, 0.0f};  // the chunk's shares
 #pragma unroll
       for (int r = 0; r < RPL; ++r) {
         const int s = prow + r;
         const float h1 = sH1[s * LD + pcol];
         const float g = sB[s * LD + pcol] * (1.0f - h1 * h1);
-        acc_b1 += g;
+        cb1 += g;
 #pragma unroll
         for (int d = 0; d < kMaxD; ++d)
-          if (d < D) acc_w1[d] = fmaf(x[d * kChunk + s], g, acc_w1[d]);
+          if (d < D) cw1[d] = fmaf(x[d * kChunk + s], g, cw1[d]);
       }
+      acc_b1 += cb1;
+#pragma unroll
+      for (int d = 0; d < kMaxD; ++d) acc_w1[d] += cw1[d];
     } else {
       if (w2_thread) {
 #pragma unroll 4
@@ -545,17 +572,22 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
         for (int c = 0; c < CPT; ++c) sB[(fs0 + i) * LD + fc0 + c] = acc[i][c];
       __syncthreads();
+      float cb1 = 0.0f, cw1[kMaxD] = {0.0f, 0.0f, 0.0f, 0.0f};  // the chunk's shares
 #pragma unroll
       for (int e = 0; e < EPT; ++e) {
         const int s = es0 + e * SSTEP;
         const float h1 = sH1[s * LD + ecol];
         const float g = sB[s * LD + ecol] * (1.0f - h1 * h1);
-        acc_b1 += g;
+        cb1 += g;
 #pragma unroll
         for (int d = 0; d < kMaxD; ++d)
-          if (d < D) acc_w1[d] = fmaf(x[d * kChunk + s], g, acc_w1[d]);
+          if (d < D) cw1[d] = fmaf(x[d * kChunk + s], g, cw1[d]);
       }
+      acc_b1 += cb1;
+#pragma unroll
+      for (int d = 0; d < kMaxD; ++d) acc_w1[d] += cw1[d];
     }
+    cp_async_wait_all();
     __syncthreads();
   }
 
@@ -621,13 +653,21 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// Stage 2: out[i] = sum over the G workspace rows (kSplit per visited tile), in row order.
+// Stage 2: out[i] = sum over the G workspace rows (kSplit per visited tile):
+// blocks of kRowBlock rows in row order, then the blocks' sums in order, so
+// the float32 error grows with G / kRowBlock + kRowBlock rather than with G.
+constexpr int kRowBlock = 16;
+
 __global__ void __launch_bounds__(256) reduce_rows(const float* __restrict__ ws, int G, int PW,
                                                    float* __restrict__ out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= PW) return;
   float z = 0.0f;
-  for (int g = 0; g < G; ++g) z += ws[(long long)g * PW + i];
+  for (int g0 = 0; g0 < G; g0 += kRowBlock) {
+    float b = 0.0f;
+    for (int g = g0; g < min(G, g0 + kRowBlock); ++g) b += ws[(long long)g * PW + i];
+    z += b;
+  }
   out[i] = z;
 }
 
@@ -693,7 +733,8 @@ static int check_params(const GradParams* p) {
   if ((p->hidden != 32 && p->hidden != 64) || p->obs_dim < 1 || p->obs_dim > kMaxD ||
       p->act_dim < 1 || p->act_dim > kMaxA || (p->head == GAUSSIAN && p->act_dim > kMaxGaussA) ||
       (p->head != GAUSSIAN && p->head != CATEGORICAL) ||
-      (p->compute != FLOAT32 && p->compute != BFLOAT16) || p->obs_dim + na + 4 > kRows ||
+      (p->compute != FLOAT32 && p->compute != BFLOAT16) ||
+      (p->rows != 8 && p->rows != 16 && p->rows != kMaxRows) || p->obs_dim + na + 4 > p->rows ||
       p->tile < kChunk || p->tile % kChunk || p->num_tiles < 1 || p->n_cols < p->tile ||
       p->n_cols % p->tile)
     return (int)cudaErrorInvalidValue;

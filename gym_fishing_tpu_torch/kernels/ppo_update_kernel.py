@@ -2,8 +2,9 @@
 kernels and their plain twins.
 
 Counterpart of ``gym_fishing_tpu/kernels/ppo_update_kernel.py``. One pass
-over the feature-major packed samples ``data[C_PAD, N]`` (rows: obs, action,
-old logp, old value, advantage, return, zero padding) reads the tiles that
+over the feature-major packed samples ``data[R, N]`` (rows: obs, action,
+old logp, old value, advantage, return, zero padding up to R, a multiple of
+`C_PAD`: 8, 16 or 24 rows for the CUDA kernel) reads the tiles that
 ``tile_order`` names, runs the merged block-diagonal actor-critic forward
 (``W1c [D, 2H]``, ``W2c [2H, 2H]``, ``Whc [2H, A+1]``), the Gaussian or
 categorical log-prob, the clipped surrogate and the clipped value loss, and
@@ -59,7 +60,7 @@ import torch
 
 from gym_fishing_tpu_torch.kernels import _build
 
-C_PAD = 8          # feature rows of the packed sample matrix
+C_PAD = 8          # the packed sample matrix's rows come in multiples of this
 LOG_2PI = 1.8378770664093453    # log(2 pi)
 LOG_2PI_E = 2.837877066409345   # log(2 pi e): a unit Gaussian's entropy is half of it
 HEADS = ("gaussian", "categorical")
@@ -76,6 +77,7 @@ ADAM_EPS = 1e-5
 KERNEL_HIDDEN = (32, 64)
 KERNEL_MAX_OBS_DIM = 4
 KERNEL_MAX_ACT_DIM = 16
+KERNEL_MAX_ROWS = 24  # = KERNEL_MAX_OBS_DIM + KERNEL_MAX_ACT_DIM + 4
 KERNEL_CHUNK = 64  # samples per chunk inside a tile
 KERNEL_SPLIT = 2   # CTAs, and workspace rows, per visited tile
 
@@ -110,7 +112,7 @@ class _GradParams(ctypes.Structure):
     _fields_ = (
         [(n, ctypes.c_float) for n in ("clip_eps", "vf_coef", "inv_n", "ent_coef")]
         + [(n, ctypes.c_int) for n in (
-            "obs_dim", "act_dim", "head", "compute", "hidden", "tile", "num_tiles", "pad0",
+            "obs_dim", "act_dim", "head", "compute", "hidden", "tile", "num_tiles", "rows",
         )]
         + [("n_cols", ctypes.c_longlong)]
     )
@@ -184,17 +186,25 @@ def _split_grads(merged_g: tuple, h: int, a: int) -> PPOGrads:
 
 # ------------------------------------------------------------------ checks
 
+def packed_rows(fields: int) -> int:
+    """Rows of the packed matrix for `fields` sample fields: rounded up to a
+    multiple of `C_PAD`, as the JAX package pads them."""
+    return -(-fields // C_PAD) * C_PAD
+
+
 def _check(data, tile_order, merged, adv_stats, obs_dim, act_dim, tile, head, compute):
     if head not in HEADS:
         raise ValueError(f"unknown head {head!r}")
     if compute not in COMPUTES:
         raise ValueError(f"unknown compute {compute!r}")
     na = act_dim if head == "gaussian" else 1
-    if data.dim() != 2 or data.shape[0] != C_PAD or data.dtype != torch.float32:
-        raise ValueError(f"data must be float32 [{C_PAD}, N], got {data.dtype} "
-                         f"{tuple(data.shape)}")
-    if obs_dim < 1 or act_dim < 1 or obs_dim + na + 4 > C_PAD:
-        raise ValueError(f"obs_dim {obs_dim} + action columns {na} + 4 must fit {C_PAD} rows")
+    if (data.dim() != 2 or data.shape[0] < C_PAD or data.shape[0] % C_PAD
+            or data.dtype != torch.float32):
+        raise ValueError(f"data must be float32 [R, N] with R a multiple of {C_PAD}, got "
+                         f"{data.dtype} {tuple(data.shape)}")
+    rows = data.shape[0]
+    if obs_dim < 1 or act_dim < 1 or obs_dim + na + 4 > rows:
+        raise ValueError(f"obs_dim {obs_dim} + action columns {na} + 4 must fit {rows} rows")
     if tile < 1 or data.shape[1] % tile:
         raise ValueError(f"N = {data.shape[1]} must be a multiple of tile = {tile}")
     if (tile_order.dim() != 1 or tile_order.shape[0] < 1
@@ -215,17 +225,21 @@ def _check(data, tile_order, merged, adv_stats, obs_dim, act_dim, tile, head, co
     if data.device.type == "cuda":
         if not all(x.is_contiguous() for x in (data, tile_order, adv_stats)):
             raise ValueError("data, tile_order and adv_stats must be contiguous")
-        check_kernel_limits(hidden, obs_dim, act_dim, tile)
+        check_kernel_limits(hidden, obs_dim, act_dim, tile, rows)
     return hidden
 
 
-def check_kernel_limits(hidden: int, obs_dim: int, act_dim: int, tile: int) -> None:
+def check_kernel_limits(hidden: int, obs_dim: int, act_dim: int, tile: int,
+                        rows: int = C_PAD) -> None:
     """Raise on sizes the CUDA kernel does not take (the twin takes any)."""
     if hidden not in KERNEL_HIDDEN:
         raise ValueError(f"the CUDA kernel takes hidden in {KERNEL_HIDDEN}, not {hidden}")
     if obs_dim > KERNEL_MAX_OBS_DIM or act_dim > KERNEL_MAX_ACT_DIM:
         raise ValueError("the CUDA kernel takes obs_dim <= "
                          f"{KERNEL_MAX_OBS_DIM} and act_dim <= {KERNEL_MAX_ACT_DIM}")
+    if rows > KERNEL_MAX_ROWS:
+        raise ValueError(f"the CUDA kernel reads at most {KERNEL_MAX_ROWS} packed rows, "
+                         f"not {rows}")
     if tile % KERNEL_CHUNK:
         raise ValueError(f"the CUDA kernel takes tiles that are multiples of {KERNEL_CHUNK}")
 
@@ -244,7 +258,7 @@ def _check_adam(data, tile_order, merged_w, merged_m, merged_v, adv_stats, obs_d
 # ---------------------------------------------------------------- wrappers
 
 def fused_minibatch_grad(
-    data: torch.Tensor,        # [C_PAD, N] f32 feature-major packed samples
+    data: torch.Tensor,        # [R, N] f32 feature-major packed samples, R = 8, 16, 24
     tile_order: torch.Tensor,  # (G,) i32: the tiles this pass visits
     weights: tuple,            # 13 kernel-layout arrays, see PPOGrads order
     adv_stats: torch.Tensor,   # (2,) f32: (mu, 1/(std + 1e-8)) of the minibatch
@@ -338,7 +352,8 @@ def _grad_params(data, tile_order, hidden, clip_eps, vf_coef, ent_coef, obs_dim,
     return _GradParams(
         clip_eps=clip_eps, vf_coef=vf_coef, inv_n=1.0 / (g * tile), ent_coef=ent_coef,
         obs_dim=obs_dim, act_dim=act_dim, head=HEADS.index(head),
-        compute=COMPUTES.index(compute), hidden=hidden, tile=tile, num_tiles=g, pad0=0,
+        compute=COMPUTES.index(compute), hidden=hidden, tile=tile, num_tiles=g,
+        rows=data.shape[0],
         n_cols=data.shape[1],
     )
 

@@ -34,6 +34,7 @@ import torch
 import gym_fishing_tpu_torch as gtt
 from gym_fishing_tpu_torch.agents import ppo_fused
 from gym_fishing_tpu_torch.agents.ppo import ActorCritic, sample_action
+from gym_fishing_tpu_torch.core.tree import tree_leaves
 from gym_fishing_tpu_torch.kernels import policy_rollout_kernel as pk
 from gym_fishing_tpu_torch.kernels import ppo_update_kernel as uk
 from gym_fishing_tpu_torch.kernels import rollout_kernel as rk
@@ -177,20 +178,20 @@ def test_a_library_runs_its_own_configuration_only(cuda, monkeypatch):
     assert rk.rollout(stock, t, params, "escapement", 0.5, 8).stock.shape == (64,)
 
 
-def _ppo_case(head, n, hidden, seed):
+def _ppo_case(head, n, hidden, seed, obs_dim=1, act_dim=None):
     """A jittered random ActorCritic and n packed samples drawn from it, with
     old log-probs and values spread so every clip branch is visited."""
     gen = torch.Generator().manual_seed(seed)
     gauss = head == "gaussian"
-    a = 1 if gauss else 3
-    model = ActorCritic(1, a, gauss, hidden, generator=gen)
+    a = act_dim or (1 if gauss else 3)
+    model = ActorCritic(obs_dim, a, gauss, hidden, generator=gen)
     randn = lambda *shape: torch.randn(*shape, generator=gen)  # noqa: E731
     with torch.no_grad():
         for p in model.parameters():
             p.add_(0.05 * randn(*p.shape))
         if gauss:
             model.log_std.fill_(-0.4)
-        obs = 0.7 * randn(n, 1)
+        obs = 0.7 * randn(n, obs_dim)
         dist, value = model(obs)
         action, logp = sample_action(dist, gauss, generator=gen)
     packed = torch.cat([obs, action.float().reshape(n, -1), (logp + 0.3 * randn(n))[:, None],
@@ -226,6 +227,57 @@ def test_ppo_grad_kernel_matches_twin(cuda, head, ent_coef, hidden, compute):
     torch.cuda.synchronize()
     _assert_buffers_close(g, g_ref)
     np.testing.assert_allclose(met.cpu().numpy(), met_ref.cpu().numpy(), rtol=2e-4, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+@pytest.mark.parametrize("head,obs_dim,act_dim,rows", [
+    ("gaussian", 4, 1, 16),       # stack_observations(env, 4): 9 fields
+    ("categorical", 4, 3, 16),
+    ("gaussian", 2, 9, 16),
+    ("gaussian", 4, 16, 24),      # the widest the kernel takes
+])
+def test_ppo_grad_kernels_take_16_and_24_rows(cuda, head, obs_dim, act_dim, rows, compute):
+    """K2 and K3 read packed matrices of 16 and 24 rows (obs_dim up to 4,
+    Gaussian actions up to 16) and equal their twins there, under the
+    obs_dim = 1 bars."""
+    weights, data, a = _ppo_case(head, 64 * 256, 64, seed=8, obs_dim=obs_dim, act_dim=act_dim)
+    assert data.shape[0] == rows
+    data, weights = data.to(cuda), tuple(w.to(cuda) for w in weights)
+    order = torch.tensor([9, 0, 63, 17, 5, 40, 33, 2], dtype=torch.int32, device=cuda)
+    adv_stats = torch.tensor([0.05, 1.1], device=cuda)
+    kw = dict(clip_eps=0.2, vf_coef=0.5, ent_coef=0.01, obs_dim=obs_dim, act_dim=a, tile=256,
+              head=head, compute=compute)
+    before = uk.grad_launches, uk.adam_launches
+    g, met = uk.fused_minibatch_grad(data, order, weights, adv_stats, **kw)
+    g_ref, met_ref = uk.fused_minibatch_grad_reference(data, order, weights, adv_stats, **kw)
+    w = uk.merge_weights(weights)
+    zeros = tuple(torch.zeros_like(x) for x in w)
+    akw = dict(kw, lr=3e-4, bc1=0.1, bc2=0.001, max_grad_norm=0.5)
+    *new, met_a = uk.fused_minibatch_grad_adam(data, order, w, zeros, zeros, adv_stats, **akw)
+    *ref, _ = uk.fused_minibatch_grad_adam_reference(data, order, w, zeros, zeros, adv_stats,
+                                                     **akw)
+    assert (uk.grad_launches, uk.adam_launches) == (before[0] + 1, before[1] + 1)
+    torch.cuda.synchronize()
+    _assert_buffers_close(g, g_ref)
+    np.testing.assert_allclose(met.cpu().numpy(), met_ref.cpu().numpy(), rtol=2e-4, atol=1e-6)
+    np.testing.assert_array_equal(met_a.cpu().numpy(), met.cpu().numpy())
+    _assert_buffers_close([n - o for n, o in zip(new[0], w)], [r - o for r, o in zip(ref[0], w)])
+    for got, want in zip(new[1:], ref[1:]):
+        _assert_buffers_close(got, want)
+
+
+@pytest.mark.cuda
+def test_ppo_grad_kernel_refuses_32_rows_before_the_launch(cuda):
+    weights, data, a = _ppo_case("gaussian", 64 * 256, 64, seed=8)
+    data = torch.cat([data, torch.zeros((24, data.shape[1]))]).to(cuda)
+    before = uk.grad_launches
+    with pytest.raises(ValueError, match="at most 24 packed rows"):
+        uk.fused_minibatch_grad(data, torch.arange(4, dtype=torch.int32, device=cuda),
+                                tuple(w.to(cuda) for w in weights),
+                                torch.tensor([0.0, 1.0], device=cuda), clip_eps=0.2,
+                                vf_coef=0.5, ent_coef=0.0, obs_dim=1, act_dim=a, tile=256)
+    assert uk.grad_launches == before
 
 
 @pytest.mark.cuda
@@ -485,3 +537,88 @@ def test_policy_rollout_kernel_is_deterministic(cuda, env_id):
     torch.cuda.synchronize()
     for x, y in zip(a[:-1], b[:-1]):
         assert torch.equal(x, y)
+
+
+def _train(env, params, cfg, ts, bstate, gen, n):
+    from gym_fishing_tpu_torch.agents import ppo
+
+    mets = []
+    for _ in range(n):
+        ts, bstate, met = ppo.train_step(env, params, cfg, ts, bstate, gen)
+        mets.append([float(x) for x in met.values()])
+    return ts, bstate, np.array(mets)
+
+
+@pytest.mark.cuda
+def test_stacked_update_adam_step_equals_plain(cuda):
+    """One train step on an observation window of 4 (16 packed rows) at 1
+    epoch x 1 minibatch: K3's step equals the plain form's from the same
+    draws, under chip_smoke.py phase 10's bars."""
+    import dataclasses
+
+    from gym_fishing_tpu_torch.agents import ppo
+    from gym_fishing_tpu_torch.batch import batched_reset
+    from gym_fishing_tpu_torch.envs.wrappers import stack_observations
+
+    env, params = gtt.make("fishing-may-obs-v1", device=cuda)
+    env = stack_observations(env, 4)
+    base = ppo.PPOConfig(num_envs=2048, num_steps=32, epochs=1, num_minibatches=1)
+    out = {}
+    before = uk.adam_launches
+    for name, cfg in (("off", base),
+                      ("adam", dataclasses.replace(base, fused_update=True, fused_adam=True))):
+        ts = ppo.make_train_state(env, cfg, torch.Generator().manual_seed(1), device=cuda)
+        out[name], _, _ = _train(env, params, cfg, ts, batched_reset(env, params, 2048),
+                                 torch.Generator(device=cuda).manual_seed(2), 1)
+    assert uk.adam_launches == before + 1
+    for p, q in zip(out["adam"].model.parameters(), out["off"].model.parameters()):
+        p, q = p.detach(), q.detach()
+        assert bool(((p - q).abs() <= 1e-6 + 5e-4 * q.abs()).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["full+adam", "stacked update+adam"])
+def test_resume_is_bit_exact_on_the_card(cuda, tmp_path, form):
+    """Saved after 2 iterations and restored into a fresh state and fresh
+    generators, the run continues bit for bit as the run that never
+    stopped: the kernels reduce in a fixed order and the CUDA generator's
+    state carries the Philox seed and offset."""
+    from gym_fishing_tpu_torch.agents import ppo
+    from gym_fishing_tpu_torch.batch import batched_reset
+    from gym_fishing_tpu_torch.envs.wrappers import stack_observations
+    from gym_fishing_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
+
+    stacked = form.startswith("stacked")
+    env, params = gtt.make("fishing-may-obs-v1" if stacked else "fishing-v1",
+                           device=cuda if stacked else "cpu")   # K4 reads host params
+    if stacked:
+        env = stack_observations(env, 4)
+    cfg = ppo.PPOConfig(num_envs=2048, num_steps=32, fused_update=True, fused_adam=True,
+                        fused_rollout=not stacked)
+
+    def fresh(seed):
+        return {"ts": ppo.make_train_state(env, cfg, torch.Generator().manual_seed(seed),
+                                           device=cuda),
+                "bs": batched_reset(env, params, cfg.num_envs, cuda),
+                "gen": torch.Generator(device=cuda).manual_seed(seed + 1)}
+
+    def run(tup, n):
+        ts, bs, mets = _train(env, params, cfg, tup["ts"], tup["bs"], tup["gen"], n)
+        return dict(tup, ts=ts, bs=bs), mets
+
+    tup, _ = run(fresh(0), 2)
+    save_checkpoint(str(tmp_path), tup, step=2)
+    straight, mets = run(tup, 2)
+    restored, _ = restore_checkpoint(str(tmp_path), fresh(9))
+    resumed, mets_r = run(restored, 2)
+    np.testing.assert_array_equal(mets_r, mets)
+    for a, b in ((straight["ts"].model.parameters(), resumed["ts"].model.parameters()),
+                 (straight["ts"].m.values(), resumed["ts"].m.values()),
+                 (straight["ts"].v.values(), resumed["ts"].v.values())):
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+    assert (straight["ts"].count, straight["ts"].step) == (resumed["ts"].count,
+                                                           resumed["ts"].step)
+    for x, y in zip(tree_leaves(straight["bs"]), tree_leaves(resumed["bs"])):
+        assert torch.equal(x, y)
+    assert torch.equal(straight["gen"].get_state(), resumed["gen"].get_state())

@@ -28,6 +28,7 @@ import gym_fishing_tpu_torch as gtt
 from gym_fishing_tpu.agents import ppo as jppo
 from gym_fishing_tpu.agents import ppo_fused as jfused
 from gym_fishing_tpu.batch import batched_reset as j_batched_reset
+from gym_fishing_tpu.envs.wrappers import stack_observations as j_stack_observations
 from gym_fishing_tpu_torch.agents import ppo
 from gym_fishing_tpu_torch.batch import batched_reset
 from gym_fishing_tpu_torch.bench import measure_ppo_train
@@ -36,6 +37,7 @@ from gym_fishing_tpu_torch.convert import (
     actor_critic_to_numpy,
     adam_state_from_numpy,
 )
+from gym_fishing_tpu_torch.envs.wrappers import stack_observations
 
 # the port's entry points default to the card; these tests run on the CPU
 make = functools.partial(gtt.make, device="cpu")
@@ -246,11 +248,14 @@ def test_collect_rollout_and_gae_match_jax(head):
 
 # --------------------------------------------------------------- train step
 
-def _step_pair(head, form, **overrides):
+def _step_pair(head, form, env_id=None, stack=0, **overrides):
     """One JAX train_step and the port's, from the same weights and draws:
-    ((jax ts, metrics), (port ts, metrics))."""
-    env_id = ENV_IDS[head]
+    ((jax ts, metrics), (port ts, metrics)). With `stack` both envs are
+    wrapped in a window of that many observations."""
+    env_id = env_id or ENV_IDS[head]
     jenv, jparams = gft.make(env_id, sigma=0.1)
+    if stack:
+        jenv = j_stack_observations(jenv, stack)
     base = dict(num_envs=32, num_steps=16, epochs=2, num_minibatches=2, hidden=32,
                 ent_coef=0.01, fused_update=form != "off", fused_adam=form == "adam")
     cfg = jppo.PPOConfig(**{**base, **overrides})
@@ -270,6 +275,8 @@ def _step_pair(head, form, **overrides):
     perms = [torch.from_numpy(np.array(jax.random.permutation(k, size)))
              for k in jax.random.split(k_perm, cfg.epochs)]
     env, params = make(env_id, sigma=0.1)
+    if stack:
+        env = stack_observations(env, stack)
     ts = _port_state(ts0)
     ts, _, met = ppo.train_step(env, params, ppo.PPOConfig(**dataclasses.asdict(cfg)), ts,
                                 batched_reset(env, params, cfg.num_envs), perms=perms,

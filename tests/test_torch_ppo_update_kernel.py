@@ -296,3 +296,112 @@ def test_wrapper_rejects_bad_inputs(bad):
         kw["head"] = "beta"
     with pytest.raises(ValueError):
         uk.fused_minibatch_grad(data, order, weights, stats, **kw)
+
+
+# ------------------------------------------------ 16 packed rows (obs_dim 4)
+
+def _case_obs4(head, ent_coef=0.01, seed=0, n=512):
+    """A stacked env's minibatch: obs windows of 4, so 9 fields (Gaussian, or
+    categorical with the class index as one column) that pad to 16 rows.
+    (cfg, params, packed [n, 9], act_dim)."""
+    from gym_fishing_tpu import registry
+    from gym_fishing_tpu.envs.wrappers import stack_observations
+
+    env = stack_observations(registry.make("fishing-may-obs-v1" if head == "gaussian"
+                                           else "fishing-v0")[0], 4)
+    cfg = jppo.PPOConfig(hidden=64, ent_coef=ent_coef)
+    keys = jax.random.split(jax.random.key(seed), 8)
+    ts = jppo.make_train_state(env, cfg, keys[0])
+    leaves, tdef = jax.tree.flatten(ts.params)
+    params = jax.tree.unflatten(tdef, [
+        x + 0.05 * jax.random.normal(k, x.shape, x.dtype)
+        for x, k in zip(leaves, jax.random.split(keys[1], len(leaves)))])
+    obs = 0.7 * jax.random.normal(keys[2], (n, 4), jnp.float32)
+    dist, value = ts.apply_fn(params, obs)
+    if head == "gaussian":
+        log_std = params["params"]["log_std"]
+        action = dist[0] + jnp.exp(log_std) * jax.random.normal(keys[3], (n, 1), jnp.float32)
+        logp = jppo._normal_logp(action, dist[0], log_std)
+        act_col, a = action, 1
+    else:
+        action = jax.random.categorical(keys[3], dist[0])
+        logp = jax.nn.log_softmax(dist[0])[jnp.arange(n), action]
+        act_col, a = action[:, None].astype(jnp.float32), env.config.n_actions
+    packed = jnp.concatenate([
+        obs, act_col, (logp + 0.3 * jax.random.normal(keys[4], (n,)))[:, None],
+        (value + 0.3 * jax.random.normal(keys[5], (n,)))[:, None],
+        jax.random.normal(keys[6], (n, 1)), (value + jax.random.normal(keys[7], (n,)))[:, None],
+    ], axis=1).astype(jnp.float32)
+    return cfg, params, packed, a
+
+
+def test_pack_feature_major_pads_9_fields_to_16_rows_as_jax():
+    _, _, packed, _ = _case_obs4("gaussian")
+    assert packed.shape[1] == 9
+    got = _packed_t(packed)
+    want = np.asarray(jfused.pack_feature_major(packed))
+    assert got.shape == want.shape == (16, packed.shape[0])
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert uk.packed_rows(8) == 8 and uk.packed_rows(9) == 16 and uk.packed_rows(24) == 24
+
+
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+@pytest.mark.parametrize("head", ["gaussian", "categorical"])
+def test_twin_at_obs_dim_4_matches_jax_kernel(head, compute):
+    """K2's twin reads the 16-row matrix of obs_dim 4 and equals the JAX
+    kernel (interpret mode) there, under the obs_dim = 1 tolerances."""
+    cfg, params, packed, a = _case_obs4(head, seed=2)
+    kw = dict(obs_dim=4, act_dim=a, tile=128, head=head, compute=compute)
+    j_grads, j_met = jfused.fused_grad(params, jfused.pack_feature_major(packed), cfg.clip_eps,
+                                       cfg.vf_coef, cfg.ent_coef, interpret=True, **kw)
+    model = actor_critic_from_numpy(_np(params))
+    grads, met = ppo_fused.fused_grad(dict(model.named_parameters()), _packed_t(packed),
+                                      cfg.clip_eps, cfg.vf_coef, cfg.ent_coef, **kw)
+    tol = dict(rtol=2e-4, atol=2e-6) if compute == "float32" else dict(rtol=2e-3, atol=2e-5)
+    _assert_trees_close(actor_critic_to_numpy(grads), j_grads, **tol)
+    for name in ("loss", "pg_loss", "v_loss", "entropy", "approx_kl"):
+        np.testing.assert_allclose(float(met[name]), float(j_met[name]), rtol=2e-4, atol=2e-6,
+                                   err_msg=name)
+
+
+def test_twin_adam_at_obs_dim_4_matches_jax_kernel():
+    cfg, params, packed, a = _case_obs4("gaussian", seed=4)
+    jw = jk.merge_weights(jfused.kernel_weights(params, "gaussian"))
+    zeros = tuple(jnp.zeros_like(x) for x in jw)
+    scal = np.zeros(jk.ADAM_NUM_SCALARS, np.float32)
+    scal[:6] = [cfg.clip_eps, cfg.vf_coef, 1.0 / 256, 0.02, 1.1, cfg.ent_coef]
+    scal[8:11] = [3e-4, 0.1, 0.001]
+    order = np.array([2, 0], np.int32)
+    j_w, j_m, j_v, j_met = jk.fused_minibatch_grad_adam(
+        jfused.pack_feature_major(packed), jnp.asarray(order), jw, zeros, zeros,
+        jnp.asarray(scal), obs_dim=4, act_dim=a, tile=128, max_grad_norm=0.5, interpret=True)
+    w = tuple(_torch(x) for x in jw)
+    tz = tuple(torch.zeros_like(x) for x in w)
+    *new, met = uk.fused_minibatch_grad_adam(
+        _packed_t(packed), torch.from_numpy(order), w, tz, tz, torch.tensor([0.02, 1.1]),
+        clip_eps=cfg.clip_eps, vf_coef=cfg.vf_coef, ent_coef=cfg.ent_coef, lr=3e-4, bc1=0.1,
+        bc2=0.001, obs_dim=4, act_dim=a, tile=128, max_grad_norm=0.5)
+    for got, want, old in zip(new[0], j_w, w):
+        np.testing.assert_allclose((got - old).numpy(), np.asarray(want) - old.numpy(),
+                                   rtol=1e-3, atol=1e-8)
+    for got_t, want_t in ((new[1], j_m), (new[2], j_v)):
+        for got, want in zip(got_t, want_t):
+            np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4, atol=1e-9)
+    np.testing.assert_allclose(met.numpy(), np.asarray(j_met), rtol=2e-4, atol=1e-6)
+
+
+def test_wrapper_takes_only_as_many_rows_as_fit():
+    """The twin takes any multiple of 8 rows that holds the fields; fewer
+    rows than fields raise before any arithmetic."""
+    _, params, packed, _ = _case_obs4("gaussian")
+    weights = ppo_fused.kernel_weights(
+        dict(actor_critic_from_numpy(_np(params)).named_parameters()))
+    kw = dict(clip_eps=0.2, vf_coef=0.5, ent_coef=0.0, obs_dim=4, act_dim=1, tile=128)
+    data, order, stats = _packed_t(packed), torch.tensor([0], dtype=torch.int32), \
+        torch.tensor([0.0, 1.0])
+    g16, m16 = uk.fused_minibatch_grad(data, order, weights, stats, **kw)
+    g32, m32 = uk.fused_minibatch_grad(torch.cat([data, torch.zeros_like(data)]), order,
+                                       weights, stats, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(g16, g32)) and torch.equal(m16, m32)
+    with pytest.raises(ValueError, match="must fit 8 rows"):
+        uk.fused_minibatch_grad(data[:8], order, weights, stats, **kw)
