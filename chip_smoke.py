@@ -9,8 +9,9 @@ paths at the JAX bench's sizes: stepping, make("fishing-v1") -> escapement
 training on fishing-v1 (16384 envs x 128 steps, 4 epochs x 8 minibatches,
 hidden 64) in its plain, fused-update and fused-full forms, and on an
 observation window of 4 (the POMDP remedy); checkpoint and resume; the
-evaluation API; model uncertainty and the gym adapters. Phases, each of
-which raises on failure:
+evaluation API; model uncertainty and the gym adapters; the kernels' wide
+path and PPO at hidden 256, also on fishing-v0's grid of 100 quotas; the
+kernels' own random numbers. Phases, each of which raises on failure:
 
 1. device: a CUDA device is required; prints the card's name and power limit;
 2. build: nvcc builds csrc/ppo_update_kernel.cu, csrc/policy_rollout_kernel.cu
@@ -92,7 +93,18 @@ which raises on failure:
     growth model drawn, each within 5 sigma of a uniform share, every field
     in range); degenerate ranges ≡ batched_step from the same noise, every
     value; FishingVectorEnv with 16384 envs x 200 steps and GymFishingEnv
-    for one episode.
+    for one episode;
+19. the kernels' wide path (hidden 128 and 256, categorical heads of up to
+    128 classes): K2/K3 ≡ their twins at N = 2^21 for the Gaussian head and
+    100 classes in both modes (float32 also against the float64 twin), K4 ≡
+    its twin at B=16384, T=128 on fishing-v1 and fishing-v0's proportional
+    grid of 100 quotas, each timed beside its bound; then the slice's main
+    path, PPO full+adam at hidden 256 on fishing-v1 and on
+    make("fishing-v0", n_actions=100), 16384 x 128, 4 x 8, in both modes:
+    full+adam ≡ the plain epochs after one step at 1 x 1 from the same
+    rollout, 20 iterations with launch counting (one K4 and 32 K3 launches
+    each) and the agreement with the plain form; then
+    validation/kernel_rng.py at its defaults.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Any failure exits non-zero before either.
@@ -223,6 +235,9 @@ GRAD_BF16_RTOL = 2.0 ** -6
 # and may be at most 1e-3 of B.
 K4_MAX_LEFT_FRAC = 1e-3
 ROWS = ("obs", "action", "logp", "value", "advantage", "return")
+# phase 19: the kernels' wide path and the slice's full-width PPO
+WIDE_HIDDEN, WIDE_ACTIONS, WIDE_ITERS = (128, 256), 100, 20
+T_START = time.perf_counter()
 
 
 def fail(msg):
@@ -282,38 +297,43 @@ def pipes_s(ops):
     return max(*times, sum(ops.values()) / (PER_SM_CLOCK["all"] * SM_CLOCKS_PER_S))
 
 
-def update_bound(n, obs_dim, hidden, act_dim, compute):
+def update_bound(n, obs_dim, hidden, act_dim, compute, head="gaussian"):
     """K2/K3 on n samples: the three 2H-contractions per tower (W2c's
     cross-tower blocks are zero and need no work) at the compute mode's rate,
-    the input layer and the head with their backward in float32. Under
-    bfloat16 the tensor cores and the float32 pipe work side by side, so the
-    operations take the longer of the two; under float32 both are on one
-    pipe and add. The packed samples read once, the weights read and the
-    gradients written once: the packed rows are the fields (obs_dim +
-    act_dim + 4) rounded up to a multiple of 8."""
+    the input layer and the head with their backward in float32, the head
+    per tower (the policy tower's A outputs and the value tower's one:
+    hidden (A + 1), Whc's cross blocks being zero too). Under bfloat16 the
+    tensor cores and the float32 pipe work side by side, so the operations
+    take the longer of the two; under float32 both are on one pipe and add.
+    The packed samples read once, the weights read and the gradients written
+    once: the packed rows are the fields as the packing lays them out
+    (obs_dim + the action columns + 4, a categorical head's action being one
+    class-index column) rounded up to a multiple of 8."""
     h2, a1 = 2 * hidden, act_dim + 1
     products = 3 * 2 * h2 * hidden * n
-    rest = (2 * 2 * obs_dim * h2 + 3 * 2 * h2 * a1) * n
+    rest = (2 * 2 * obs_dim * h2 + 3 * 2 * hidden * a1) * n
     n_par = obs_dim * h2 + h2 + h2 * h2 + h2 + h2 * a1 + a1 + act_dim
-    rows = -(-(obs_dim + act_dim + 4) // 8) * 8
+    na = act_dim if head == "gaussian" else 1
+    rows = -(-(obs_dim + na + 4) // 8) * 8
     by_pipe = {compute: products / PEAK[compute]}
     by_pipe["float32"] = by_pipe.get("float32", 0.0) + rest / PEAK["float32"]
     return least_ms(max(by_pipe.values()), 4 * (rows * n + 2 * n_par))
 
 
-def rollout_bound(num_envs, num_steps, obs_dim, hidden, act_dim, compute):
+def rollout_bound(num_envs, num_steps, obs_dim, hidden, act_dim, compute, categorical=False):
     """K4: per env and step the two H-contractions per tower (through W2c and
     Whc) at the compute mode's rate, the input layer in float32, and 4H tanh
     on the special-function units, one result each (a floor: an IEEE tanhf
-    takes more). The tensor cores, the float32 pipe and the special-function
-    units work side by side, so the operations take the longest of the three
-    and not their sum. 36 bytes per env and step written and the state read
-    and written once."""
+    takes more), with the categorical sampler's A exponentials there too.
+    The tensor cores, the float32 pipe and the special-function units work
+    side by side, so the operations take the longest of the three and not
+    their sum. 36 bytes per env and step written and the state read and
+    written once."""
     h2, a1, n = 2 * hidden, act_dim + 1, num_envs * num_steps
     products = 2 * (h2 * hidden + hidden * a1) * n
     by_pipe = {compute: products / PEAK[compute]}
     by_pipe["float32"] = by_pipe.get("float32", 0.0) + 2 * obs_dim * h2 * n / PEAK["float32"]
-    by_pipe["special"] = pipes_s({"special": 2 * h2 * n})
+    by_pipe["special"] = pipes_s({"special": (2 * h2 + (act_dim if categorical else 0)) * n})
     return least_ms(max(by_pipe.values()), 36 * n + 40 * num_envs)
 
 
@@ -386,15 +406,15 @@ def compare(ker, ref, what, stock_atol=STOCK_ATOL, reward_atol=REWARD_ATOL):
     return max(errs.values())
 
 
-def ppo_case(ppo, ppo_fused, rng, head, dev, obs_dim=1):
+def ppo_case(ppo, ppo_fused, rng, head, dev, obs_dim=1, hidden=64, n_actions=3):
     """Jittered random weights and the bench's packed buffer [R, 2^21] drawn
     from them with numpy-made noise: (13 kernel-layout weights, data,
     act_dim). R is 8 at obs_dim 1 and 16 at obs_dim 4 (an observation
     window of 4). Old log-probs and values are spread so every clip branch
     is visited."""
     gauss = head == "gaussian"
-    a = 1 if gauss else 3
-    model = ppo.ActorCritic(obs_dim, a, gauss, 64,
+    a = 1 if gauss else n_actions
+    model = ppo.ActorCritic(obs_dim, a, gauss, hidden,
                             generator=torch.Generator().manual_seed(3)).to(dev)
     normal = lambda *shape: torch.from_numpy(  # noqa: E731
         rng.standard_normal(shape).astype(np.float32)).to(dev)
@@ -535,7 +555,7 @@ def case_configuration(rk, env, params, policy, obs_noise, planes):
                             cfg.scheme, obs_noise, planes, float(params.r_drift))
 
 
-def k4_setup(gtt, ppo, ppo_fused, rng, env_id, dev, **overrides):
+def k4_setup(gtt, ppo, ppo_fused, rng, env_id, dev, hidden=64, **overrides):
     """An env at the PPO width: jittered random weights (the Gaussian mean
     shifted to -0.5 so that envs outlive their first harvest), desynchronised
     start states and numpy-made noise planes [za or u, zp(, nf)]."""
@@ -543,7 +563,7 @@ def k4_setup(gtt, ppo, ppo_fused, rng, env_id, dev, **overrides):
     cfg = env.config
     gauss = cfg.scheme == "continuous"
     a = 1 if gauss else cfg.n_actions
-    model = ppo.ActorCritic(1, a, gauss, 64, generator=torch.Generator().manual_seed(5))
+    model = ppo.ActorCritic(1, a, gauss, hidden, generator=torch.Generator().manual_seed(5))
     with torch.no_grad():
         for p in model.parameters():
             p.add_(torch.from_numpy(0.05 * rng.standard_normal(p.shape).astype(np.float32)))
@@ -1574,6 +1594,252 @@ def main():
           f"{hasattr(venv, 'single_action_space')}); GymFishingEnv one episode of "
           f"{g_env.years_passed} steps in {g_s * 1e3:.1f} ms, return {g_ret:.4f} (host clock)")
 
+    # --------------------------------------------------------------- 19
+    # the wide path: K2/K3 and K4 at hidden 128 and 256 and at 100 classes,
+    # the two full-width full+adam paths, then the RNG validation
+    t19 = time.perf_counter()
+    rng = np.random.default_rng(19)
+    wide_err = {"K2": 0.0, "K3": 0.0, "K4": 0.0}
+    wide_flips, wide_ms, wide_plain_ms, wide_bound = 0, {}, {}, {}
+    for hidden in WIDE_HIDDEN:
+        for head in ("gaussian", "categorical"):
+            weights, data, a = ppo_case(ppo, ppo_fused, rng, head, dev, hidden=hidden,
+                                        n_actions=WIDE_ACTIONS)
+            adv = data[4, order.long()[:, None] * TILE + torch.arange(TILE, device=dev)]
+            stats = torch.stack([adv.mean(), 1.0 / (adv.std(correction=0) + 1e-8)])
+            w = uk.merge_weights(weights)
+            m = tuple(torch.from_numpy(0.01 * rng.standard_normal(x.shape).astype(np.float32))
+                      .to(dev) for x in w)
+            v = tuple(torch.from_numpy(1e-4 * rng.random(x.shape).astype(np.float32)).to(dev)
+                      for x in w)
+            for compute in ("float32", "bfloat16"):
+                kw = dict(clip_eps=0.2, vf_coef=0.5, ent_coef=0.01, obs_dim=1, act_dim=a,
+                          tile=TILE, head=head, compute=compute)
+                kw3 = dict(kw, lr=3e-4, bc1=1 - 0.9 ** 5, bc2=1 - 0.999 ** 5, max_grad_norm=1e-3)
+                g, met = uk.fused_minibatch_grad(data, order, weights, stats, **kw)
+                g_ref, met_ref = uk.fused_minibatch_grad_reference(data, order, weights, stats,
+                                                                    **kw)
+                *new, met3 = uk.fused_minibatch_grad_adam(data, order, w, m, v, stats, **kw3)
+                *ref, met3_ref = uk.fused_minibatch_grad_adam_reference(data, order, w, m, v,
+                                                                       stats, **kw3)
+                torch.cuda.synchronize()
+                what = f"hidden={hidden} {head} A={a} {compute}"
+                err = check_buffers(g, g_ref, "K2 " + what)
+                check_metrics(met, met_ref, "K2 " + what)
+                err3 = max(check_buffers([x - y for x, y in zip(new[0], w)],
+                                         [x - y for x, y in zip(ref[0], w)], "K3 " + what + " dw"),
+                           check_buffers(new[1], ref[1], "K3 " + what + " m"),
+                           check_buffers(new[2], ref[2], "K3 " + what + " v"))
+                check_metrics(met3, met3_ref, "K3 " + what)
+                wide_err["K2"], wide_err["K3"] = max(wide_err["K2"], err), max(wide_err["K3"], err3)
+                line = f"phase 19: K2/K3 {what:38s} max abs err {err:.3g} / {err3:.3g}"
+                if compute == "float32":
+                    worst64 = check_float64_bar(uk, g, g_ref, data, order, weights, stats, kw,
+                                                "K2 " + what)
+                    line += (f"; against float64, worst buffer {worst64[0]}: kernel "
+                             f"{worst64[1]:.3g}, float32 twin {worst64[2]:.3g}")
+                print(line)
+                key = (hidden, head, compute)
+                wide_ms["K2", key], _ = cuda_ms(lambda: uk.fused_minibatch_grad(
+                    data, order, weights, stats, **kw), 10)
+                wide_plain_ms["K2", key], _ = cuda_ms(lambda: uk.fused_minibatch_grad_reference(
+                    data, order, weights, stats, **kw), 3)
+                wide_ms["K3", key], _ = cuda_ms(lambda: uk.fused_minibatch_grad_adam(
+                    data, order, w, m, v, stats, **kw3), 10)
+                wide_plain_ms["K3", key], _ = cuda_ms(
+                    lambda: uk.fused_minibatch_grad_adam_reference(data, order, w, m, v, stats,
+                                                                   **kw3), 3)
+                wide_bound["K2", key] = wide_bound["K3", key] = update_bound(
+                    n_mb, 1, hidden, a, compute, head)
+            del weights, data, w, m, v, g, g_ref, new, ref
+    # one PyTorch call per product computes none of K2; its three 2H-contractions
+    # alone at hidden 256, as in phase 8
+    h2w = 2 * WIDE_HIDDEN[-1]
+    xa = torch.from_numpy(rng.standard_normal((n_mb, h2w)).astype(np.float32)).to(dev)
+    xb = torch.from_numpy(rng.standard_normal((n_mb, h2w)).astype(np.float32)).to(dev)
+    wm = torch.from_numpy(rng.standard_normal((h2w, h2w)).astype(np.float32)).to(dev)
+    wide_lib_ms = {}
+    for compute, ty in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        a_, b_, w_ = xa.to(ty), xb.to(ty), wm.to(ty)
+        three = lambda: (a_ @ w_, a_.T @ b_, b_ @ w_.T)  # noqa: E731
+        three()
+        wide_lib_ms[compute], _ = cuda_ms(three, 10)
+    del xa, xb, wm
+    for name in ("K2", "K3"):
+        for (kname, (hidden, head, compute)), ms in wide_ms.items():
+            if kname != name:
+                continue
+            bound = wide_bound[name, (hidden, head, compute)]
+            print(f"phase 19: {name} hidden={hidden} {head:11s} {compute:8s}: {ms:.3f} ms, twin "
+                  f"{wide_plain_ms[name, (hidden, head, compute)]:.3f} ms per minibatch of "
+                  f"{MB_TILES} x {TILE} (CUDA events); bound {bound[0]:.4f} ms by {bound[1]} "
+                  f"(share {bound[0] / ms:.3f}) {label}")
+    print(f"phase 19: the three products alone at hidden {WIDE_HIDDEN[-1]} as torch.matmul: "
+          f"{wide_lib_ms['float32']:.3f} ms float32, {wide_lib_ms['bfloat16']:.3f} ms bfloat16")
+
+    wide_k4_envs = (("continuous fishing-v1", "fishing-v1", dict(sigma=0.1)),
+                    (f"proportional n_actions={WIDE_ACTIONS}", "fishing-v0",
+                     dict(sigma=0.1, n_actions=WIDE_ACTIONS)))
+    for hidden in WIDE_HIDDEN:
+        for label_c, env_id, overrides in wide_k4_envs:
+            _, k_params, _, weights, state, planes, kw = k4_setup(
+                gtt, ppo, ppo_fused, rng, env_id, dev, hidden=hidden, **overrides)
+            categorical = kw["scheme"] != "continuous"
+            for compute in ("float32", "bfloat16"):
+                for fold, source in ((False, "planes"), (True, "planes"), (True, "seed")):
+                    seed_off = (2026, 7) if source == "seed" else (0, 0)
+                    scal = ppo_fused.rollout_scalars(k_params, *seed_off)
+                    args = (*state, weights, scal, T_PPO)
+                    kw_c = dict(kw, fold_obs=fold, compute=compute,
+                                noise=planes if source == "planes" else None)
+                    ker = pk.policy_rollout(*args, **kw_c)
+                    ref = pk.policy_rollout_reference(*args, **kw_c)
+                    torch.cuda.synchronize()
+                    what = f"K4 hidden={hidden} {label_c} fold={fold} {compute} {source}"
+                    err, flips = compare_k4(ker, ref, what, categorical, compute == "bfloat16")
+                    wide_err["K4"], wide_flips = max(wide_err["K4"], err), wide_flips + flips
+                    print(f"phase 19: {what:70s} max abs err {err:.3g}, envs left {flips}")
+                    if source == "seed":
+                        key = (hidden, env_id, compute)
+                        wide_ms["K4", key], _ = cuda_ms(lambda: pk.policy_rollout(*args, **kw_c), 5)
+                        wide_plain_ms["K4", key], _ = cuda_ms(
+                            lambda: pk.policy_rollout_reference(*args, **kw_c), 1)
+                        wide_bound["K4", key] = rollout_bound(
+                            B_PPO, T_PPO, 1, hidden, WIDE_ACTIONS if categorical else 1, compute,
+                            categorical)
+                        bound = wide_bound["K4", key]
+                        print(f"phase 19: K4 hidden={hidden} {label_c} {compute}: "
+                              f"{wide_ms['K4', key]:.3f} ms, twin {wide_plain_ms['K4', key]:.1f} "
+                              f"ms per rollout of B={B_PPO} T={T_PPO} (CUDA events, fold, from a "
+                              f"seed); bound {bound[0]:.4f} ms by {bound[1]} (share "
+                              f"{bound[0] / wide_ms['K4', key]:.3f}) {label}")
+    print(f"phase 19: {wide_flips} envs left the twin's trajectory in all")
+
+    # the slice's main path: PPO full+adam at hidden 256 on fishing-v1 and on
+    # fishing-v0's proportional grid of 100 quotas, 16384 x 128, 4 x 8
+    wide_launches, wide_iter_ms = {}, {}
+    for env_label, env_id, overrides in (("fishing-v1", "fishing-v1", dict(sigma=0.05)),
+                                         (f"fishing-v0 n_actions={WIDE_ACTIONS}", "fishing-v0",
+                                          dict(n_actions=WIDE_ACTIONS))):
+        w_env, w_params = make(env_id, **overrides)
+        w_host = make(env_id, device="cpu", **overrides)[1]   # K4 reads them on the host
+        continuous = env_id == "fishing-v1"
+        wcfg = ppo.PPOConfig(num_envs=B_PPO, num_steps=T_PPO, hidden=WIDE_HIDDEN[-1],
+                             fused_update=True, fused_rollout=True, fused_adam=True)
+        w_ts0 = ppo.make_train_state(w_env, wcfg, torch.Generator().manual_seed(19))
+
+        def w_run(cfg, iterations, seed=5):
+            ts = w_ts0.clone()
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            p = w_host if cfg.fused_rollout else w_params
+            bstate = batched_reset(w_env, p, cfg.num_envs, dev)
+            hist = []
+            t0 = time.perf_counter()
+            for _ in range(iterations):
+                ts, bstate, met = ppo.train_step(w_env, p, cfg, ts, bstate, gen)
+                hist.append({k: float(x) for k, x in met.items()})
+            secs = time.perf_counter() - t0
+            for name_, p in ts.model.named_parameters():
+                if not bool(torch.isfinite(p).all()):
+                    fail(f"phase 19: {env_label}: non-finite parameter {name_}")
+            rets = np.array([h["episode_return"] for h in hist])
+            return ts, (float(np.nanmean(rets[:5])), float(np.nanmean(rets[-5:]))), secs
+
+        # fused ≡ plain after one step at 1 x 1 from the same rollout: K4's
+        # packed samples through K3, and through the plain epochs (autograd)
+        if continuous:
+            planes = ppo_fused.rollout_noise_from_draws(
+                torch.from_numpy(rng.standard_normal((T_PPO, B_PPO, 1)).astype(np.float32)).to(dev),
+                torch.from_numpy(rng.standard_normal((T_PPO, 2, B_PPO)).astype(np.float32)).to(dev),
+                0.0, False)
+        else:
+            planes = torch.from_numpy(np.stack([rng.random((T_PPO, B_PPO)),
+                                                rng.standard_normal((T_PPO, B_PPO))])
+                                      .astype(np.float32)).to(dev)
+        for compute in ("float32", "bfloat16"):
+            one_cfg = dataclasses.replace(wcfg, epochs=1, num_minibatches=1, compute_dtype=compute)
+            fused, _, _ = ppo.train_step(
+                w_env, w_host, one_cfg, w_ts0.clone(), batched_reset(w_env, w_host, B_PPO, dev),
+                perms=[torch.arange(N_PPO // TILE, dtype=torch.int32, device=dev)],
+                rollout_noise=planes)
+            roll, _ = ppo_fused.fused_rollout_collect(
+                w_env, w_host, one_cfg, w_ts0, batched_reset(w_env, w_host, B_PPO, dev),
+                noise=planes)
+            plain = w_ts0.clone()
+            ppo._plain_epochs(one_cfg, plain, roll.packed_t[:6].T.contiguous(), 1, 1, continuous,
+                              None, [torch.arange(N_PPO, device=dev)])
+            if compute == "float32":   # phase 10's bars on the parameters
+                s_err = 0.0
+                for (pname, p), q in zip(fused.model.named_parameters(), plain.model.parameters()):
+                    p, q = p.detach(), q.detach()
+                    s_err = max(s_err, float((p - q).abs().max()))
+                    if not bool(((p - q).abs() <= STEP_ATOL + STEP_RTOL * q.abs()).all()):
+                        fail(f"phase 19: {env_label}: one step at 1x1, full+adam vs plain: "
+                             f"{pname} max abs err {float((p - q).abs().max()):.3g}")
+                what = f"max abs param err {s_err:.3g} (rtol {STEP_RTOL}, atol {STEP_ATOL})"
+            else:   # phase 15's bar on the gradients, through Adam's first moment
+                rel = {k: float((fused.m[k] - plain.m[k]).norm() / plain.m[k].norm())
+                       for k in plain.m}
+                name_ = max(rel, key=rel.get)
+                if not rel[name_] <= GRAD_BF16_RTOL:
+                    fail(f"phase 19: {env_label}: one step at 1x1 under bfloat16, full+adam vs "
+                         f"plain: the first moment of {name_} differs by {rel[name_]:.3g}")
+                what = (f"first moment within {rel[name_]:.3g} of its norm in the worst tensor, "
+                        f"{name_} (bar {GRAD_BF16_RTOL:.4g})")
+            print(f"phase 19: {env_label} hidden={WIDE_HIDDEN[-1]}: full+adam ≡ plain after one "
+                  f"step at 1 x 1 from the same rollout under {compute}, N={N_PPO}: {what}")
+
+        curves = {}
+        for compute in ("float32", "bfloat16"):
+            reset_counts()
+            _, curves[compute], secs = w_run(dataclasses.replace(wcfg, compute_dtype=compute),
+                                             WIDE_ITERS)
+            got = counts()
+            want = {"rollout": 0, "grad": 0, "adam": 32 * WIDE_ITERS, "policy": WIDE_ITERS}
+            if got != want:
+                fail(f"phase 19: {env_label} full+adam {compute}: launches {got}, expected {want}")
+            wide_launches[env_label, compute] = got
+            wide_iter_ms[env_label, compute] = secs / WIDE_ITERS * 1e3
+            print(f"phase 19: {env_label} full+adam {compute} hidden={WIDE_HIDDEN[-1]}: "
+                  f"{secs / WIDE_ITERS * 1e3:.1f} ms/iter over {WIDE_ITERS} iterations (host "
+                  f"clock, a metric read after each); launches {got}; episode return first5 "
+                  f"{curves[compute][0]:.4f} -> last5 {curves[compute][1]:.4f}; B={B_PPO} "
+                  f"T={T_PPO} 4x8 {label}")
+        _, curves["off"], secs = w_run(dataclasses.replace(wcfg, fused_update=False,
+                                                           fused_rollout=False, fused_adam=False),
+                                       WIDE_ITERS)
+        print(f"phase 19: {env_label} off hidden={WIDE_HIDDEN[-1]}: {secs / WIDE_ITERS * 1e3:.1f} "
+              f"ms/iter; episode return first5 {curves['off'][0]:.4f} -> last5 "
+              f"{curves['off'][1]:.4f}")
+        for name, (first, last) in curves.items():
+            if not last > first:
+                fail(f"phase 19: {env_label} {name}: mean episode return did not rise "
+                     f"({first:.4f} -> {last:.4f})")
+        for compute in ("float32", "bfloat16"):
+            gap = abs(curves["off"][1] - curves[compute][1])
+            if not gap <= AGREE_TOL:
+                fail(f"phase 19: {env_label}: last-5 mean episode returns of off and full+adam "
+                     f"{compute} differ by {gap:.4f} > {AGREE_TOL}")
+            print(f"phase 19: agreement gap off vs full+adam {compute} on {env_label} "
+                  f"{gap:.4f} <= {AGREE_TOL}")
+        if continuous:   # K2's wide path on a main path: the full form
+            reset_counts()
+            w_run(dataclasses.replace(wcfg, fused_adam=False), 2)
+            wide_launches["full", "float32"] = counts()
+            if wide_launches["full", "float32"] != {"rollout": 0, "grad": 64, "adam": 0,
+                                                    "policy": 2}:
+                fail(f"phase 19: full at hidden {WIDE_HIDDEN[-1]}: launches "
+                     f"{wide_launches['full', 'float32']}")
+
+    from gym_fishing_tpu_torch.validation import kernel_rng
+
+    t0 = time.perf_counter()
+    if kernel_rng.main(["--require-cuda"]) != 0:
+        fail("phase 19: validation/kernel_rng.py printed FAIL (its JSON line is above)")
+    print(f"phase 19: validation/kernel_rng.py PASS at its defaults in "
+          f"{time.perf_counter() - t0:.1f} s; phase 19 in {time.perf_counter() - t19:.1f} s")
+
+    print(f"chip_smoke: {time.perf_counter() - T_START:.1f} s of command time")
     if "jax" in sys.modules:
         fail("jax was imported")
     print(json.dumps({"kernels": [
@@ -1660,6 +1926,56 @@ def main():
             "bfloat16_ms": adam16_ms["bfloat16"],
             "bfloat16_bound_ms": grad16_bound["bfloat16"][0],
             "rows_8_ms": adam_ms["float32"],
+        },
+        {
+            "name": "ppo_grad_kernel (wide path, hidden 256)",
+            "route": "cuda",
+            "source": "gym_fishing_tpu_torch/csrc/ppo_update_kernel.cu",
+            "replaces": "gym_fishing_tpu/kernels/ppo_update_kernel.py:114",
+            "launches": wide_launches["full", "float32"]["grad"],
+            "max_abs_err": wide_err["K2"],
+            "ms": wide_ms["K2", (256, "gaussian", "float32")],
+            "plain_ms": wide_plain_ms["K2", (256, "gaussian", "float32")],
+            "bound_ms": wide_bound["K2", (256, "gaussian", "float32")][0],
+            "bound_by": wide_bound["K2", (256, "gaussian", "float32")][1],
+            "library_ms": wide_lib_ms["float32"],
+            "library_note": "the three 2H-contractions only",
+            "bfloat16_ms": wide_ms["K2", (256, "gaussian", "bfloat16")],
+            "categorical_100_ms": wide_ms["K2", (256, "categorical", "float32")],
+            "hidden_128_ms": wide_ms["K2", (128, "gaussian", "float32")],
+        },
+        {
+            "name": "ppo_grad_adam_kernel (wide path, hidden 256)",
+            "route": "cuda",
+            "source": "gym_fishing_tpu_torch/csrc/ppo_update_kernel.cu",
+            "replaces": "gym_fishing_tpu/kernels/ppo_update_kernel.py:455",
+            "launches": wide_launches["fishing-v1", "float32"]["adam"],
+            "max_abs_err": wide_err["K3"],
+            "ms": wide_ms["K3", (256, "gaussian", "float32")],
+            "plain_ms": wide_plain_ms["K3", (256, "gaussian", "float32")],
+            "bound_ms": wide_bound["K3", (256, "gaussian", "float32")][0],
+            "bound_by": wide_bound["K3", (256, "gaussian", "float32")][1],
+            "library_ms": wide_lib_ms["float32"],
+            "library_note": "the three 2H-contractions only",
+            "bfloat16_ms": wide_ms["K3", (256, "gaussian", "bfloat16")],
+            "categorical_100_ms": wide_ms["K3", (256, "categorical", "float32")],
+            "hidden_128_ms": wide_ms["K3", (128, "gaussian", "float32")],
+        },
+        {
+            "name": "policy_rollout_kernel (wide path, hidden 256)",
+            "route": "cuda",
+            "source": "gym_fishing_tpu_torch/csrc/policy_rollout_kernel.cu",
+            "replaces": "gym_fishing_tpu/kernels/policy_rollout_kernel.py:86",
+            "launches": wide_launches["fishing-v1", "float32"]["policy"],
+            "max_abs_err": wide_err["K4"],
+            "ms": wide_ms["K4", (256, "fishing-v1", "float32")],
+            "plain_ms": wide_plain_ms["K4", (256, "fishing-v1", "float32")],
+            "bound_ms": wide_bound["K4", (256, "fishing-v1", "float32")][0],
+            "bound_by": wide_bound["K4", (256, "fishing-v1", "float32")][1],
+            "library_ms": None,
+            "bfloat16_ms": wide_ms["K4", (256, "fishing-v1", "bfloat16")],
+            "categorical_100_ms": wide_ms["K4", (256, "fishing-v0", "float32")],
+            "hidden_128_ms": wide_ms["K4", (128, "fishing-v1", "float32")],
         },
         {
             "name": "policy_rollout_kernel",

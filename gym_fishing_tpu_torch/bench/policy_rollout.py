@@ -2,10 +2,12 @@
 
     python gym_fishing_tpu_torch/bench/policy_rollout.py [--root DIR] [--envs B,B,...] [--reps N]
                                                          [--errors] [--phases]
+                                                         [--hidden H] [--n-actions A]
 
 One rollout is T = 128 steps of fishing-v1 (continuous decode, Gaussian head,
-hidden 64, the obs map folded into the input layer, noise drawn inside the
-kernel from a seed), timed with CUDA events over `--reps` calls of the
+hidden `--hidden`, default 64; with `--n-actions A` fishing-v0 under the
+proportional decode of A classes, the categorical head), the obs map folded
+into the input layer, noise drawn inside the kernel from a seed, timed with CUDA events over `--reps` calls of the
 wrapper after a warm-up, for compute float32 and bfloat16 and for every
 batch size in `--envs` (default 8448 and 16384: 8448 envs were one full wave
 of the kernel that took 32 envs a CTA at two CTAs an SM, 16384 is the PPO
@@ -52,7 +54,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-T, HIDDEN = 128, 64
+T = 128
 
 
 def smi(query: str) -> str:
@@ -60,22 +62,31 @@ def smi(query: str) -> str:
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
 
+# the wide kernel follows this line of the source; the clocks go into the
+# kernel before it
+WIDE_SECTION = "// ------------------------------------------------------------------ wide\n"
+
+
 def instrument(source: str) -> str:
-    """`source` with the clocks added; raises if an anchor is not found."""
+    """`source` with the clocks added to policy_rollout_kernel (hidden 32
+    and 64, at most 16 logits); raises if an anchor is not found."""
+    if source.count(WIDE_SECTION) != 1:
+        raise RuntimeError("the rollout kernel's source has no single wide section")
+    source, wide = source.split(WIDE_SECTION)
     edits = [
         ("  extern __shared__ __align__(16) float sm[];\n",
          "  extern __shared__ __align__(16) float sm[];\n"
          "  const long long c_entry = clock64();\n"),
-        ("  for (int t = 0; t < T; ++t) {\n    forward(inp);\n",
+        ("  for (int t = 0; t < T; ++t) {\n    forward(c.inp);\n",
          "  long long cyc_fwd = 0, cyc_tail = 0;\n  const long long c_loop = clock64();\n"
          "  for (int t = 0; t < T; ++t) {\n"
-         "    const long long c0 = clock64();\n    forward(inp);\n"
+         "    const long long c0 = clock64();\n    forward(c.inp);\n"
          "    const long long c1 = clock64();\n"),
         ("    // the next forward overwrites the head outputs this step's tail read\n"
          "    __syncwarp();\n",
          "    __syncwarp();\n    cyc_fwd += c1 - c0;\n    cyc_tail += clock64() - c1;\n"),
-        ("    st[3] = srw;\n  }\n",
-         "    st[3] = srw;\n  }\n  if (tid == 0) {\n"
+        ("    st[3] = c.srw;\n  }\n",
+         "    st[3] = c.srw;\n  }\n  if (tid == 0) {\n"
          "    sm[L_::STAT] = (float)(c_loop - c_entry);\n"
          "    sm[L_::STAT + 1] = (float)cyc_fwd;\n    sm[L_::STAT + 2] = (float)cyc_tail;\n"
          "    sm[L_::STAT + 3] = (float)(clock64() - c_loop - cyc_fwd - cyc_tail);\n  }\n"),
@@ -86,10 +97,10 @@ def instrument(source: str) -> str:
         if source.count(old) != 1:
             raise RuntimeError(f"the rollout kernel's source has no single {old!r}")
         source = source.replace(old, new)
-    return source
+    return source + WIDE_SECTION + wide
 
 
-def phases(state_of, weights, scal) -> None:
+def phases(state_of, weights, scal, hidden, roll_kw) -> None:
     from gym_fishing_tpu_torch.kernels import _build
     from gym_fishing_tpu_torch.kernels import policy_rollout_kernel as pk
     from gym_fishing_tpu_torch.kernels import ppo_update_kernel as uk
@@ -104,10 +115,10 @@ def phases(state_of, weights, scal) -> None:
     B = 16384
     state = state_of(B)
     ctas = -(-B // pk.KERNEL_ENVS_PER_CTA)
-    out = {"card": smi("name,power.limit"), "B": B, "T": T, "hidden": HIDDEN}
+    out = {"card": smi("name,power.limit"), "B": B, "T": T, "hidden": hidden}
     for compute in uk.COMPUTES:
         for _ in range(3):
-            roll = pk.policy_rollout(*state, weights, scal, T, fold_obs=True, compute=compute)
+            roll = pk.policy_rollout(*state, weights, scal, T, compute=compute, **roll_kw)
         torch.cuda.synchronize()
         before, fwd, tail, after = (float(v) / ctas for v in roll.stats)
         out[compute] = {"cycles_before_first_step": before, "forward_cycles_per_step": fwd / T,
@@ -123,6 +134,10 @@ def main() -> None:
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--errors", action="store_true")
     ap.add_argument("--phases", action="store_true")
+    ap.add_argument("--hidden", type=int, default=64)
+    ap.add_argument("--n-actions", type=int, default=0,
+                    help="fishing-v0, proportional decode of this many classes (default: "
+                         "fishing-v1, Gaussian head)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("policy_rollout: needs a CUDA device")
@@ -134,15 +149,26 @@ def main() -> None:
 
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(11)
-    _, params = gtt.make("fishing-v1", sigma=0.1, device="cpu")  # the kernel reads them on the host
-    model = ppo.ActorCritic(1, 1, True, HIDDEN, generator=torch.Generator().manual_seed(5))
+    gauss = args.n_actions == 0
+    if gauss:
+        env_kw, head, a = dict(env_id="fishing-v1"), "gaussian", 1
+    else:
+        env_kw, head, a = dict(env_id="fishing-v0", n_actions=args.n_actions), "categorical", \
+            args.n_actions
+    # the kernel reads the params on the host
+    env, params = gtt.make(**env_kw, sigma=0.1, device="cpu")
+    cfg = env.config
+    roll_kw = dict(growth=cfg.growth, noise_form=cfg.noise_form, scheme=cfg.scheme,
+                   n_actions=cfg.n_actions, fold_obs=True)
+    model = ppo.ActorCritic(1, a, gauss, args.hidden, generator=torch.Generator().manual_seed(5))
     with torch.no_grad():
         for p in model.parameters():
             p.add_(torch.from_numpy(0.05 * rng.standard_normal(p.shape).astype(np.float32)))
-        model.pi_mean.bias.sub_(0.5)   # envs outlive their first harvest
-        model.log_std.fill_(-1.0)
+        if gauss:
+            model.pi_mean.bias.sub_(0.5)   # envs outlive their first harvest
+            model.log_std.fill_(-1.0)
     weights = tuple(x.detach().to(dev) for x in ppo_fused.kernel_weights(
-        dict(model.named_parameters()), "gaussian"))
+        dict(model.named_parameters()), head))
     if "merged" in inspect.signature(pk.policy_rollout).parameters:
         weights = uk.merge_weights(weights)
     scal = ppo_fused.rollout_scalars(params, 2026, 7)
@@ -156,16 +182,15 @@ def main() -> None:
                 i32(rng.integers(0, tmax, B)))
 
     if args.phases:
-        phases(state_of, weights, scal)
+        phases(state_of, weights, scal, args.hidden, roll_kw)
         return
-    out = {"root": os.path.abspath(args.root), "reps": args.reps, "T": T, "hidden": HIDDEN,
-           "card": smi("name,power.limit")}
+    out = {"root": os.path.abspath(args.root), "reps": args.reps, "T": T, "hidden": args.hidden,
+           "head": head, "act_dim": a, "card": smi("name,power.limit")}
     for B in (int(b) for b in args.envs.split(",")):
         state = state_of(B)
         for compute in uk.COMPUTES:
             run = lambda: pk.policy_rollout(  # noqa: E731
-                *state, weights, scal, T, growth="logistic", noise_form="additive",
-                scheme="continuous", fold_obs=True, compute=compute)
+                *state, weights, scal, T, compute=compute, **roll_kw)
             for _ in range(3):
                 roll = run()
             start = torch.cuda.Event(enable_timing=True)
@@ -182,9 +207,8 @@ def main() -> None:
                 "packed_sum": float(roll.packed_t.double().sum()),
                 "stats": [float(v) for v in roll.stats]}
             if args.errors:
-                ref = pk.policy_rollout_reference(
-                    *state, weights, scal, T, growth="logistic", noise_form="additive",
-                    scheme="continuous", fold_obs=True, compute=compute)
+                ref = pk.policy_rollout_reference(*state, weights, scal, T, compute=compute,
+                                                  **roll_kw)
                 err = (roll.packed_t - ref.packed_t).abs().view(8, T, B)[:6]
                 same = ((err.amax((0, 1)) <= (5e-3 if compute == "bfloat16" else 1e-4))
                         & (roll.t == ref.t))

@@ -30,10 +30,12 @@ N, TILE, MB_TILES, HIDDEN, SLOTS = 16384 * 128, 2048, 128, 64, 8
 
 
 def instrument(source: str) -> str:
-    """`source` with the clocks added; raises if the loop is not found."""
+    """`source` with the clocks added to ppo_grad_tiles' chunk loop (the
+    first; the wide path's is left as it is); raises if the loop is not
+    found."""
     out, inside, n = [], False, 0
     for line in source.split("\n"):
-        if line.startswith("  for (int chunk = c_begin;"):
+        if line.startswith("  for (int chunk = c_begin;") and n == 0:
             out += [f"  long long ph[{SLOTS}] = {{0}};", line,
                     "    long long tprev = clock64(), tnow;"]
             inside = True

@@ -2,11 +2,13 @@
 K3's without its optimizer stage) per minibatch, at the bench's shapes.
 
     python gym_fishing_tpu_torch/bench/update_kernels.py [--root DIR] [--reps N] [--errors]
+                                                        [--hidden H] [--n-actions A]
 
 One minibatch is 128 random tiles of 2048 samples out of the packed buffer
-[8, 2^21] of 16384 envs x 128 steps, hidden 64, Gaussian head, timed with
-CUDA events over `--reps` launches after a warm-up, for compute float32 and
-bfloat16. The launcher is called below the wrapper (no weight merging), so
+[8, 2^21] of 16384 envs x 128 steps, hidden `--hidden` (default 64), the
+Gaussian head or, with `--n-actions A`, the categorical head of A classes,
+timed with CUDA events over `--reps` launches after a warm-up, for compute
+float32 and bfloat16. The launcher is called below the wrapper (no weight merging), so
 the time is the two kernels' and the workspace allocation's.
 
 `--root` names the checkout whose ``gym_fishing_tpu_torch`` is imported
@@ -33,7 +35,7 @@ import sys
 import numpy as np
 import torch
 
-N, TILE, MB_TILES, HIDDEN = 16384 * 128, 2048, 128, 64
+N, TILE, MB_TILES = 16384 * 128, 2048, 128
 
 
 def error_table(uk, ppo, ppo_fused, dev) -> None:
@@ -86,6 +88,9 @@ def main() -> None:
     ap.add_argument("--root", default=here)
     ap.add_argument("--reps", type=int, default=50)
     ap.add_argument("--errors", action="store_true")
+    ap.add_argument("--hidden", type=int, default=64)
+    ap.add_argument("--n-actions", type=int, default=0,
+                    help="categorical head of this many classes (default: Gaussian)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("update_kernels: needs a CUDA device")
@@ -98,25 +103,30 @@ def main() -> None:
         error_table(uk, ppo, ppo_fused, dev)
         return
     rng = np.random.default_rng(7)
-    model = ppo.ActorCritic(1, 1, True, HIDDEN, generator=torch.Generator().manual_seed(3))
-    weights = ppo_fused.kernel_weights(dict(model.named_parameters()), "gaussian")
+    gauss = args.n_actions == 0
+    head, a = ("gaussian", 1) if gauss else ("categorical", args.n_actions)
+    model = ppo.ActorCritic(1, a, gauss, args.hidden, generator=torch.Generator().manual_seed(3))
+    weights = ppo_fused.kernel_weights(dict(model.named_parameters()), head)
     w_flat = uk.flatten_merged(uk.merge_weights(tuple(x.detach().to(dev) for x in weights)))
     rows = rng.standard_normal((uk.C_PAD, N)).astype(np.float32)
     rows[0] *= 0.7
+    if not gauss:   # the action row holds the class index
+        rows[1] = rng.integers(0, a, N)
     rows[2] = -1.0 + 0.3 * rows[2]
     rows[6:] = 0.0
     data = torch.from_numpy(rows).to(dev)
     order = torch.from_numpy(rng.permutation(N // TILE)[:MB_TILES].astype(np.int32)).to(dev)
     stats = torch.tensor([0.0, 1.0], device=dev)
 
-    out = {"root": os.path.abspath(args.root), "reps": args.reps,
+    out = {"root": os.path.abspath(args.root), "reps": args.reps, "hidden": args.hidden,
+           "head": head, "act_dim": a,
            "card": subprocess.run(
                ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]}
     for compute in uk.COMPUTES:
-        scal = dict(clip_eps=0.2, vf_coef=0.5, ent_coef=0.0, obs_dim=1, act_dim=1, tile=TILE,
-                    head="gaussian", compute=compute)
-        run = lambda: uk._launch(data, order, w_flat, stats, HIDDEN, **scal)  # noqa: E731
+        scal = dict(clip_eps=0.2, vf_coef=0.5, ent_coef=0.0, obs_dim=1, act_dim=a, tile=TILE,
+                    head=head, compute=compute)
+        run = lambda: uk._launch(data, order, w_flat, stats, args.hidden, **scal)  # noqa: E731
         for _ in range(5):
             gout = run()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)

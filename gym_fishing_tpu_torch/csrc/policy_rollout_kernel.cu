@@ -44,7 +44,10 @@
 // its product and ~250 dependent instructions of the tail, and each scheduler
 // has four such warps to interleave. (With 4 envs a warp the tail ran twice
 // as often for the same envs on half as many lanes, and B = 16384 took 1.94
-// waves of 264 resident CTAs.)
+// waves of 264 resident CTAs.) That plan holds hidden 32 and 64 with at most
+// 16 logits; hidden 128 and 256, and categorical heads of up to 128 classes
+// at any hidden size, take policy_rollout_wide (below), whose 16 warps step
+// their 64 envs together and stream the weights from L2 every step.
 // - compute = float32: float32 FMA. Lanes 0-15 take the policy tower, lanes
 //   16-31 the value tower, each lane 8 envs x H/16 columns: per 4 rows of a
 //   tower's block a lane makes 8 broadcast LDS.128 of h1 and 4 LDS.128 of
@@ -85,6 +88,7 @@
 
 #include "fishing_dynamics.cuh"
 #include "merged_mlp.cuh"
+#include "wide_mlp.cuh"
 
 struct PolicyRolloutParams {
   float r, r_drift, K, sigma, sigma_m, price, cost, action_scale, init_state, init_harvest;
@@ -106,7 +110,7 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kEnvsPerWarp = 8;
 constexpr int kEnvs = kWarps * kEnvsPerWarp;  // envs per CTA
-constexpr int kMaxA = 16;   // logits width
+constexpr int kMaxA = 16;   // logits width of policy_rollout_kernel (the wide path: kWideMaxA)
 constexpr int kMaxA1 = kMaxA + 1;
 constexpr int kStats = 4;   // n_done, sum ep_ret at done, sum ep_len at done, sum reward
 constexpr int kGaeRun = 8;  // steps of the GAE pass whose rows are read together
@@ -250,6 +254,141 @@ __device__ __forceinline__ void warp_forward_f32(const float* sm, float* h1, flo
       out[((lane >> 1) & 7) * kMaxA1 + a] = z + sm[L_::BH + a];
   }
   __syncwarp();
+}
+
+// An env's carried state in the lane that owns it, and the lane's sums of
+// the episode statistics.
+struct EnvCarry {
+  float x, h, cur_ret, inp;
+  int tt, cur_len;
+  float nd, sr, sl, srw;
+};
+
+// The step's draws: za (the action's normal under the Gaussian head, the
+// inverse CDF's uniform under the categorical one), zp (process noise) and
+// nf (the observation's noise factor), from the planes or from Philox.
+__device__ __forceinline__ void step_draws(const PolicyRolloutParams& p, bool gauss,
+                                           bool obs_noise, long long env, int t, long long col,
+                                           long long TB, const float* __restrict__ noise,
+                                           float& za, float& zp, float& nf) {
+  nf = 1.0f;
+  if (p.has_noise) {
+    za = noise[col];
+    zp = noise[TB + col];
+    if (obs_noise) nf = noise[2 * TB + col];
+    return;
+  }
+  const uint4 bits = philox_bits(p.seed, (unsigned long long)env, p.offset + (unsigned long long)t);
+  float s, c;
+  if (gauss) {
+    const float rad = sqrtf(-2.0f * logf(uniform_from_bits(bits.x)));
+    sincosf(TWO_PI_F * uniform_from_bits(bits.y), &s, &c);
+    za = rad * c;
+    zp = rad * s;
+    if (obs_noise) {
+      const float rad2 = sqrtf(-2.0f * logf(uniform_from_bits(bits.z)));
+      sincosf(TWO_PI_F * uniform_from_bits(bits.w), &s, &c);
+      nf = expf(p.sigma_m * (rad2 * c));
+    }
+  } else {
+    za = uniform_from_bits(bits.x);
+    const float rad = sqrtf(-2.0f * logf(uniform_from_bits(bits.y)));
+    sincosf(TWO_PI_F * uniform_from_bits(bits.z), &s, &c);
+    zp = rad * s;
+    if (obs_noise) nf = expf(p.sigma_m * (rad * c));
+  }
+}
+
+// The quota of class k under the proportional or relative decode.
+__device__ __forceinline__ float categorical_quota(const PolicyRolloutParams& p, int k, float h,
+                                                   float K) {
+  if (p.scheme == PROPORTIONAL) return (float)k / (float)p.n_actions * K;
+  // RELATIVE_MULTIPLIERS[a]: a pure lookup of the carried harvest
+  const float mult = k == 0 ? 1.0f : (k == 1 ? 1.2f : (k == 2 ? 0.8f : 0.0f));
+  return h * mult;
+}
+
+// The rest of the step once the action is drawn: harvest, growth, noise,
+// reward, collapse and horizon, rows 0-3 and 6-7 of the packed matrix, the
+// statistics, auto-reset and the next input.
+__device__ __forceinline__ void env_step(const PolicyRolloutParams& p, int model, EnvCarry& c,
+                                         float act, float logp, float quota, float value,
+                                         float zp, float nf, long long col, long long TB,
+                                         float* __restrict__ packed, bool fold, bool obs_noise,
+                                         float K, float inv_K, float two_K) {
+  const float hv = fminf(c.x, quota);
+  const float x1 = c.x - hv;
+  const float r_eff = p.r + p.r_drift * (float)c.tt;
+  const float mu = growth(p, model, x1, r_eff);
+  const float x2 = p.noise_form == ADDITIVE ? mu + p.sigma * x1 * zp : mu * expf(p.sigma * zp);
+  float xn = x2 < 0.0f ? 0.0f : x2;  // keeps a NaN visible
+  const bool collapsed = xn <= 0.0f;
+  float rew = p.price * hv - p.cost * quota * quota;
+  rew = rew - (collapsed ? p.collapse_penalty : 0.0f);
+  int tn = c.tt + 1;
+  const bool done = tn >= p.Tmax || collapsed;
+  const float done_f = done ? 1.0f : 0.0f;
+  const float ep_ret_now = c.cur_ret + rew;
+  const int ep_len_now = c.cur_len + 1;
+
+  packed[col] = fold ? c.inp * inv_K - 1.0f : c.inp;
+  packed[TB + col] = act;
+  packed[2 * TB + col] = logp;
+  packed[3 * TB + col] = value;
+  packed[6 * TB + col] = rew;
+  packed[7 * TB + col] = done_f;
+
+  c.nd += done_f;
+  c.sr += ep_ret_now * done_f;
+  c.sl += (float)ep_len_now * done_f;
+  c.srw += rew;
+
+  // auto-reset; the carried harvest is the pre-min quota under the relative
+  // scheme and the realised harvest otherwise
+  xn = done ? p.init_state : xn;
+  tn = done ? 0 : tn;
+  const float new_h = p.scheme == RELATIVE ? quota : hv;
+  c.h = done ? p.init_harvest : new_h;
+  c.cur_ret = done ? 0.0f : ep_ret_now;
+  c.cur_len = done ? 0 : ep_len_now;
+  c.x = xn;
+  c.tt = tn;
+  // the next input: measured with noise for live envs, noise-free after a reset
+  const float meas = obs_noise && !done ? xn * nf : xn;
+  c.inp = fold ? fminf(fmaxf(meas, 0.0f), two_K) : fminf(fmaxf(meas / K - 1.0f, -1.0f), 1.0f);
+}
+
+// The reverse GAE pass of one env, bootstrapped from next_value (the value
+// of the final, post-reset input): rows 4-5, and rows 6-7 back to zero.
+__device__ __forceinline__ void gae_pass(const PolicyRolloutParams& p, long long env,
+                                         long long B, int T, long long TB, float next_value,
+                                         float* __restrict__ packed) {
+  float gae = 0.0f;
+  for (int t_hi = T - 1; t_hi >= 0; t_hi -= kGaeRun) {
+    float rew[kGaeRun], nonterm[kGaeRun], value[kGaeRun];
+#pragma unroll
+    for (int j = 0; j < kGaeRun; ++j) {
+      if (t_hi - j >= 0) {
+        const long long col = (long long)(t_hi - j) * B + env;
+        rew[j] = packed[6 * TB + col];
+        nonterm[j] = 1.0f - packed[7 * TB + col];
+        value[j] = packed[3 * TB + col];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kGaeRun; ++j) {
+      if (t_hi - j >= 0) {
+        const long long col = (long long)(t_hi - j) * B + env;
+        const float delta = rew[j] + p.gamma * next_value * nonterm[j] - value[j];
+        gae = delta + p.gamma_lambda * nonterm[j] * gae;
+        packed[4 * TB + col] = gae;
+        packed[5 * TB + col] = gae + value[j];
+        packed[6 * TB + col] = 0.0f;
+        packed[7 * TB + col] = 0.0f;
+        next_value = value[j];
+      }
+    }
+  }
 }
 
 // Two bf16 values rounded to nearest even from floats, `lo` in the low half.
@@ -441,52 +580,24 @@ __global__ void __launch_bounds__(kThreads, 2) policy_rollout_kernel(
     }
   };
 
-  float x = 0.0f, h = 0.0f, cur_ret = 0.0f;
-  int tt = 0, cur_len = 0;
+  EnvCarry c = {};
   if (active) {
-    x = stock_in[env];
-    tt = t_in[env];
-    h = hv_in[env];
-    cur_ret = ret_in[env];
-    cur_len = len_in[env];
+    c.x = stock_in[env];
+    c.tt = t_in[env];
+    c.h = hv_in[env];
+    c.cur_ret = ret_in[env];
+    c.cur_len = len_in[env];
   }
   // the first input is noise-free
-  float inp = fold ? fminf(fmaxf(x, 0.0f), two_K) : fminf(fmaxf(x / K - 1.0f, -1.0f), 1.0f);
-  float nd = 0.0f, sr = 0.0f, sl = 0.0f, srw = 0.0f;
+  c.inp = fold ? fminf(fmaxf(c.x, 0.0f), two_K) : fminf(fmaxf(c.x / K - 1.0f, -1.0f), 1.0f);
 
   for (int t = 0; t < T; ++t) {
-    forward(inp);
+    forward(c.inp);
     if (active) {
       const float value = out[A];
       const long long col = (long long)t * B + env;
-      float za, zp, nf = 1.0f;  // za: action normal (Gaussian) or uniform (categorical)
-      if (p.has_noise) {
-        za = noise[col];
-        zp = noise[TB + col];
-        if (obs_noise) nf = noise[2 * TB + col];
-      } else {
-        const uint4 bits = philox_bits(p.seed, (unsigned long long)env,
-                                       p.offset + (unsigned long long)t);
-        float s, c;
-        if (gauss) {
-          const float rad = sqrtf(-2.0f * logf(uniform_from_bits(bits.x)));
-          sincosf(TWO_PI_F * uniform_from_bits(bits.y), &s, &c);
-          za = rad * c;
-          zp = rad * s;
-          if (obs_noise) {
-            const float rad2 = sqrtf(-2.0f * logf(uniform_from_bits(bits.z)));
-            sincosf(TWO_PI_F * uniform_from_bits(bits.w), &s, &c);
-            nf = expf(p.sigma_m * (rad2 * c));
-          }
-        } else {
-          za = uniform_from_bits(bits.x);
-          const float rad = sqrtf(-2.0f * logf(uniform_from_bits(bits.y)));
-          sincosf(TWO_PI_F * uniform_from_bits(bits.z), &s, &c);
-          zp = rad * s;
-          if (obs_noise) nf = expf(p.sigma_m * (rad * c));
-        }
-      }
-
+      float za, zp, nf;  // za: action normal (Gaussian) or uniform (categorical)
+      step_draws(p, gauss, obs_noise, env, t, col, TB, noise, za, zp, nf);
       float act, logp, quota;
       if (gauss) {
         act = out[0] + std_a * za;
@@ -507,105 +618,279 @@ __global__ void __launch_bounds__(kThreads, 2) policy_rollout_kernel(
         const int k = n_below < A - 1 ? n_below : A - 1;
         act = (float)k;
         logp = (out[k] - mx) - logf(se);
-        if (p.scheme == PROPORTIONAL) {
-          quota = act / (float)p.n_actions * K;
-        } else {
-          // RELATIVE_MULTIPLIERS[a]: a pure lookup of the carried harvest
-          const float mult = k == 0 ? 1.0f : (k == 1 ? 1.2f : (k == 2 ? 0.8f : 0.0f));
-          quota = h * mult;
-        }
+        quota = categorical_quota(p, k, c.h, K);
       }
-
-      const float hv = fminf(x, quota);
-      const float x1 = x - hv;
-      const float r_eff = p.r + p.r_drift * (float)tt;
-      const float mu = growth(p, model, x1, r_eff);
-      const float x2 = p.noise_form == ADDITIVE ? mu + p.sigma * x1 * zp
-                                                : mu * expf(p.sigma * zp);
-      float xn = x2 < 0.0f ? 0.0f : x2;  // keeps a NaN visible
-      const bool collapsed = xn <= 0.0f;
-      float rew = p.price * hv - p.cost * quota * quota;
-      rew = rew - (collapsed ? p.collapse_penalty : 0.0f);
-      int tn = tt + 1;
-      const bool done = tn >= p.Tmax || collapsed;
-      const float done_f = done ? 1.0f : 0.0f;
-      const float ep_ret_now = cur_ret + rew;
-      const int ep_len_now = cur_len + 1;
-
-      packed[col] = fold ? inp * inv_K - 1.0f : inp;
-      packed[TB + col] = act;
-      packed[2 * TB + col] = logp;
-      packed[3 * TB + col] = value;
-      packed[6 * TB + col] = rew;
-      packed[7 * TB + col] = done_f;
-
-      nd += done_f;
-      sr += ep_ret_now * done_f;
-      sl += (float)ep_len_now * done_f;
-      srw += rew;
-
-      // auto-reset; the carried harvest is the pre-min quota under the
-      // relative scheme and the realised harvest otherwise
-      xn = done ? p.init_state : xn;
-      tn = done ? 0 : tn;
-      const float new_h = p.scheme == RELATIVE ? quota : hv;
-      h = done ? p.init_harvest : new_h;
-      cur_ret = done ? 0.0f : ep_ret_now;
-      cur_len = done ? 0 : ep_len_now;
-      x = xn;
-      tt = tn;
-      // the next input: measured with noise for live envs, noise-free after a reset
-      const float meas = obs_noise && !done ? xn * nf : xn;
-      inp = fold ? fminf(fmaxf(meas, 0.0f), two_K) : fminf(fmaxf(meas / K - 1.0f, -1.0f), 1.0f);
+      env_step(p, model, c, act, logp, quota, value, zp, nf, col, TB, packed, fold, obs_noise, K,
+               inv_K, two_K);
     }
     // the next forward overwrites the head outputs this step's tail read
     __syncwarp();
   }
 
   // GAE, bootstrapped from the value of the final (post-reset) input
-  forward(inp);
+  forward(c.inp);
   if (active) {
-    float gae = 0.0f;
-    float next_value = out[A];
-    for (int t_hi = T - 1; t_hi >= 0; t_hi -= kGaeRun) {
-      float rew[kGaeRun], nonterm[kGaeRun], value[kGaeRun];
-#pragma unroll
-      for (int j = 0; j < kGaeRun; ++j) {
-        if (t_hi - j >= 0) {
-          const long long col = (long long)(t_hi - j) * B + env;
-          rew[j] = packed[6 * TB + col];
-          nonterm[j] = 1.0f - packed[7 * TB + col];
-          value[j] = packed[3 * TB + col];
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < kGaeRun; ++j) {
-        if (t_hi - j >= 0) {
-          const long long col = (long long)(t_hi - j) * B + env;
-          const float delta = rew[j] + p.gamma * next_value * nonterm[j] - value[j];
-          gae = delta + p.gamma_lambda * nonterm[j] * gae;
-          packed[4 * TB + col] = gae;
-          packed[5 * TB + col] = gae + value[j];
-          packed[6 * TB + col] = 0.0f;
-          packed[7 * TB + col] = 0.0f;
-          next_value = value[j];
-        }
-      }
-    }
-    stock_out[env] = x;
-    t_out[env] = tt;
-    hv_out[env] = h;
-    ret_out[env] = cur_ret;
-    len_out[env] = cur_len;
+    gae_pass(p, env, B, T, TB, out[A], packed);
+    stock_out[env] = c.x;
+    t_out[env] = c.tt;
+    hv_out[env] = c.h;
+    ret_out[env] = c.cur_ret;
+    len_out[env] = c.cur_len;
   }
 
   // episode statistics: this CTA's sums in env order -> ws row blockIdx.x
   if (lane < kEnvsPerWarp) {
     float* st = sm + L_::STAT + (s0 + lane) * kStats;
-    st[0] = nd;
-    st[1] = sr;
-    st[2] = sl;
-    st[3] = srw;
+    st[0] = c.nd;
+    st[1] = c.sr;
+    st[2] = c.sl;
+    st[3] = c.srw;
+  }
+  __syncthreads();
+  if (tid < kStats) {
+    float z = 0.0f;
+    for (int s = 0; s < kEnvs; ++s) z += sm[L_::STAT + s * kStats + tid];
+    ws[(long long)blockIdx.x * kStats + tid] = z;
+  }
+}
+
+// ------------------------------------------------------------------ wide
+// Hidden 128 and 256, and categorical heads of 17 to 128 classes at any
+// hidden size (the kernel above keeps hidden 32 and 64 with at most 16
+// logits). At hidden 256 a tower's W2 block is 256 KiB in float32, so the
+// weights cannot stay in shared memory: a CTA of 16 warps steps 64 envs
+// together, keeps only their activations ([64][2H], 132 KiB at hidden 256)
+// and the head outputs in shared memory, and streams W2's blocks and the
+// policy head from L2 through block_product's slabs (wide_mlp.cuh) every
+// step: 640 KiB per CTA and step at hidden 256, which 64 envs share. The
+// products are float32 FMA in both modes, with bf16-rounded inputs under
+// bfloat16 (the weights rounded once by wide_prep). Sampling, decode and
+// dynamics: warp w owns envs 4w..4w+3, lane i < 4 carries env 4w + i; the
+// categorical sampler takes one env at a time on the whole warp, classes
+// 4l..4l+3 on lane l: the max and the sum by warp reductions, each
+// exp(out_k - mx) once, the CDF by a scan of the lanes' running sums.
+constexpr int kWideThreads = 512;
+constexpr int kWideWarps = kWideThreads / 32;
+constexpr int kWideEnvsPerWarp = kEnvs / kWideWarps;  // 4
+static_assert(kWideEnvsPerWarp * kWideWarps == kEnvs && 4 * 32 == kWideMaxA, "wide plan");
+
+template <int H>
+struct WideRollSmem {
+  static constexpr int H2 = 2 * H;
+  static constexpr int LDA = kActLD<H2>;
+  static constexpr int ACT = 0;                         // [kEnvs][LDA]: h1, then h2
+  static constexpr int SLAB = ACT + kEnvs * LDA;        // [2][kSlabFloats]
+  static constexpr int OUT = SLAB + 2 * kSlabFloats;    // [kEnvs][kWideLDO]
+  static constexpr int VAL = OUT + kEnvs * kWideLDO;    // [kEnvs]
+  static constexpr int INP = VAL + kEnvs;               // [kEnvs]
+  static constexpr int W1 = INP + kEnvs;                // [H2] (folded when fold_obs)
+  static constexpr int B1 = W1 + H2;
+  static constexpr int B2 = B1 + H2;
+  static constexpr int BH = B2 + H2;                    // [kWideMaxA + 4]
+  static constexpr int STAT = BH + kWideMaxA + 4;       // [kEnvs][kStats]
+  static constexpr int TOTAL = STAT + kEnvs * kStats;
+  static constexpr size_t BYTES = sizeof(float) * TOTAL;
+};
+static_assert(WideRollSmem<256>::BYTES <= 232448, "the wide rollout exceeds a CTA's shared memory");
+
+// One env's categorical draw on the whole warp: the class a = min(#{k : cdf_k
+// < u}, A - 1) and its log-probability, from the head outputs o[0, A).
+__device__ __forceinline__ void warp_categorical(const float* o, int A, float u, int lane,
+                                                 int& cls, float& logp) {
+  float e[4], mx = -CUDART_INF_F;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int a = 4 * lane + j;
+    e[j] = a < A ? o[a] : -CUDART_INF_F;
+    mx = fmaxf(mx, e[j]);
+  }
+  mx = warp_max(mx);
+  float se = 0.0f;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    e[j] = 4 * lane + j < A ? expf(e[j] - mx) : 0.0f;
+    se += e[j];
+  }
+  se = warp_sum(se);
+  // the lane's running sums of the softmax, then the lanes before it by a scan
+  float run[4], r = 0.0f;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    r += e[j] / se;
+    run[j] = r;
+  }
+  float incl = r;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const float y = __shfl_up_sync(WIDE_FULL_MASK, incl, d);
+    if (lane >= d) incl += y;
+  }
+  float before = __shfl_up_sync(WIDE_FULL_MASK, incl, 1);
+  if (lane == 0) before = 0.0f;
+  int below = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) below += 4 * lane + j < A && before + run[j] < u ? 1 : 0;
+  below = __reduce_add_sync(WIDE_FULL_MASK, below);
+  cls = below < A - 1 ? below : A - 1;
+  logp = (o[cls] - mx) - logf(se);
+}
+
+template <int H, bool BF>
+__global__ void __launch_bounds__(kWideThreads, 1) policy_rollout_wide(
+    const PolicyRolloutParams p, const float* __restrict__ w, const float* __restrict__ prep,
+    const float* __restrict__ stock_in, const int* __restrict__ t_in,
+    const float* __restrict__ hv_in, const float* __restrict__ ret_in,
+    const int* __restrict__ len_in, const float* __restrict__ noise, float* __restrict__ packed,
+    float* __restrict__ stock_out, int* __restrict__ t_out, float* __restrict__ hv_out,
+    float* __restrict__ ret_out, int* __restrict__ len_out, float* __restrict__ ws) {
+  extern __shared__ __align__(16) float sm[];
+  using L_ = WideRollSmem<H>;
+  constexpr int H2 = 2 * H, LDA = L_::LDA, LDO = kWideLDO;
+  // thread tiles: the W2 product [kEnvs][H2], the policy head [kEnvs][AP]
+  constexpr int TC = H2 >= 512 ? 8 : 4, TS = kEnvs * (H2 / TC) / kWideThreads;
+  constexpr int TSF = 4, TCF = 4;
+  static_assert(TS >= 1 && (kEnvs / TSF) * (kWideMaxA / TCF) <= kWideThreads, "tiling");
+  float* act = sm + L_::ACT;
+  float* slab = sm + L_::SLAB;
+  float* outs = sm + L_::OUT;
+  float* sval = sm + L_::VAL;
+  float* sinp = sm + L_::INP;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const bool gauss = p.scheme == CONTINUOUS;
+  const int A = p.act_dim, AP = wide_ap(A);
+  const Layout L = make_layout(1, H2, A);
+  const WidePrep W = wide_prep_layout(H, AP);
+  const float K = p.K, inv_K = 1.0f / K, two_K = 2.0f * K;
+  const bool fold = p.fold_obs != 0, obs_noise = p.obs_noise != 0;
+
+  for (int i = tid; i < H2; i += kWideThreads) {
+    // fold: obs = clip(m, 0, 2K)/K - 1 enters the input layer as w/K and b - w
+    const float w1 = w[L.w1 + i], b1 = w[L.b1 + i];
+    sm[L_::W1 + i] = fold ? w1 * inv_K : w1;
+    sm[L_::B1 + i] = fold ? b1 - w1 : b1;
+    sm[L_::B2 + i] = w[L.b2 + i];
+  }
+  for (int i = tid; i <= A; i += kWideThreads) sm[L_::BH + i] = w[L.bh + i];
+  const float log_std = gauss ? w[L.ls] : 0.0f;
+  const float std_a = expf(log_std);
+
+  const long long B = p.num_envs;
+  const int T = p.num_steps;
+  const long long TB = (long long)T * B;
+  const int e0 = warp * kWideEnvsPerWarp;
+  const long long env = (long long)blockIdx.x * kEnvs + e0 + lane;
+  const bool active = lane < kWideEnvsPerWarp && env < B;
+  const int model = p.growth == MIXTURE ? p.model_idx : p.growth;
+  const int f_s0 = tid / (H2 / TC) * TS, f_c0 = tid % (H2 / TC) * TC;
+  const int ncgf = AP / TCF;
+  const bool h_mine = tid < (kEnvs / TSF) * ncgf;
+  const int h_s0 = h_mine ? tid / ncgf * TSF : 0, h_c0 = h_mine ? tid % ncgf * TCF : 0;
+
+  EnvCarry c = {};
+  if (active) {
+    c.x = stock_in[env];
+    c.tt = t_in[env];
+    c.h = hv_in[env];
+    c.cur_ret = ret_in[env];
+    c.cur_len = len_in[env];
+  }
+  // the first input is noise-free
+  c.inp = fold ? fminf(fmaxf(c.x, 0.0f), two_K) : fminf(fmaxf(c.x / K - 1.0f, -1.0f), 1.0f);
+  if (lane < kWideEnvsPerWarp) sinp[e0 + lane] = c.inp;
+  __syncthreads();
+
+  // head outputs and values of the CTA's envs from the inputs in sinp
+  auto forward = [&]() {
+    for (int e = tid; e < kEnvs * H2; e += kWideThreads) {
+      const int s = e / H2, j = e % H2;
+      act[s * LDA + j] = tanhf(__fadd_rn(__fmul_rn(sm[L_::W1 + j], sinp[s]), sm[L_::B1 + j]));
+    }
+    __syncthreads();
+    {
+      float acc[TS][TC];
+      block_product<TS, TC, BF>(act, LDA, H, prep + W.fw, H, H2, slab, f_s0, f_c0, true, acc);
+#pragma unroll
+      for (int i = 0; i < TS; ++i)
+#pragma unroll
+        for (int q = 0; q < TC; ++q)
+          act[(f_s0 + i) * LDA + f_c0 + q] = tanhf(acc[i][q] + sm[L_::B2 + f_c0 + q]);
+    }
+    __syncthreads();
+    float acc[TSF][TCF];
+    block_product<TSF, TCF, BF>(act, LDA, AP, prep + W.mp, H, AP, slab, h_s0, h_c0, h_mine, acc);
+    if (h_mine)
+#pragma unroll
+      for (int i = 0; i < TSF; ++i)
+#pragma unroll
+        for (int q = 0; q < TCF; ++q) {
+          const int a = h_c0 + q;
+          outs[(h_s0 + i) * LDO + a] = a < A ? acc[i][q] + sm[L_::BH + a] : 0.0f;
+        }
+    for (int q = 0; q < kWideEnvsPerWarp; ++q) {
+      const int s = e0 + q;
+      float z = 0.0f;
+      for (int k = lane; k < H; k += 32) {
+        float h2 = act[s * LDA + H + k];
+        if constexpr (BF) h2 = bf16_round(h2);
+        z = fmaf(h2, prep[W.wv + k], z);
+      }
+      z = warp_sum(z);
+      if (lane == 0) sval[s] = z + sm[L_::BH + A];
+    }
+    __syncthreads();
+  };
+
+  for (int t = 0; t < T; ++t) {
+    forward();
+    const long long col = (long long)t * B + env;
+    float za = 0.0f, zp = 0.0f, nf = 1.0f;
+    if (active) step_draws(p, gauss, obs_noise, env, t, col, TB, noise, za, zp, nf);
+    float act_v = 0.0f, logp = 0.0f, quota = 0.0f;
+    if (gauss) {
+      if (active) {
+        act_v = outs[(e0 + lane) * LDO] + std_a * za;
+        logp = -0.5f * (za * za) - log_std - 0.5f * LOG_2PI_F;
+        quota = (fminf(fmaxf(act_v, -1.0f), 1.0f) + 1.0f) * K * p.action_scale;
+      }
+    } else {
+      for (int q = 0; q < kWideEnvsPerWarp; ++q) {
+        const float u = __shfl_sync(WIDE_FULL_MASK, za, q);
+        int k;
+        float lp;
+        warp_categorical(outs + (e0 + q) * LDO, A, u, lane, k, lp);
+        if (lane == q) {
+          act_v = (float)k;
+          logp = lp;
+          quota = categorical_quota(p, k, c.h, K);
+        }
+      }
+    }
+    if (active)
+      env_step(p, model, c, act_v, logp, quota, sval[e0 + lane], zp, nf, col, TB, packed, fold,
+               obs_noise, K, inv_K, two_K);
+    if (lane < kWideEnvsPerWarp) sinp[e0 + lane] = c.inp;
+    // the next forward overwrites the head outputs and values this step read
+    __syncthreads();
+  }
+
+  // GAE, bootstrapped from the value of the final (post-reset) input
+  forward();
+  if (active) {
+    gae_pass(p, env, B, T, TB, sval[e0 + lane], packed);
+    stock_out[env] = c.x;
+    t_out[env] = c.tt;
+    hv_out[env] = c.h;
+    ret_out[env] = c.cur_ret;
+    len_out[env] = c.cur_len;
+  }
+
+  // episode statistics: this CTA's sums in env order -> ws row blockIdx.x
+  if (lane < kWideEnvsPerWarp) {
+    float* st = sm + L_::STAT + (e0 + lane) * kStats;
+    st[0] = c.nd;
+    st[1] = c.sr;
+    st[2] = c.sl;
+    st[3] = c.srw;
   }
   __syncthreads();
   if (tid < kStats) {
@@ -629,10 +914,10 @@ __global__ void __launch_bounds__(32) reduce_stats(const float* __restrict__ ws,
 
 static int check_params(const PolicyRolloutParams* p) {
   const bool gauss = p->scheme == CONTINUOUS;
-  if ((p->hidden != 32 && p->hidden != 64) || p->num_steps < 1 || p->num_envs < 1 ||
-      (p->num_envs + kEnvs - 1) / kEnvs > 0x7FFFFFFFLL ||
+  if ((p->hidden != 32 && p->hidden != 64 && p->hidden != 128 && p->hidden != 256) ||
+      p->num_steps < 1 || p->num_envs < 1 || (p->num_envs + kEnvs - 1) / kEnvs > 0x7FFFFFFFLL ||
       (p->scheme != CONTINUOUS && p->scheme != PROPORTIONAL && p->scheme != RELATIVE) ||
-      (gauss ? p->act_dim != 1 : (p->act_dim < 2 || p->act_dim > kMaxA)) ||
+      (gauss ? p->act_dim != 1 : (p->act_dim < 2 || p->act_dim > kWideMaxA)) ||
       p->growth < LOGISTIC || p->growth > MIXTURE ||
       (p->noise_form != ADDITIVE && p->noise_form != LOGNORMAL) ||
       (p->compute != FLOAT32 && p->compute != BFLOAT16))
@@ -640,11 +925,27 @@ static int check_params(const PolicyRolloutParams* p) {
   return 0;
 }
 
+// Hidden 32 and 64 with at most kMaxA logits take policy_rollout_kernel;
+// every other size policy_rollout_wide, whose weights wide_prep lays out first.
+static bool wide_path(int hidden, int act_dim) { return hidden > 64 || act_dim > kMaxA; }
+
+// The launchers' tensors.
+struct RollArgs {
+  const float *w, *stock_in;
+  const int* t_in;
+  const float *hv_in, *ret_in;
+  const int* len_in;
+  const float* noise;
+  float *packed, *stock_out;
+  int* t_out;
+  float *hv_out, *ret_out;
+  int* len_out;
+  float *ws, *prep;
+};
+
 template <int H, bool BF>
-static int launch(const PolicyRolloutParams* p, const float* w, const float* stock_in,
-                  const int* t_in, const float* hv_in, const float* ret_in, const int* len_in,
-                  const float* noise, float* packed, float* stock_out, int* t_out, float* hv_out,
-                  float* ret_out, int* len_out, float* ws, unsigned grid, cudaStream_t st) {
+static int launch(const PolicyRolloutParams* p, const RollArgs& a, unsigned grid,
+                  cudaStream_t st) {
   cudaError_t e = cudaFuncSetAttribute(policy_rollout_kernel<H, BF>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)RollSmem<H, BF>::BYTES);
@@ -654,37 +955,65 @@ static int launch(const PolicyRolloutParams* p, const float* w, const float* sto
                            (int)cudaSharedmemCarveoutMaxShared);
   if (e != cudaSuccess) return (int)e;
   policy_rollout_kernel<H, BF><<<grid, kThreads, RollSmem<H, BF>::BYTES, st>>>(
-      *p, w, stock_in, t_in, hv_in, ret_in, len_in, noise, packed, stock_out, t_out, hv_out,
-      ret_out, len_out, ws);
+      *p, a.w, a.stock_in, a.t_in, a.hv_in, a.ret_in, a.len_in, a.noise, a.packed, a.stock_out,
+      a.t_out, a.hv_out, a.ret_out, a.len_out, a.ws);
   return (int)cudaGetLastError();
 }
 
-// ws: [ceil(B / policy_rollout_envs_per_cta())][4] scratch; stats: [4].
+template <int H, bool BF>
+static int launch_wide(const PolicyRolloutParams* p, const RollArgs& a, unsigned grid,
+                       cudaStream_t st) {
+  constexpr size_t bytes = WideRollSmem<H>::BYTES;
+  cudaError_t e = launch_wide_prep(a.w, 1, H, p->act_dim, BF, BF, a.prep, st);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaFuncSetAttribute(policy_rollout_wide<H, BF>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e != cudaSuccess) return (int)e;
+  policy_rollout_wide<H, BF><<<grid, kWideThreads, bytes, st>>>(
+      *p, a.w, a.prep, a.stock_in, a.t_in, a.hv_in, a.ret_in, a.len_in, a.noise, a.packed,
+      a.stock_out, a.t_out, a.hv_out, a.ret_out, a.len_out, a.ws);
+  return (int)cudaGetLastError();
+}
+
+template <bool BF>
+static int launch_mode(const PolicyRolloutParams* p, const RollArgs& a, unsigned grid,
+                       cudaStream_t st) {
+  if (!wide_path(p->hidden, p->act_dim))
+    return p->hidden == 64 ? launch<64, BF>(p, a, grid, st) : launch<32, BF>(p, a, grid, st);
+  if (a.prep == nullptr) return (int)cudaErrorInvalidValue;
+  switch (p->hidden) {
+    case 32: return launch_wide<32, BF>(p, a, grid, st);
+    case 64: return launch_wide<64, BF>(p, a, grid, st);
+    case 128: return launch_wide<128, BF>(p, a, grid, st);
+    default: return launch_wide<256, BF>(p, a, grid, st);
+  }
+}
+
+// ws: [ceil(B / policy_rollout_envs_per_cta())][4] scratch; stats: [4];
+// prep: policy_rollout_prep_floats(hidden, act_dim) floats of scratch (none
+// for the narrow path: it may be null there).
 extern "C" int policy_rollout_launch(const PolicyRolloutParams* p, const float* w,
                                      const float* stock_in, const int* t_in, const float* hv_in,
                                      const float* ret_in, const int* len_in, const float* noise,
                                      float* packed, float* stock_out, int* t_out, float* hv_out,
                                      float* ret_out, int* len_out, float* ws, float* stats,
-                                     void* stream) {
+                                     float* prep, void* stream) {
   int err = check_params(p);
   if (err) return err;
   if (p->has_noise && noise == nullptr) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   const unsigned grid = (unsigned)((p->num_envs + kEnvs - 1) / kEnvs);
-  const bool bf = p->compute == BFLOAT16;
-  if (p->hidden == 64)
-    err = bf ? launch<64, true>(p, w, stock_in, t_in, hv_in, ret_in, len_in, noise, packed,
-                                stock_out, t_out, hv_out, ret_out, len_out, ws, grid, st)
-             : launch<64, false>(p, w, stock_in, t_in, hv_in, ret_in, len_in, noise, packed,
-                                 stock_out, t_out, hv_out, ret_out, len_out, ws, grid, st);
-  else
-    err = bf ? launch<32, true>(p, w, stock_in, t_in, hv_in, ret_in, len_in, noise, packed,
-                                stock_out, t_out, hv_out, ret_out, len_out, ws, grid, st)
-             : launch<32, false>(p, w, stock_in, t_in, hv_in, ret_in, len_in, noise, packed,
-                                 stock_out, t_out, hv_out, ret_out, len_out, ws, grid, st);
+  const RollArgs a{w,         stock_in, t_in,  hv_in,  ret_in,  len_in, noise, packed,
+                   stock_out, t_out,    hv_out, ret_out, len_out, ws,     prep};
+  err = p->compute == BFLOAT16 ? launch_mode<true>(p, a, grid, st)
+                               : launch_mode<false>(p, a, grid, st);
   if (err) return err;
   reduce_stats<<<1, 32, 0, st>>>(ws, (int)grid, stats);
   return (int)cudaGetLastError();
+}
+
+extern "C" int policy_rollout_prep_floats(int hidden, int act_dim) {
+  return wide_path(hidden, act_dim) ? wide_prep_layout(hidden, wide_ap(act_dim)).total : 0;
 }
 
 extern "C" int policy_rollout_params_size(void) { return (int)sizeof(PolicyRolloutParams); }

@@ -60,6 +60,12 @@
 //     of keeping them.
 //   Each CTA writes its partial gradients and metric sums to a workspace row
 //   [G * kSplit, P + 4].
+//   That plan holds hidden 32 and 64 with at most 16 logits. Hidden 128 and
+//   256, and categorical heads of up to 128 classes at any hidden size, take
+//   ppo_grad_wide (below): the same grid and workspace rows, chunks of 32
+//   samples whose activations alone stay in shared memory, every weight
+//   matrix streamed from L2 in k-slabs, and the accumulators that outgrow the
+//   registers added chunk by chunk into the CTA's own workspace row.
 // - Stage 2: one thread per gradient entry sums the rows in index order, in
 //   blocks of 16 rows and then the blocks. No float atomics anywhere, so two
 //   identical steps give identical bits. The column sums of stage 1 (db1c,
@@ -89,6 +95,7 @@
 
 #include "merged_mlp.cuh"
 #include "mma_tiles.cuh"
+#include "wide_mlp.cuh"
 
 struct GradParams {
   float clip_eps, vf_coef, inv_n, ent_coef;
@@ -114,7 +121,7 @@ constexpr int kChunk = 64;  // samples per chunk
 constexpr int kSplit = 2;   // CTAs (workspace rows) per visited tile
 constexpr int kMaxRows = 24;  // rows of the packed matrix: 8, 16 or 24
 constexpr int kMaxD = 4;
-constexpr int kMaxA = 16;   // logits width
+constexpr int kMaxA = 16;   // logits width of ppo_grad_tiles (the wide path: kWideMaxA)
 constexpr int kMaxA1 = kMaxA + 1;
 constexpr int kMaxGaussA = kMaxA;  // Gaussian action columns: D + A + 4 <= kMaxRows
 constexpr int kSPW = kChunk / kWarps;  // samples per warp in the head and the loss
@@ -123,17 +130,6 @@ static_assert(kChunk == 64 && kWarps == 16, "the tiling of the products assumes 
 static_assert(4 + kMaxGaussA <= 32 && kSPW * 8 == 32, "loss threads");
 
 constexpr size_t align_up(size_t x) { return (x + 127) / 128 * 128; }
-
-// One float from global to shared memory without passing through a register
-// (cp.async, 4 bytes); complete after cp_async_wait_all in the issuing thread.
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
 
 // Shared-memory plan of stage 1: byte offsets of the aligned regions, then
 // float offsets inside the last one.
@@ -653,6 +649,405 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+// ------------------------------------------------------------------ wide
+// Stage 1 at the widths whose weights do not fit a CTA: hidden 128 and 256,
+// and categorical heads of 17 to 128 classes at any hidden size (the kernel
+// above keeps hidden 32 and 64 with at most 16). Its shared memory holds the
+// activations of a chunk of kWideChunk samples ([S][2H] twice, 132 KiB at
+// hidden 256) and every weight matrix streams from L2 through
+// block_product's slabs (wide_mlp.cuh): the forward product through the
+// towers' W2 blocks side by side, the head's Wm padded to whole tiles, its
+// transpose for g_p2 and the blocks' transposes for g_p1. Products are
+// float32 FMA in both modes, with bf16-rounded inputs under bfloat16.
+// The accumulators that outgrow the registers (dW2c is 512 KiB at hidden
+// 256, dWhc 128 KiB) are added chunk by chunk into the CTA's own workspace
+// row, which only this CTA writes: no atomics, the same thread adds the same
+// entries in the same order every chunk, so the bits stay fixed. Per chunk:
+//   h1 (elementwise) | h2 = tanh(h1 W2 + b2) | out = h2 Wm + bh, value by warp
+//   | loss, a warp a sample, the classes over the lanes | dbhc, dWhc, then
+//   g_p2 = (g_top Wm^T) (1 - h2^2) | db2c, dW2c, g_p1 = (g_p2 W2^T) (1 - h1^2)
+//   | db1c, dW1c.
+constexpr int kWideChunk = 32;
+static_assert(kWarps * 2 == kWideChunk, "a warp takes two samples of a chunk in the loss");
+
+template <int H2>
+struct WideSmem {
+  static constexpr int S = kWideChunk;
+  static constexpr int LDA = kActLD<H2>;
+  static constexpr int ACT0 = 0;                        // [S][LDA]: h1, then g_p1
+  static constexpr int ACT1 = ACT0 + S * LDA;           // [S][LDA]: h2, then g_p2
+  static constexpr int SLAB = ACT1 + S * LDA;           // [2][kSlabFloats]
+  static constexpr int OUT = SLAB + 2 * kSlabFloats;    // [S][kWideLDO]: head outputs, then g_top
+  static constexpr int X = OUT + S * kWideLDO;          // [2][kMaxRows][S], double-buffered
+  static constexpr int W1 = X + 2 * kMaxRows * S;       // [kMaxD][H2]
+  static constexpr int B1 = W1 + kMaxD * H2;
+  static constexpr int B2 = B1 + H2;
+  static constexpr int BH = B2 + H2;                    // [kWideMaxA + 4]
+  static constexpr int VAL = BH + kWideMaxA + 4;        // [S] value
+  static constexpr int GV = VAL + S;                    // [S] gradient at the value
+  static constexpr int LS = GV + S;                     // [kMaxGaussA]
+  static constexpr int IV = LS + kMaxGaussA;            // [kMaxGaussA] exp(-2 log_std)
+  static constexpr int RED = IV + kMaxGaussA;           // [kWarps][kMet] per-warp sums
+  static constexpr int TOTAL = RED + kWarps * kMet;
+  static constexpr size_t BYTES = sizeof(float) * TOTAL;
+};
+static_assert(WideSmem<512>::BYTES <= 232448, "wide stage 1 exceeds the shared memory of a CTA");
+
+template <int H2, bool BF>
+__global__ void __launch_bounds__(kThreads, 1)
+    ppo_grad_wide(const GradParams p, const float* __restrict__ data,
+                  const int* __restrict__ order, const float* __restrict__ w,
+                  const float* __restrict__ prep, const float* __restrict__ adv_stats,
+                  float* __restrict__ ws) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* sm = reinterpret_cast<float*>(smem);
+  using S_ = WideSmem<H2>;
+  constexpr int H = H2 / 2, S = kWideChunk, LDA = S_::LDA, LDO = kWideLDO;
+  // thread tiles: the W2 products [S][H2], g_p2's product [S][H], the head [S][AP]
+  constexpr int TC2 = H2 >= 512 ? 8 : 4, TS2 = S * (H2 / TC2) / kThreads;
+  constexpr int TCB = H >= 64 ? 4 : 2, TSB = S * (H / TCB) / kThreads;
+  constexpr int TSF = 2, TCF = 4;
+  // outer-product tiles: dW2c's TKW x TKW, dWhc's 8 x 4
+  constexpr int TKW = H >= 64 ? 8 : 4, NTW = H / TKW;
+  static_assert(TS2 >= 1 && TSB >= 1 && (S / TSF) * (kWideMaxA / TCF) <= kThreads &&
+                    H2 <= kThreads,
+                "tiling");
+
+  float* act0 = sm + S_::ACT0;
+  float* act1 = sm + S_::ACT1;
+  float* slab = sm + S_::SLAB;
+  float* out = sm + S_::OUT;
+  float* sX = sm + S_::X;
+  float* sW1 = sm + S_::W1;
+  float* sb1 = sm + S_::B1;
+  float* sb2 = sm + S_::B2;
+  float* sbh = sm + S_::BH;
+  float* sval = sm + S_::VAL;
+  float* sgv = sm + S_::GV;
+  float* sls = sm + S_::LS;
+  float* siv = sm + S_::IV;
+  float* sred = sm + S_::RED;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int D = p.obs_dim, A = p.act_dim, A1 = A + 1, AP = wide_ap(A);
+  const bool gauss = p.head == GAUSSIAN;
+  const int na = gauss ? A : 1;
+  const Layout L = make_layout(D, H2, A);
+  const WidePrep W = wide_prep_layout(H, AP);
+  const long long N = p.n_cols;
+  const int tile_idx = order[blockIdx.x / kSplit];
+  if (tile_idx < 0 || (long long)(tile_idx + 1) * p.tile > N) __trap();
+  const int part = blockIdx.x % kSplit, n_chunks = p.tile / S;
+  const int c_begin = part * n_chunks / kSplit, c_end = (part + 1) * n_chunks / kSplit;
+  const long long base = (long long)tile_idx * p.tile;
+
+  // this CTA's workspace row: zero, then the chunks add into it
+  float* row = ws + (long long)blockIdx.x * (L.P + 4);
+  for (int i = tid; i < L.P + 4; i += kThreads) row[i] = 0.0f;
+  for (int i = tid; i < D * H2; i += kThreads) sW1[i] = w[L.w1 + i];
+  for (int i = tid; i < H2; i += kThreads) {
+    sb1[i] = w[L.b1 + i];
+    sb2[i] = w[L.b2 + i];
+  }
+  for (int i = tid; i < A1; i += kThreads) sbh[i] = w[L.bh + i];
+  if (gauss)
+    for (int i = tid; i < A; i += kThreads) {
+      sls[i] = w[L.ls + i];
+      siv[i] = expf(-2.0f * w[L.ls + i]);
+    }
+  const float adv_mu = adv_stats[0], adv_inv_std = adv_stats[1];
+  const float eps = p.clip_eps, inv_n = p.inv_n;
+  const float g_value_scale = p.vf_coef * inv_n, ent_scale = p.ent_coef * inv_n;
+
+  // this thread's tiles of the products
+  const int f_s0 = tid / (H2 / TC2) * TS2, f_c0 = tid % (H2 / TC2) * TC2;
+  const int b_s0 = tid / (H / TCB) * TSB, b_c0 = tid % (H / TCB) * TCB;
+  const int ncgf = AP / TCF;
+  const bool h_mine = tid < (S / TSF) * ncgf;
+  const int h_s0 = h_mine ? tid / ncgf * TSF : 0, h_c0 = h_mine ? tid % ncgf * TCF : 0;
+
+  // running sums kept over the chunks: column tid of db1c, db2c, dW1c; entry
+  // tid of dbhc; the warp's metric sums (lane 0) and dlog_std (lane a). They
+  // are float64, a handful of additions a thread and chunk: the bias
+  // gradients and dlog_std are sums over every sample whose terms cancel,
+  // and the float64 bar holds each buffer to 4 times the twin's error
+  double acc_b1 = 0.0, acc_b2 = 0.0, acc_bh = 0.0;
+  double acc_w1[kMaxD] = {0.0, 0.0, 0.0, 0.0};
+  double met[4] = {0.0, 0.0, 0.0, 0.0};
+  double acc_ls = 0.0;
+
+  const int n_elems = p.rows * S;
+  auto fetch = [&](int chunk, float* dst) {
+    const float* src = data + base + (long long)chunk * S;
+    for (int e = tid; e < n_elems; e += kThreads)
+      cp_async4(dst + e, src + (long long)(e / S) * N + e % S);
+  };
+  if (c_begin < c_end) fetch(c_begin, sX);
+  cp_async_wait_all();
+  __syncthreads();
+
+  for (int chunk = c_begin; chunk < c_end; ++chunk) {
+    const float* x = sX + ((chunk - c_begin) & 1) * (kMaxRows * S);
+    if (chunk + 1 < c_end) fetch(chunk + 1, sX + ((chunk - c_begin + 1) & 1) * (kMaxRows * S));
+
+    // h1 = tanh(W1c^T x + b1c)
+    for (int e = tid; e < S * H2; e += kThreads) {
+      const int s = e / H2, c = e % H2;
+      float z = 0.0f;
+      for (int d = 0; d < D; ++d) z = fmaf(sW1[d * H2 + c], x[d * S + s], z);
+      act0[s * LDA + c] = tanhf(z + sb1[c]);
+    }
+    __syncthreads();
+
+    // h2 = tanh(W2c^T h1 + b2c), per tower
+    {
+      float acc[TS2][TC2];
+      block_product<TS2, TC2, BF, true>(act0, LDA, H, prep + W.fw, H, H2, slab, f_s0, f_c0, true, acc);
+#pragma unroll
+      for (int i = 0; i < TS2; ++i)
+#pragma unroll
+        for (int c = 0; c < TC2; ++c)
+          act1[(f_s0 + i) * LDA + f_c0 + c] = tanhf(acc[i][c] + sb2[f_c0 + c]);
+    }
+    __syncthreads();
+
+    // head: the policy outputs from the policy tower (zero past A), the
+    // value from the value tower. The categorical head's logits are one
+    // block product; the value and the Gaussian head's few means (whose
+    // rounding dlog_std and dbhc sum over every sample) are warp dots, a
+    // warp two samples, each lane H / 32 terms and then a butterfly
+    if (!gauss) {
+      float acc[TSF][TCF];
+      block_product<TSF, TCF, false, true>(act1, LDA, AP, prep + W.mp, H, AP, slab, h_s0, h_c0,
+                                           h_mine, acc);
+      if (h_mine)
+#pragma unroll
+        for (int i = 0; i < TSF; ++i)
+#pragma unroll
+          for (int c = 0; c < TCF; ++c) {
+            const int a = h_c0 + c;
+            out[(h_s0 + i) * LDO + a] = a < A ? acc[i][c] + sbh[a] : 0.0f;
+          }
+    }
+    for (int q = 0; q < 2; ++q) {
+      const int s = warp * 2 + q;
+      for (int a = gauss ? 0 : A; a <= A; ++a) {
+        const float* wcol = a < A ? prep + W.mp + a : prep + W.wv;
+        const int stride = a < A ? AP : 1, k0 = a < A ? 0 : H;
+        float z = 0.0f;
+        for (int k = lane; k < H; k += 32) z = fmaf(act1[s * LDA + k0 + k], wcol[k * stride], z);
+        z = warp_sum(z) + sbh[a];
+        if (lane == 0) {
+          if (a < A) {
+            out[s * LDO + a] = z;
+          } else {
+            sval[s] = z;
+          }
+        }
+      }
+      if (gauss)
+        for (int a = A + lane; a < AP; a += 32) out[s * LDO + a] = 0.0f;
+    }
+    __syncthreads();
+
+    // per-sample loss and g_top (in place of the head outputs): a warp takes
+    // two samples, lane l the classes (or action columns) l, l + 32, ...
+    for (int q = 0; q < 2; ++q) {
+      const int s = warp * 2 + q;
+      const float* xs = x + s;
+      const float old_logp = xs[(D + na) * S], old_v = xs[(D + na + 1) * S];
+      const float adv = xs[(D + na + 2) * S], ret = xs[(D + na + 3) * S];
+      const float value = sval[s];
+      float* o = out + s * LDO;
+      float lp[kWideMaxA / 32];
+      float logp, ent = 0.0f;
+      if (gauss) {
+        float part_lp = 0.0f;
+        if (lane < A) {
+          const float diff = xs[(D + lane) * S] - o[lane];
+          part_lp = -0.5f * (diff * diff * siv[lane] + 2.0f * sls[lane] + LOG_2PI_F);
+        }
+        logp = warp_sum(part_lp);
+      } else {
+        float mx = -CUDART_INF_F;
+#pragma unroll
+        for (int j = 0; j < kWideMaxA / 32; ++j) {
+          const int a = lane + 32 * j;
+          lp[j] = a < A ? o[a] : -CUDART_INF_F;
+          mx = fmaxf(mx, lp[j]);
+        }
+        mx = warp_max(mx);
+        float se = 0.0f;
+#pragma unroll
+        for (int j = 0; j < kWideMaxA / 32; ++j)
+          if (lane + 32 * j < A) se += expf(lp[j] - mx);
+        const float lse = logf(warp_sum(se));
+        const float act = xs[D * S];
+        float pl = 0.0f, pe = 0.0f;
+#pragma unroll
+        for (int j = 0; j < kWideMaxA / 32; ++j) {
+          const int a = lane + 32 * j;
+          if (a < A) {
+            lp[j] = (lp[j] - mx) - lse;
+            if ((float)a == act) pl += lp[j];
+            pe -= expf(lp[j]) * lp[j];
+          }
+        }
+        logp = warp_sum(pl);
+        ent = warp_sum(pe);
+      }
+      const float logr = logp - old_logp;
+      const float ratio = expf(logr);
+      const float adv_n = (adv - adv_mu) * adv_inv_std;
+      const float rc = fminf(fmaxf(ratio, 1.0f - eps), 1.0f + eps);
+      const float u1 = ratio * adv_n, u2 = rc * adv_n;
+      const bool inside = ratio > 1.0f - eps && ratio < 1.0f + eps;
+      const float g_logp = ((u1 <= u2) || inside ? ratio * adv_n : 0.0f) * (-inv_n);
+      const float dv = value - old_v;
+      const float e1 = value - ret;
+      const float e2 = old_v + fminf(fmaxf(dv, -eps), eps) - ret;
+      const bool inside_v = dv > -eps && dv < eps;
+      const float g_value =
+          (e1 * e1 >= e2 * e2 ? e1 : (inside_v ? e2 : 0.0f)) * g_value_scale;
+      if (lane == 0) {
+        met[0] -= fminf(u1, u2);
+        met[1] += 0.5f * fmaxf(e1 * e1, e2 * e2);
+        met[2] += ratio - 1.0f - logr;
+        met[3] += gauss ? value : ent;
+        sgv[s] = g_value;
+      }
+      if (gauss) {
+        if (lane < A) {
+          const float diff = xs[(D + lane) * S] - o[lane];
+          o[lane] = g_logp * diff * siv[lane];
+          acc_ls += g_logp * (diff * diff * siv[lane] - 1.0f);
+        }
+      } else {
+        const float act = xs[D * S];
+#pragma unroll
+        for (int j = 0; j < kWideMaxA / 32; ++j) {
+          const int a = lane + 32 * j;
+          if (a < A) {
+            const float prob = expf(lp[j]);
+            const float onehot = (float)a == act ? 1.0f : 0.0f;
+            o[a] = g_logp * (onehot - prob) + ent_scale * prob * (lp[j] + ent);
+          }
+        }
+      }
+    }
+    __syncthreads();
+
+    // head backward: dbhc, dWhc (policy block and value column), then g_p2
+    if (tid <= A)
+      for (int s = 0; s < S; ++s) acc_bh += tid < A ? out[s * LDO + tid] : sgv[s];
+    {
+      constexpr int TK = 8, TN = 4;
+      const int n_nt = AP / TN;
+      for (int t = tid; t < (H / TK) * n_nt; t += kThreads) {
+        const int k0 = t / n_nt * TK, a0 = t % n_nt * TN;
+        float acc[TK][TN];
+        outer_tile<TK, TN, false>(act1 + k0, LDA, out + a0, LDO, S, acc);
+#pragma unroll
+        for (int i = 0; i < TK; ++i)
+#pragma unroll
+          for (int j = 0; j < TN; ++j)
+            if (a0 + j < A) row[L.wh + (k0 + i) * A1 + a0 + j] += acc[i][j];
+      }
+      for (int k = tid; k < H; k += kThreads) {
+        float z = 0.0f;
+        for (int s = 0; s < S; ++s) z = fmaf(act1[s * LDA + H + k], sgv[s], z);
+        row[L.wh + (H + k) * A1 + A] += z;
+      }
+    }
+    {
+      float acc[TSB][TCB];
+      block_product<TSB, TCB, false, true>(out, LDO, H, prep + W.mt, AP, H, slab, b_s0, b_c0, true,
+                                           acc);
+#pragma unroll
+      for (int i = 0; i < TSB; ++i)
+#pragma unroll
+        for (int c = 0; c < TCB; ++c) {
+          float* hp = act1 + (b_s0 + i) * LDA + b_c0 + c;
+          const float h = *hp;
+          *hp = acc[i][c] * (1.0f - h * h);
+        }
+      for (int e = tid; e < S * H; e += kThreads) {
+        const int s = e / H, k = e % H;
+        float* hp = act1 + s * LDA + H + k;
+        const float h = *hp;
+        *hp = sgv[s] * prep[W.wv + k] * (1.0f - h * h);
+      }
+    }
+    __syncthreads();
+
+    // db2c; dW2c += h1^T g_p2 per tower; g_p1 = (g_p2 W2c^T) (1 - h1^2)
+    if (tid < H2)
+      for (int s = 0; s < S; ++s) acc_b2 += act1[s * LDA + tid];
+    for (int t = tid; t < 2 * NTW * NTW; t += kThreads) {
+      const int tw = t / (NTW * NTW), r0 = tw * H + t % (NTW * NTW) / NTW * TKW;
+      const int c0 = tw * H + t % NTW * TKW;
+      float acc[TKW][TKW];
+      outer_tile<TKW, TKW, BF>(act0 + r0, LDA, act1 + c0, LDA, S, acc);
+#pragma unroll
+      for (int i = 0; i < TKW; ++i) {
+        float* d = row + L.w2 + (r0 + i) * H2 + c0;
+#pragma unroll
+        for (int j = 0; j < TKW; ++j) d[j] += acc[i][j];
+      }
+    }
+    {
+      float acc[TS2][TC2];
+      block_product<TS2, TC2, BF, true>(act1, LDA, H, prep + W.gw, H, H2, slab, f_s0, f_c0, true, acc);
+#pragma unroll
+      for (int i = 0; i < TS2; ++i)
+#pragma unroll
+        for (int c = 0; c < TC2; ++c) {
+          float* hp = act0 + (f_s0 + i) * LDA + f_c0 + c;
+          const float h = *hp;
+          *hp = acc[i][c] * (1.0f - h * h);
+        }
+    }
+    __syncthreads();
+
+    // db1c, dW1c
+    if (tid < H2)
+      for (int s = 0; s < S; ++s) {
+        const double g = act0[s * LDA + tid];
+        acc_b1 += g;
+#pragma unroll
+        for (int d = 0; d < kMaxD; ++d)
+          if (d < D) acc_w1[d] = fma((double)x[d * S + s], g, acc_w1[d]);
+      }
+    cp_async_wait_all();
+    __syncthreads();
+  }
+
+  // the register sums into the row; the warps' metric sums and dlog_std in
+  // warp order
+  if (tid < H2) {
+    row[L.b1 + tid] = (float)acc_b1;
+    row[L.b2 + tid] = (float)acc_b2;
+#pragma unroll
+    for (int d = 0; d < kMaxD; ++d)
+      if (d < D) row[L.w1 + d * H2 + tid] = (float)acc_w1[d];
+  }
+  if (tid <= A) row[L.bh + tid] = (float)acc_bh;
+  if (lane == 0)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) sred[warp * kMet + i] = (float)met[i];
+  if (gauss && lane < A) sred[warp * kMet + 4 + lane] = (float)acc_ls;
+  __syncthreads();
+  if (tid < 4 + (gauss ? A : 0)) {
+    float z = 0.0f;
+    for (int v = 0; v < kWarps; ++v) z += sred[v * kMet + tid];
+    if (tid < 4) {
+      row[L.P + tid] = z;
+    } else {
+      row[L.ls + tid - 4] = z;
+    }
+  }
+}
+
 // Stage 2: out[i] = sum over the G workspace rows (kSplit per visited tile):
 // blocks of kRowBlock rows in row order, then the blocks' sums in order, so
 // the float32 error grows with G / kRowBlock + kRowBlock rather than with G.
@@ -729,9 +1124,11 @@ __global__ void __launch_bounds__(kAdamThreads) clip_adam(
 }
 
 static int check_params(const GradParams* p) {
-  const int na = p->head == GAUSSIAN ? p->act_dim : 1;
-  if ((p->hidden != 32 && p->hidden != 64) || p->obs_dim < 1 || p->obs_dim > kMaxD ||
-      p->act_dim < 1 || p->act_dim > kMaxA || (p->head == GAUSSIAN && p->act_dim > kMaxGaussA) ||
+  const bool gauss = p->head == GAUSSIAN;
+  const int na = gauss ? p->act_dim : 1;
+  if ((p->hidden != 32 && p->hidden != 64 && p->hidden != 128 && p->hidden != 256) ||
+      p->obs_dim < 1 || p->obs_dim > kMaxD || p->act_dim < 1 ||
+      p->act_dim > (gauss ? kMaxGaussA : kWideMaxA) ||
       (p->head != GAUSSIAN && p->head != CATEGORICAL) ||
       (p->compute != FLOAT32 && p->compute != BFLOAT16) ||
       (p->rows != 8 && p->rows != 16 && p->rows != kMaxRows) || p->obs_dim + na + 4 > p->rows ||
@@ -740,6 +1137,10 @@ static int check_params(const GradParams* p) {
     return (int)cudaErrorInvalidValue;
   return 0;
 }
+
+// Hidden 32 and 64 with at most kMaxA logits take ppo_grad_tiles; every
+// other size the wide path, whose weights wide_prep lays out first.
+static bool wide_path(int hidden, int act_dim) { return hidden > 64 || act_dim > kMaxA; }
 
 template <int H2, bool BF>
 static int launch_tiles(const GradParams* p, const float* data, const int* order,
@@ -753,42 +1154,74 @@ static int launch_tiles(const GradParams* p, const float* data, const int* order
   return (int)cudaGetLastError();
 }
 
+template <int H2, bool BF>
+static int launch_wide(const GradParams* p, const float* data, const int* order, const float* w,
+                       float* prep, const float* adv, float* ws, cudaStream_t st) {
+  constexpr size_t bytes = WideSmem<H2>::BYTES;
+  cudaError_t e = launch_wide_prep(w, p->obs_dim, H2 / 2, p->act_dim, BF, false, prep, st);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaFuncSetAttribute(ppo_grad_wide<H2, BF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)bytes);
+  if (e != cudaSuccess) return (int)e;
+  ppo_grad_wide<H2, BF><<<p->num_tiles * kSplit, kThreads, bytes, st>>>(*p, data, order, w,
+                                                                        prep, adv, ws);
+  return (int)cudaGetLastError();
+}
+
+template <bool BF>
+static int launch_stage1(const GradParams* p, const float* data, const int* order,
+                         const float* w, float* prep, const float* adv, float* ws,
+                         cudaStream_t st) {
+  if (!wide_path(p->hidden, p->act_dim))
+    return p->hidden == 64 ? launch_tiles<128, BF>(p, data, order, w, adv, ws, st)
+                           : launch_tiles<64, BF>(p, data, order, w, adv, ws, st);
+  if (prep == nullptr) return (int)cudaErrorInvalidValue;
+  switch (p->hidden) {
+    case 32: return launch_wide<64, BF>(p, data, order, w, prep, adv, ws, st);
+    case 64: return launch_wide<128, BF>(p, data, order, w, prep, adv, ws, st);
+    case 128: return launch_wide<256, BF>(p, data, order, w, prep, adv, ws, st);
+    default: return launch_wide<512, BF>(p, data, order, w, prep, adv, ws, st);
+  }
+}
+
 // Stages 1 and 2: gout[P + 4] = (merged gradients, metric sums).
 static int grad_stages(const GradParams* p, const float* data, const int* order, const float* w,
-                       const float* adv, float* ws, float* gout, cudaStream_t st) {
+                       float* prep, const float* adv, float* ws, float* gout, cudaStream_t st) {
   int err = check_params(p);
   if (err) return err;
-  const bool bf = p->compute == BFLOAT16;
-  if (p->hidden == 64)
-    err = bf ? launch_tiles<128, true>(p, data, order, w, adv, ws, st)
-             : launch_tiles<128, false>(p, data, order, w, adv, ws, st);
-  else
-    err = bf ? launch_tiles<64, true>(p, data, order, w, adv, ws, st)
-             : launch_tiles<64, false>(p, data, order, w, adv, ws, st);
+  err = p->compute == BFLOAT16 ? launch_stage1<true>(p, data, order, w, prep, adv, ws, st)
+                               : launch_stage1<false>(p, data, order, w, prep, adv, ws, st);
   if (err) return err;
   const int PW = make_layout(p->obs_dim, 2 * p->hidden, p->act_dim).P + 4;
   reduce_rows<<<(PW + 255) / 256, 256, 0, st>>>(ws, p->num_tiles * kSplit, PW, gout);
   return (int)cudaGetLastError();
 }
 
+// prep: prep_floats(hidden, act_dim) floats of scratch (none for the
+// narrow path: it may be null there).
 extern "C" int ppo_grad_launch(const GradParams* p, const float* data, const int* order,
-                               const float* w, const float* adv, float* ws, float* gout,
-                               void* stream) {
-  return grad_stages(p, data, order, w, adv, ws, gout, (cudaStream_t)stream);
+                               const float* w, float* prep, const float* adv, float* ws,
+                               float* gout, void* stream) {
+  return grad_stages(p, data, order, w, prep, adv, ws, gout, (cudaStream_t)stream);
 }
 
 extern "C" int ppo_grad_adam_launch(const GradParams* p, const AdamParams* q, const float* data,
                                     const int* order, const float* w, const float* m,
-                                    const float* v, const float* adv, float* ws, float* gout,
-                                    float* w_out, float* m_out, float* v_out, void* stream) {
+                                    const float* v, float* prep, const float* adv, float* ws,
+                                    float* gout, float* w_out, float* m_out, float* v_out,
+                                    void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
-  const int err = grad_stages(p, data, order, w, adv, ws, gout, st);
+  const int err = grad_stages(p, data, order, w, prep, adv, ws, gout, st);
   if (err) return err;
   clip_adam<<<1, kAdamThreads, 0, st>>>(*p, *q, gout, w, m, v, w_out, m_out, v_out);
   return (int)cudaGetLastError();
 }
 
 extern "C" int ppo_grad_params_size(void) { return (int)sizeof(GradParams); }
+
+extern "C" int ppo_grad_prep_floats(int hidden, int act_dim) {
+  return wide_path(hidden, act_dim) ? wide_prep_layout(hidden, wide_ap(act_dim)).total : 0;
+}
 
 extern "C" int ppo_adam_params_size(void) { return (int)sizeof(AdamParams); }
 

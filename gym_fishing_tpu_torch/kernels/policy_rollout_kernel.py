@@ -29,7 +29,11 @@ is the pre-min quota under the relative scheme and the realised harvest
 otherwise; GAE bootstraps from the value of the final post-reset input.
 Under ``compute="bfloat16"`` the inputs of the two H-contractions per tower
 (W2c and h1, Whc and h2) are rounded to bf16 and summed in float32; the
-kernel runs them on the tensor cores.
+kernel runs them on the tensor cores at hidden 32 and 64 with at most 16
+actions. Hidden 128 and 256, and up to `KERNEL_MAX_ACTIONS` classes at any
+hidden size, take the kernel's wide path (``csrc/wide_mlp.cuh``), which
+streams the weights from L2 every step and runs the products as float32
+FMA on the same rounded inputs.
 
 The kernel multiplies W2c and Whc per tower and relies on their cross-tower
 blocks being zero (it traps on any other). The wrapper and the twin take the
@@ -79,8 +83,8 @@ PACKED_ROWS = 8
 _SOURCE = "policy_rollout_kernel"
 
 # Limits of the CUDA kernel (the twin takes any size).
-KERNEL_HIDDEN = (32, 64)
-KERNEL_MAX_ACTIONS = 16
+KERNEL_HIDDEN = (32, 64, 128, 256)
+KERNEL_MAX_ACTIONS = 128
 KERNEL_ENVS_PER_CTA = 64  # sizes the statistics' scratch rows; the library exports its own
 
 # Kernel launches made by `policy_rollout` (the CPU twin does not count).
@@ -275,13 +279,16 @@ def policy_rollout(
     ws = torch.empty((-(-B // KERNEL_ENVS_PER_CTA), 4), dtype=torch.float32, device=dev)
     stats = torch.empty((4,), dtype=torch.float32, device=dev)
     lib = library()
+    # the wide path's weights laid out for its streamed products (none otherwise)
+    n_prep = lib.policy_rollout_prep_floats(hidden, A)
+    prep = torch.empty((n_prep,), dtype=torch.float32, device=dev) if n_prep else None
     ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.policy_rollout_launch(
             ctypes.addressof(p), ptr(w), ptr(stock), ptr(t), ptr(harvest), ptr(ep_ret),
             ptr(ep_len), ptr(noise), ptr(packed), ptr(out_f[0]), ptr(out_t), ptr(out_f[1]),
-            ptr(out_f[2]), ptr(out_len), ptr(ws), ptr(stats), stream,
+            ptr(out_f[2]), ptr(out_len), ptr(ws), ptr(stats), ptr(prep), stream,
         )
     _build.check(lib, err, "policy_rollout_kernel launch")
     launches += 1
@@ -299,8 +306,10 @@ def library() -> ctypes.CDLL:
         raise RuntimeError("struct PolicyRolloutParams and _Params disagree in size")
     if lib.policy_rollout_envs_per_cta() != KERNEL_ENVS_PER_CTA:
         raise RuntimeError("csrc/policy_rollout_kernel.cu and KERNEL_ENVS_PER_CTA disagree")
-    lib.policy_rollout_launch.argtypes = [ctypes.c_void_p] * 17
+    lib.policy_rollout_launch.argtypes = [ctypes.c_void_p] * 18
     lib.policy_rollout_launch.restype = ctypes.c_int
+    lib.policy_rollout_prep_floats.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.policy_rollout_prep_floats.restype = ctypes.c_int
     return lib
 
 

@@ -36,7 +36,11 @@ source's note on numerics has the numbers). Each visited tile is shared by
 `KERNEL_SPLIT` CTAs of 16 warps that walk chunks of `KERNEL_CHUNK` samples;
 every CTA writes one workspace row (`stage1_rows`), stage 2 sums the rows in
 index order (no float atomics: identical calls give identical bits), and
-K3's stage 3 clips and applies Adam in one CTA. What bounds the kernel
+K3's stage 3 clips and applies Adam in one CTA. Hidden 128 and 256, and
+categorical heads of 17 to `KERNEL_MAX_LOGITS` classes at any hidden size,
+take the kernel's wide path (``csrc/wide_mlp.cuh``): the same grid and
+workspace rows, every weight matrix streamed from L2 in k-slabs, products
+as float32 FMA in both modes (bf16-rounded inputs under bfloat16). What bounds the kernel
 beside the products is the float32 work around them: the tanh of both
 hidden layers, the head and the loss.
 
@@ -74,9 +78,10 @@ ADAM_B2 = 0.999
 ADAM_EPS = 1e-5
 
 # Limits of the CUDA kernel (the twin takes any size).
-KERNEL_HIDDEN = (32, 64)
+KERNEL_HIDDEN = (32, 64, 128, 256)
 KERNEL_MAX_OBS_DIM = 4
-KERNEL_MAX_ACT_DIM = 16
+KERNEL_MAX_ACT_DIM = 16      # Gaussian action columns
+KERNEL_MAX_LOGITS = 128      # categorical classes
 KERNEL_MAX_ROWS = 24  # = KERNEL_MAX_OBS_DIM + KERNEL_MAX_ACT_DIM + 4
 KERNEL_CHUNK = 64  # samples per chunk inside a tile
 KERNEL_SPLIT = 2   # CTAs, and workspace rows, per visited tile
@@ -225,18 +230,24 @@ def _check(data, tile_order, merged, adv_stats, obs_dim, act_dim, tile, head, co
     if data.device.type == "cuda":
         if not all(x.is_contiguous() for x in (data, tile_order, adv_stats)):
             raise ValueError("data, tile_order and adv_stats must be contiguous")
-        check_kernel_limits(hidden, obs_dim, act_dim, tile, rows)
+        check_kernel_limits(hidden, obs_dim, act_dim, tile, rows, head)
     return hidden
 
 
 def check_kernel_limits(hidden: int, obs_dim: int, act_dim: int, tile: int,
-                        rows: int = C_PAD) -> None:
-    """Raise on sizes the CUDA kernel does not take (the twin takes any)."""
+                        rows: int = C_PAD, head: str = "gaussian") -> None:
+    """Raise on sizes the CUDA kernel does not take (the twin takes any):
+    `act_dim` is the Gaussian action columns or the categorical classes."""
     if hidden not in KERNEL_HIDDEN:
         raise ValueError(f"the CUDA kernel takes hidden in {KERNEL_HIDDEN}, not {hidden}")
-    if obs_dim > KERNEL_MAX_OBS_DIM or act_dim > KERNEL_MAX_ACT_DIM:
-        raise ValueError("the CUDA kernel takes obs_dim <= "
-                         f"{KERNEL_MAX_OBS_DIM} and act_dim <= {KERNEL_MAX_ACT_DIM}")
+    if obs_dim > KERNEL_MAX_OBS_DIM:
+        raise ValueError(f"the CUDA kernel takes obs_dim <= {KERNEL_MAX_OBS_DIM}, not {obs_dim}")
+    if head == "gaussian" and act_dim > KERNEL_MAX_ACT_DIM:
+        raise ValueError(f"the CUDA kernel takes act_dim <= {KERNEL_MAX_ACT_DIM} Gaussian "
+                         f"action columns, not {act_dim}")
+    if head == "categorical" and act_dim > KERNEL_MAX_LOGITS:
+        raise ValueError(f"the CUDA kernel takes at most {KERNEL_MAX_LOGITS} categorical "
+                         f"classes, not {act_dim}")
     if rows > KERNEL_MAX_ROWS:
         raise ValueError(f"the CUDA kernel reads at most {KERNEL_MAX_ROWS} packed rows, "
                          f"not {rows}")
@@ -372,23 +383,28 @@ def _launch(data, tile_order, w_flat, adv_stats, hidden, adam=None, **scal):
     the data traps the kernel (checking it here would sync with the card)."""
     p = _grad_params(data, tile_order, hidden, **scal)
     n_par = w_flat.numel()
+    dev = data.device
     ws = torch.empty((stage1_rows(tile_order.shape[0]), n_par + 4), dtype=torch.float32,
-                     device=data.device)
-    gout = torch.empty((n_par + 4,), dtype=torch.float32, device=data.device)
+                     device=dev)
+    gout = torch.empty((n_par + 4,), dtype=torch.float32, device=dev)
     lib = library()
-    ptr = lambda x: x.data_ptr()  # noqa: E731
-    with torch.cuda.device(data.device):
-        stream = torch.cuda.current_stream(data.device).cuda_stream
+    # the wide path's weights laid out for its streamed products (none otherwise)
+    n_prep = lib.ppo_grad_prep_floats(hidden, scal["act_dim"])
+    prep = torch.empty((n_prep,), dtype=torch.float32, device=dev) if n_prep else None
+    ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
         if adam is None:
             err = lib.ppo_grad_launch(ctypes.addressof(p), ptr(data), ptr(tile_order),
-                                      ptr(w_flat), ptr(adv_stats), ptr(ws), ptr(gout), stream)
+                                      ptr(w_flat), ptr(prep), ptr(adv_stats), ptr(ws),
+                                      ptr(gout), stream)
             what = "ppo_grad_kernel launch"
         else:
             q, m, v, w_out, m_out, v_out = adam
             err = lib.ppo_grad_adam_launch(
                 ctypes.addressof(p), ctypes.addressof(q), ptr(data),
-                ptr(tile_order), ptr(w_flat), ptr(m), ptr(v), ptr(adv_stats), ptr(ws),
-                ptr(gout), ptr(w_out), ptr(m_out), ptr(v_out), stream)
+                ptr(tile_order), ptr(w_flat), ptr(m), ptr(v), ptr(prep), ptr(adv_stats),
+                ptr(ws), ptr(gout), ptr(w_out), ptr(m_out), ptr(v_out), stream)
             what = "ppo_grad_adam_kernel launch"
     _build.check(lib, err, what)
     return gout
@@ -406,10 +422,12 @@ def library() -> ctypes.CDLL:
     if (lib.ppo_grad_chunk(), lib.ppo_grad_split()) != (KERNEL_CHUNK, KERNEL_SPLIT):
         raise RuntimeError("the kernel's chunk and split disagree with KERNEL_CHUNK, KERNEL_SPLIT")
     ptr = ctypes.c_void_p
-    lib.ppo_grad_launch.argtypes = [ptr] * 8
+    lib.ppo_grad_launch.argtypes = [ptr] * 9
     lib.ppo_grad_launch.restype = ctypes.c_int
-    lib.ppo_grad_adam_launch.argtypes = [ptr] * 14
+    lib.ppo_grad_adam_launch.argtypes = [ptr] * 15
     lib.ppo_grad_adam_launch.restype = ctypes.c_int
+    lib.ppo_grad_prep_floats.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.ppo_grad_prep_floats.restype = ctypes.c_int
     return lib
 
 

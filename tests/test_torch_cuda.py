@@ -280,14 +280,69 @@ def test_ppo_grad_kernel_refuses_32_rows_before_the_launch(cuda):
     assert uk.grad_launches == before
 
 
+WIDE_CASES = [(128, "gaussian", None), (256, "gaussian", None), (128, "categorical", 100),
+              (256, "categorical", 100), (64, "categorical", 100), (32, "categorical", 17),
+              (256, "categorical", 128)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("hidden", [32, 64])
-@pytest.mark.parametrize("head", ["gaussian", "categorical"])
-def test_ppo_grad_kernel_float32_keeps_float32_accuracy(cuda, head, hidden):
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hidden,head,act_dim", WIDE_CASES)
+def test_ppo_grad_kernels_match_twin_at_the_wide_widths(cuda, hidden, head, act_dim, compute):
+    """Hidden 128 and 256, and categorical heads of 17 to 128 classes at any
+    hidden size, take the wide path: K2 and K3 equal their twins there under
+    the bars above."""
+    weights, data, a = _ppo_case(head, 64 * 256, hidden, seed=5, act_dim=act_dim)
+    data, weights = data.to(cuda), tuple(w.to(cuda) for w in weights)
+    order = torch.tensor([9, 0, 63, 17, 5, 40, 33, 2], dtype=torch.int32, device=cuda)
+    adv_stats = torch.tensor([0.05, 1.1], device=cuda)
+    kw = dict(clip_eps=0.2, vf_coef=0.5, ent_coef=0.01, obs_dim=1, act_dim=a, tile=256,
+              head=head, compute=compute)
+    before = uk.grad_launches, uk.adam_launches
+    g, met = uk.fused_minibatch_grad(data, order, weights, adv_stats, **kw)
+    g_ref, met_ref = uk.fused_minibatch_grad_reference(data, order, weights, adv_stats, **kw)
+    w = uk.merge_weights(weights)
+    gen = torch.Generator().manual_seed(3)
+    m = tuple((0.01 * torch.randn(x.shape, generator=gen)).to(cuda) for x in w)
+    v = tuple((1e-4 * torch.rand(x.shape, generator=gen)).to(cuda) for x in w)
+    akw = dict(kw, lr=3e-4, bc1=1 - 0.9 ** 5, bc2=1 - 0.999 ** 5, max_grad_norm=0.5)
+    *new, met_a = uk.fused_minibatch_grad_adam(data, order, w, m, v, adv_stats, **akw)
+    *ref, _ = uk.fused_minibatch_grad_adam_reference(data, order, w, m, v, adv_stats, **akw)
+    assert (uk.grad_launches, uk.adam_launches) == (before[0] + 1, before[1] + 1)
+    torch.cuda.synchronize()
+    _assert_buffers_close(g, g_ref)
+    np.testing.assert_allclose(met.cpu().numpy(), met_ref.cpu().numpy(), rtol=2e-4, atol=1e-6)
+    np.testing.assert_array_equal(met_a.cpu().numpy(), met.cpu().numpy())
+    _assert_buffers_close([n - o for n, o in zip(new[0], w)], [r - o for r, o in zip(ref[0], w)])
+    for got, want in zip(new[1:], ref[1:]):
+        _assert_buffers_close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden,act_dim", [(512, 1), (48, 1), (64, 129)])
+def test_ppo_grad_kernel_refuses_wider_sizes_before_the_launch(cuda, hidden, act_dim):
+    head = "gaussian" if act_dim == 1 else "categorical"
+    weights, data, a = _ppo_case(head, 64 * 256, hidden, seed=8, act_dim=act_dim)
+    before = uk.grad_launches
+    with pytest.raises(ValueError, match="the CUDA kernel takes"):
+        uk.fused_minibatch_grad(data.to(cuda), torch.arange(4, dtype=torch.int32, device=cuda),
+                                tuple(w.to(cuda) for w in weights),
+                                torch.tensor([0.0, 1.0], device=cuda), clip_eps=0.2,
+                                vf_coef=0.5, ent_coef=0.0, obs_dim=1, act_dim=a, tile=256,
+                                head=head)
+    assert uk.grad_launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden,head,act_dim", [(32, "gaussian", None), (64, "gaussian", None),
+                                                 (32, "categorical", None),
+                                                 (64, "categorical", None),
+                                                 *[c for c in WIDE_CASES if c[0] != 32]])
+def test_ppo_grad_kernel_float32_keeps_float32_accuracy(cuda, head, hidden, act_dim):
     """The float32 mode stays float32-accurate: a TF32 pass in any of its
     products would keep three digits and fail this bar by ~1000x, and even
     the tensor cores' truncating accumulator fails it in the value tower."""
-    weights, data, a = _ppo_case(head, 64 * 256, hidden, seed=6)
+    weights, data, a = _ppo_case(head, 64 * 256, hidden, seed=6, act_dim=act_dim)
     data, weights = data.to(cuda), tuple(w.to(cuda) for w in weights)
     order = torch.arange(0, 64, dtype=torch.int32, device=cuda)
     adv_stats = torch.tensor([0.05, 1.1], device=cuda)
@@ -337,11 +392,13 @@ def test_ppo_grad_adam_kernel_matches_twin(cuda, head, max_grad_norm):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("hidden", [64, 256])
 @pytest.mark.parametrize("adam", [False, True])
-def test_ppo_update_kernels_are_deterministic(cuda, adam):
+def test_ppo_update_kernels_are_deterministic(cuda, adam, hidden):
     """Stage 2 sums the per-tile partials in index order and no float atomic
-    is used: two identical launches give identical bits."""
-    weights, data, a = _ppo_case("gaussian", 64 * 256, 64, seed=4)
+    is used (the wide path adds each chunk into its CTA's own row): two
+    identical launches give identical bits."""
+    weights, data, a = _ppo_case("gaussian", 64 * 256, hidden, seed=4)
     data, weights = data.to(cuda), tuple(w.to(cuda) for w in weights)
     order = torch.arange(0, 64, 2, dtype=torch.int32, device=cuda)
     stats = torch.tensor([0.0, 1.0], device=cuda)
@@ -468,6 +525,34 @@ def test_policy_rollout_kernel_wide_categorical_head(cuda, n_actions, compute):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+@pytest.mark.parametrize("source", ["planes", "philox"])
+@pytest.mark.parametrize("env_id,hidden,overrides", [
+    ("fishing-v1", 128, dict(sigma=0.1)),
+    ("fishing-v1", 256, dict(sigma=0.1)),
+    ("fishing-v0", 256, dict(sigma=0.1, n_actions=100)),   # the proportional grid
+    ("fishing-v0", 64, dict(sigma=0.1, n_actions=100)),
+    ("fishing-v0", 128, dict(sigma=0.1)),                  # relative, 3 classes
+    ("fishing-may-obs-v1", 256, {}),
+])
+def test_policy_rollout_kernel_matches_twin_at_the_wide_widths(cuda, env_id, hidden, overrides,
+                                                                source, compute):
+    """Hidden 128 and 256, and up to 128 classes at any hidden size, take the
+    wide path: K4 equals its twin there under the bars above."""
+    args, kw = _k4_case(env_id, hidden, source, cuda, **overrides)
+    kw["compute"] = compute
+    _assert_k4_matches_twin(args, kw, 3 + args[-1] if source == "philox" else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [5, 3 * pk.KERNEL_ENVS_PER_CTA + 17])
+def test_policy_rollout_wide_ragged_batch(cuda, B):
+    args, kw = _k4_case("fishing-v0", 128, "philox", cuda, B=B, sigma=0.1, n_actions=100)
+    kw["compute"] = "float32"
+    _assert_k4_matches_twin(args, kw, 3 + args[-1])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("hidden", [32, 64])
 def test_policy_rollout_bf16_products_equal_float32_on_exact_inputs(cuda, hidden):
     """The tensor-core path against the FMA path, without the twin between
@@ -517,10 +602,10 @@ def test_policy_rollout_wrapper_refuses_before_the_launch(cuda, which):
         args, kw = _k4_case("fishing-v1", 64, "philox", cuda, sigma=0.1)
         args, match = (*args[:5], uk.merge_weights(args[5]), *args[6:]), "13 kernel-layout"
     elif which == "hidden":
-        (args, kw), match = _k4_case("fishing-v1", 128, "philox", cuda, sigma=0.1), "hidden"
+        (args, kw), match = _k4_case("fishing-v1", 512, "philox", cuda, sigma=0.1), "hidden"
     else:
         (args, kw), match = _k4_case("fishing-v0", 64, "philox", cuda, sigma=0.1,
-                                     n_actions=17), "n_actions"
+                                     n_actions=129), "n_actions"
     before = pk.launches
     with pytest.raises(ValueError, match=match):
         pk.policy_rollout(*args, **kw)
@@ -528,11 +613,12 @@ def test_policy_rollout_wrapper_refuses_before_the_launch(cuda, which):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("hidden", [64, 256])
 @pytest.mark.parametrize("env_id", ["fishing-v1", "fishing-v0"])
-def test_policy_rollout_kernel_is_deterministic(cuda, env_id):
+def test_policy_rollout_kernel_is_deterministic(cuda, env_id, hidden):
     """The statistics are summed per CTA and then over the CTAs in index
     order, with no float atomics: two identical calls give identical bits."""
-    args, kw = _k4_case(env_id, 64, "philox", cuda, sigma=0.1)
+    args, kw = _k4_case(env_id, hidden, "philox", cuda, sigma=0.1)
     a, b = (pk.policy_rollout(*args, **kw) for _ in range(2))
     torch.cuda.synchronize()
     for x, y in zip(a[:-1], b[:-1]):

@@ -184,17 +184,22 @@ def test_stage1_rows(num_tiles):
     assert uk.stage1_rows(num_tiles) == num_tiles * uk.KERNEL_SPLIT
 
 
-@pytest.mark.parametrize("hidden,obs_dim,act_dim,tile,ok", [
-    (64, 1, 1, 2048, True), (32, 4, 16, 64, True), (64, 1, 3, 128, True),
-    (64, 1, 1, 32, False), (64, 1, 1, 96, False), (48, 1, 1, 2048, False),
-    (64, 5, 1, 2048, False), (64, 1, 17, 2048, False),
+@pytest.mark.parametrize("hidden,obs_dim,act_dim,tile,head,ok", [
+    (64, 1, 1, 2048, "gaussian", True), (32, 4, 16, 64, "gaussian", True),
+    (64, 1, 3, 128, "categorical", True), (128, 1, 1, 2048, "gaussian", True),
+    (256, 4, 16, 2048, "gaussian", True), (256, 1, 128, 2048, "categorical", True),
+    (32, 1, 100, 64, "categorical", True),
+    (64, 1, 1, 32, "gaussian", False), (64, 1, 1, 96, "gaussian", False),
+    (48, 1, 1, 2048, "gaussian", False), (512, 1, 1, 2048, "gaussian", False),
+    (64, 5, 1, 2048, "gaussian", False), (64, 1, 17, 2048, "gaussian", False),
+    (256, 1, 129, 2048, "categorical", False),
 ])
-def test_kernel_limits(hidden, obs_dim, act_dim, tile, ok):
+def test_kernel_limits(hidden, obs_dim, act_dim, tile, head, ok):
     if ok:
-        uk.check_kernel_limits(hidden, obs_dim, act_dim, tile)
+        uk.check_kernel_limits(hidden, obs_dim, act_dim, tile, head=head)
     else:
         with pytest.raises(ValueError, match="the CUDA kernel takes"):
-            uk.check_kernel_limits(hidden, obs_dim, act_dim, tile)
+            uk.check_kernel_limits(hidden, obs_dim, act_dim, tile, head=head)
 
 
 def test_phase_clocks_find_the_chunk_loop():

@@ -94,11 +94,11 @@ def _port_bstate(jb):
         episode_length=np.asarray(jb.episode_length)))
 
 
-def _jax_case(env_id, overrides, fold, num_envs=256, num_steps=8, **cfg_extra):
+def _jax_case(env_id, overrides, fold, num_envs=256, num_steps=8, hidden=32, **cfg_extra):
     """The JAX test's setup (tests/test_policy_rollout_kernel.py:138-168):
     jittered weights and desynchronised instances."""
     env, params = registry.make(env_id, dtype=jnp.float32, **overrides)
-    cfg = jppo.PPOConfig(num_envs=num_envs, num_steps=num_steps, hidden=32,
+    cfg = jppo.PPOConfig(num_envs=num_envs, num_steps=num_steps, hidden=hidden,
                          rollout_fold_obs=fold, **cfg_extra)
     ts = jppo.make_train_state(env, cfg, jax.random.key(0))
     ts = ts.replace(params=jax.tree.map(
@@ -129,7 +129,23 @@ def _z0_planes(scheme, obs_noise, T, B):
 @pytest.mark.parametrize("fold", [False, True])
 @pytest.mark.parametrize("env_id,overrides", JAX_CASES)
 def test_twin_matches_jax_kernel_z0(env_id, overrides, fold):
-    jenv, jparams, jcfg, jts, jb = _jax_case(env_id, overrides, fold)
+    _assert_twin_matches_jax_z0(env_id, overrides, fold)
+
+
+@pytest.mark.parametrize("fold", [False, True])
+@pytest.mark.parametrize("env_id,overrides,hidden", [
+    ("fishing-v1", dict(sigma=0.05, Tmax=5), 256),
+    ("fishing-v0", dict(n_actions=100, sigma=0.05, Tmax=5), 32),    # the proportional grid
+    ("fishing-v0", dict(n_actions=100, sigma=0.05, Tmax=5), 256),
+])
+def test_twin_matches_jax_kernel_z0_at_the_wide_widths(env_id, overrides, hidden, fold):
+    """Hidden 256 and the categorical head of 100 classes, under the same
+    bars; the interpreter's u = 1 takes the last class of the 100."""
+    _assert_twin_matches_jax_z0(env_id, overrides, fold, hidden=hidden)
+
+
+def _assert_twin_matches_jax_z0(env_id, overrides, fold, hidden=32):
+    jenv, jparams, jcfg, jts, jb = _jax_case(env_id, overrides, fold, hidden=hidden)
     jroll, jnext = jfused.fused_rollout_collect(jenv, jparams, jcfg, jts, jb,
                                                 jax.random.key(0), interpret=True)
 
@@ -266,15 +282,16 @@ def test_seeded_categorical_classes_follow_the_softmax():
 
 # --------------------------------------------------------------- train step
 
-def _full_step_pair(head, form):
+def _full_step_pair(head, form, hidden=32, **env_extra):
     """One JAX fused-full train_step (kernels in interpret mode: the rollout
     draws z = 0, u = 1) and the port's from the same weights and start
     state, the z = 0 planes and JAX's tile permutations. The Gaussian mean
     starts near -0.5 so that envs outlive a step and the advantages spread
     (identical samples would make the advantage std 0)."""
     env_id = {"gaussian": "fishing-v1", "categorical": "fishing-v0"}[head]
+    overrides = dict(sigma=0.1, Tmax=10, **env_extra)
     jenv, jparams, cfg, ts0, jb = _jax_case(
-        env_id, dict(sigma=0.1, Tmax=10), True, num_envs=128, num_steps=16, epochs=2,
+        env_id, overrides, True, num_envs=128, num_steps=16, hidden=hidden, epochs=2,
         num_minibatches=2, ent_coef=0.01, fused_update=True, fused_rollout=True,
         fused_adam=form == "adam")
     if head == "gaussian":
@@ -291,7 +308,7 @@ def _full_step_pair(head, form):
     tile = next(t for t in (2048, 1024, 512, 256, 128) if (n // cfg.num_minibatches) % t == 0)
     perms = [torch.from_numpy(np.array(jax.random.permutation(k, n // tile)))
              for k in jax.random.split(k_perm, cfg.epochs)]
-    env, _ = make(env_id, sigma=0.1, Tmax=10)
+    env, _ = make(env_id, **overrides)
     ts, _, met = ppo.train_step(
         env, _port_params(jparams), ppo.PPOConfig(**dataclasses.asdict(cfg)), _port_state(ts0),
         _port_bstate(jb), perms=perms,
@@ -303,6 +320,17 @@ def _full_step_pair(head, form):
 @pytest.mark.parametrize("head,form", [("gaussian", "adam"), ("categorical", "update")])
 def test_full_train_step_matches_jax(head, form):
     _assert_steps_agree(_full_step_pair(head, form))
+
+
+def test_full_adam_train_step_matches_jax_at_hidden_128_and_100_actions():
+    """full + fused_adam on fishing-v0's proportional grid of 100 quotas at
+    hidden 128, the widths of the kernels' wide path. The interpreter's u = 1
+    takes the last class, a quota of 99 % of K, for every env: the envs start
+    at 1 to 3 K (init_state 2) so that they outlive their first harvest and
+    the advantages spread, and the update runs the softmax and its gradient
+    over the 100 classes."""
+    _assert_steps_agree(_full_step_pair("categorical", "adam", hidden=128, n_actions=100,
+                                        init_state=2.0))
 
 
 def test_full_matches_update_form_from_the_same_draws():
@@ -401,14 +429,14 @@ def test_rollout_scalars_reads_the_params():
 # ------------------------------------------------------- the kernel's limits
 
 @pytest.mark.parametrize("hidden,act_dim,match", [
-    (128, 1, "hidden"), (16, 1, "hidden"), (64, 17, "n_actions"), (32, 33, "n_actions")])
+    (512, 1, "hidden"), (16, 1, "hidden"), (64, 129, "n_actions"), (256, 200, "n_actions")])
 def test_check_kernel_limits_refuses(hidden, act_dim, match):
     with pytest.raises(ValueError, match=match):
         pk.check_kernel_limits(hidden, act_dim)
 
 
 @pytest.mark.parametrize("hidden", pk.KERNEL_HIDDEN)
-@pytest.mark.parametrize("act_dim", [1, 3, pk.KERNEL_MAX_ACTIONS])
+@pytest.mark.parametrize("act_dim", [1, 3, 16, 100, pk.KERNEL_MAX_ACTIONS])
 def test_check_kernel_limits_accepts(hidden, act_dim):
     pk.check_kernel_limits(hidden, act_dim)
 
@@ -504,3 +532,18 @@ def test_header_edit_changes_the_library_path(tmp_path, monkeypatch):
     after = {n: _build.library_path(n) for n in names}
     assert all(after[n] != before[n] for n in names)
     assert not any(p.exists() for p in after.values())
+
+
+def test_phase_clocks_find_the_narrow_kernel():
+    """bench/policy_rollout.py --phases clocks policy_rollout_kernel's entry,
+    each step's forward and tail and its end, and leaves the wide kernel as
+    it is."""
+    from gym_fishing_tpu_torch.bench.policy_rollout import WIDE_SECTION, instrument
+    from gym_fishing_tpu_torch.kernels import _build
+
+    src = (_build.CSRC / "policy_rollout_kernel.cu").read_text()
+    out = instrument(src)
+    assert out.count("clock64()") == 6
+    assert out.endswith(WIDE_SECTION + src.split(WIDE_SECTION)[1])
+    with pytest.raises(RuntimeError, match="wide section"):
+        instrument("__global__ void k() {}")

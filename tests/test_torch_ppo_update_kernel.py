@@ -405,3 +405,93 @@ def test_wrapper_takes_only_as_many_rows_as_fit():
     assert all(torch.equal(x, y) for x, y in zip(g16, g32)) and torch.equal(m16, m32)
     with pytest.raises(ValueError, match="must fit 8 rows"):
         uk.fused_minibatch_grad(data[:8], order, weights, stats, **kw)
+
+
+# ------------------------------ hidden 128 and 256, categorical heads of 100
+
+def _case_wide(head, hidden, seed=0, n=256):
+    """A minibatch at the widths of the kernels' wide path: fishing-v1's
+    Gaussian head, or fishing-v0's proportional grid of 100 quotas (the
+    categorical head of 100 classes), at `hidden`. (cfg, params, packed [n, 6],
+    act_dim)."""
+    from gym_fishing_tpu import registry
+
+    env = registry.make("fishing-v1" if head == "gaussian" else "fishing-v0",
+                        **({} if head == "gaussian" else {"n_actions": 100}))[0]
+    cfg = jppo.PPOConfig(hidden=hidden, ent_coef=0.01)
+    keys = jax.random.split(jax.random.key(seed), 8)
+    ts = jppo.make_train_state(env, cfg, keys[0])
+    leaves, tdef = jax.tree.flatten(ts.params)
+    params = jax.tree.unflatten(tdef, [
+        x + 0.05 * jax.random.normal(k, x.shape, x.dtype)
+        for x, k in zip(leaves, jax.random.split(keys[1], len(leaves)))])
+    obs = 0.7 * jax.random.normal(keys[2], (n, 1), jnp.float32)
+    dist, value = ts.apply_fn(params, obs)
+    if head == "gaussian":
+        log_std = params["params"]["log_std"]
+        action = dist[0] + jnp.exp(log_std) * jax.random.normal(keys[3], (n, 1), jnp.float32)
+        logp = jppo._normal_logp(action, dist[0], log_std)
+        act_col, a = action, 1
+    else:
+        action = jax.random.categorical(keys[3], dist[0])
+        logp = jax.nn.log_softmax(dist[0])[jnp.arange(n), action]
+        act_col, a = action[:, None].astype(jnp.float32), env.config.n_actions
+    packed = jnp.concatenate([
+        obs, act_col, (logp + 0.3 * jax.random.normal(keys[4], (n,)))[:, None],
+        (value + 0.3 * jax.random.normal(keys[5], (n,)))[:, None],
+        jax.random.normal(keys[6], (n, 1)), (value + jax.random.normal(keys[7], (n,)))[:, None],
+    ], axis=1).astype(jnp.float32)
+    return cfg, params, packed, a
+
+
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hidden,head", [(128, "gaussian"), (256, "gaussian"),
+                                         (128, "categorical"), (256, "categorical")])
+def test_twin_at_the_wide_widths_matches_jax_kernel(hidden, head, compute):
+    """K2's twin at hidden 128 and 256, Gaussian and 100 classes, equals the
+    JAX kernel (interpret mode), under the obs_dim = 4 tolerances."""
+    cfg, params, packed, a = _case_wide(head, hidden, seed=hidden)
+    assert a == (1 if head == "gaussian" else 100)
+    kw = dict(obs_dim=1, act_dim=a, tile=128, head=head, compute=compute)
+    j_grads, j_met = jfused.fused_grad(params, jfused.pack_feature_major(packed), cfg.clip_eps,
+                                       cfg.vf_coef, cfg.ent_coef, interpret=True, **kw)
+    model = actor_critic_from_numpy(_np(params))
+    grads, met = ppo_fused.fused_grad(dict(model.named_parameters()), _packed_t(packed),
+                                      cfg.clip_eps, cfg.vf_coef, cfg.ent_coef, **kw)
+    tol = dict(rtol=2e-4, atol=2e-6) if compute == "float32" else dict(rtol=2e-3, atol=2e-5)
+    _assert_trees_close(actor_critic_to_numpy(grads), j_grads, **tol)
+    for name in ("loss", "pg_loss", "v_loss", "entropy", "approx_kl"):
+        np.testing.assert_allclose(float(met[name]), float(j_met[name]), rtol=2e-4, atol=2e-6,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("hidden,head", [(256, "gaussian"), (128, "categorical")])
+def test_twin_adam_at_the_wide_widths_matches_jax_kernel(hidden, head):
+    cfg, params, packed, a = _case_wide(head, hidden, seed=3)
+    jw = jk.merge_weights(jfused.kernel_weights(params, head))
+    zeros = tuple(jnp.zeros_like(x) for x in jw)
+    scal = np.zeros(jk.ADAM_NUM_SCALARS, np.float32)
+    scal[:6] = [cfg.clip_eps, cfg.vf_coef, 1.0 / 256, 0.02, 1.1, cfg.ent_coef]
+    scal[8:11] = [3e-4, 0.1, 0.001]
+    order = np.array([1, 0], np.int32)
+    j_w, j_m, j_v, j_met = jk.fused_minibatch_grad_adam(
+        jfused.pack_feature_major(packed), jnp.asarray(order), jw, zeros, zeros,
+        jnp.asarray(scal), obs_dim=1, act_dim=a, tile=128, max_grad_norm=0.5, head=head,
+        interpret=True)
+    w = tuple(_torch(x) for x in jw)
+    tz = tuple(torch.zeros_like(x) for x in w)
+    *new, met = uk.fused_minibatch_grad_adam(
+        _packed_t(packed), torch.from_numpy(order), w, tz, tz, torch.tensor([0.02, 1.1]),
+        clip_eps=cfg.clip_eps, vf_coef=cfg.vf_coef, ent_coef=cfg.ent_coef, lr=3e-4, bc1=0.1,
+        bc2=0.001, obs_dim=1, act_dim=a, tile=128, max_grad_norm=0.5, head=head)
+    # Adam's first step from zero moments divides each gradient by its own
+    # size: among the 2^16 entries of a tower's W2 block at hidden 256 a few
+    # gradients are small enough that the summation order moves their step
+    # by ~3e-8 (lr / 10^4), hence atol 1e-7 here where hidden 64 keeps 1e-8
+    for got, want, old in zip(new[0], j_w, w):
+        np.testing.assert_allclose((got - old).numpy(), np.asarray(want) - old.numpy(),
+                                   rtol=1e-3, atol=1e-7)
+    for got_t, want_t in ((new[1], j_m), (new[2], j_v)):
+        for got, want in zip(got_t, want_t):
+            np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4, atol=1e-9)
+    np.testing.assert_allclose(met.numpy(), np.asarray(j_met), rtol=2e-4, atol=1e-6)
