@@ -11,7 +11,8 @@ hidden 64) in its plain, fused-update and fused-full forms, and on an
 observation window of 4 (the POMDP remedy); checkpoint and resume; the
 evaluation API; model uncertainty and the gym adapters; the kernels' wide
 path and PPO at hidden 256, also on fishing-v0's grid of 100 quotas; the
-kernels' own random numbers. Phases, each of which raises on failure:
+kernels' own random numbers; observation windows of 6 and 12; the A2C, DP
+and ES learners and the examples. Phases, each of which raises on failure:
 
 1. device: a CUDA device is required; prints the card's name and power limit;
 2. build: nvcc builds csrc/ppo_update_kernel.cu, csrc/policy_rollout_kernel.cu
@@ -104,7 +105,24 @@ kernels' own random numbers. Phases, each of which raises on failure:
     full+adam ≡ the plain epochs after one step at 1 x 1 from the same
     rollout, 20 iterations with launch counting (one K4 and 32 K3 launches
     each) and the agreement with the plain form; then
-    validation/kernel_rng.py at its defaults.
+    validation/kernel_rng.py at its defaults;
+20. K2/K3 at observation windows beyond 4 fields, obs_dim 6 (16 packed
+    rows) and 12 (24 rows), at hidden 64 and 256, Gaussian and 100 classes,
+    in both modes: ≡ their twins at N = 2^21 (float32 also against the
+    float64 twin), each timed beside its bound;
+21. PPO on stack_observations(fishing-v1, 6) at 16384 x 128, 4 x 8, hidden
+    64: update+adam ≡ off after one step at 1 x 1 in both modes, then the
+    forms update (2 iterations) and update+adam (4) with launch counting;
+22. A2C at its defaults (1024 envs x 16 steps): one step on the card ≡ the
+    same step on the CPU from the same planes, then 20 iterations;
+23. DP at 257 states x 129 quotas in float64: build_mdp and value_iteration
+    on the card ≡ the CPU (the same sweep count), and Reed's constant
+    escapement on the deterministic logistic env;
+24. ES, one generation at its defaults (256 members x 4 envs x Tmax steps):
+    fitness and ranks on the card ≡ the CPU from the same perturbations and
+    draws;
+25. the four ported examples' numeric cores at tests/test_examples.py's
+    sizes.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Any failure exits non-zero before either.
@@ -237,6 +255,18 @@ K4_MAX_LEFT_FRAC = 1e-3
 ROWS = ("obs", "action", "logp", "value", "advantage", "return")
 # phase 19: the kernels' wide path and the slice's full-width PPO
 WIDE_HIDDEN, WIDE_ACTIONS, WIDE_ITERS = (128, 256), 100, 20
+# phases 20-21: observation windows beyond 4 fields (16 and 24 packed rows)
+LONG_OBS, STACK_K = (6, 12), 6
+# phases 22-24: the other learners against their own CPU runs. A2C at its
+# defaults: float32 sums over 16384 samples in another order move RMSProp's
+# first step by at most lr / sqrt(eps) = 0.22 times the gradient's change,
+# far below 1e-5. DP in float64: P and R to 1e-12, V to 1e-9 after
+# thousands of sweeps. ES: float32 sums of Tmax rewards to 1e-5, and the
+# same ranks wherever two members' fitness differ by more than 1e-4.
+A2C_ATOL, DP_PR_ATOL, DP_V_ATOL, ES_ATOL, ES_RANK_GAP = 1e-5, 1e-12, 1e-9, 1e-5, 1e-4
+# Reed's theorem on the deterministic logistic env (tests/test_dp.py):
+# escapement at K / 2 between stocks 0.6 and 1.5, within 0.03
+REED_ATOL = 0.03
 T_START = time.perf_counter()
 
 
@@ -409,9 +439,9 @@ def compare(ker, ref, what, stock_atol=STOCK_ATOL, reward_atol=REWARD_ATOL):
 def ppo_case(ppo, ppo_fused, rng, head, dev, obs_dim=1, hidden=64, n_actions=3):
     """Jittered random weights and the bench's packed buffer [R, 2^21] drawn
     from them with numpy-made noise: (13 kernel-layout weights, data,
-    act_dim). R is 8 at obs_dim 1 and 16 at obs_dim 4 (an observation
-    window of 4). Old log-probs and values are spread so every clip branch
-    is visited."""
+    act_dim). R is obs_dim + the action columns + 4 rounded up to a multiple
+    of 8: 8 at obs_dim 1, 16 at 4 and 6, 24 at 12 (observation windows).
+    Old log-probs and values are spread so every clip branch is visited."""
     gauss = head == "gaussian"
     a = 1 if gauss else n_actions
     model = ppo.ActorCritic(obs_dim, a, gauss, hidden,
@@ -1839,6 +1869,319 @@ def main():
     print(f"phase 19: validation/kernel_rng.py PASS at its defaults in "
           f"{time.perf_counter() - t0:.1f} s; phase 19 in {time.perf_counter() - t19:.1f} s")
 
+    # --------------------------------------------------------------- 20
+    # K2/K3 at observation windows beyond 4 fields: obs_dim 6 (11 fields, 16
+    # rows) and 12 (17 fields, 24 rows), on the narrow path (hidden 64) and
+    # the wide one (hidden 256, and 100 classes at any width)
+    t20 = time.perf_counter()
+    rng = np.random.default_rng(20)
+    long_err = {"K2": 0.0, "K3": 0.0}
+    long_ms, long_plain_ms, long_bound = {}, {}, {}
+    for obs_dim in LONG_OBS:
+        for hidden in (64, WIDE_HIDDEN[-1]):
+            for head in ("gaussian", "categorical"):
+                weights, data, a = ppo_case(ppo, ppo_fused, rng, head, dev, obs_dim=obs_dim,
+                                            hidden=hidden, n_actions=WIDE_ACTIONS)
+                if data.shape[0] != uk.packed_rows(obs_dim + 5):
+                    fail(f"phase 20: obs_dim {obs_dim} data has {data.shape[0]} rows")
+                adv = data[obs_dim + 3, order.long()[:, None] * TILE
+                           + torch.arange(TILE, device=dev)]
+                stats = torch.stack([adv.mean(), 1.0 / (adv.std(correction=0) + 1e-8)])
+                w = uk.merge_weights(weights)
+                m = tuple(torch.from_numpy(0.01 * rng.standard_normal(x.shape).astype(np.float32))
+                          .to(dev) for x in w)
+                v = tuple(torch.from_numpy(1e-4 * rng.random(x.shape).astype(np.float32))
+                          .to(dev) for x in w)
+                for compute in ("float32", "bfloat16"):
+                    kw = dict(clip_eps=0.2, vf_coef=0.5, ent_coef=0.01, obs_dim=obs_dim,
+                              act_dim=a, tile=TILE, head=head, compute=compute)
+                    kw3 = dict(kw, lr=3e-4, bc1=1 - 0.9 ** 5, bc2=1 - 0.999 ** 5,
+                               max_grad_norm=1e-3)
+                    g, met = uk.fused_minibatch_grad(data, order, weights, stats, **kw)
+                    g_ref, met_ref = uk.fused_minibatch_grad_reference(data, order, weights,
+                                                                        stats, **kw)
+                    *new, met3 = uk.fused_minibatch_grad_adam(data, order, w, m, v, stats, **kw3)
+                    *ref, met3_ref = uk.fused_minibatch_grad_adam_reference(
+                        data, order, w, m, v, stats, **kw3)
+                    torch.cuda.synchronize()
+                    what = f"obs_dim={obs_dim} hidden={hidden} {head} A={a} {compute}"
+                    err = check_buffers(g, g_ref, "K2 " + what)
+                    check_metrics(met, met_ref, "K2 " + what)
+                    err3 = max(check_buffers([x - y for x, y in zip(new[0], w)],
+                                             [x - y for x, y in zip(ref[0], w)],
+                                             "K3 " + what + " dw"),
+                               check_buffers(new[1], ref[1], "K3 " + what + " m"),
+                               check_buffers(new[2], ref[2], "K3 " + what + " v"))
+                    check_metrics(met3, met3_ref, "K3 " + what)
+                    long_err["K2"] = max(long_err["K2"], err)
+                    long_err["K3"] = max(long_err["K3"], err3)
+                    line = f"phase 20: K2/K3 {what:48s} max abs err {err:.3g} / {err3:.3g}"
+                    if compute == "float32":
+                        worst64 = check_float64_bar(uk, g, g_ref, data, order, weights, stats,
+                                                    kw, "K2 " + what)
+                        line += (f"; against float64, worst buffer {worst64[0]}: kernel "
+                                 f"{worst64[1]:.3g}, float32 twin {worst64[2]:.3g}")
+                    print(line)
+                    key = (obs_dim, hidden, head, compute)
+                    long_ms["K2", key], _ = cuda_ms(lambda: uk.fused_minibatch_grad(
+                        data, order, weights, stats, **kw), 10)
+                    long_plain_ms["K2", key], _ = cuda_ms(
+                        lambda: uk.fused_minibatch_grad_reference(data, order, weights, stats,
+                                                                  **kw), 3)
+                    long_ms["K3", key], _ = cuda_ms(lambda: uk.fused_minibatch_grad_adam(
+                        data, order, w, m, v, stats, **kw3), 10)
+                    long_plain_ms["K3", key], _ = cuda_ms(
+                        lambda: uk.fused_minibatch_grad_adam_reference(data, order, w, m, v,
+                                                                       stats, **kw3), 3)
+                    long_bound[key] = update_bound(n_mb, obs_dim, hidden, a, compute, head)
+                del weights, data, w, m, v, g, g_ref, new, ref
+    for (name, key), ms in long_ms.items():
+        obs_dim, hidden, head, compute = key
+        bound = long_bound[key]
+        print(f"phase 20: {name} obs_dim={obs_dim:2d} ({uk.packed_rows(obs_dim + 5)} rows) "
+              f"hidden={hidden} {head:11s} {compute:8s}: {ms:.3f} ms, twin "
+              f"{long_plain_ms[name, key]:.3f} ms per minibatch of {MB_TILES} x {TILE} (CUDA "
+              f"events); bound {bound[0]:.4f} ms by {bound[1]} (share {bound[0] / ms:.3f}) "
+              f"{label}")
+    print(f"phase 20: in {time.perf_counter() - t20:.1f} s")
+
+    # --------------------------------------------------------------- 21
+    # the main path at a window of 6 observations: PPO update(+adam) on
+    # stack_observations(fishing-v1, 6) at 16384 x 128, 4 x 8, hidden 64
+    t21 = time.perf_counter()
+    k_env, k_params = make("fishing-v1")
+    k_env = stack_observations(k_env, STACK_K)
+
+    def k_run(cfg, iterations, ts, seed=5):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        bstate = batched_reset(k_env, k_params, cfg.num_envs)
+        hist = []
+        t0 = time.perf_counter()
+        for _ in range(iterations):
+            ts, bstate, met = ppo.train_step(k_env, k_params, cfg, ts, bstate, gen)
+            hist.append({k: float(x) for k, x in met.items()})
+        secs = time.perf_counter() - t0
+        for name_, p in ts.model.named_parameters():
+            if not bool(torch.isfinite(p).all()):
+                fail(f"phase 21: non-finite parameter {name_}")
+        return ts, hist, secs
+
+    def k_init(compute="float32", seed=21):
+        return ppo.make_train_state(k_env, ppo.PPOConfig(compute_dtype=compute),
+                                    torch.Generator().manual_seed(seed))
+
+    for compute in ("float32", "bfloat16"):
+        one_cfg = dataclasses.replace(base, compute_dtype=compute)
+        plain, _, _ = k_run(one_cfg, 1, k_init(compute))
+        fused, _, _ = k_run(dataclasses.replace(one_cfg, fused_update=True, fused_adam=True), 1,
+                            k_init(compute))
+        if compute == "float32":   # phase 10's bars on the parameters
+            s_err = 0.0
+            for (pname, p), q in zip(fused.model.named_parameters(), plain.model.parameters()):
+                p, q = p.detach(), q.detach()
+                s_err = max(s_err, float((p - q).abs().max()))
+                if not bool(((p - q).abs() <= STEP_ATOL + STEP_RTOL * q.abs()).all()):
+                    fail(f"phase 21: one step at 1x1 under float32, update+adam vs off: {pname} "
+                         f"max abs err {float((p - q).abs().max()):.3g}")
+            what = f"max abs param err {s_err:.3g} (rtol {STEP_RTOL}, atol {STEP_ATOL})"
+        else:   # phase 15's bar on the gradients, through Adam's first moment
+            rel = {k: float((fused.m[k] - plain.m[k]).norm() / plain.m[k].norm())
+                   for k in plain.m}
+            name_ = max(rel, key=rel.get)
+            if not rel[name_] <= GRAD_BF16_RTOL:
+                fail(f"phase 21: one step at 1x1 under bfloat16, update+adam vs off: the first "
+                     f"moment of {name_} differs by {rel[name_]:.3g} of its norm")
+            what = (f"first moment within {rel[name_]:.3g} of its norm in the worst tensor, "
+                    f"{name_} (bar {GRAD_BF16_RTOL:.4g})")
+        print(f"phase 21: stacked fishing-v1 (k={STACK_K}): update+adam ≡ off after one step "
+              f"at 1 x 1 from the same draws under {compute}, N={N_PPO}: {what}")
+    launches21 = {}
+    for name, iters in (("update", 2), ("update+adam", 4)):
+        cfg = ppo.PPOConfig(num_envs=B_PPO, num_steps=T_PPO, fused_update=True,
+                            fused_adam=name == "update+adam")
+        reset_counts()
+        _, hist, secs = k_run(cfg, iters, k_init())
+        launches21[name] = got = counts()
+        want = {"update": (32 * iters, 0), "update+adam": (0, 32 * iters)}[name]
+        if (got["grad"], got["adam"]) != want or got["rollout"] or got["policy"]:
+            fail(f"phase 21: {name} on the stacked env launched {got}, expected (grad, adam) "
+                 f"{want}")
+        print(f"phase 21: stacked k={STACK_K} {name:12s} {secs / iters * 1e3:.1f} ms/iter (host "
+              f"clock, {iters} iterations); launches {got}; episode return last "
+              f"{hist[-1]['episode_return']:.4f}; B={B_PPO} T={T_PPO} 4x8 hidden=64 {label}")
+    print(f"phase 21: in {time.perf_counter() - t21:.1f} s")
+
+    # --------------------------------------------------------------- 22
+    # A2C at its defaults (1024 envs x 16 steps, hidden 64): one step on the
+    # card ≡ the same step on the CPU from the same planes, then 20 iterations
+    import copy
+    import importlib
+
+    from gym_fishing_tpu_torch.agents import a2c, es
+
+    t22 = time.perf_counter()
+    rng = np.random.default_rng(22)
+    acfg = a2c.A2CConfig()
+    a_env, _ = make("fishing-v1")
+    a0 = a2c.make_a2c_state(a_env, acfg, torch.Generator().manual_seed(22), device="cpu")
+    a_act = rng.standard_normal((acfg.num_steps, acfg.num_envs, 1)).astype(np.float32)
+    a_envn = rng.standard_normal((acfg.num_steps, 2, acfg.num_envs)).astype(np.float32)
+    a_out = {}
+    for d in (dev, torch.device("cpu")):
+        a_params = make("fishing-v1", device=d)[1]
+        st = a2c.A2CState(model=copy.deepcopy(a0.model).to(d),
+                          nu={k: x.to(d) for k, x in a0.nu.items()})
+        a_out[d.type], _, _ = a2c.a2c_train_step(
+            a_env, a_params, acfg, st, batched_reset(a_env, a_params, acfg.num_envs),
+            act_noise=torch.from_numpy(a_act).to(d), env_noise=torch.from_numpy(a_envn).to(d))
+    a_err = 0.0
+    for (pname, p), q in zip(a_out["cuda"].model.named_parameters(),
+                             a_out["cpu"].model.parameters()):
+        a_err = max(a_err, max_err(p.detach().cpu(), q.detach()),
+                    max_err(a_out["cuda"].nu[pname].cpu(), a_out["cpu"].nu[pname]))
+    if not a_err <= A2C_ATOL:
+        fail(f"phase 22: A2C one step on the card vs the CPU: max abs err {a_err:.3g} of the "
+             f"parameters and RMSProp's moments > {A2C_ATOL}")
+    t0 = time.perf_counter()
+    _, a_hist = a2c.a2c_train(a_env, acfg, seed=0, iterations=20)
+    a_secs = time.perf_counter() - t0
+    if not all(np.isfinite(h["loss"]) for h in a_hist):
+        fail("phase 22: A2C: a non-finite loss in 20 iterations")
+    print(f"phase 22: A2C one step at {acfg.num_envs} x {acfg.num_steps} on the card ≡ the CPU "
+          f"from the same planes: max abs err {a_err:.3g} <= {A2C_ATOL}; 20 iterations in "
+          f"{a_secs:.2f} s ({a_secs / 20 * 1e3:.1f} ms/iter, host clock), loss "
+          f"{a_hist[0]['loss']:.4f} -> {a_hist[-1]['loss']:.4f} {label}")
+
+    # --------------------------------------------------------------- 23
+    # DP at 257 states x 129 quotas in float64: the MDP and value iteration on
+    # the card ≡ the CPU, then Reed's constant escapement
+    dpm = importlib.import_module("gym_fishing_tpu_torch.agents.dp")
+    t23 = time.perf_counter()
+    d_env, d_gpu = make("fishing-v1", sigma=0.05, dtype=torch.float64)
+    d_cpu = make("fishing-v1", sigma=0.05, dtype=torch.float64, device="cpu")[1]
+    dkw = dict(n_states=257, n_quotas=129)
+    mdps = {"cuda": dpm.build_mdp(d_env, d_gpu, **dkw), "cpu": dpm.build_mdp(d_env, d_cpu, **dkw)}
+    pr_err = max(max_err(getattr(mdps["cuda"], f).cpu(), getattr(mdps["cpu"], f))
+                 for f in ("grid", "quotas", "P", "R"))
+    if not pr_err <= DP_PR_ATOL:
+        fail(f"phase 23: build_mdp on the card vs the CPU: max abs err {pr_err:.3g}")
+    sols, vi_s = {}, {}
+    for d, mdp in mdps.items():
+        t0 = time.perf_counter()
+        sols[d] = dpm.value_iteration(d_env, gamma=0.99, mdp=mdp)
+        float(sols[d].V[1])
+        vi_s[d] = time.perf_counter() - t0
+    v_err = max_err(sols["cuda"].V.cpu(), sols["cpu"].V)
+    if not v_err <= DP_V_ATOL:
+        fail(f"phase 23: value_iteration V on the card vs the CPU: max abs err {v_err:.3g}")
+    sweeps = {d: s.iterations for d, s in sols.items()}
+    if sweeps["cuda"] != sweeps["cpu"]:
+        stop = 1e-6 * (1.0 - 0.99) / 0.99
+        near = abs(float(sols["cpu"].residual) - stop) <= 1e-12 * stop
+        if not (near and abs(sweeps["cuda"] - sweeps["cpu"]) == 1):
+            fail(f"phase 23: value_iteration stopped after {sweeps} sweeps")
+        print(f"phase 23: the residual lies within 1e-12 of the threshold: sweeps {sweeps}")
+    reed_env, reed_p = make("fishing-v1", sigma=0.0, dtype=torch.float64)
+    t0 = time.perf_counter()
+    reed = dpm.value_iteration(reed_env, reed_p, gamma=0.999, tol=1e-3, **dkw)
+    grid, pol = reed.grid.cpu().numpy(), reed.policy_quota.cpu().numpy()
+    reed_s = time.perf_counter() - t0
+    mask = (grid > 0.6) & (grid < 1.5)
+    reed_err = float(np.abs(pol[mask] - np.maximum(grid[mask] - 0.5, 0.0)).max())
+    if not reed_err <= REED_ATOL:
+        fail(f"phase 23: the DP policy is {reed_err:.3g} from constant escapement at K/2")
+    print(f"phase 23: DP 257 x 129 float64: P, R on the card ≡ the CPU within {pr_err:.3g}; "
+          f"value_iteration (gamma 0.99) V within {v_err:.3g}, {sweeps['cuda']} sweeps on both "
+          f"({vi_s['cuda']:.2f} s on the card, {vi_s['cpu']:.2f} s on the CPU); Reed (sigma 0, "
+          f"gamma 0.999, tol 1e-3): {reed.iterations} sweeps in {reed_s:.2f} s, constant "
+          f"escapement within {reed_err:.3g} <= {REED_ATOL} {label}")
+
+    # --------------------------------------------------------------- 24
+    # ES, one generation at its defaults (256 members x 4 envs, Tmax steps):
+    # the card ≡ the CPU from the same perturbations and draws
+    t24 = time.perf_counter()
+    rng = np.random.default_rng(24)
+    ecfg = es.ESConfig()
+    e_env, _ = make("fishing-v1")
+    e0 = es.make_es_state(e_env, ecfg, torch.Generator().manual_seed(24), device="cpu")
+    # the fresh policy's quota takes the whole stock at once, so every member
+    # earns the initial stock and all ranks tie; an output bias of -0.8 makes
+    # the members' harvests, and so their fitness, differ
+    with torch.no_grad():
+        e0.model.out.bias.fill_(-0.8)
+    steps = int(e_env.default_params.Tmax)
+    half, n_e = ecfg.pop_size // 2, ecfg.pop_size * ecfg.envs_per_member
+    e_eps = {n: rng.standard_normal((half,) + tuple(p.shape)).astype(np.float32)
+             for n, p in e0.model.named_parameters()}
+    e_noise = rng.standard_normal((steps, 2, n_e)).astype(np.float32)
+    fit, e_ms = {}, {}
+    for d in (dev, torch.device("cpu")):
+        e_params = make("fishing-v1", device=d)[1]
+        eps_d = {n: torch.from_numpy(x).to(d) for n, x in e_eps.items()}
+        pop = {n: p.detach().to(d)[None] + ecfg.sigma * torch.cat([eps_d[n], -eps_d[n]])
+               for n, p in e0.model.named_parameters()}
+        t0 = time.perf_counter()
+        fit[d.type] = es._episode_returns(e_env, e_params, pop, True, steps,
+                                          ecfg.envs_per_member,
+                                          torch.from_numpy(e_noise).to(d)).cpu()
+        e_ms[d.type] = (time.perf_counter() - t0) * 1e3
+    f_err = max_err(fit["cuda"], fit["cpu"])
+    if not f_err <= ES_ATOL:
+        fail(f"phase 24: ES fitness on the card vs the CPU: max abs err {f_err:.3g}")
+    f = fit["cpu"].double()
+    gap = (f[:, None] - f[None, :]).abs() + torch.eye(len(f), dtype=torch.float64)
+    clear = gap.min(dim=1).values > ES_RANK_GAP
+    ranks = {d: es._centered_ranks(x) for d, x in fit.items()}
+    if not torch.equal(ranks["cuda"][clear], ranks["cpu"][clear]):
+        fail("phase 24: ES ranks differ on the card and the CPU where the fitness is clear")
+    st = es.ESState(model=copy.deepcopy(e0.model).to(dev),
+                    m={k: x.to(dev) for k, x in e0.m.items()},
+                    v={k: x.to(dev) for k, x in e0.v.items()})
+    t0 = time.perf_counter()
+    st, e_met = es.es_train_step(e_env, make("fishing-v1")[1], ecfg, steps, st,
+                                 eps={n: torch.from_numpy(x).to(dev) for n, x in e_eps.items()},
+                                 env_noise=torch.from_numpy(e_noise).to(dev))
+    gen_ms = (time.perf_counter() - t0) * 1e3
+    if not all(bool(torch.isfinite(p).all()) for p in st.model.parameters()):
+        fail("phase 24: ES: a non-finite parameter after one generation")
+    print(f"phase 24: ES {ecfg.pop_size} members x {ecfg.envs_per_member} envs x {steps} steps: "
+          f"fitness on the card ≡ the CPU within {f_err:.3g} (mean "
+          f"{float(fit['cuda'].mean()):.4f}), ranks equal for the {int(clear.sum())} members "
+          f"more than {ES_RANK_GAP} from any other; population rollout {e_ms['cuda']:.1f} ms "
+          f"on the card, {e_ms['cpu']:.1f} ms on the CPU; one generation "
+          f"{gen_ms:.1f} ms (host clock) {label}")
+
+    # --------------------------------------------------------------- 25
+    # the examples' numeric cores at tests/test_examples.py's sizes
+    from gym_fishing_tpu_torch.examples.dp_optimal import dp_report
+    from gym_fishing_tpu_torch.examples.model_uncertainty import uncertainty_rollout
+    from gym_fishing_tpu_torch.examples.simulate_baselines import baseline_trajectories
+    from gym_fishing_tpu_torch.examples.tipping_point import UNSTABLE, basin_stocks
+
+    t25 = time.perf_counter()
+    n_base = 0
+    for env_id, name, _, _, traj in baseline_trajectories(2, dev):
+        if not all(bool(torch.isfinite(x.float()).all()) for x in traj):
+            fail(f"phase 25: simulate_baselines: {env_id} {name} is not finite")
+        n_base += 1
+    if n_base != 2 * len(gtt.registered_ids()):
+        fail(f"phase 25: simulate_baselines ran {n_base} env and policy pairs")
+    stocks = basin_stocks(torch.linspace(0.01, 1.0, 64), 20, dev)
+    if not (bool(torch.isfinite(stocks).all()) and bool((stocks[-1] > UNSTABLE).any())
+            and bool((stocks[-1] < UNSTABLE).any())):
+        fail("phase 25: tipping_point does not reach both basins")
+    n_u, r_u, models_u = uncertainty_rollout(64, 8, 3, dev)
+    if n_u != 64 * 8 * 3 or not np.isfinite(r_u):
+        fail(f"phase 25: model_uncertainty: {n_u} steps, mean reward {r_u}")
+    _, _, rows_dp = dp_report(reps=2, n_states=65, n_quotas=33, device=dev)
+    if not all(rows_dp["dp"][2] >= v - 1e-4 for _, _, v in rows_dp.values()):
+        fail(f"phase 25: dp_optimal: the DP value is below a baseline's: {rows_dp}")
+    print(f"phase 25: examples on the card: simulate_baselines {n_base} pairs, tipping_point "
+          f"{int((stocks[-1] > UNSTABLE).sum())} of 64 recover, model_uncertainty mean reward "
+          f"{r_u:.4f} {models_u}, dp_optimal V^pi(x0) "
+          f"{ {k: round(v[2], 3) for k, v in rows_dp.items()} }; phases 22-25 in "
+          f"{time.perf_counter() - t22:.1f} s")
+
     print(f"chip_smoke: {time.perf_counter() - T_START:.1f} s of command time")
     if "jax" in sys.modules:
         fail("jax was imported")
@@ -1976,6 +2319,44 @@ def main():
             "bfloat16_ms": wide_ms["K4", (256, "fishing-v1", "bfloat16")],
             "categorical_100_ms": wide_ms["K4", (256, "fishing-v0", "float32")],
             "hidden_128_ms": wide_ms["K4", (128, "fishing-v1", "float32")],
+        },
+        {
+            "name": "ppo_grad_kernel (observation windows, obs_dim 6 and 12)",
+            "route": "cuda",
+            "source": "gym_fishing_tpu_torch/csrc/ppo_update_kernel.cu",
+            "replaces": "gym_fishing_tpu/kernels/ppo_update_kernel.py:114",
+            "launches": launches21["update"]["grad"],
+            "max_abs_err": long_err["K2"],
+            "ms": long_ms["K2", (6, 64, "gaussian", "float32")],
+            "plain_ms": long_plain_ms["K2", (6, 64, "gaussian", "float32")],
+            "bound_ms": long_bound[6, 64, "gaussian", "float32"][0],
+            "bound_by": long_bound[6, 64, "gaussian", "float32"][1],
+            "library_ms": lib_ms["float32"],
+            "library_note": "the three 2H-contractions only",
+            "bfloat16_ms": long_ms["K2", (6, 64, "gaussian", "bfloat16")],
+            "obs_dim_12_ms": long_ms["K2", (12, 64, "gaussian", "float32")],
+            "obs_dim_12_bound_ms": long_bound[12, 64, "gaussian", "float32"][0],
+            "hidden_256_ms": long_ms["K2", (6, 256, "gaussian", "float32")],
+            "hidden_256_bound_ms": long_bound[6, 256, "gaussian", "float32"][0],
+        },
+        {
+            "name": "ppo_grad_adam_kernel (observation windows, obs_dim 6 and 12)",
+            "route": "cuda",
+            "source": "gym_fishing_tpu_torch/csrc/ppo_update_kernel.cu",
+            "replaces": "gym_fishing_tpu/kernels/ppo_update_kernel.py:455",
+            "launches": launches21["update+adam"]["adam"],
+            "max_abs_err": long_err["K3"],
+            "ms": long_ms["K3", (6, 64, "gaussian", "float32")],
+            "plain_ms": long_plain_ms["K3", (6, 64, "gaussian", "float32")],
+            "bound_ms": long_bound[6, 64, "gaussian", "float32"][0],
+            "bound_by": long_bound[6, 64, "gaussian", "float32"][1],
+            "library_ms": lib_ms["float32"],
+            "library_note": "the three 2H-contractions only",
+            "bfloat16_ms": long_ms["K3", (6, 64, "gaussian", "bfloat16")],
+            "obs_dim_12_ms": long_ms["K3", (12, 64, "gaussian", "float32")],
+            "obs_dim_12_bound_ms": long_bound[12, 64, "gaussian", "float32"][0],
+            "hidden_256_ms": long_ms["K3", (6, 256, "gaussian", "float32")],
+            "hidden_256_bound_ms": long_bound[6, 256, "gaussian", "float32"][0],
         },
         {
             "name": "policy_rollout_kernel",

@@ -243,25 +243,37 @@ def learning_rate(cfg: PPOConfig, count: int) -> float:
     return cfg.lr * (1.0 - min(max(count, 0), total) / total)
 
 
+def clip_by_global_norm(grads: Dict[str, torch.Tensor], max_norm: float
+                        ) -> Dict[str, torch.Tensor]:
+    """optax.clip_by_global_norm: every gradient scaled by ``max_norm /
+    norm`` only when ``norm >= max_norm``, with no host sync."""
+    norm = torch.sqrt(sum((g * g).sum() for g in grads.values()))
+    keep = norm < max_norm
+    return {name: torch.where(keep, g, g / norm * max_norm) for name, g in grads.items()}
+
+
+def adam_step(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor, v: torch.Tensor, lr: float,
+              count1: int, eps: float = ADAM_EPS):
+    """optax.adam's update of one parameter in place at the incremented count
+    `count1`; returns the new moments (m, v)."""
+    m = (1.0 - ADAM_B1) * g + ADAM_B1 * m
+    v = (1.0 - ADAM_B2) * (g * g) + ADAM_B2 * v
+    bc1 = 1.0 - ADAM_B1 ** count1
+    bc2 = 1.0 - ADAM_B2 ** count1
+    with torch.no_grad():
+        p.add_((m / bc1) / (torch.sqrt(v / bc2) + eps) * (-lr))
+    return m, v
+
+
 def apply_gradients(ts: TrainState, grads: Dict[str, torch.Tensor], cfg: PPOConfig) -> None:
     """optax.chain(clip_by_global_norm(max_grad_norm), adam(lr, eps=ADAM_EPS))
-    in place: the clip scales by ``max_norm / norm`` only when ``norm >=
-    max_norm``; Adam's bias corrections use the incremented count and the
+    in place: Adam's bias corrections use the incremented count and the
     schedule the count before it."""
     lr = learning_rate(cfg, ts.count)
     count1 = ts.count + 1
-    bc1 = 1.0 - ADAM_B1 ** count1
-    bc2 = 1.0 - ADAM_B2 ** count1
-    norm = torch.sqrt(sum((g * g).sum() for g in grads.values()))
-    keep = norm < cfg.max_grad_norm
-    with torch.no_grad():
-        for name, p in ts.model.named_parameters():
-            g = grads[name]
-            g = torch.where(keep, g, g / norm * cfg.max_grad_norm)
-            m = (1.0 - ADAM_B1) * g + ADAM_B1 * ts.m[name]
-            v = (1.0 - ADAM_B2) * (g * g) + ADAM_B2 * ts.v[name]
-            ts.m[name], ts.v[name] = m, v
-            p.add_((m / bc1) / (torch.sqrt(v / bc2) + ADAM_EPS) * (-lr))
+    grads = clip_by_global_norm(grads, cfg.max_grad_norm)
+    for name, p in ts.model.named_parameters():
+        ts.m[name], ts.v[name] = adam_step(p, grads[name], ts.m[name], ts.v[name], lr, count1)
     ts.count = count1
     ts.step += 1
 

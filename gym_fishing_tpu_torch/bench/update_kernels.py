@@ -3,10 +3,13 @@ K3's without its optimizer stage) per minibatch, at the bench's shapes.
 
     python gym_fishing_tpu_torch/bench/update_kernels.py [--root DIR] [--reps N] [--errors]
                                                         [--hidden H] [--n-actions A]
+                                                        [--obs-dim D]
 
 One minibatch is 128 random tiles of 2048 samples out of the packed buffer
-[8, 2^21] of 16384 envs x 128 steps, hidden `--hidden` (default 64), the
-Gaussian head or, with `--n-actions A`, the categorical head of A classes,
+[R, 2^21] of 16384 envs x 128 steps (R = 8 at the default `--obs-dim 1`,
+the fields rounded up to a multiple of 8 otherwise), hidden `--hidden`
+(default 64), the Gaussian head or, with `--n-actions A`, the categorical
+head of A classes,
 timed with CUDA events over `--reps` launches after a warm-up, for compute
 float32 and bfloat16. The launcher is called below the wrapper (no weight merging), so
 the time is the two kernels' and the workspace allocation's.
@@ -91,6 +94,8 @@ def main() -> None:
     ap.add_argument("--hidden", type=int, default=64)
     ap.add_argument("--n-actions", type=int, default=0,
                     help="categorical head of this many classes (default: Gaussian)")
+    ap.add_argument("--obs-dim", type=int, default=1,
+                    help="observation fields (a window of stacked observations)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("update_kernels: needs a CUDA device")
@@ -105,26 +110,27 @@ def main() -> None:
     rng = np.random.default_rng(7)
     gauss = args.n_actions == 0
     head, a = ("gaussian", 1) if gauss else ("categorical", args.n_actions)
-    model = ppo.ActorCritic(1, a, gauss, args.hidden, generator=torch.Generator().manual_seed(3))
+    d = args.obs_dim
+    model = ppo.ActorCritic(d, a, gauss, args.hidden, generator=torch.Generator().manual_seed(3))
     weights = ppo_fused.kernel_weights(dict(model.named_parameters()), head)
     w_flat = uk.flatten_merged(uk.merge_weights(tuple(x.detach().to(dev) for x in weights)))
-    rows = rng.standard_normal((uk.C_PAD, N)).astype(np.float32)
-    rows[0] *= 0.7
+    rows = rng.standard_normal((uk.packed_rows(d + 5), N)).astype(np.float32)
+    rows[:d] *= 0.7
     if not gauss:   # the action row holds the class index
-        rows[1] = rng.integers(0, a, N)
-    rows[2] = -1.0 + 0.3 * rows[2]
-    rows[6:] = 0.0
+        rows[d] = rng.integers(0, a, N)
+    rows[d + 1] = -1.0 + 0.3 * rows[d + 1]
+    rows[d + 5:] = 0.0
     data = torch.from_numpy(rows).to(dev)
     order = torch.from_numpy(rng.permutation(N // TILE)[:MB_TILES].astype(np.int32)).to(dev)
     stats = torch.tensor([0.0, 1.0], device=dev)
 
     out = {"root": os.path.abspath(args.root), "reps": args.reps, "hidden": args.hidden,
-           "head": head, "act_dim": a,
+           "head": head, "act_dim": a, "obs_dim": d, "rows": rows.shape[0],
            "card": subprocess.run(
                ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]}
     for compute in uk.COMPUTES:
-        scal = dict(clip_eps=0.2, vf_coef=0.5, ent_coef=0.0, obs_dim=1, act_dim=a, tile=TILE,
+        scal = dict(clip_eps=0.2, vf_coef=0.5, ent_coef=0.0, obs_dim=d, act_dim=a, tile=TILE,
                     head=head, compute=compute)
         run = lambda: uk._launch(data, order, w_flat, stats, args.hidden, **scal)  # noqa: E731
         for _ in range(5):

@@ -12,9 +12,12 @@ never touches JAX:
 
 `actor_critic_from_numpy` takes the flax ``ActorCritic`` parameter tree as
 nested dicts of numpy arrays (``jax.tree.map(np.asarray, params)``): each
-flax ``kernel [in, out]`` becomes a ``Linear.weight [out, in]``.
-`adam_state_from_numpy` does the same for optax's Adam moments, and
-`actor_critic_to_numpy` goes back, so tests compare in the flax layout.
+flax ``kernel [in, out]`` becomes a ``Linear.weight [out, in]``; A2C's
+network is the same. `deterministic_policy_from_numpy` does the same for
+the ES learner's ``DeterministicPolicy`` (``d1``, ``d2``, ``out``).
+`adam_state_from_numpy` converts optax's Adam moments, and
+`actor_critic_to_numpy` goes back from any module or name -> tensor mapping,
+so tests compare in the flax layout.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from typing import Dict, Mapping, Tuple
 import numpy as np
 import torch
 
+from gym_fishing_tpu_torch.agents.es import DeterministicPolicy
 from gym_fishing_tpu_torch.agents.ppo import ActorCritic
 from gym_fishing_tpu_torch.batch.batch import BatchState
 from gym_fishing_tpu_torch.core.types import EnvParams, EnvState
@@ -97,12 +101,26 @@ def actor_critic_from_numpy(tree: Mapping, compute_dtype=torch.float32,
     hidden, obs_dim = named["pi_d1.weight"].shape
     model = ActorCritic(obs_dim=obs_dim, action_dim=head.shape[0], continuous=continuous,
                         hidden=hidden, compute_dtype=compute_dtype)
+    return _load(model, named, device)
+
+
+def _load(model: torch.nn.Module, named: Mapping[str, np.ndarray], device) -> torch.nn.Module:
     params = dict(model.named_parameters())
     _check_keys(named, tuple(params))
     with torch.no_grad():
         for name, p in params.items():
             p.copy_(torch.as_tensor(np.array(named[name], dtype=np.float32)))
     return model.to(device)
+
+
+def deterministic_policy_from_numpy(tree: Mapping, continuous: bool,
+                                    device=None) -> DeterministicPolicy:
+    """A port DeterministicPolicy loaded with the flax tree's values, on
+    `device` (default: the card); `continuous` as the env's scheme says."""
+    named = _named_from_flax(tree)
+    hidden, obs_dim = named["d1.weight"].shape
+    model = DeterministicPolicy(obs_dim, named["out.weight"].shape[0], continuous, hidden)
+    return _load(model, named, resolve(device))
 
 
 def adam_state_from_numpy(mu: Mapping, nu: Mapping, count

@@ -58,6 +58,10 @@
 //     column for the whole tile. 128 registers a thread is all that 512
 //     threads leave, so the loss recomputes the class probabilities instead
 //     of keeping them.
+//   Above kMaxD observation fields (the BIGD instantiations, for windows of
+//   stacked observations) the threads own dW1c's D x 2H entries instead, and
+//   after one more barrier each adds its entries' share of the chunk from
+//   g_p1 and x in shared memory; W1c is then read from L2.
 //   Each CTA writes its partial gradients and metric sums to a workspace row
 //   [G * kSplit, P + 4].
 //   That plan holds hidden 32 and 64 with at most 16 logits. Hidden 128 and
@@ -120,7 +124,12 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kChunk = 64;  // samples per chunk
 constexpr int kSplit = 2;   // CTAs (workspace rows) per visited tile
 constexpr int kMaxRows = 24;  // rows of the packed matrix: 8, 16 or 24
+// obs_dim: at most kMaxObsD (one action column and the 4 fixed rows in
+// kMaxRows). Up to kMaxD each thread keeps its column's dW1c sums in
+// registers; above it (the BIGD instantiations) threads own entries of the
+// [D][2H] block instead, and W1c is read from L2 rather than shared memory.
 constexpr int kMaxD = 4;
+constexpr int kMaxObsD = kMaxRows - 5;
 constexpr int kMaxA = 16;   // logits width of ppo_grad_tiles (the wide path: kWideMaxA)
 constexpr int kMaxA1 = kMaxA + 1;
 constexpr int kMaxGaussA = kMaxA;  // Gaussian action columns: D + A + 4 <= kMaxRows
@@ -205,7 +214,9 @@ __device__ __forceinline__ void tower_product(const float* __restrict__ A,
   }
 }
 
-template <int H2, bool BF>
+// BIGD: obs_dim above kMaxD (see kMaxObsD). The shared-memory plan is the
+// same; W1c's region there stays unused.
+template <int H2, bool BF, bool BIGD>
 __global__ void __launch_bounds__(kThreads, 1)
     ppo_grad_tiles(const GradParams p, const float* __restrict__ data,
                    const int* __restrict__ order, const float* __restrict__ w,
@@ -287,7 +298,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   for (int i = tid; i < H2 * A1; i += kThreads) sWhT[(i % A1) * H2 + i / A1] = w[L.wh + i];
   for (int i = tid; i < 2 * kMaxA1 * H2; i += kThreads) sdWh[i] = 0.0f;
-  for (int i = tid; i < D * H2; i += kThreads) sW1[i] = w[L.w1 + i];
+  if constexpr (!BIGD)
+    for (int i = tid; i < D * H2; i += kThreads) sW1[i] = w[L.w1 + i];
+  const float* w1 = BIGD ? w + L.w1 : sW1;
   for (int i = tid; i < H2; i += kThreads) {
     sb1[i] = w[L.b1 + i];
     sb2[i] = w[L.b2 + i];
@@ -337,7 +350,12 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int c = 0; c < 4; ++c) facc_w2[i][c] = 0.0f;
   }
   float acc_b1 = 0.0f, acc_b2 = 0.0f;
-  float acc_w1[kMaxD] = {0.0f, 0.0f, 0.0f, 0.0f};
+  // dW1c: this thread's column's D sums, or under BIGD the entries tid,
+  // tid + kThreads, ... of the [D][H2] block
+  constexpr int NW1 = BIGD ? (kMaxObsD * H2 + kThreads - 1) / kThreads : kMaxD;
+  float acc_w1[NW1];
+#pragma unroll
+  for (int k = 0; k < NW1; ++k) acc_w1[k] = 0.0f;
 
   // a chunk's packed samples [R][kChunk] into dst: element e is row
   // e / kChunk, sample e % kChunk, and this thread copies e = tid, tid +
@@ -363,7 +381,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int e = 0; e < EPT; ++e) {
       const int s = es0 + e * SSTEP;
       float z = 0.0f;
-      for (int d = 0; d < D; ++d) z = fmaf(sW1[d * H2 + ecol], x[d * kChunk + s], z);
+      for (int d = 0; d < D; ++d) z = fmaf(w1[d * H2 + ecol], x[d * kChunk + s], z);
       const float h = tanhf(z + sb1[ecol]);
       sH1[s * LD + ecol] = h;
       if constexpr (BF) bH1[s * LDB + ecol] = __float2bfloat16_rn(h);
@@ -541,13 +559,18 @@ __global__ void __launch_bounds__(kThreads, 1)
         const float h1 = sH1[s * LD + pcol];
         const float g = sB[s * LD + pcol] * (1.0f - h1 * h1);
         cb1 += g;
+        if constexpr (BIGD) {
+          sB[s * LD + pcol] = g;  // g_p1, for the dW1c pass below
+        } else {
 #pragma unroll
-        for (int d = 0; d < kMaxD; ++d)
-          if (d < D) cw1[d] = fmaf(x[d * kChunk + s], g, cw1[d]);
+          for (int d = 0; d < kMaxD; ++d)
+            if (d < D) cw1[d] = fmaf(x[d * kChunk + s], g, cw1[d]);
+        }
       }
       acc_b1 += cb1;
+      if constexpr (!BIGD)
 #pragma unroll
-      for (int d = 0; d < kMaxD; ++d) acc_w1[d] += cw1[d];
+        for (int d = 0; d < kMaxD; ++d) acc_w1[d] += cw1[d];
     } else {
       if (w2_thread) {
 #pragma unroll 4
@@ -575,13 +598,36 @@ __global__ void __launch_bounds__(kThreads, 1)
         const float h1 = sH1[s * LD + ecol];
         const float g = sB[s * LD + ecol] * (1.0f - h1 * h1);
         cb1 += g;
+        if constexpr (BIGD) {
+          sB[s * LD + ecol] = g;  // g_p1, for the dW1c pass below
+        } else {
 #pragma unroll
-        for (int d = 0; d < kMaxD; ++d)
-          if (d < D) cw1[d] = fmaf(x[d * kChunk + s], g, cw1[d]);
+          for (int d = 0; d < kMaxD; ++d)
+            if (d < D) cw1[d] = fmaf(x[d * kChunk + s], g, cw1[d]);
+        }
       }
       acc_b1 += cb1;
+      if constexpr (!BIGD)
 #pragma unroll
-      for (int d = 0; d < kMaxD; ++d) acc_w1[d] += cw1[d];
+        for (int d = 0; d < kMaxD; ++d) acc_w1[d] += cw1[d];
+    }
+    if constexpr (BIGD) {
+      // dW1c's share of the chunk, entry (d, c) = sum over its samples of
+      // x[d][s] g_p1[s][c], both read from shared memory (d is the same
+      // across a warp, so x is a broadcast); added to the running sum once
+      __syncthreads();  // g_p1 is complete
+#pragma unroll
+      for (int k = 0; k < NW1; ++k) {
+        const int o = tid + k * kThreads;
+        if (o < D * H2) {
+          const float* xd = x + (o / H2) * kChunk;
+          const float* g = sB + o % H2;
+          float z = 0.0f;
+#pragma unroll 8
+          for (int s = 0; s < kChunk; ++s) z = fmaf(xd[s], g[s * LD], z);
+          acc_w1[k] += z;
+        }
+      }
     }
     cp_async_wait_all();
     __syncthreads();
@@ -609,27 +655,35 @@ __global__ void __launch_bounds__(kThreads, 1)
     // SSTEP threads shared each column of g_p1, as they did of g_p2
     const int slot = BF ? ((warp / 4) * RG + lane / CW) * H2 + pcol : tid;
     stage[S::SCR_B1 + slot] = acc_b1;
+    if constexpr (!BIGD)
 #pragma unroll
-    for (int d = 0; d < kMaxD; ++d) stage[S::SCR_W1 + d * kThreads + slot] = acc_w1[d];
+      for (int d = 0; d < kMaxD; ++d) stage[S::SCR_W1 + d * kThreads + slot] = acc_w1[d];
   }
   __syncthreads();
 
   float* out = ws + (long long)blockIdx.x * (L.P + 4);
   for (int i = tid; i < H2 * H2; i += kThreads)  // the cross-tower blocks are no parameters
     out[L.w2 + i] = (i / H2 < H) == (i % H2 < H) ? stage[(i / H2) * LD + i % H2] : 0.0f;
+  if constexpr (BIGD) {
+#pragma unroll
+    for (int k = 0; k < NW1; ++k)
+      if (tid + k * kThreads < D * H2) out[L.w1 + tid + k * kThreads] = acc_w1[k];
+  }
   if (tid < H2) {
     float zb1 = 0.0f, zb2 = 0.0f, zw[kMaxD] = {0.0f, 0.0f, 0.0f, 0.0f};
     for (int c = 0; c < SSTEP; ++c) {
       zb1 += stage[S::SCR_B1 + c * H2 + tid];
       zb2 += stage[S::SCR_B2 + c * H2 + tid];
+      if constexpr (!BIGD)
 #pragma unroll
-      for (int d = 0; d < kMaxD; ++d) zw[d] += stage[S::SCR_W1 + d * kThreads + c * H2 + tid];
+        for (int d = 0; d < kMaxD; ++d) zw[d] += stage[S::SCR_W1 + d * kThreads + c * H2 + tid];
     }
     out[L.b1 + tid] = zb1;
     out[L.b2 + tid] = zb2;
+    if constexpr (!BIGD)
 #pragma unroll
-    for (int d = 0; d < kMaxD; ++d)
-      if (d < D) out[L.w1 + d * H2 + tid] = zw[d];
+      for (int d = 0; d < kMaxD; ++d)
+        if (d < D) out[L.w1 + d * H2 + tid] = zw[d];
   }
   for (int q = tid; q < H2 * A1; q += kThreads) {
     const int e = (q % A1) * H2 + q / A1;
@@ -693,7 +747,9 @@ struct WideSmem {
 };
 static_assert(WideSmem<512>::BYTES <= 232448, "wide stage 1 exceeds the shared memory of a CTA");
 
-template <int H2, bool BF>
+// BIGD: obs_dim above kMaxD, as in ppo_grad_tiles: W1c is read from L2, and
+// dW1c's chunk shares are added into the workspace row.
+template <int H2, bool BF, bool BIGD>
 __global__ void __launch_bounds__(kThreads, 1)
     ppo_grad_wide(const GradParams p, const float* __restrict__ data,
                   const int* __restrict__ order, const float* __restrict__ w,
@@ -744,7 +800,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   // this CTA's workspace row: zero, then the chunks add into it
   float* row = ws + (long long)blockIdx.x * (L.P + 4);
   for (int i = tid; i < L.P + 4; i += kThreads) row[i] = 0.0f;
-  for (int i = tid; i < D * H2; i += kThreads) sW1[i] = w[L.w1 + i];
+  if constexpr (!BIGD)
+    for (int i = tid; i < D * H2; i += kThreads) sW1[i] = w[L.w1 + i];
+  const float* w1 = BIGD ? w + L.w1 : sW1;
   for (int i = tid; i < H2; i += kThreads) {
     sb1[i] = w[L.b1 + i];
     sb2[i] = w[L.b2 + i];
@@ -794,7 +852,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int e = tid; e < S * H2; e += kThreads) {
       const int s = e / H2, c = e % H2;
       float z = 0.0f;
-      for (int d = 0; d < D; ++d) z = fmaf(sW1[d * H2 + c], x[d * S + s], z);
+      for (int d = 0; d < D; ++d) z = fmaf(w1[d * H2 + c], x[d * S + s], z);
       act0[s * LDA + c] = tanhf(z + sb1[c]);
     }
     __syncthreads();
@@ -1014,9 +1072,20 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int s = 0; s < S; ++s) {
         const double g = act0[s * LDA + tid];
         acc_b1 += g;
+        if constexpr (!BIGD)
 #pragma unroll
-        for (int d = 0; d < kMaxD; ++d)
-          if (d < D) acc_w1[d] = fma((double)x[d * S + s], g, acc_w1[d]);
+          for (int d = 0; d < kMaxD; ++d)
+            if (d < D) acc_w1[d] = fma((double)x[d * S + s], g, acc_w1[d]);
+      }
+    if constexpr (BIGD)
+      // entry (d, c) of the chunk's share in float64, added into the row
+      // (which only this thread writes there) with one rounding
+      for (int o = tid; o < D * H2; o += kThreads) {
+        const float* xd = x + (o / H2) * S;
+        const float* g = act0 + o % H2;
+        double z = 0.0;
+        for (int s = 0; s < S; ++s) z = fma((double)xd[s], (double)g[s * LDA], z);
+        row[L.w1 + o] = (float)((double)row[L.w1 + o] + z);
       }
     cp_async_wait_all();
     __syncthreads();
@@ -1027,9 +1096,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (tid < H2) {
     row[L.b1 + tid] = (float)acc_b1;
     row[L.b2 + tid] = (float)acc_b2;
+    if constexpr (!BIGD)
 #pragma unroll
-    for (int d = 0; d < kMaxD; ++d)
-      if (d < D) row[L.w1 + d * H2 + tid] = (float)acc_w1[d];
+      for (int d = 0; d < kMaxD; ++d)
+        if (d < D) row[L.w1 + d * H2 + tid] = (float)acc_w1[d];
   }
   if (tid <= A) row[L.bh + tid] = (float)acc_bh;
   if (lane == 0)
@@ -1127,7 +1197,7 @@ static int check_params(const GradParams* p) {
   const bool gauss = p->head == GAUSSIAN;
   const int na = gauss ? p->act_dim : 1;
   if ((p->hidden != 32 && p->hidden != 64 && p->hidden != 128 && p->hidden != 256) ||
-      p->obs_dim < 1 || p->obs_dim > kMaxD || p->act_dim < 1 ||
+      p->obs_dim < 1 || p->obs_dim > kMaxObsD || p->act_dim < 1 ||
       p->act_dim > (gauss ? kMaxGaussA : kWideMaxA) ||
       (p->head != GAUSSIAN && p->head != CATEGORICAL) ||
       (p->compute != FLOAT32 && p->compute != BFLOAT16) ||
@@ -1142,46 +1212,54 @@ static int check_params(const GradParams* p) {
 // other size the wide path, whose weights wide_prep lays out first.
 static bool wide_path(int hidden, int act_dim) { return hidden > 64 || act_dim > kMaxA; }
 
-template <int H2, bool BF>
+template <int H2, bool BF, bool BIGD>
 static int launch_tiles(const GradParams* p, const float* data, const int* order,
                         const float* w, const float* adv, float* ws, cudaStream_t st) {
   constexpr size_t bytes = Smem<H2, BF>::BYTES;
   const cudaError_t e = cudaFuncSetAttribute(
-      ppo_grad_tiles<H2, BF>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      ppo_grad_tiles<H2, BF, BIGD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return (int)e;
-  ppo_grad_tiles<H2, BF><<<p->num_tiles * kSplit, kThreads, bytes, st>>>(*p, data, order, w,
-                                                                         adv, ws);
+  ppo_grad_tiles<H2, BF, BIGD><<<p->num_tiles * kSplit, kThreads, bytes, st>>>(
+      *p, data, order, w, adv, ws);
   return (int)cudaGetLastError();
 }
 
-template <int H2, bool BF>
+template <int H2, bool BF, bool BIGD>
 static int launch_wide(const GradParams* p, const float* data, const int* order, const float* w,
                        float* prep, const float* adv, float* ws, cudaStream_t st) {
   constexpr size_t bytes = WideSmem<H2>::BYTES;
   cudaError_t e = launch_wide_prep(w, p->obs_dim, H2 / 2, p->act_dim, BF, false, prep, st);
   if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(ppo_grad_wide<H2, BF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)bytes);
+  e = cudaFuncSetAttribute(ppo_grad_wide<H2, BF, BIGD>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return (int)e;
-  ppo_grad_wide<H2, BF><<<p->num_tiles * kSplit, kThreads, bytes, st>>>(*p, data, order, w,
-                                                                        prep, adv, ws);
+  ppo_grad_wide<H2, BF, BIGD><<<p->num_tiles * kSplit, kThreads, bytes, st>>>(
+      *p, data, order, w, prep, adv, ws);
   return (int)cudaGetLastError();
+}
+
+template <bool BF, bool BIGD>
+static int launch_path(const GradParams* p, const float* data, const int* order,
+                         const float* w, float* prep, const float* adv, float* ws,
+                         cudaStream_t st) {
+  if (!wide_path(p->hidden, p->act_dim))
+    return p->hidden == 64 ? launch_tiles<128, BF, BIGD>(p, data, order, w, adv, ws, st)
+                           : launch_tiles<64, BF, BIGD>(p, data, order, w, adv, ws, st);
+  if (prep == nullptr) return (int)cudaErrorInvalidValue;
+  switch (p->hidden) {
+    case 32: return launch_wide<64, BF, BIGD>(p, data, order, w, prep, adv, ws, st);
+    case 64: return launch_wide<128, BF, BIGD>(p, data, order, w, prep, adv, ws, st);
+    case 128: return launch_wide<256, BF, BIGD>(p, data, order, w, prep, adv, ws, st);
+    default: return launch_wide<512, BF, BIGD>(p, data, order, w, prep, adv, ws, st);
+  }
 }
 
 template <bool BF>
 static int launch_stage1(const GradParams* p, const float* data, const int* order,
                          const float* w, float* prep, const float* adv, float* ws,
                          cudaStream_t st) {
-  if (!wide_path(p->hidden, p->act_dim))
-    return p->hidden == 64 ? launch_tiles<128, BF>(p, data, order, w, adv, ws, st)
-                           : launch_tiles<64, BF>(p, data, order, w, adv, ws, st);
-  if (prep == nullptr) return (int)cudaErrorInvalidValue;
-  switch (p->hidden) {
-    case 32: return launch_wide<64, BF>(p, data, order, w, prep, adv, ws, st);
-    case 64: return launch_wide<128, BF>(p, data, order, w, prep, adv, ws, st);
-    case 128: return launch_wide<256, BF>(p, data, order, w, prep, adv, ws, st);
-    default: return launch_wide<512, BF>(p, data, order, w, prep, adv, ws, st);
-  }
+  return p->obs_dim > kMaxD ? launch_path<BF, true>(p, data, order, w, prep, adv, ws, st)
+                            : launch_path<BF, false>(p, data, order, w, prep, adv, ws, st);
 }
 
 // Stages 1 and 2: gout[P + 4] = (merged gradients, metric sums).

@@ -44,6 +44,11 @@ as float32 FMA in both modes (bf16-rounded inputs under bfloat16). What bounds t
 beside the products is the float32 work around them: the tanh of both
 hidden layers, the head and the loss.
 
+Up to 4 observation fields each thread of stage 1 keeps its column's dW1c
+sums in registers; longer observations (windows of stacked observations, up
+to `KERNEL_MAX_OBS_DIM` fields) take instantiations whose threads own the
+entries of the ``[D, 2H]`` block instead and read W1c from L2.
+
 The kernel takes merged weights whose cross-tower blocks of W2c are zero, as
 `merge_weights` builds them and K3's masked update keeps them, and traps on
 any other; the twins take any W2c.
@@ -79,10 +84,10 @@ ADAM_EPS = 1e-5
 
 # Limits of the CUDA kernel (the twin takes any size).
 KERNEL_HIDDEN = (32, 64, 128, 256)
-KERNEL_MAX_OBS_DIM = 4
+KERNEL_MAX_ROWS = 24         # packed rows: obs_dim + action columns + 4 must fit them
+KERNEL_MAX_OBS_DIM = KERNEL_MAX_ROWS - 5   # 19: one action column and the 4 fixed rows
 KERNEL_MAX_ACT_DIM = 16      # Gaussian action columns
 KERNEL_MAX_LOGITS = 128      # categorical classes
-KERNEL_MAX_ROWS = 24  # = KERNEL_MAX_OBS_DIM + KERNEL_MAX_ACT_DIM + 4
 KERNEL_CHUNK = 64  # samples per chunk inside a tile
 KERNEL_SPLIT = 2   # CTAs, and workspace rows, per visited tile
 

@@ -229,20 +229,11 @@ def test_ppo_grad_kernel_matches_twin(cuda, head, ent_coef, hidden, compute):
     np.testing.assert_allclose(met.cpu().numpy(), met_ref.cpu().numpy(), rtol=2e-4, atol=1e-6)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
-@pytest.mark.parametrize("head,obs_dim,act_dim,rows", [
-    ("gaussian", 4, 1, 16),       # stack_observations(env, 4): 9 fields
-    ("categorical", 4, 3, 16),
-    ("gaussian", 2, 9, 16),
-    ("gaussian", 4, 16, 24),      # the widest the kernel takes
-])
-def test_ppo_grad_kernels_take_16_and_24_rows(cuda, head, obs_dim, act_dim, rows, compute):
-    """K2 and K3 read packed matrices of 16 and 24 rows (obs_dim up to 4,
-    Gaussian actions up to 16) and equal their twins there, under the
-    obs_dim = 1 bars."""
-    weights, data, a = _ppo_case(head, 64 * 256, 64, seed=8, obs_dim=obs_dim, act_dim=act_dim)
-    assert data.shape[0] == rows
+def _assert_k2_k3_match_twins(cuda, weights, data, a, obs_dim, head, compute, count5=False):
+    """K2 and K3 on 8 tiles of 256 samples against their twins, under the
+    obs_dim = 1 bars; one launch each. K3 starts from zero moments at the
+    first count, or with `count5` from small random moments at count 5 (as
+    the wide-width test and chip_smoke phase 9 do)."""
     data, weights = data.to(cuda), tuple(w.to(cuda) for w in weights)
     order = torch.tensor([9, 0, 63, 17, 5, 40, 33, 2], dtype=torch.int32, device=cuda)
     adv_stats = torch.tensor([0.05, 1.1], device=cuda)
@@ -252,11 +243,16 @@ def test_ppo_grad_kernels_take_16_and_24_rows(cuda, head, obs_dim, act_dim, rows
     g, met = uk.fused_minibatch_grad(data, order, weights, adv_stats, **kw)
     g_ref, met_ref = uk.fused_minibatch_grad_reference(data, order, weights, adv_stats, **kw)
     w = uk.merge_weights(weights)
-    zeros = tuple(torch.zeros_like(x) for x in w)
-    akw = dict(kw, lr=3e-4, bc1=0.1, bc2=0.001, max_grad_norm=0.5)
-    *new, met_a = uk.fused_minibatch_grad_adam(data, order, w, zeros, zeros, adv_stats, **akw)
-    *ref, _ = uk.fused_minibatch_grad_adam_reference(data, order, w, zeros, zeros, adv_stats,
-                                                     **akw)
+    if count5:
+        gen = torch.Generator().manual_seed(3)
+        m = tuple((0.01 * torch.randn(x.shape, generator=gen)).to(cuda) for x in w)
+        v = tuple((1e-4 * torch.rand(x.shape, generator=gen)).to(cuda) for x in w)
+        akw = dict(kw, lr=3e-4, bc1=1 - 0.9 ** 5, bc2=1 - 0.999 ** 5, max_grad_norm=0.5)
+    else:
+        m = v = tuple(torch.zeros_like(x) for x in w)
+        akw = dict(kw, lr=3e-4, bc1=0.1, bc2=0.001, max_grad_norm=0.5)
+    *new, met_a = uk.fused_minibatch_grad_adam(data, order, w, m, v, adv_stats, **akw)
+    *ref, _ = uk.fused_minibatch_grad_adam_reference(data, order, w, m, v, adv_stats, **akw)
     assert (uk.grad_launches, uk.adam_launches) == (before[0] + 1, before[1] + 1)
     torch.cuda.synchronize()
     _assert_buffers_close(g, g_ref)
@@ -265,6 +261,56 @@ def test_ppo_grad_kernels_take_16_and_24_rows(cuda, head, obs_dim, act_dim, rows
     _assert_buffers_close([n - o for n, o in zip(new[0], w)], [r - o for r, o in zip(ref[0], w)])
     for got, want in zip(new[1:], ref[1:]):
         _assert_buffers_close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+@pytest.mark.parametrize("head,obs_dim,act_dim,rows", [
+    ("gaussian", 4, 1, 16),       # stack_observations(env, 4): 9 fields
+    ("categorical", 4, 3, 16),
+    ("gaussian", 2, 9, 16),
+    ("gaussian", 4, 16, 24),      # the widest Gaussian action the kernel takes
+])
+def test_ppo_grad_kernels_take_16_and_24_rows(cuda, head, obs_dim, act_dim, rows, compute):
+    """K2 and K3 read packed matrices of 16 and 24 rows (Gaussian actions up
+    to 16) and equal their twins there, under the obs_dim = 1 bars."""
+    weights, data, a = _ppo_case(head, 64 * 256, 64, seed=8, obs_dim=obs_dim, act_dim=act_dim)
+    assert data.shape[0] == rows
+    _assert_k2_k3_match_twins(cuda, weights, data, a, obs_dim, head, compute)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+@pytest.mark.parametrize("obs_dim,rows", [(6, 16), (12, 24), (19, 24)])
+@pytest.mark.parametrize("hidden,head,act_dim", [
+    (64, "gaussian", None), (64, "categorical", None),     # ppo_grad_tiles
+    (256, "gaussian", None), (64, "categorical", 100),     # ppo_grad_wide
+])
+def test_ppo_grad_kernels_take_long_observations(cuda, hidden, head, act_dim, obs_dim, rows,
+                                                 compute):
+    """Observation windows of more than 4 fields (6 is pomdp_policies.py's
+    default window, 19 the most that 24 rows hold beside one action column)
+    on both paths of the kernel: K2 and K3 equal their twins. K3 from
+    moments at count 5: a first Adam step from zero moments moves each
+    weight by g / (|g| + eps) lr, which for the many dW1c entries within a
+    bf16 rounding of eps = 1e-5 turns a rounding of g into a step of order
+    lr."""
+    weights, data, a = _ppo_case(head, 64 * 256, hidden, seed=9, obs_dim=obs_dim,
+                                 act_dim=act_dim)
+    assert data.shape[0] == rows
+    _assert_k2_k3_match_twins(cuda, weights, data, a, obs_dim, head, compute, count5=True)
+
+
+@pytest.mark.cuda
+def test_ppo_grad_kernel_refuses_20_observation_fields_before_the_launch(cuda):
+    weights, data, a = _ppo_case("gaussian", 64 * 256, 64, seed=8, obs_dim=20)
+    before = uk.grad_launches
+    with pytest.raises(ValueError, match="the CUDA kernel takes obs_dim <= 19"):
+        uk.fused_minibatch_grad(data.to(cuda), torch.arange(4, dtype=torch.int32, device=cuda),
+                                tuple(w.to(cuda) for w in weights),
+                                torch.tensor([0.0, 1.0], device=cuda), clip_eps=0.2,
+                                vf_coef=0.5, ent_coef=0.0, obs_dim=20, act_dim=a, tile=256)
+    assert uk.grad_launches == before
 
 
 @pytest.mark.cuda
@@ -333,6 +379,12 @@ def test_ppo_grad_kernel_refuses_wider_sizes_before_the_launch(cuda, hidden, act
     assert uk.grad_launches == before
 
 
+def _float32_accuracy_case(cuda, head, hidden, act_dim, obs_dim=1):
+    weights, data, a = _ppo_case(head, 64 * 256, hidden, seed=6, obs_dim=obs_dim,
+                                 act_dim=act_dim)
+    _assert_float32_accuracy(cuda, weights, data, a, hidden, head, obs_dim)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("hidden,head,act_dim", [(32, "gaussian", None), (64, "gaussian", None),
                                                  (32, "categorical", None),
@@ -342,11 +394,26 @@ def test_ppo_grad_kernel_float32_keeps_float32_accuracy(cuda, head, hidden, act_
     """The float32 mode stays float32-accurate: a TF32 pass in any of its
     products would keep three digits and fail this bar by ~1000x, and even
     the tensor cores' truncating accumulator fails it in the value tower."""
-    weights, data, a = _ppo_case(head, 64 * 256, hidden, seed=6, act_dim=act_dim)
+    _float32_accuracy_case(cuda, head, hidden, act_dim)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("obs_dim", [6, 12, 19])
+@pytest.mark.parametrize("hidden,head,act_dim", [(64, "gaussian", None), (256, "gaussian", None),
+                                                 (64, "categorical", 100)])
+def test_ppo_grad_kernel_float32_accuracy_on_long_observations(cuda, head, hidden, act_dim,
+                                                              obs_dim):
+    """The same bar where dW1c's entries are owned by the threads (more than
+    4 observation fields): each chunk's share is summed once, not sample by
+    sample into a running float32 sum."""
+    _float32_accuracy_case(cuda, head, hidden, act_dim, obs_dim)
+
+
+def _assert_float32_accuracy(cuda, weights, data, a, hidden, head, obs_dim):
     data, weights = data.to(cuda), tuple(w.to(cuda) for w in weights)
     order = torch.arange(0, 64, dtype=torch.int32, device=cuda)
     adv_stats = torch.tensor([0.05, 1.1], device=cuda)
-    kw = dict(clip_eps=0.2, vf_coef=0.5, ent_coef=0.01, obs_dim=1, act_dim=a, tile=256,
+    kw = dict(clip_eps=0.2, vf_coef=0.5, ent_coef=0.01, obs_dim=obs_dim, act_dim=a, tile=256,
               head=head, compute="float32")
     g, _ = uk.fused_minibatch_grad(data, order, weights, adv_stats, **kw)
     twin, _ = uk.fused_minibatch_grad_reference(data, order, weights, adv_stats, **kw)
@@ -398,11 +465,24 @@ def test_ppo_update_kernels_are_deterministic(cuda, adam, hidden):
     """Stage 2 sums the per-tile partials in index order and no float atomic
     is used (the wide path adds each chunk into its CTA's own row): two
     identical launches give identical bits."""
-    weights, data, a = _ppo_case("gaussian", 64 * 256, hidden, seed=4)
+    _assert_deterministic(cuda, adam, hidden, obs_dim=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden", [64, 256])
+@pytest.mark.parametrize("adam", [False, True])
+def test_ppo_update_kernels_are_deterministic_at_24_rows(cuda, adam, hidden):
+    """The same at 12 observation fields (24 rows), where the threads own
+    dW1c's entries."""
+    _assert_deterministic(cuda, adam, hidden, obs_dim=12)
+
+
+def _assert_deterministic(cuda, adam, hidden, obs_dim):
+    weights, data, a = _ppo_case("gaussian", 64 * 256, hidden, seed=4, obs_dim=obs_dim)
     data, weights = data.to(cuda), tuple(w.to(cuda) for w in weights)
     order = torch.arange(0, 64, 2, dtype=torch.int32, device=cuda)
     stats = torch.tensor([0.0, 1.0], device=cuda)
-    kw = dict(clip_eps=0.2, vf_coef=0.5, ent_coef=0.0, obs_dim=1, act_dim=a, tile=256)
+    kw = dict(clip_eps=0.2, vf_coef=0.5, ent_coef=0.0, obs_dim=obs_dim, act_dim=a, tile=256)
     if adam:
         w = uk.merge_weights(weights)
         zeros = tuple(torch.zeros_like(x) for x in w)
@@ -636,10 +716,12 @@ def _train(env, params, cfg, ts, bstate, gen, n):
 
 
 @pytest.mark.cuda
-def test_stacked_update_adam_step_equals_plain(cuda):
-    """One train step on an observation window of 4 (16 packed rows) at 1
-    epoch x 1 minibatch: K3's step equals the plain form's from the same
-    draws, under chip_smoke.py phase 10's bars."""
+@pytest.mark.parametrize("k", [4, 6])
+def test_stacked_update_adam_step_equals_plain(cuda, k):
+    """One train step on an observation window of 4 or 6 (16 packed rows; 6
+    takes the instantiations for more than 4 observation fields) at 1 epoch
+    x 1 minibatch: K3's step equals the plain form's from the same draws,
+    under chip_smoke.py phase 10's bars."""
     import dataclasses
 
     from gym_fishing_tpu_torch.agents import ppo
@@ -647,7 +729,7 @@ def test_stacked_update_adam_step_equals_plain(cuda):
     from gym_fishing_tpu_torch.envs.wrappers import stack_observations
 
     env, params = gtt.make("fishing-may-obs-v1", device=cuda)
-    env = stack_observations(env, 4)
+    env = stack_observations(env, k)
     base = ppo.PPOConfig(num_envs=2048, num_steps=32, epochs=1, num_minibatches=1)
     out = {}
     before = uk.adam_launches

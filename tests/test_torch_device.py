@@ -188,10 +188,10 @@ def test_stage1_rows(num_tiles):
     (64, 1, 1, 2048, "gaussian", True), (32, 4, 16, 64, "gaussian", True),
     (64, 1, 3, 128, "categorical", True), (128, 1, 1, 2048, "gaussian", True),
     (256, 4, 16, 2048, "gaussian", True), (256, 1, 128, 2048, "categorical", True),
-    (32, 1, 100, 64, "categorical", True),
+    (32, 1, 100, 64, "categorical", True), (64, 5, 1, 2048, "gaussian", True),
     (64, 1, 1, 32, "gaussian", False), (64, 1, 1, 96, "gaussian", False),
     (48, 1, 1, 2048, "gaussian", False), (512, 1, 1, 2048, "gaussian", False),
-    (64, 5, 1, 2048, "gaussian", False), (64, 1, 17, 2048, "gaussian", False),
+    (64, 20, 1, 2048, "gaussian", False), (64, 1, 17, 2048, "gaussian", False),
     (256, 1, 129, 2048, "categorical", False),
 ])
 def test_kernel_limits(hidden, obs_dim, act_dim, tile, head, ok):

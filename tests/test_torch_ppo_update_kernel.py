@@ -300,15 +300,15 @@ def test_wrapper_rejects_bad_inputs(bad):
 
 # ------------------------------------------------ 16 packed rows (obs_dim 4)
 
-def _case_obs4(head, ent_coef=0.01, seed=0, n=512):
-    """A stacked env's minibatch: obs windows of 4, so 9 fields (Gaussian, or
-    categorical with the class index as one column) that pad to 16 rows.
-    (cfg, params, packed [n, 9], act_dim)."""
+def _case_obs4(head, ent_coef=0.01, seed=0, n=512, k=4):
+    """A stacked env's minibatch: obs windows of k (default 4, so 9 fields,
+    Gaussian or categorical with the class index as one column, that pad to
+    16 rows). (cfg, params, packed [n, k + 5], act_dim)."""
     from gym_fishing_tpu import registry
     from gym_fishing_tpu.envs.wrappers import stack_observations
 
     env = stack_observations(registry.make("fishing-may-obs-v1" if head == "gaussian"
-                                           else "fishing-v0")[0], 4)
+                                           else "fishing-v0")[0], k)
     cfg = jppo.PPOConfig(hidden=64, ent_coef=ent_coef)
     keys = jax.random.split(jax.random.key(seed), 8)
     ts = jppo.make_train_state(env, cfg, keys[0])
@@ -316,7 +316,7 @@ def _case_obs4(head, ent_coef=0.01, seed=0, n=512):
     params = jax.tree.unflatten(tdef, [
         x + 0.05 * jax.random.normal(k, x.shape, x.dtype)
         for x, k in zip(leaves, jax.random.split(keys[1], len(leaves)))])
-    obs = 0.7 * jax.random.normal(keys[2], (n, 4), jnp.float32)
+    obs = 0.7 * jax.random.normal(keys[2], (n, k), jnp.float32)
     dist, value = ts.apply_fn(params, obs)
     if head == "gaussian":
         log_std = params["params"]["log_std"]
@@ -352,6 +352,29 @@ def test_twin_at_obs_dim_4_matches_jax_kernel(head, compute):
     kernel (interpret mode) there, under the obs_dim = 1 tolerances."""
     cfg, params, packed, a = _case_obs4(head, seed=2)
     kw = dict(obs_dim=4, act_dim=a, tile=128, head=head, compute=compute)
+    j_grads, j_met = jfused.fused_grad(params, jfused.pack_feature_major(packed), cfg.clip_eps,
+                                       cfg.vf_coef, cfg.ent_coef, interpret=True, **kw)
+    model = actor_critic_from_numpy(_np(params))
+    grads, met = ppo_fused.fused_grad(dict(model.named_parameters()), _packed_t(packed),
+                                      cfg.clip_eps, cfg.vf_coef, cfg.ent_coef, **kw)
+    tol = dict(rtol=2e-4, atol=2e-6) if compute == "float32" else dict(rtol=2e-3, atol=2e-5)
+    _assert_trees_close(actor_critic_to_numpy(grads), j_grads, **tol)
+    for name in ("loss", "pg_loss", "v_loss", "entropy", "approx_kl"):
+        np.testing.assert_allclose(float(met[name]), float(j_met[name]), rtol=2e-4, atol=2e-6,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+@pytest.mark.parametrize("head", ["gaussian", "categorical"])
+@pytest.mark.parametrize("k,rows", [(6, 16), (12, 24)])
+def test_twin_at_long_observations_matches_jax_kernel(k, rows, head, compute):
+    """Windows of 6 and 12 observations (11 and 17 fields: 16 and 24 rows),
+    which the CUDA kernel takes since it owns dW1c's entries by thread: the
+    twin equals the JAX kernel (interpret mode) under the obs_dim = 1
+    tolerances."""
+    cfg, params, packed, a = _case_obs4(head, seed=5, k=k)
+    assert _packed_t(packed).shape[0] == rows
+    kw = dict(obs_dim=k, act_dim=a, tile=128, head=head, compute=compute)
     j_grads, j_met = jfused.fused_grad(params, jfused.pack_feature_major(packed), cfg.clip_eps,
                                        cfg.vf_coef, cfg.ent_coef, interpret=True, **kw)
     model = actor_critic_from_numpy(_np(params))

@@ -207,3 +207,14 @@ def test_train_step_on_the_stacked_env_matches_jax(form):
     pair = _step_pair("gaussian", form, env_id="fishing-may-obs-v1", stack=4)
     assert pair[1][0].model.pi_d1.weight.shape[1] == 4
     _assert_steps_agree(pair)
+
+
+@pytest.mark.parametrize("form", ["update", "adam"])
+def test_fused_train_step_on_a_window_of_6_matches_jax(form):
+    """One PPO train step with fused_update=True on stack_observations(
+    fishing-v1, 6) (11 fields in 16 packed rows, beyond the 4 observation
+    fields the CUDA kernel once took) from the same weights and JAX's own
+    draws and tile permutations."""
+    pair = _step_pair("gaussian", form, env_id="fishing-v1", stack=6)
+    assert pair[1][0].model.pi_d1.weight.shape[1] == 6
+    _assert_steps_agree(pair)
