@@ -12,7 +12,9 @@ observation window of 4 (the POMDP remedy); checkpoint and resume; the
 evaluation API; model uncertainty and the gym adapters; the kernels' wide
 path and PPO at hidden 256, also on fishing-v0's grid of 100 quotas; the
 kernels' own random numbers; observation windows of 6 and 12; the A2C, DP
-and ES learners and the examples. Phases, each of which raises on failure:
+and ES learners and the examples; the recurrent PPO, SAC, DQN and TD3 at
+their defaults and the sb3-style facades, the PPO facade on the kernel path
+(K4 and K3). Phases, each of which raises on failure:
 
 1. device: a CUDA device is required; prints the card's name and power limit;
 2. build: nvcc builds csrc/ppo_update_kernel.cu, csrc/policy_rollout_kernel.cu
@@ -122,13 +124,40 @@ and ES learners and the examples. Phases, each of which raises on failure:
     fitness and ranks on the card ≡ the CPU from the same perturbations and
     draws;
 25. the four ported examples' numeric cores at tests/test_examples.py's
-    sizes.
+    sizes;
+26. SAC at its defaults (256 envs, buffer 2^17, batch 4096, hidden 64): one
+    sac_train_step on the card ≡ the same step on the CPU from the same
+    injected draws and a partly filled buffer (every weight, moment, target,
+    buffer row and count), then 200 steps timed;
+27. DQN on fishing-v0 (relative) and on the proportional grid of 100 quotas,
+    at its defaults, as phase 26;
+28. TD3 at its defaults, as phase 26; the checked step's update steps the
+    delayed actor;
+29. recurrent PPO: one train_step on the card ≡ the CPU at
+    pomdp_policies.py's configuration (fishing-v1, sigma 0.02, sigma_m 0.15,
+    256 x 32, 2 x 4, hidden 32, ent 0.003) from the same draws and
+    permutations; ms per iteration there and at the defaults (256 x 64,
+    4 x 4, hidden 64);
+30. the facade on the kernel path: PPO("MlpPolicy", "fishing-v1",
+    num_envs=4096, num_steps=128, fused full + adam).learn(2_000_000), 4
+    iterations with launch counting (1 K4 and 32 K3 launches each), saved
+    after 2; the loaded model's 2 more iterations ≡ the uninterrupted run's,
+    bit for bit; then, from the trained facade's weights, moments and env
+    state, K4 at B=4096 T=128 and K3 on one of its minibatches (2^16
+    samples, 32 tiles) ≡ their twins; the SAC, TD3 and DQN facades at their
+    defaults: 10 steps, save, 10 more ≡ the loaded model's 10; ms per
+    iteration of each;
+31. the two new examples' numeric cores (pomdp_policies, train_ppo plain
+    and fused full + adam) at tests/test_examples.py's sizes, and K4 (B=64
+    T=16) and K3 (a minibatch of 128 samples, one tile of 128) ≡ their
+    twins at train_ppo full + adam's shapes.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Any failure exits non-zero before either.
 It never imports JAX.
 """
 
+import copy
 import dataclasses
 import json
 import math
@@ -666,6 +695,364 @@ def compare_k4(ker, ref, what, categorical, bf16=False, B=B_PPO, T=T_PPO):
     if ker.next_offset != ref.next_offset:
         fail(f"{what}: next_offset {ker.next_offset} != {ref.next_offset}")
     return max(errs.values()), flipped
+
+
+# phases 26-31: the recurrent PPO, the off-policy learners and the facades at
+# their JAX defaults. Card ≡ CPU after one step from the same injected draws:
+# float32 sums in another order move a first Adam step by a fraction of lr
+# only where a gradient is near eps, far below 1e-5 (as A2C_ATOL).
+SLICE_ATOL = 1e-5
+
+
+def to_device(tree, device):
+    """A copy of a learner state (dataclasses, modules, dicts, tensors) on
+    `device`; host numbers stay as they are."""
+    if isinstance(tree, torch.nn.Module):
+        return copy.deepcopy(tree).to(device)
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{f.name: to_device(getattr(tree, f.name), device)
+                                            for f in dataclasses.fields(tree)})
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    return tree
+
+
+def state_diff(a, b):
+    """(max abs difference of the float tensors, names of the other leaves
+    that differ) between two learner states of one structure."""
+    from gym_fishing_tpu_torch.utils.checkpoint import _flatten
+
+    la, lb = dict(_flatten(a)), dict(_flatten(b))
+    if la.keys() != lb.keys():
+        fail(f"state structures differ: {sorted(set(la) ^ set(lb))[:6]}")
+    err, other = 0.0, []
+    for k, x in la.items():
+        y = lb[k]
+        if isinstance(x, torch.Tensor) and x.is_floating_point():
+            err = max(err, max_err(x.detach().cpu(), y.detach().cpu()))
+        elif isinstance(x, torch.Tensor):
+            other += [] if torch.equal(x.cpu(), y.cpu()) else [k]
+        elif x != y:
+            other.append(k)
+    return err, other
+
+
+def facade_leaves(model):
+    """Every leaf of a facade's training tuple, the generator's state
+    included, on the host."""
+    from gym_fishing_tpu_torch.utils.checkpoint import _flatten
+
+    tree = dict(model._checkpoint_tree(), generator=model.generator,
+                num_timesteps=model.num_timesteps)
+    return {k: (v.get_state() if isinstance(v, torch.Generator)
+                else v.detach().cpu() if isinstance(v, torch.Tensor) else v)
+            for k, v in _flatten(tree)}
+
+
+def check_resumed(what, straight, resumed):
+    """Bit-identity of two facades' training tuples and last metrics."""
+    a, b = facade_leaves(straight), facade_leaves(resumed)
+    bad = [k for k in a if (not torch.equal(a[k], b[k]) if isinstance(a[k], torch.Tensor)
+                            else a[k] != b[k])]
+    n = len(resumed.history)
+    same = all(np.array_equal(list(g.values()), list(w.values()), equal_nan=True)
+               for g, w in zip(resumed.history, straight.history[-n:]))
+    if bad or not same:
+        fail(f"{what}: the loaded model's run differs from the uninterrupted one in "
+             f"{bad[:6]} (metrics equal: {same})")
+    return len(a)
+
+
+def check_facade_kernels(model, what):
+    """K4 and K3 against their twins at a fused PPO facade's own shapes, from
+    its current weights, moments and env state: one rollout of its B envs x
+    T steps from a seed, then one K3 minibatch of that rollout's samples
+    (old log-probs and values jittered), cut into tiles as
+    `fused_epoch_scan_adam` cuts them. Returns (K4's
+    largest error, envs that left the twin's trajectory, K3's largest error,
+    samples per minibatch, tile)."""
+    from gym_fishing_tpu_torch.agents import ppo, ppo_fused
+    from gym_fishing_tpu_torch.kernels import policy_rollout_kernel as pk
+    from gym_fishing_tpu_torch.kernels import ppo_update_kernel as uk
+
+    cfg, env, ts, bs = model.cfg, model.env, model.train_state, model._bstate
+    gauss = env.config.scheme == "continuous"
+    head = "gaussian" if gauss else "categorical"
+    act_dim = 1 if gauss else env.config.n_actions
+    scal = ppo_fused.rollout_scalars(model.env_params, 2026, 7)
+    args = (bs.env.stock.float().contiguous(), bs.env.t.to(torch.int32).contiguous(),
+            bs.env.harvest.float().contiguous(), bs.episode_return.float().contiguous(),
+            bs.episode_length.to(torch.int32).contiguous(),
+            ppo_fused.kernel_weights(ts.params(), head), scal, cfg.num_steps)
+    kw = dict(growth=env.config.growth, noise_form=env.config.noise_form, gamma=cfg.gamma,
+              gae_lambda=cfg.gae_lambda, scheme=env.config.scheme,
+              n_actions=env.config.n_actions, obs_noise=scal.sigma_m > 0.0,
+              compute=cfg.compute_dtype, fold_obs=cfg.rollout_fold_obs)
+    ker = pk.policy_rollout(*args, **kw)
+    ref = pk.policy_rollout_reference(*args, **kw)
+    torch.cuda.synchronize()
+    k4_err, left = compare_k4(ker, ref, f"{what}: K4", not gauss,
+                              cfg.compute_dtype == "bfloat16", B=cfg.num_envs, T=cfg.num_steps)
+
+    # at the weights that collected them the ratio is 1, so the policy-loss
+    # and KL sums are rounding noise around 0: old log-probs and values are
+    # spread as in phase 8, so every clip branch is visited
+    data = ref.packed_t.clone()
+    jitter = np.random.default_rng(30).standard_normal((2, data.shape[1])).astype(np.float32)
+    data[2:4] += 0.3 * torch.from_numpy(jitter).to(data.device)
+    tile, per_mb, t_sum, t_sq = ppo_fused._tiling(cfg, data, 1, act_dim, head)
+    order = torch.randperm(t_sum.shape[0], generator=torch.Generator().manual_seed(30))
+    order = order[:per_mb].to(data.device, torch.int32)
+    stats = ppo_fused._adv_stats(t_sum, t_sq, order, per_mb * tile)
+    w, m, v = (uk.merge_weights(ppo_fused.kernel_weights(x, head))
+               for x in (ts.params(), ts.m, ts.v))
+    count1 = ts.count + 1
+    kw3 = dict(clip_eps=cfg.clip_eps, vf_coef=cfg.vf_coef, ent_coef=cfg.ent_coef,
+               lr=ppo.learning_rate(cfg, ts.count), bc1=1.0 - uk.ADAM_B1 ** count1,
+               bc2=1.0 - uk.ADAM_B2 ** count1, obs_dim=1, act_dim=act_dim, tile=tile,
+               head=head, compute=cfg.compute_dtype, max_grad_norm=cfg.max_grad_norm)
+    *new, met = uk.fused_minibatch_grad_adam(data, order, w, m, v, stats, **kw3)
+    *twin, met_ref = uk.fused_minibatch_grad_adam_reference(data, order, w, m, v, stats, **kw3)
+    torch.cuda.synchronize()
+    # the weights through their update (~lr), the moments as they are
+    k3_err = max(check_buffers([x - y for x, y in zip(new[0], w)],
+                               [x - y for x, y in zip(twin[0], w)], f"{what}: K3 dw"),
+                 check_buffers(new[1], twin[1], f"{what}: K3 m"),
+                 check_buffers(new[2], twin[2], f"{what}: K3 v"))
+    check_metrics(met, met_ref, f"{what}: K3")
+    return k4_err, left, k3_err, per_mb * tile, tile
+
+
+def slice_phases(dev, label, counts, reset_counts):
+    """Phases 26-31; returns phase 30's launch counts per kernel (in all
+    and in the first iteration) and the largest K4 and K3 errors at the
+    facades' shapes."""
+    import tempfile
+
+    from gym_fishing_tpu_torch import make
+    from gym_fishing_tpu_torch.agents import DQN, PPO, SAC, TD3, dqn, ppo_rnn, sac, td3
+    from gym_fishing_tpu_torch.batch import batched_reset
+
+    cpu = torch.device("cpu")
+    rng = np.random.default_rng(26)
+
+    def off_policy(phase, name, cfg, env_id, make_state, step, draws, overrides=None, fill=8,
+                   n_steps=200):
+        t0 = time.perf_counter()
+        overrides = overrides or {}
+        env, p_dev = make(env_id, device=dev, **overrides)
+        p_cpu = make(env_id, device="cpu", **overrides)[1]
+        state = make_state(env, cfg, torch.Generator().manual_seed(phase), p_dev, dev)
+        gen = torch.Generator(device=dev).manual_seed(phase)
+        for _ in range(fill):
+            state, _ = step(env, p_dev, cfg, state, gen)
+        before = to_device(state, cpu)
+        filled = state.buffer.size
+        size = min(filled + cfg.num_envs, cfg.buffer_size)
+        d = draws(cfg, size)
+        (card_st, card_met), (cpu_st, cpu_met) = (
+            step(env, p, cfg, st, **{k: torch.from_numpy(v).to(device) for k, v in d.items()})
+            for device, st, p in ((dev, state, p_dev), (cpu, before, p_cpu)))
+        err, other = state_diff(card_st, cpu_st)
+        met_err = max(abs(float(card_met[k]) - float(cpu_met[k]))
+                      for k in cpu_met if np.isfinite(float(cpu_met[k])))
+        if other or not err <= SLICE_ATOL or not met_err <= SLICE_ATOL:
+            fail(f"phase {phase}: {name} one step on the card vs the CPU: max abs err {err:.3g} "
+                 f"of the state, {met_err:.3g} of the metrics, other leaves differing {other}")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(n_steps):
+            state, met = step(env, p_dev, cfg, state, gen)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t1) / n_steps * 1e3
+        if not all(np.isfinite(float(v)) for k, v in met.items() if k != "episode_return"):
+            fail(f"phase {phase}: {name}: a non-finite metric after {n_steps} steps")
+        print(f"phase {phase}: {name} {cfg.num_envs} envs, buffer {cfg.buffer_size}, batch "
+              f"{cfg.batch_size}, hidden {cfg.hidden}: one step on the card ≡ the CPU from the "
+              f"same draws after {fill} steps ({filled} rows in the buffer): max abs err "
+              f"{err:.3g} (state), {met_err:.3g} (metrics) <= {SLICE_ATOL}; "
+              f"{n_steps} steps at {ms:.3f} ms/step (host clock); phase "
+              f"{time.perf_counter() - t0:.1f} s {label}")
+        return state, ms
+
+    def normals(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+
+    def indices(cfg, size):
+        return rng.integers(0, size, (cfg.updates_per_step, cfg.batch_size))
+
+    # --------------------------------------------------------------- 26
+    scfg = sac.SACConfig()
+    off_policy(26, "SAC fishing-v1", scfg, "fishing-v1", sac.make_sac_state,
+               sac.sac_train_step, lambda c, s: dict(
+                   act_noise=normals(c.num_envs, 1), env_noise=normals(2, c.num_envs),
+                   sample_idx=indices(c, s),
+                   target_noise=normals(c.updates_per_step, c.batch_size, 1),
+                   actor_noise=normals(c.updates_per_step, c.batch_size, 1)))
+
+    # --------------------------------------------------------------- 27
+    dcfg = dqn.DQNConfig()
+    for what, overrides in (("relative", {}),
+                            ("proportional, 100 quotas", dict(scheme="proportional",
+                                                              n_actions=100))):
+        n_act = 3 if not overrides else 100
+        off_policy(27, f"DQN fishing-v0 {what}", dcfg, "fishing-v0", dqn.make_dqn_state,
+                   dqn.dqn_train_step, lambda c, s, n=n_act: dict(
+                       explore_u=rng.uniform(size=c.num_envs).astype(np.float32),
+                       rand_actions=rng.integers(0, n, c.num_envs).astype(np.int32),
+                       env_noise=normals(2, c.num_envs), sample_idx=indices(c, s)),
+                   overrides)
+
+    # --------------------------------------------------------------- 28
+    tcfg = td3.TD3Config()
+    fill = 9   # the checked update is the delayed actor's (count % 2 == 1)
+    t_state, _ = off_policy(28, "TD3 fishing-v1 (the checked update steps the actor)", tcfg,
+                            "fishing-v1", td3.make_td3_state, td3.td3_train_step,
+                            lambda c, s: dict(
+                                act_noise=normals(c.num_envs, 1),
+                                env_noise=normals(2, c.num_envs), sample_idx=indices(c, s),
+                                smooth_noise=normals(c.updates_per_step, c.batch_size, 1)),
+                            fill=fill)
+    if (fill % tcfg.policy_delay) != tcfg.policy_delay - 1:
+        fail("phase 28: the checked TD3 update does not step the actor")
+
+    # --------------------------------------------------------------- 29
+    t29 = time.perf_counter()
+    rcfg = ppo_rnn.RPPOConfig(num_envs=256, num_steps=32, epochs=2, num_minibatches=4,
+                              hidden=32, ent_coef=0.003)
+    r_over = dict(sigma=0.02, sigma_m=0.15)
+    r_env, r_dev = make("fishing-v1", device=dev, **r_over)
+    r_cpu = make("fishing-v1", device="cpu", **r_over)[1]
+    r0 = ppo_rnn.make_rppo_state(r_env, rcfg, torch.Generator().manual_seed(29), cpu)
+    r_draws = dict(act_noise=normals(rcfg.num_steps, rcfg.num_envs, 1),
+                   env_noise=normals(rcfg.num_steps, 2, rcfg.num_envs))
+    r_perms = [rng.permutation(rcfg.num_envs) for _ in range(rcfg.epochs)]
+    r_card, r_cpu_out = (ppo_rnn.train_step(
+        r_env, p, rcfg, to_device(r0, device), batched_reset(r_env, p, rcfg.num_envs, device),
+        ppo_rnn.init_hidden(rcfg, rcfg.num_envs, device),
+        perms=[torch.from_numpy(x).to(device) for x in r_perms],
+        **{k: torch.from_numpy(v).to(device) for k, v in r_draws.items()})
+        for device, p in ((dev, r_dev), (cpu, r_cpu)))
+    r_err, r_other = state_diff((r_card[0], r_card[2]), (r_cpu_out[0], r_cpu_out[2]))
+    if r_other or not r_err <= SLICE_ATOL:
+        fail(f"phase 29: recurrent PPO one step on the card vs the CPU: max abs err {r_err:.3g} "
+             f"of the weights, moments and hidden; other leaves differing {r_other}")
+    print(f"phase 29: recurrent PPO fishing-v1 sigma 0.02 sigma_m 0.15, 256 x 32, 2 x 4, hidden "
+          f"32: one train_step on the card ≡ the CPU from the same draws: max abs err "
+          f"{r_err:.3g} <= {SLICE_ATOL} (weights, Adam's moments, hidden)")
+    for what, cfg_r in (("pomdp_policies' configuration", rcfg),
+                        ("the defaults (256 x 64, 4 x 4, hidden 64)", ppo_rnn.RPPOConfig())):
+        ts = ppo_rnn.make_rppo_state(r_env, cfg_r, torch.Generator().manual_seed(1), dev)
+        bs = batched_reset(r_env, r_dev, cfg_r.num_envs, dev)
+        h = ppo_rnn.init_hidden(cfg_r, cfg_r.num_envs, dev)
+        gen = torch.Generator(device=dev).manual_seed(2)
+        ts, bs, h, met = ppo_rnn.train_step(r_env, r_dev, cfg_r, ts, bs, h, gen)   # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            ts, bs, h, met = ppo_rnn.train_step(r_env, r_dev, cfg_r, ts, bs, h, gen)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / 2 * 1e3
+        if not np.isfinite(float(met["loss"])):
+            fail(f"phase 29: recurrent PPO at {what}: a non-finite loss")
+        print(f"phase 29: recurrent PPO at {what}: {ms:.1f} ms/iter (host clock, "
+              f"2 iterations after one warm-up) {label}")
+    print(f"phase 29: in {time.perf_counter() - t29:.1f} s")
+
+    # --------------------------------------------------------------- 30
+    t30 = time.perf_counter()
+    f_kw = dict(num_envs=4096, num_steps=128, fused_update=True, fused_rollout=True,
+                fused_adam=True)
+    per_iter = 4096 * 128
+    iters = math.ceil(2_000_000 / per_iter)
+    model = PPO("MlpPolicy", "fishing-v1", seed=30, **f_kw)
+    per_call = []
+
+    def timed_learn(m, n_iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m.learn(n_iters * per_iter, callback=lambda _, met: per_call.append(dict(counts())))
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    reset_counts()
+    f_s = timed_learn(model, iters // 2)
+    with tempfile.TemporaryDirectory() as tmp:
+        model.save(tmp)
+        f_s += timed_learn(model, iters - iters // 2)
+        launches = counts()
+        f_ms = f_s / iters * 1e3
+        loaded = PPO.load(tmp, env="fishing-v1", seed=30, **f_kw)
+    if len(model.history) != iters:
+        fail(f"phase 30: learn(2000000) made {len(model.history)} iterations, not {iters}")
+    mb = model.cfg.epochs * model.cfg.num_minibatches
+    steps_seen = [{k: b[k] - a.get(k, 0) for k in b} for a, b in zip([{}] + per_call, per_call)]
+    if any((c["policy"], c["adam"], c["grad"], c["rollout"]) != (1, mb, 0, 0)
+           for c in steps_seen):
+        fail(f"phase 30: launches per iteration {steps_seen}, expected 1 K4 and {mb} K3")
+    loaded.learn((iters - iters // 2) * per_iter)
+    n_ckpt = check_resumed("phase 30: PPO facade full+adam", model, loaded)
+    k4_err, k4_left, k3_err, k3_n, k3_tile = check_facade_kernels(model, "phase 30")
+    facade_err = {"K4": k4_err, "K3": k3_err}
+    print(f"phase 30: at the facade's shapes from its trained state: K4 at B=4096 T=128 ≡ the "
+          f"twin, max abs err {k4_err:.3g} (envs left {k4_left}); K3 on a minibatch of {k3_n} "
+          f"samples (tiles of {k3_tile}) ≡ the twin, max abs err {k3_err:.3g}")
+    print(f"phase 30: PPO('MlpPolicy', 'fishing-v1', num_envs=4096, num_steps=128, fused full "
+          f"+ adam).learn(2000000): {iters} iterations, launches {launches} "
+          f"({steps_seen[0]['policy']} K4 and {steps_seen[0]['adam']} K3 per iteration), "
+          f"{f_ms:.1f} ms/iter (host clock); saved after {iters // 2}, the loaded "
+          f"model's {iters - iters // 2} iterations ≡ the uninterrupted run's ({n_ckpt} leaves "
+          f"and the metrics bit-identical); episode return {model.history[0]['episode_return']:.4f}"
+          f" -> {model.history[-1]['episode_return']:.4f} {label}")
+    n = 10
+    for cls, env_id in ((SAC, "fishing-v1"), (TD3, "fishing-v1"), (DQN, "fishing-v0")):
+        m = cls("MlpPolicy", env_id, seed=31)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m.learn(n * m.cfg.num_envs)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / n * 1e3
+        with tempfile.TemporaryDirectory() as tmp:
+            m.save(tmp)
+            m.learn(n * m.cfg.num_envs)
+            back = cls.load(tmp, env=env_id, seed=31)
+        back.learn(n * back.cfg.num_envs)
+        k = check_resumed(f"phase 30: {cls.__name__} facade", m, back)
+        print(f"phase 30: {cls.__name__}('MlpPolicy', '{env_id}') at its defaults: {n} steps at "
+              f"{ms:.3f} ms/step (host clock, a float read of every metric per step), saved, "
+              f"{n} more ≡ the loaded model's {n} ({k} leaves bit-identical) {label}")
+    print(f"phase 30: in {time.perf_counter() - t30:.1f} s")
+
+    # --------------------------------------------------------------- 31
+    from gym_fishing_tpu_torch.agents.policies import escapement
+    from gym_fishing_tpu_torch.examples.pomdp_policies import pomdp_returns
+    from gym_fishing_tpu_torch.examples.train_ppo import mean_returns, train_model
+
+    t31 = time.perf_counter()
+    rows = pomdp_returns(iterations=2, num_envs=64, reps=2, k=3, device=dev)
+    if len(rows) != 4 or not all(np.isfinite(m) for m, _ in rows.values()):
+        fail(f"phase 31: pomdp_policies: {rows}")
+    rets = {}
+    for form, kw in (("off", dict(timesteps=512, num_steps=8)),
+                     ("full+adam", dict(timesteps=1024, num_steps=16, fused="full",
+                                        fused_adam=True))):
+        t_model, t_env, t_params = train_model(num_envs=64, verbose=0, device=dev, **kw)
+        rets[form] = mean_returns(t_env, t_params, {"ppo": t_model.policy,
+                                                    "escapement": escapement(t_env, t_params)})
+        if not all(np.isfinite(v) for v in rets[form].values()):
+            fail(f"phase 31: train_ppo {form}: {rets[form]}")
+    k4_err, k4_left, k3_err, k3_n, k3_tile = check_facade_kernels(t_model, "phase 31")
+    facade_err = {"K4": max(facade_err["K4"], k4_err), "K3": max(facade_err["K3"], k3_err)}
+    print(f"phase 31: at train_ppo full+adam's shapes from its trained state: K4 at B=64 T=16 "
+          f"≡ the twin, max abs err {k4_err:.3g} (envs left {k4_left}); K3 on a minibatch of "
+          f"{k3_n} samples (tiles of {k3_tile}) ≡ the twin, max abs err {k3_err:.3g}")
+    print(f"phase 31: examples on the card: pomdp_policies "
+          f"{ {k: round(v[0], 3) for k, v in rows.items()} }, train_ppo "
+          f"{ {k: {n: round(x, 3) for n, x in v.items()} for k, v in rets.items()} }; phase "
+          f"{time.perf_counter() - t31:.1f} s {label}")
+    return launches, steps_seen[0], facade_err
 
 
 def main():
@@ -2014,7 +2401,6 @@ def main():
     # --------------------------------------------------------------- 22
     # A2C at its defaults (1024 envs x 16 steps, hidden 64): one step on the
     # card ≡ the same step on the CPU from the same planes, then 20 iterations
-    import copy
     import importlib
 
     from gym_fishing_tpu_torch.agents import a2c, es
@@ -2182,6 +2568,10 @@ def main():
           f"{ {k: round(v[2], 3) for k, v in rows_dp.items()} }; phases 22-25 in "
           f"{time.perf_counter() - t22:.1f} s")
 
+    t26 = time.perf_counter()
+    facade_launches, facade_per_iter, facade_err = slice_phases(dev, label, counts, reset_counts)
+    print(f"phases 26-31 in {time.perf_counter() - t26:.1f} s")
+
     print(f"chip_smoke: {time.perf_counter() - T_START:.1f} s of command time")
     if "jax" in sys.modules:
         fail("jax was imported")
@@ -2226,6 +2616,9 @@ def main():
             "source": "gym_fishing_tpu_torch/csrc/ppo_update_kernel.cu",
             "replaces": "gym_fishing_tpu/kernels/ppo_update_kernel.py:455",
             "launches": train_launches["update+adam"]["adam"],
+            "facade_launches": facade_launches["adam"],
+            "facade_launches_per_iteration": facade_per_iter["adam"],
+            "facade_max_abs_err": facade_err["K3"],
             "max_abs_err": adam_err,
             "ms": adam_ms["float32"],
             "plain_ms": adam_plain_ms["float32"],
@@ -2364,6 +2757,9 @@ def main():
             "source": "gym_fishing_tpu_torch/csrc/policy_rollout_kernel.cu",
             "replaces": "gym_fishing_tpu/kernels/policy_rollout_kernel.py:86",
             "launches": train_launches["full+adam"]["policy"],
+            "facade_launches": facade_launches["policy"],
+            "facade_launches_per_iteration": facade_per_iter["policy"],
+            "facade_max_abs_err": facade_err["K4"],
             "max_abs_err": k4_err,
             "ms": k4_ms["float32"],
             "plain_ms": k4_plain_ms["float32"],

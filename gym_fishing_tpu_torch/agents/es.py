@@ -29,13 +29,11 @@ import numpy as np
 import torch
 from torch import nn
 
-from gym_fishing_tpu_torch.agents.ppo import _continuous, adam_step
+from gym_fishing_tpu_torch.agents.ppo import OPTAX_ADAM_EPS, _continuous, adam_apply
 from gym_fishing_tpu_torch.batch import batched_reset, batched_step
 from gym_fishing_tpu_torch.core.env import Env
 from gym_fishing_tpu_torch.core.types import EnvParams
 from gym_fishing_tpu_torch.device import resolve
-
-ES_ADAM_EPS = 1e-8   # optax.adam's default
 
 
 @dataclasses.dataclass(frozen=True)
@@ -183,15 +181,11 @@ def es_train_step(env: Env, env_params: EnvParams, cfg: ESConfig, steps: int, st
         shaped = _centered_ranks(fitness)
     else:
         shaped = (fitness - fitness.mean()) / (fitness.std(correction=0) + 1e-8)
-    count1 = state.count + 1
-    for n, p in params.items():
-        # gradient ascent on fitness: Adam minimizes, so it gets -g, after
-        # add_decayed_weights' coupled L2
-        g = -(torch.tensordot(shaped, eps[n], dims=1) / (cfg.pop_size * cfg.sigma))
-        g = g + cfg.weight_decay * p.detach()
-        state.m[n], state.v[n] = adam_step(p, g, state.m[n], state.v[n], cfg.lr, count1,
-                                           eps=ES_ADAM_EPS)
-    state.count = count1
+    # gradient ascent on fitness: Adam minimizes, so it gets -g, after
+    # add_decayed_weights' coupled L2
+    grads = {n: -(torch.tensordot(shaped, eps[n], dims=1) / (cfg.pop_size * cfg.sigma))
+             + cfg.weight_decay * p.detach() for n, p in params.items()}
+    adam_apply(state, params, grads, cfg.lr, OPTAX_ADAM_EPS)
     metrics = {"fitness_mean": fitness.mean(), "fitness_max": fitness.max(),
                "fitness_std": fitness.std(correction=0)}
     return state, metrics

@@ -36,7 +36,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import math
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -53,6 +53,8 @@ from gym_fishing_tpu_torch.kernels.ppo_update_kernel import (
     LOG_2PI,
     LOG_2PI_E,
 )
+
+OPTAX_ADAM_EPS = 1e-8   # optax.adam's default
 
 
 @dataclasses.dataclass(frozen=True)
@@ -265,16 +267,23 @@ def adam_step(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor, v: torch.Tensor
     return m, v
 
 
+def adam_apply(opt, params: Mapping[str, torch.Tensor], grads: Mapping[str, torch.Tensor],
+               lr: float, eps: float = ADAM_EPS) -> None:
+    """One step of optax.adam(lr, eps) in place on `params` and on `opt`'s
+    moments ``m``, ``v`` (keyed by parameter name) and host-int ``count``:
+    the bias corrections use the incremented count."""
+    count1 = opt.count + 1
+    for name, p in params.items():
+        opt.m[name], opt.v[name] = adam_step(p, grads[name], opt.m[name], opt.v[name], lr,
+                                             count1, eps)
+    opt.count = count1
+
+
 def apply_gradients(ts: TrainState, grads: Dict[str, torch.Tensor], cfg: PPOConfig) -> None:
     """optax.chain(clip_by_global_norm(max_grad_norm), adam(lr, eps=ADAM_EPS))
-    in place: Adam's bias corrections use the incremented count and the
-    schedule the count before it."""
-    lr = learning_rate(cfg, ts.count)
-    count1 = ts.count + 1
-    grads = clip_by_global_norm(grads, cfg.max_grad_norm)
-    for name, p in ts.model.named_parameters():
-        ts.m[name], ts.v[name] = adam_step(p, grads[name], ts.m[name], ts.v[name], lr, count1)
-    ts.count = count1
+    in place, lr from the schedule at the count before the step."""
+    adam_apply(ts, dict(ts.model.named_parameters()),
+               clip_by_global_norm(grads, cfg.max_grad_norm), learning_rate(cfg, ts.count))
     ts.step += 1
 
 

@@ -84,10 +84,12 @@ def test_port_imports_no_jax():
         "    importlib.import_module(n)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'optax', 'gym_fishing_tpu'))\n"
-        "assert len(names) >= 56, names\n"
+        "assert len(names) >= 63, names\n"
         "for n in ('agents.a2c', 'agents.dp', 'agents.es', 'examples.simulate_baselines',\n"
         "          'examples.tipping_point', 'examples.model_uncertainty',\n"
-        "          'examples.dp_optimal'):\n"
+        "          'examples.dp_optimal', 'agents.ppo_rnn', 'agents.sac', 'agents.dqn',\n"
+        "          'agents.td3', 'agents.sb3_like', 'examples.pomdp_policies',\n"
+        "          'examples.train_ppo'):\n"
         "    assert pkg.__name__ + '.' + n in names, n\n"
         "assert not bad, bad\n"
         "print('ok', len(names))\n"
