@@ -14,7 +14,9 @@ path and PPO at hidden 256, also on fishing-v0's grid of 100 quotas; the
 kernels' own random numbers; observation windows of 6 and 12; the A2C, DP
 and ES learners and the examples; the recurrent PPO, SAC, DQN and TD3 at
 their defaults and the sb3-style facades, the PPO facade on the kernel path
-(K4 and K3). Phases, each of which raises on failure:
+(K4 and K3); the multi-device path (the sharded fused and plain PPO steps,
+K1's sharded launcher, the example and the scaling bench) and the training
+curve against JAX's. Phases, each of which raises on failure:
 
 1. device: a CUDA device is required; prints the card's name and power limit;
 2. build: nvcc builds csrc/ppo_update_kernel.cu, csrc/policy_rollout_kernel.cu
@@ -150,7 +152,30 @@ their defaults and the sb3-style facades, the PPO facade on the kernel path
 31. the two new examples' numeric cores (pomdp_policies, train_ppo plain
     and fused full + adam) at tests/test_examples.py's sizes, and K4 (B=64
     T=16) and K3 (a minibatch of 128 samples, one tile of 128) ≡ their
-    twins at train_ppo full + adam's shapes.
+    twins at train_ppo full + adam's shapes;
+32. the multi-device path under NCCL at world size 1, in this process:
+    make_sharded_fused_train_step on fishing-v1 at 16384 x 128, 4 x 8,
+    hidden 64 ≡ train_step's full form bit for bit over 2 iterations
+    (params, Adam's moments, env state, metrics, generator), 1 K4 and 32 K2
+    launches an iteration, ms per iteration of both in turns, and
+    state_checksum across the group;
+33. two gloo ranks on cuda:0 (child processes, one CPU thread each, results
+    through files; a rank's failure, a timeout or a missing result fails
+    the run): (a) the sharded fused step at 8192 envs a rank, 1 x 1, from
+    the global noise planes ≡ the single process on 16384 envs
+    (tests/test_shard_fused.py's bars), (b) 2 iterations at 4 x 8 from a
+    generator: the replicas bit-identical, (c) K4 and K2 ≡ their twins from
+    rank 0's trained state at a rank's shapes, (d) the plain
+    train_step(mesh=) at 1024 x 16, 2 x 2 ≡ the single process within
+    1e-5, (e) sharded_rollout at 2^20 envs a rank x 512 steps ≡ K1 on the
+    rank's slice with the folded seed bit for bit and ≡ K1's twin, the
+    ranks' streams differing;
+34. examples/multihost_train without a coordinator at its defaults for 3
+    iterations, and weak_scaling() on this one card (its throughput; no
+    efficiency is claimed from one card);
+35. full + fused_adam in float32 against JAX's recorded plain-form curve
+    (validation/fused_training.py --against-jax: 4096 x 128, 300
+    iterations, every checkpoint within 0.25).
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Any failure exits non-zero before either.
@@ -1053,6 +1078,347 @@ def slice_phases(dev, label, counts, reset_counts):
           f"{ {k: {n: round(x, 3) for n, x in v.items()} for k, v in rets.items()} }; phase "
           f"{time.perf_counter() - t31:.1f} s {label}")
     return launches, steps_seen[0], facade_err
+
+
+# phases 32-35: the multi-device path. Phase 33's sharded fused step at
+# 1 x 1 against the single process: tests/test_shard_fused.py's bars (the
+# minibatch's sums split over two ranks and added again, in float32); the
+# plain step at 2 x 2: tests/test_shard.py's.
+SHARD_RTOL, SHARD_ATOL, SHARD_MET_RTOL, SHARD_MET_ATOL = 1e-5, 2e-6, 1e-4, 1e-5
+PLAIN_SHARD_ATOL = 1e-5
+B_SHARD_K1 = 1 << 20   # envs per rank of phase 33(e), T_MAIN steps
+
+
+def _bstate_leaves(bs):
+    return {"stock": bs.env.stock, "harvest": bs.env.harvest, "t": bs.env.t,
+            "episode_return": bs.episode_return, "episode_length": bs.episode_length}
+
+
+def rank_phase33(mesh, job):
+    """What each of phase 33's two gloo ranks on cuda:0 runs: (a) the
+    sharded fused step at 1 x 1 from the global planes, (b) two iterations
+    at 4 x 8 from a generator, (d) the plain train_step(mesh=) at 1024 x 16,
+    2 x 2, and (e) sharded_rollout at B_SHARD_K1 envs per rank x T_MAIN
+    steps, held bit for bit against K1 on the rank's slice with the folded
+    seed and against K1's twin. Returns each part's result and the
+    launches of the sharded calls alone."""
+    from gym_fishing_tpu_torch import make
+    from gym_fishing_tpu_torch.kernels import rollout_kernel as rk
+    from gym_fishing_tpu_torch.shard import fold_rank, shard_batch
+    from gym_fishing_tpu_torch.shard.launch import rollout_job, train_job
+
+    if "jax" in sys.modules:
+        fail("jax was imported in a rank")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {name: train_job(mesh, job[name]) for name in ("a", "b", "d")}
+    out["rank"] = mesh.rank
+    # the collectives of one iteration at 4 x 8 alone, as phase 32 times them
+    buf, sums = torch.zeros(job["collective_floats"], device=mesh.device), torch.zeros(
+        2, device=mesh.device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(32):
+        mesh.all_reduce(sums)
+        mesh.all_reduce(buf)
+    torch.cuda.synchronize()
+    out["collectives_ms"] = (time.perf_counter() - t0) * 1e3
+    e = job["e"]
+    got = rollout_job(mesh, e)
+    out["e_launches"] = got["launches"]
+    _, params = make(e["env_id"], device="cpu", **e["env_kw"])
+    stock, t = shard_batch((e["stock"], e["t"]), mesh)
+    args = (stock, t, params, e["policy"], e["policy_param"], e["num_steps"])
+    seed = fold_rank(e["seed"], mesh.rank)
+    direct = rk.rollout(*args, seed=seed)
+    twin = rk.rollout_reference(*args, seed=seed)
+    torch.cuda.synchronize()
+    sharded = rk.KernelRollout(**{k: v.to(mesh.device) if isinstance(v, torch.Tensor) else v
+                                  for k, v in got["out"].items()})
+    diff = [k for k in rk.KernelRollout._fields[:-1]
+            if not torch.equal(getattr(sharded, k), getattr(direct, k))]
+    if diff:
+        fail(f"phase 33(e): rank {mesh.rank}: sharded_rollout differs from K1 on the slice with "
+             f"the folded seed in {diff}")
+    out["e_err"] = compare(sharded, twin, f"phase 33(e) rank {mesh.rank} vs twin",
+                           stock_atol=1e-4, reward_atol=SUM_ATOL_512)
+    out["e_head"] = sharded.stock[:4096].cpu()
+    out["e_reward"] = float(sharded.reward.double().sum())
+    return out
+
+
+def _check_equal(what, got, want):
+    bad = [k for k in want if not torch.equal(got[k].cpu(), want[k].cpu())]
+    if bad:
+        fail(f"{what}: not bit-identical in {bad}")
+
+
+def _close(what, got, want, rtol, atol):
+    worst = 0.0
+    for k in want:
+        g, w = got[k].double().cpu(), want[k].double().cpu()
+        err = float((g - w).abs().max())
+        if not bool(((g - w).abs() <= atol + rtol * w.abs()).all()):
+            fail(f"{what}: {k} max abs err {err:.3g} (rtol {rtol}, atol {atol})")
+        worst = max(worst, err)
+    return worst
+
+
+def multi_device_phases(dev, label, counts, reset_counts):
+    """Phases 32-35; returns (launches of K1, K2 and K4 on the sharded
+    paths, their largest errors against the twins, phase 32's and 33's
+    times)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from gym_fishing_tpu_torch import make
+    from gym_fishing_tpu_torch.agents import ppo, ppo_fused
+    from gym_fishing_tpu_torch.agents.policies import escapement
+    from gym_fishing_tpu_torch.batch import batched_reset
+    from gym_fishing_tpu_torch.kernels import policy_rollout_kernel as pk
+    from gym_fishing_tpu_torch.kernels import ppo_update_kernel as uk
+    from gym_fishing_tpu_torch.shard import distributed_init, make_mesh, state_checksum
+    from gym_fishing_tpu_torch.shard.fused_ppo import make_sharded_fused_train_step
+    from gym_fishing_tpu_torch.shard.launch import spawn_ranks
+
+    sharded = {"rollout": 0, "grad": 0, "policy": 0}
+    errs = {}
+    times = {}
+
+    # ------------------------------------------------------------ 32
+    t32 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke-nccl-")
+    distributed_init(f"file://{work}/rendezvous", 1, 0, device=dev)
+    if dist.get_backend() != "nccl":
+        fail(f"phase 32: backend {dist.get_backend()}, not nccl")
+    mesh = make_mesh(device=dev)
+    env, p_host = make("fishing-v1", sigma=0.05, device="cpu")
+    cfg = ppo.PPOConfig(num_envs=B_PPO, num_steps=T_PPO, fused_update=True, fused_rollout=True)
+    ts0 = ppo.make_train_state(env, cfg, torch.Generator().manual_seed(0), dev)
+    step = make_sharded_fused_train_step(env, p_host, cfg, mesh)
+    runs = {}
+    for name in ("sharded", "full"):
+        ts, bs = ts0.clone(), batched_reset(env, p_host, cfg.num_envs, dev)
+        gen = torch.Generator(device=dev).manual_seed(32)
+        mets = []
+        reset_counts()
+        for _ in range(2):
+            if name == "sharded":
+                ts, bs, met = step(ts, bs, gen)
+            else:
+                ts, bs, met = ppo.train_step(env, p_host, cfg, ts, bs, gen)
+            mets.append(met)
+        torch.cuda.synchronize()
+        runs[name] = (ts, bs, mets, counts(), gen)
+    (ts_s, bs_s, met_s, n_s, gen_s), (ts_f, bs_f, met_f, n_f, gen_f) = runs["sharded"], runs["full"]
+    sharded["grad"] += n_s["grad"]
+    sharded["policy"] += n_s["policy"]
+    mb = cfg.epochs * cfg.num_minibatches
+    if n_s["policy"] != 2 or n_s["grad"] != 2 * mb or n_s["adam"] or n_s != n_f:
+        fail(f"phase 32: launches {n_s} (sharded) and {n_f} (full) over 2 iterations, expected "
+             f"2 K4 and {2 * mb} K2 each")
+    _check_equal("phase 32: params", ts_s.params(), ts_f.params())
+    _check_equal("phase 32: Adam m", ts_s.m, ts_f.m)
+    _check_equal("phase 32: Adam v", ts_s.v, ts_f.v)
+    _check_equal("phase 32: env state", _bstate_leaves(bs_s), _bstate_leaves(bs_f))
+    for k, (a, b) in enumerate(zip(met_s, met_f)):
+        _check_equal(f"phase 32: metrics of iteration {k}", a, b)
+    if ts_s.count != ts_f.count or not torch.equal(gen_s.get_state(), gen_f.get_state()):
+        fail("phase 32: Adam count or generator state differs")
+    c_mesh, c_one = state_checksum(ts_s.model, mesh), state_checksum(ts_f.model)
+    if float(c_mesh) != float(c_one):
+        fail(f"phase 32: state_checksum across the group {float(c_mesh)} != {float(c_one)}")
+    # ms per iteration, each iteration synchronised, in turns: full, sharded,
+    # sharded, full; the host-bound form varies with the host, so medians
+    ms = {"sharded": [], "full": []}
+    for name in ("full", "sharded", "sharded", "full"):
+        ts, bs, _, _, gen = runs[name]
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if name == "sharded":
+                ts, bs, met = step(ts, bs, gen)
+            else:
+                ts, bs, met = ppo.train_step(env, p_host, cfg, ts, bs, gen)
+            torch.cuda.synchronize()
+            ms[name].append((time.perf_counter() - t0) * 1e3)
+    times["nccl_w1_ms"] = float(np.median(ms["sharded"]))
+    times["full_ms"] = float(np.median(ms["full"]))
+    # what the step's collectives cost alone: per minibatch one all-reduce of
+    # K2's output buffer and one of the two advantage sums
+    buf = torch.zeros(uk.flatten_merged(uk.merge_weights(ppo_fused.kernel_weights(
+        ts0.params()))).numel() + 4, device=dev)
+    sums = torch.zeros(2, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(mb):
+        mesh.all_reduce(sums)
+        mesh.all_reduce(buf)
+    torch.cuda.synchronize()
+    times["nccl_w1_collectives_ms"] = (time.perf_counter() - t0) * 1e3
+    dist.destroy_process_group()
+    print(f"phase 32: NCCL at world size 1, fishing-v1 {B_PPO} x {T_PPO}, 4 x 8, hidden 64, "
+          f"float32: the sharded fused step ≡ train_step full bit for bit over 2 iterations "
+          f"(params, Adam m and v, env state, metrics, generator; state_checksum "
+          f"{float(c_mesh):.6f} across the group); launches per iteration {n_s['policy'] // 2} "
+          f"K4 and {n_s['grad'] // 2} K2; ms per iteration (host clock, median of 10, in turns "
+          f"full, sharded, sharded, full) sharded {times['nccl_w1_ms']:.2f} (range "
+          f"{min(ms['sharded']):.2f}-{max(ms['sharded']):.2f}), full {times['full_ms']:.2f} "
+          f"({min(ms['full']):.2f}-{max(ms['full']):.2f}); the iteration's {2 * mb} "
+          f"collectives alone {times['nccl_w1_collectives_ms']:.2f} ms ({buf.numel()} + 2 "
+          f"floats a minibatch) {label}; in {time.perf_counter() - t32:.1f} s")
+
+    # ------------------------------------------------------------ 33
+    t33 = time.perf_counter()
+    rng = np.random.default_rng(33)
+    cfg_a = dataclasses.replace(cfg, epochs=1, num_minibatches=1)
+    planes = torch.from_numpy(rng.standard_normal((2, T_PPO, B_PPO)).astype(np.float32))
+    ts_cpu = ppo.make_train_state(env, cfg, torch.Generator().manual_seed(0), "cpu")
+    cfg_d = ppo.PPOConfig(num_envs=1024, num_steps=16, epochs=2, num_minibatches=2)
+    ts_d = ppo.make_train_state(env, cfg_d, torch.Generator().manual_seed(1), "cpu")
+    env_k1, p_k1 = make("fishing-v1", sigma=0.05, device="cpu")
+    x_star = float(escapement(env_k1, p_k1).x_star)
+    job = {
+        "a": dict(env_id="fishing-v1", env_kw=dict(sigma=0.05), cfg=dataclasses.asdict(cfg_a),
+                  form="fused", state=ts_cpu.clone(), iterations=1, rollout_noise=[planes],
+                  seed=5),
+        "b": dict(env_id="fishing-v1", env_kw=dict(sigma=0.05), cfg=dataclasses.asdict(cfg),
+                  form="fused", state=ts_cpu.clone(), iterations=2, seed=3),
+        "collective_floats": buf.numel(),
+        "d": dict(env_id="fishing-v1", env_kw=dict(sigma=0.05), cfg=dataclasses.asdict(cfg_d),
+                  form="plain", state=ts_d.clone(), iterations=1, seed=11),
+        "e": dict(env_id="fishing-v1", env_kw=dict(sigma=0.05),
+                  stock=torch.full((2 * B_SHARD_K1,), float(p_k1.init_state)),
+                  t=torch.zeros(2 * B_SHARD_K1, dtype=torch.int32), policy="escapement",
+                  policy_param=x_star, num_steps=T_MAIN, seed=2033),
+    }
+    ranks = spawn_ranks("chip_smoke:rank_phase33", 2, job, device=dev, backend="gloo",
+                        timeout_s=300)
+    for part in ("a", "b", "d"):
+        for r in ranks:
+            for kern in ("grad", "policy"):
+                sharded[kern] += r[part]["launches"][kern]
+    for r in ranks:
+        sharded["rollout"] += r["e_launches"]["rollout"]
+    # (a) against the single process on the global batch from the same planes
+    ts, bs = to_device(ts_cpu, dev), batched_reset(env, p_host, B_PPO, dev)
+    ts, bs, met = ppo.train_step(env, p_host, cfg_a, ts, bs,
+                                 torch.Generator(device=dev).manual_seed(5),
+                                 rollout_noise=planes.to(dev))
+    a_err = max(_close(f"phase 33(a): rank {r['rank']} params", r["a"]["params"],
+                       {k: v.detach() for k, v in ts.params().items()}, SHARD_RTOL, SHARD_ATOL)
+                for r in ranks)
+    names = ("pg_loss", "v_loss", "approx_kl", "episode_return", "mean_reward")
+    for r in ranks:
+        _close(f"phase 33(a): rank {r['rank']} metrics",
+               {k: torch.tensor(r["a"]["metrics"][0][k]) for k in names},
+               {k: met[k].detach() for k in names}, SHARD_MET_RTOL, SHARD_MET_ATOL)
+    stock_a = torch.cat([r["a"]["bstate"].env.stock for r in ranks])
+    _close("phase 33(a): end stock", {"stock": stock_a}, {"stock": bs.env.stock}, 1e-6, 1e-7)
+    # (b) the replicas stay equal
+    _check_equal("phase 33(b): rank 1's params against rank 0's", ranks[1]["b"]["params"],
+                 ranks[0]["b"]["params"])
+    if not all(np.isfinite(r["b"]["metrics"][-1]["loss"]) for r in ranks):
+        fail("phase 33(b): a non-finite loss")
+    if ranks[0]["b"]["checksum"] != ranks[1]["b"]["checksum"]:
+        fail("phase 33(b): the ranks' checksums differ")
+    times["gloo_w2_ms"] = max(r["b"]["ms"][-1] for r in ranks)
+    times["gloo_w2_collectives_ms"] = max(r["collectives_ms"] for r in ranks)
+    # (c) K4 and K2 from rank 0's trained state, at a rank's shapes
+    local = dataclasses.replace(cfg, num_envs=B_PPO // 2)
+    st = ppo.make_train_state(env, cfg, torch.Generator().manual_seed(0), dev)
+    with torch.no_grad():
+        for k, p in st.model.named_parameters():
+            p.copy_(ranks[0]["b"]["params"][k])
+    b0 = to_device(ranks[0]["b"]["bstate"], dev)
+    scal = ppo_fused.rollout_scalars(p_host, 2026, 7)
+    args = (b0.env.stock.float().contiguous(), b0.env.t.to(torch.int32).contiguous(),
+            b0.env.harvest.float().contiguous(), b0.episode_return.float().contiguous(),
+            b0.episode_length.to(torch.int32).contiguous(),
+            ppo_fused.kernel_weights(st.params(), "gaussian"), scal, local.num_steps)
+    kw = dict(growth=env.config.growth, noise_form=env.config.noise_form, gamma=local.gamma,
+              gae_lambda=local.gae_lambda, scheme=env.config.scheme,
+              n_actions=env.config.n_actions, obs_noise=False, compute="float32",
+              fold_obs=local.rollout_fold_obs)
+    ker = pk.policy_rollout(*args, **kw)
+    ref = pk.policy_rollout_reference(*args, **kw)
+    torch.cuda.synchronize()
+    errs["K4"], k4_left = compare_k4(ker, ref, "phase 33(c): K4", False, B=local.num_envs,
+                                     T=local.num_steps)
+    data = ref.packed_t.clone()
+    jitter = np.random.default_rng(34).standard_normal((2, data.shape[1])).astype(np.float32)
+    data[2:4] += 0.3 * torch.from_numpy(jitter).to(dev)
+    tile, per_mb, t_sum, t_sq = ppo_fused._tiling(local, data, 1, 1, "gaussian")
+    order = torch.randperm(t_sum.shape[0], generator=torch.Generator().manual_seed(34))
+    order = order[:per_mb].to(dev, torch.int32)
+    stats = ppo_fused._adv_stats(t_sum, t_sq, order, per_mb * tile)
+    kw2 = dict(clip_eps=local.clip_eps, vf_coef=local.vf_coef, ent_coef=local.ent_coef,
+               obs_dim=1, act_dim=1, tile=tile, head="gaussian", compute="float32")
+    weights = ppo_fused.kernel_weights(st.params(), "gaussian")
+    g, m = uk.fused_minibatch_grad(data, order, weights, stats, **kw2)
+    g_ref, m_ref = uk.fused_minibatch_grad_reference(data, order, weights, stats, **kw2)
+    torch.cuda.synchronize()
+    errs["K2"] = check_buffers(g, g_ref, "phase 33(c): K2")
+    check_metrics(m, m_ref, "phase 33(c): K2")
+    # (d) the plain step against the single process
+    ts = to_device(ts_d, dev)
+    env_d, p_d = make("fishing-v1", sigma=0.05, device=dev)
+    ts, _, met_d = ppo.train_step(env_d, p_d, cfg_d, ts, batched_reset(env_d, p_d, 1024, dev),
+                                  torch.Generator(device=dev).manual_seed(11))
+    d_err = max(_close(f"phase 33(d): rank {r['rank']} params", r["d"]["params"],
+                       {k: v.detach() for k, v in ts.params().items()}, 0.0, PLAIN_SHARD_ATOL)
+                for r in ranks)
+    for r in ranks:
+        _close(f"phase 33(d): rank {r['rank']} metrics",
+               {k: torch.tensor(r["d"]["metrics"][0][k]) for k in names},
+               {k: met_d[k].detach() for k in names}, SHARD_MET_RTOL, SHARD_MET_ATOL)
+    # (e) the ranks drew different streams from one seed
+    if torch.equal(ranks[0]["e_head"], ranks[1]["e_head"]):
+        fail("phase 33(e): the two ranks drew the same noise")
+    errs["K1"] = max(r["e_err"] for r in ranks)
+    print(f"phase 33: gloo, two ranks on {dev}: (a) the sharded fused step at {B_PPO // 2} envs "
+          f"per rank, 1 x 1, from the global planes ≡ the single process within {a_err:.3g} "
+          f"(params; rtol {SHARD_RTOL}, atol {SHARD_ATOL}); (b) 2 iterations at 4 x 8: the "
+          f"replicas bit-identical, loss {ranks[0]['b']['metrics'][-1]['loss']:.5f}, second "
+          f"iteration {times['gloo_w2_ms']:.2f} ms, its 64 collectives alone "
+          f"{times['gloo_w2_collectives_ms']:.2f} ms (host clock; two processes on one card, not "
+          f"scaling) {label}; (c) from rank 0's state K4 (B={local.num_envs}, T={local.num_steps}) "
+          f"≡ twin within {errs['K4']:.3g} ({k4_left} envs left), K2 ({per_mb} tiles of {tile}) "
+          f"within {errs['K2']:.3g}; (d) train_step(mesh=) at 1024 x 16, 2 x 2 ≡ the single "
+          f"process within {d_err:.3g}; (e) sharded_rollout at {B_SHARD_K1} envs per rank x "
+          f"{T_MAIN} steps ≡ K1 on the slice with the folded seed bit for bit, ≡ twin within "
+          f"{errs['K1']:.3g}, the ranks' streams differ; launches in the ranks {sharded}; in "
+          f"{time.perf_counter() - t33:.1f} s")
+
+    # ------------------------------------------------------------ 34
+    t34 = time.perf_counter()
+    from gym_fishing_tpu_torch.bench.scaling import weak_scaling
+    from gym_fishing_tpu_torch.examples import multihost_train
+
+    hist = multihost_train.main(["--iterations", "3"])
+    if len(hist) != 3 or not all(np.isfinite(h["loss"]) for h in hist):
+        fail(f"phase 34: multihost_train: {hist}")
+    ex_s = time.perf_counter() - t34
+    ws = weak_scaling()
+    if list(ws["throughput"]) != [1] or not ws["throughput"][1] > 0:
+        fail(f"phase 34: weak_scaling: {ws}")
+    times["weak_scaling_1"] = ws["throughput"][1]
+    print(f"phase 34: multihost_train without a coordinator at its defaults (4096 envs x 128 "
+          f"steps), 3 iterations in {ex_s:.1f} s, episode return "
+          f"{hist[-1]['episode_return']:.4f}; weak_scaling() on this one card: "
+          f"{ws['throughput'][1]:.4g} env-steps/s at {ws['envs_per_device']} envs per rank "
+          f"{label} (scaling beyond one card not measured); in {time.perf_counter() - t34:.1f} s")
+
+    # ------------------------------------------------------------ 35
+    t35 = time.perf_counter()
+    from gym_fishing_tpu_torch.validation import fused_training
+
+    if fused_training.main(["--against-jax", "--fused-adam", "--device", str(dev)]) != 0:
+        fail("phase 35: full+adam does not follow the JAX curve within the tolerance")
+    print(f"phase 35: full+adam float32 against JAX's recorded plain-form curve: PASS "
+          f"{label}; in {time.perf_counter() - t35:.1f} s")
+    return sharded, errs, times
+
 
 
 def main():
@@ -2572,6 +2938,10 @@ def main():
     facade_launches, facade_per_iter, facade_err = slice_phases(dev, label, counts, reset_counts)
     print(f"phases 26-31 in {time.perf_counter() - t26:.1f} s")
 
+    t32 = time.perf_counter()
+    shard_launches, shard_err, shard_ms = multi_device_phases(dev, label, counts, reset_counts)
+    print(f"phases 32-35 in {time.perf_counter() - t32:.1f} s")
+
     print(f"chip_smoke: {time.perf_counter() - T_START:.1f} s of command time")
     if "jax" in sys.modules:
         fail("jax was imported")
@@ -2591,6 +2961,8 @@ def main():
             "bound_by": k1_bound[1],
             "library_ms": None,
             "configurations_launched": len(launched_configs),
+            "sharded_launches": shard_launches["rollout"],
+            "sharded_max_abs_err": shard_err["K1"],
             "instructions_per_step": k1_count["instructions_per_step"],
             "issue_ms": k1_issue,
         },
@@ -2600,6 +2972,13 @@ def main():
             "source": "gym_fishing_tpu_torch/csrc/ppo_update_kernel.cu",
             "replaces": "gym_fishing_tpu/kernels/ppo_update_kernel.py:114",
             "launches": train_launches["update"]["grad"],
+            "sharded_launches": shard_launches["grad"],
+            "sharded_max_abs_err": shard_err["K2"],
+            "sharded_nccl_w1_ms_per_iteration": shard_ms["nccl_w1_ms"],
+            "full_ms_per_iteration": shard_ms["full_ms"],
+            "sharded_nccl_w1_collectives_ms": shard_ms["nccl_w1_collectives_ms"],
+            "sharded_gloo_w2_ms_per_iteration": shard_ms["gloo_w2_ms"],
+            "sharded_gloo_w2_collectives_ms": shard_ms["gloo_w2_collectives_ms"],
             "max_abs_err": grad_err,
             "ms": grad_ms["float32"],
             "plain_ms": grad_plain_ms["float32"],
@@ -2757,6 +3136,8 @@ def main():
             "source": "gym_fishing_tpu_torch/csrc/policy_rollout_kernel.cu",
             "replaces": "gym_fishing_tpu/kernels/policy_rollout_kernel.py:86",
             "launches": train_launches["full+adam"]["policy"],
+            "sharded_launches": shard_launches["policy"],
+            "sharded_max_abs_err": shard_err["K4"],
             "facade_launches": facade_launches["policy"],
             "facade_launches_per_iteration": facade_per_iter["policy"],
             "facade_max_abs_err": facade_err["K4"],

@@ -36,7 +36,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import math
-from typing import Any, Dict, Mapping, Optional, Sequence
+from typing import TYPE_CHECKING, Any, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -53,6 +53,9 @@ from gym_fishing_tpu_torch.kernels.ppo_update_kernel import (
     LOG_2PI,
     LOG_2PI_E,
 )
+
+if TYPE_CHECKING:
+    from gym_fishing_tpu_torch.shard.mesh import Mesh
 
 OPTAX_ADAM_EPS = 1e-8   # optax.adam's default
 
@@ -158,24 +161,30 @@ def _normal_logp(x, mean, log_std):
     return torch.sum(-0.5 * ((x - mean) ** 2 / var + 2 * log_std + LOG_2PI), dim=-1)
 
 
+def action_noise(shape, continuous: bool, generator: Optional[torch.Generator], dtype,
+                 device) -> torch.Tensor:
+    """The draws `sample_action` takes: N(0, 1) (Gaussian head) or Gumbel
+    (categorical head, ``-log(-log(u))`` of uniforms) of `shape`."""
+    if continuous:
+        return torch.randn(shape, generator=generator, dtype=dtype, device=device)
+    u = torch.rand(shape, generator=generator, dtype=dtype, device=device)
+    return -torch.log(-torch.log(u.clamp_min(torch.finfo(dtype).tiny)))
+
+
 def sample_action(dist, continuous: bool, noise: Optional[torch.Tensor] = None,
                   generator: Optional[torch.Generator] = None):
     """(action, logp). `noise` is N(0,1) shaped like the mean (Gaussian:
     ``mean + exp(log_std) * noise``) or Gumbel shaped like the logits
     (categorical: ``argmax(logits + noise)``); drawn from `generator` when
     not given."""
+    if noise is None:
+        noise = action_noise(dist[0].shape, continuous, generator, dist[0].dtype,
+                             dist[0].device)
     if continuous:
         mean, log_std = dist
-        if noise is None:
-            noise = torch.randn(mean.shape, generator=generator, dtype=mean.dtype,
-                                device=mean.device)
         action = mean + torch.exp(log_std) * noise
         return action, _normal_logp(action, mean, log_std)
     (logits,) = dist
-    if noise is None:
-        u = torch.rand(logits.shape, generator=generator, dtype=logits.dtype,
-                       device=logits.device)
-        noise = -torch.log(-torch.log(u.clamp_min(torch.finfo(logits.dtype).tiny)))
     action = torch.argmax(logits + noise, dim=-1)
     logp = torch.log_softmax(logits, -1).gather(-1, action[..., None])[..., 0]
     return action, logp
@@ -304,22 +313,35 @@ class Transition:
 def collect_rollout(env: Env, env_params: EnvParams, cfg: PPOConfig, model: ActorCritic,
                     bstate: BatchState, generator: Optional[torch.Generator] = None,
                     act_noise: Optional[torch.Tensor] = None,
-                    env_noise: Optional[torch.Tensor] = None):
+                    env_noise: Optional[torch.Tensor] = None,
+                    mesh: Optional["Mesh"] = None):
     """`cfg.num_steps` steps of all envs under the current policy.
 
     Returns (bstate, obs_last, traj, last_value) with `traj` a time-major
     Transition. `act_noise` [T, B, A] and `env_noise` [T, 2, B] replace the
-    generator's draws."""
+    generator's draws. With `mesh`, `bstate` holds the rank's envs of the
+    global `cfg.num_envs`, and each step draws the global batch's noise and
+    takes the rank's envs, as the single process would draw it (W times the
+    draws, which costs nothing at these sizes)."""
     continuous = _continuous(env)
     obs = env.get_obs(env_params, bstate.env).float()
+    envs = slice(None) if mesh is None else mesh.env_slice(cfg.num_envs)
+    n_draw = bstate.episode_return.shape[0] if mesh is None else cfg.num_envs
+    device = bstate.episode_return.device
     steps = []
     with torch.no_grad():
         for t in range(cfg.num_steps):
             dist, value = model(obs)
-            action, logp = sample_action(dist, continuous,
-                                         None if act_noise is None else act_noise[t], generator)
+            a_noise = act_noise[t] if act_noise is not None else None
+            if a_noise is None and mesh is not None:
+                a_noise = action_noise((n_draw,) + tuple(dist[0].shape[1:]), continuous,
+                                       generator, dist[0].dtype, device)[envs]
+            action, logp = sample_action(dist, continuous, a_noise, generator)
             env_action = action if continuous else action.to(torch.int32)
             noise = generator if env_noise is None else env_noise[t]
+            if env_noise is None and mesh is not None:
+                noise = torch.randn((2, n_draw), generator=generator, dtype=env_params.dtype,
+                                    device=device)[:, envs]
             bstate, rs = batched_step(env, env_params, bstate, env_action, noise)
             steps.append(Transition(
                 obs=obs, action=action, logp=logp, value=value,
@@ -352,22 +374,31 @@ def compute_gae(cfg: PPOConfig, traj: Transition, last_value: torch.Tensor):
 
 # ------------------------------------------------------------------- update
 
-def ppo_loss(model: ActorCritic, cfg: PPOConfig, batch, continuous: bool):
+def ppo_loss(model: ActorCritic, cfg: PPOConfig, batch, continuous: bool,
+             adv_stats: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+             n: Optional[int] = None):
     """Clipped-PPO loss of one minibatch -> (total, metrics). The advantage
-    normalisation uses the population std (``correction=0``), as jnp.std."""
+    normalisation uses the population std (``correction=0``), as jnp.std.
+
+    A rank's share of a sharded minibatch passes the global minibatch's
+    advantage (mean, std) as `adv_stats` and its size as `n`: every mean
+    is then this rank's sum over `n`, and the ranks' losses add up to the
+    global one."""
     obs, action, old_logp, old_value, adv, ret = batch
     dist, value = model(obs)
     logp, entropy = action_logp_entropy(dist, action, continuous)
     ratio = torch.exp(logp - old_logp)
-    adv_n = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
+    mean = (lambda x: x.mean()) if n is None else (lambda x: x.sum() / n)  # noqa: E731
+    mu, std = (adv.mean(), adv.std(correction=0)) if adv_stats is None else adv_stats
+    adv_n = (adv - mu) / (std + 1e-8)
     pg1 = ratio * adv_n
     pg2 = torch.clamp(ratio, 1 - cfg.clip_eps, 1 + cfg.clip_eps) * adv_n
-    pg_loss = -torch.minimum(pg1, pg2).mean()
+    pg_loss = -mean(torch.minimum(pg1, pg2))
     v_clipped = old_value + torch.clamp(value - old_value, -cfg.clip_eps, cfg.clip_eps)
-    v_loss = 0.5 * torch.maximum((value - ret) ** 2, (v_clipped - ret) ** 2).mean()
-    ent = entropy.mean()
+    v_loss = 0.5 * mean(torch.maximum((value - ret) ** 2, (v_clipped - ret) ** 2))
+    ent = mean(entropy)
     total = pg_loss + cfg.vf_coef * v_loss - cfg.ent_coef * ent
-    approx_kl = ((ratio - 1) - torch.log(ratio)).mean()
+    approx_kl = mean((ratio - 1) - torch.log(ratio))
     return total, {"loss": total, "pg_loss": pg_loss, "v_loss": v_loss, "entropy": ent,
                    "approx_kl": approx_kl}
 
@@ -397,11 +428,14 @@ def _stats_metrics(stats: torch.Tensor, n: int) -> Dict[str, torch.Tensor]:
     }
 
 
-def _episode_metrics(traj: Transition) -> Dict[str, torch.Tensor]:
+def _episode_sums(traj: Transition) -> torch.Tensor:
     done_f = traj.done.float()
-    stats = torch.stack([done_f.sum(), (traj.episode_return * done_f).sum(),
-                         (traj.episode_length.float() * done_f).sum(), traj.reward.sum()])
-    return _stats_metrics(stats, traj.reward.numel())
+    return torch.stack([done_f.sum(), (traj.episode_return * done_f).sum(),
+                        (traj.episode_length.float() * done_f).sum(), traj.reward.sum()])
+
+
+def _episode_metrics(traj: Transition) -> Dict[str, torch.Tensor]:
+    return _stats_metrics(_episode_sums(traj), traj.reward.numel())
 
 
 def train_step(env: Env, env_params: EnvParams, cfg: PPOConfig, ts: TrainState,
@@ -409,14 +443,30 @@ def train_step(env: Env, env_params: EnvParams, cfg: PPOConfig, ts: TrainState,
                perms: Optional[Sequence[torch.Tensor]] = None,
                act_noise: Optional[torch.Tensor] = None,
                env_noise: Optional[torch.Tensor] = None,
-               rollout_noise: Optional[torch.Tensor] = None):
+               rollout_noise: Optional[torch.Tensor] = None,
+               mesh: Optional["Mesh"] = None):
     """One PPO iteration (rollout + GAE + epochs of minibatch updates).
 
     Updates `ts` in place and returns (ts, bstate, metrics), the metrics as
     0-d tensors on the device (means over all minibatches, plus the
     iteration's episode statistics). `act_noise` and `env_noise` replace
     the plain rollout's draws, `rollout_noise` (planes of
-    kernels/policy_rollout_kernel.py) the fused rollout's."""
+    kernels/policy_rollout_kernel.py) the fused rollout's.
+
+    With `mesh` (``shard.make_mesh``) the plain form computes the global
+    step of `cfg.num_envs` envs, as JAX's jit of this function does on
+    sharded inputs: `bstate` is the rank's share of the envs and `ts` a
+    replica. Each rank steps its envs on the global batch's draws (see
+    `collect_rollout`; injected `act_noise` and `env_noise` are the global
+    ones), every rank draws the same global permutation of the
+    ``T x num_envs`` samples and keeps the rows it owns, and each minibatch
+    all-reduces its advantage sums, then its gradients and metrics (sums:
+    the ranks' shares of a minibatch differ in size). Every rank then takes
+    the same clip + Adam step. The fused forms take a mesh through
+    ``shard.fused_ppo.make_sharded_fused_train_step``."""
+    if mesh is not None and cfg.fused_update:
+        raise NotImplementedError("train_step(mesh=) is the plain form; the fused forms shard "
+                                  "through shard.fused_ppo.make_sharded_fused_train_step")
     if cfg.shuffle != "exact":
         raise NotImplementedError(f"shuffle={cfg.shuffle!r} is not ported; use 'exact'")
     if cfg.rollout_vector_gae:
@@ -444,10 +494,17 @@ def train_step(env: Env, env_params: EnvParams, cfg: PPOConfig, ts: TrainState,
     else:
         if rollout_noise is not None:
             raise ValueError("rollout_noise is the fused rollout's; use act_noise, env_noise")
+        if mesh is not None:
+            envs = mesh.env_slice(cfg.num_envs)
+            if bstate.episode_return.shape[0] != envs.stop - envs.start:
+                raise ValueError(f"bstate holds {bstate.episode_return.shape[0]} envs, not the "
+                                 f"rank's {envs.stop - envs.start} of {cfg.num_envs}")
+            act_noise = None if act_noise is None else act_noise[:, envs]
+            env_noise = None if env_noise is None else env_noise[:, :, envs]
         with torch.profiler.record_function("train_step/rollout"):
             bstate, _, traj, last_value = collect_rollout(env, env_params, cfg, ts.model,
                                                           bstate, generator, act_noise,
-                                                          env_noise)
+                                                          env_noise, mesh)
             advantages, returns = compute_gae(cfg, traj, last_value)
             packed = _pack(traj, advantages, returns)
         obs_dim = traj.obs.shape[-1]
@@ -465,36 +522,77 @@ def train_step(env: Env, env_params: EnvParams, cfg: PPOConfig, ts: TrainState,
                            perms=perms)
         else:
             metrics = _plain_epochs(cfg, ts, packed, obs_dim, act_dim, continuous, generator,
-                                    perms)
+                                    perms, mesh)
     metrics = {k: v.mean() for k, v in metrics.items()}
     if traj is None:
         metrics.update(_stats_metrics(roll.stats, cfg.num_steps * cfg.num_envs))
-    else:
+    elif mesh is None:
         metrics.update(_episode_metrics(traj))
+    else:
+        metrics.update(_stats_metrics(mesh.all_reduce(_episode_sums(traj)),
+                                      cfg.num_steps * cfg.num_envs))
     return ts, bstate, metrics
 
 
-def _plain_epochs(cfg, ts, packed, obs_dim, act_dim, continuous, generator, perms):
-    n = packed.shape[0]
+def _owned_rows(perm: torch.Tensor, mesh: "Mesh", num_envs: int) -> torch.Tensor:
+    """The rank's local rows among the global sample indices `perm`, in
+    their order: global row ``t N + b`` (t-major) belongs to the rank that
+    owns env b, where it is row ``t n + b - r n``."""
+    n_local = num_envs // mesh.world
+    t, b = perm // num_envs, perm % num_envs
+    own = b // n_local == mesh.rank
+    return t[own] * n_local + (b[own] - mesh.rank * n_local)
+
+
+def _plain_epochs(cfg, ts, packed, obs_dim, act_dim, continuous, generator, perms, mesh=None):
+    world = 1 if mesh is None else mesh.world
+    n = packed.shape[0] * world
     mb_size = n // cfg.num_minibatches
     names = [name for name, _ in ts.model.named_parameters()]
     history = []
     for e in range(cfg.epochs):
         perm = perms[e] if perms is not None else torch.randperm(
             n, generator=generator, device=packed.device)
-        shuffled = packed[perm.to(packed.device).long()]
+        perm = perm.to(packed.device).long()
+        shuffled = packed[perm] if mesh is None else None
         for i in range(cfg.num_minibatches):
-            mb = shuffled[i * mb_size:(i + 1) * mb_size]
+            if mesh is None:
+                mb = shuffled[i * mb_size:(i + 1) * mb_size]
+            else:
+                mb = packed[_owned_rows(perm[i * mb_size:(i + 1) * mb_size], mesh,
+                                        cfg.num_envs)]
             action = mb[:, obs_dim:obs_dim + act_dim]
             if not continuous:
                 action = action[:, 0].to(torch.int32)
             rest = mb[:, obs_dim + act_dim:]
             batch = (mb[:, :obs_dim], action, rest[:, 0], rest[:, 1], rest[:, 2], rest[:, 3])
-            loss, mets = ppo_loss(ts.model, cfg, batch, continuous)
-            grads = torch.autograd.grad(loss, list(ts.model.parameters()))
+            if mesh is None:
+                loss, mets = ppo_loss(ts.model, cfg, batch, continuous)
+                grads = torch.autograd.grad(loss, list(ts.model.parameters()))
+            else:
+                adv = rest[:, 2]
+                s = mesh.all_reduce(torch.stack([adv.sum(), (adv * adv).sum()]).detach())
+                mu = s[0] / mb_size
+                std = torch.sqrt(torch.clamp(s[1] / mb_size - mu * mu, min=0.0))
+                loss, mets = ppo_loss(ts.model, cfg, batch, continuous, (mu, std), mb_size)
+                grads = torch.autograd.grad(loss, list(ts.model.parameters()))
+                grads, mets = all_reduce_flat(mesh, grads, mets)
             apply_gradients(ts, dict(zip(names, grads)), cfg)
             history.append({k: v.detach() for k, v in mets.items()})
     return {k: torch.stack([h[k] for h in history]) for k in history[0]}
+
+
+def all_reduce_flat(mesh: "Mesh", grads: Sequence[torch.Tensor],
+                    metrics: Mapping[str, torch.Tensor]):
+    """Gradients and metrics summed over the ranks in one collective on one
+    flat buffer -> (grads as a list, metrics as a dict)."""
+    names = list(metrics)
+    flat = torch.cat([g.detach().reshape(-1) for g in grads]
+                     + [torch.stack([metrics[k].detach() for k in names])])
+    flat = mesh.all_reduce(flat)
+    parts = torch.split(flat, [g.numel() for g in grads] + [len(names)])
+    return ([p.reshape(g.shape) for p, g in zip(parts, grads)],
+            dict(zip(names, parts[-1].unbind())))
 
 
 def train(env: Env, cfg: PPOConfig, seed: int = 0, iterations: int = 32,

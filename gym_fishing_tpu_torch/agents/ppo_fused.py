@@ -43,6 +43,7 @@ from gym_fishing_tpu_torch.kernels.ppo_update_kernel import (
     packed_rows,
     unmerge_weights,
 )
+from gym_fishing_tpu_torch.shard.mesh import Mesh, fold_rank
 
 
 def _pi_head(head: str) -> str:
@@ -106,7 +107,7 @@ def fused_grad(params: Mapping[str, torch.Tensor], data_t: torch.Tensor, clip_ep
                vf_coef: float, ent_coef: float, obs_dim: int, act_dim: int, tile: int = 2048,
                tile_order: Optional[torch.Tensor] = None,
                adv_stats: Optional[torch.Tensor] = None, head: str = "gaussian",
-               compute: str = "float32"):
+               compute: str = "float32", reduce=None):
     """Full PPO minibatch gradient + metrics through K2 -> (grads by name,
     metrics dict of 0-d tensors), the quantities autograd of `ppo_loss`
     gives.
@@ -114,7 +115,9 @@ def fused_grad(params: Mapping[str, torch.Tensor], data_t: torch.Tensor, clip_ep
     With `tile_order` the minibatch is those tiles of `data_t`; without it,
     the whole buffer. `adv_stats` (mu, 1/(std + 1e-8)) as a (2,) tensor is
     required when `tile_order` subsets the data; otherwise it is computed
-    here over the whole buffer (population std)."""
+    here over the whole buffer (population std). `reduce` is
+    `fused_minibatch_grad`'s: a sharded step's all-reduce of K2's output,
+    scaled so that the result is the global minibatch's."""
     n = data_t.shape[1]
     tile = min(tile, n)
     na = act_dim if head == "gaussian" else 1
@@ -131,7 +134,7 @@ def fused_grad(params: Mapping[str, torch.Tensor], data_t: torch.Tensor, clip_ep
     g, met = fused_minibatch_grad(
         data_t, tile_order, kernel_weights(params, head), adv_stats, clip_eps=clip_eps,
         vf_coef=vf_coef, ent_coef=ent_coef, obs_dim=obs_dim, act_dim=act_dim, tile=tile,
-        head=head, compute=compute)
+        head=head, compute=compute, reduce=reduce)
     grads = grads_pytree(g, params, ent_coef, head)
     if head == "gaussian":
         entropy = torch.sum(params["log_std"].detach() + 0.5 * LOG_2PI_E)
@@ -166,35 +169,65 @@ def _tile_perm(e: int, num_tiles: int, generator, perms, device) -> torch.Tensor
     return perm.to(device=device, dtype=torch.int32)
 
 
-def _adv_stats(tile_sum, tile_sumsq, order, n: int) -> torch.Tensor:
-    """Exact minibatch advantage mean and 1/(std + 1e-8) from per-tile sums:
-    var = ss/n - mu^2 (one pass, as the reference computes it)."""
+def _adv_sums(tile_sum, tile_sumsq, order) -> torch.Tensor:
+    """The minibatch's advantage sum and sum of squares from per-tile sums."""
     idx = order.long()
-    mu = tile_sum[idx].sum() / n
-    var = tile_sumsq[idx].sum() / n - mu * mu
+    return torch.stack([tile_sum[idx].sum(), tile_sumsq[idx].sum()])
+
+
+def _adv_stats_from_sums(sums: torch.Tensor, n: int) -> torch.Tensor:
+    """Advantage mean and 1/(std + 1e-8) of n samples from their sum and
+    sum of squares: var = ss/n - mu^2 (one pass, as the reference computes
+    it)."""
+    mu = sums[0] / n
+    var = sums[1] / n - mu * mu
     return torch.stack([mu, 1.0 / (torch.sqrt(torch.clamp(var, min=0.0)) + 1e-8)])
+
+
+def _adv_stats(tile_sum, tile_sumsq, order, n: int) -> torch.Tensor:
+    """Exact minibatch advantage mean and 1/(std + 1e-8) from per-tile sums."""
+    return _adv_stats_from_sums(_adv_sums(tile_sum, tile_sumsq, order), n)
 
 
 def fused_epoch_scan(cfg, ts, packed_t: torch.Tensor, obs_dim: int, act_dim: int,
                      generator: Optional[torch.Generator] = None, head: str = "gaussian",
-                     perms: Optional[Sequence[torch.Tensor]] = None):
+                     perms: Optional[Sequence[torch.Tensor]] = None,
+                     mesh: Optional[Mesh] = None):
     """cfg.epochs x cfg.num_minibatches updates over `packed_t`: each
     minibatch is a random set of tiles (one tile permutation per epoch, from
     `generator` or `perms`), its gradient comes from K2 and the optimizer is
     the plain form's clip + Adam. Updates `ts` in place; returns metrics
-    stacked over the minibatches."""
+    stacked over the minibatches.
+
+    With `mesh`, `packed_t` is the rank's share and every rank permutes its
+    own tiles with the same permutation (the generator's state is shared).
+    Each minibatch then all-reduces the advantage sums before its mean and
+    1/(std + 1e-8) are formed (over the global minibatch), and K2's one
+    output buffer (gradients, then metric sums) divided by the world size:
+    over equal shares that is the global minibatch's gradient, and the
+    metric sums over the local count are the global means. Every rank takes
+    the same clip + Adam step. At one rank the buffer is used as the
+    collective leaves it, so the step is the single device's bit for bit."""
     tile, per_mb, tile_sum, tile_sumsq = _tiling(cfg, packed_t, obs_dim, act_dim, head)
-    n_mb = per_mb * tile
+    n_mb = per_mb * tile * (1 if mesh is None else mesh.world)
+    reduce = None
+    if mesh is not None:
+        def reduce(buf):
+            mesh.all_reduce(buf)
+            return buf if mesh.world == 1 else buf.mul_(1.0 / mesh.world)
     history = []
     for e in range(cfg.epochs):
         perm = _tile_perm(e, tile_sum.shape[0], generator, perms, packed_t.device)
         for i in range(cfg.num_minibatches):
             order = perm[i * per_mb:(i + 1) * per_mb]
+            sums = _adv_sums(tile_sum, tile_sumsq, order)
+            if mesh is not None:
+                sums = mesh.all_reduce(sums)
             grads, mets = fused_grad(
                 ts.params(), packed_t, cfg.clip_eps, cfg.vf_coef, cfg.ent_coef,
                 obs_dim=obs_dim, act_dim=act_dim, tile=tile, tile_order=order,
-                adv_stats=_adv_stats(tile_sum, tile_sumsq, order, n_mb), head=head,
-                compute=cfg.compute_dtype)
+                adv_stats=_adv_stats_from_sums(sums, n_mb), head=head,
+                compute=cfg.compute_dtype, reduce=reduce)
             apply_gradients(ts, grads, cfg)
             history.append(mets)
     return {k: torch.stack([h[k] for h in history]) for k in history[0]}
@@ -202,8 +235,12 @@ def fused_epoch_scan(cfg, ts, packed_t: torch.Tensor, obs_dim: int, act_dim: int
 
 def fused_epoch_scan_adam(cfg, ts, packed_t: torch.Tensor, obs_dim: int, act_dim: int,
                           generator: Optional[torch.Generator] = None, head: str = "gaussian",
-                          perms: Optional[Sequence[torch.Tensor]] = None):
+                          perms: Optional[Sequence[torch.Tensor]] = None,
+                          mesh: Optional[Mesh] = None):
     """`fused_epoch_scan` with clip + Adam inside the kernel (K3).
+
+    Single-device, as in JAX: the optimizer runs inside the kernel, before
+    any gradient could be reduced over ranks, so a `mesh` raises.
 
     The merged weights and moments are built once, carried through every
     minibatch launch, and written back to `ts` once at the end. lr (with
@@ -214,6 +251,10 @@ def fused_epoch_scan_adam(cfg, ts, packed_t: torch.Tensor, obs_dim: int, act_dim
     at entry, while the plain optimizer path recomputes it each minibatch:
     with ent_coef > 0 those two metrics drift slightly between the forms
     (the parameters do not: the kernel differentiates the true entropy)."""
+    if mesh is not None:
+        raise NotImplementedError("fused_epoch_scan_adam is single-device: the sharded step "
+                                  "reduces K2's gradients before the optimizer "
+                                  "(fused_epoch_scan(mesh=))")
     tile, per_mb, tile_sum, tile_sumsq = _tiling(cfg, packed_t, obs_dim, act_dim, head)
     n_mb = per_mb * tile
     params = ts.params()
@@ -337,7 +378,7 @@ def _concrete_sigma_m(params: EnvParams) -> None:
 
 def fused_rollout_collect(env, env_params: EnvParams, cfg, ts, bstate: BatchState,
                           generator: Optional[torch.Generator] = None,
-                          noise: Optional[torch.Tensor] = None
+                          noise: Optional[torch.Tensor] = None, rank: int = 0
                           ) -> Tuple[PolicyRollout, BatchState]:
     """Run the policy-rollout kernel and rebuild the BatchState.
 
@@ -346,13 +387,16 @@ def fused_rollout_collect(env, env_params: EnvParams, cfg, ts, bstate: BatchStat
     Gaussian head for continuous, the categorical head otherwise). The
     Philox seed and offset come from `generator` (`rollout_seed_offset`);
     `noise` planes replace them. obs_noise is on when sigma_m > 0. Pass
-    host `env_params` to keep the call free of host syncs."""
+    host `env_params` to keep the call free of host syncs. A sharded step
+    passes its `rank`, which is folded into the seed (`shard.fold_rank`;
+    rank 0's is the seed itself) while the offset stays the shared one."""
     _concrete_sigma_m(env_params)
     scheme = env.config.scheme
     head = "gaussian" if scheme == "continuous" else "categorical"
     device = bstate.episode_return.device
     seed, offset = ((0, 0) if noise is not None
                     else rollout_seed_offset(generator, device, cfg.num_steps))
+    seed = fold_rank(seed, rank)
     scalars = rollout_scalars(env_params, seed, offset)
     roll = policy_rollout(
         bstate.env.stock.float().contiguous(),

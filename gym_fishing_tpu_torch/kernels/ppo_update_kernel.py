@@ -63,7 +63,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -287,8 +287,13 @@ def fused_minibatch_grad(
     tile: int = 2048,
     head: str = "gaussian",
     compute: str = "float32",
+    reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> Tuple[PPOGrads, torch.Tensor]:
     """One fused pass -> (PPOGrads, metric sums (4,)).
+
+    `reduce` takes the pass's one flat output (the 7 merged gradients, then
+    the 4 metric sums) before it is split, and returns it reduced: the
+    sharded step all-reduces it over the ranks there, in one collective.
 
     The minibatch is the ``G * tile`` samples of the tiles `tile_order`
     names, read in place (zero-copy shuffling); ``inv_n = 1 / (G * tile)``.
@@ -300,11 +305,14 @@ def fused_minibatch_grad(
     scal = dict(clip_eps=clip_eps, vf_coef=vf_coef, ent_coef=ent_coef, obs_dim=obs_dim,
                 act_dim=act_dim, tile=tile, head=head, compute=compute)
     if data.device.type == "cpu":
-        return fused_minibatch_grad_reference(data, tile_order, weights, adv_stats, **scal)
+        return fused_minibatch_grad_reference(data, tile_order, weights, adv_stats, **scal,
+                                              reduce=reduce)
     merged = merge_weights(weights)
     hidden = _check(data, tile_order, merged, adv_stats, obs_dim, act_dim, tile, head, compute)
     gout = _launch(data, tile_order, flatten_merged(merged), adv_stats, hidden, **scal)
     grad_launches += 1
+    if reduce is not None:
+        gout = reduce(gout)
     g = unflatten_merged(gout, obs_dim, hidden, act_dim)
     return _split_grads(g, hidden, act_dim), gout[-4:]
 
@@ -571,7 +579,7 @@ def _clip_adam_reference(g, w, m, v, *, head, ent_coef, lr, bc1, bc2, beta1, bet
 
 def fused_minibatch_grad_reference(data, tile_order, weights, adv_stats, *, clip_eps, vf_coef,
                                    ent_coef, obs_dim, act_dim, tile=2048, head="gaussian",
-                                   compute="float32"):
+                                   compute="float32", reduce=None):
     """Plain PyTorch twin of `fused_minibatch_grad`: same signature and outputs."""
     merged = merge_weights(weights)
     hidden = _check(data, tile_order, merged, adv_stats, obs_dim, act_dim, tile, head, compute)
@@ -579,6 +587,9 @@ def fused_minibatch_grad_reference(data, tile_order, weights, adv_stats, *, clip
         data, tile_order, merged, adv_stats, clip_eps=clip_eps, vf_coef=vf_coef,
         ent_coef=ent_coef, obs_dim=obs_dim, act_dim=act_dim, tile=tile, head=head,
         compute=compute)
+    if reduce is not None:
+        flat = reduce(torch.cat([flatten_merged(g), met]))
+        g, met = unflatten_merged(flat, obs_dim, hidden, act_dim), flat[-4:]
     return _split_grads(g, hidden, act_dim), met
 
 

@@ -21,6 +21,17 @@ means of 10-iteration windows every 30 iterations may differ by at most
 `--agreement-tol`, so a change in the random numbers or the shuffle that
 merely slows learning is caught.
 
+``--against-jax [FILE]`` holds the port against JAX's own plain-form curve,
+recorded on the CPU (default: `JAX_CURVE`, fishing-v1 at 4096 envs x 128
+steps, 300 iterations, seeds 0 and 1; the recorder is
+tests/test_torch_validation.py): the run takes the file's sizes, epochs,
+minibatches and hidden width, and seed 0,
+and every checkpoint of each form it trains (the fused one, and the plain
+one with ``--agreement``) must lie within `--agreement-tol` of JAX's seed 0.
+The gap between JAX's two seeds is printed beside it, the noise floor of
+such a comparison. In this mode the comparison decides PASS, not
+`--threshold`.
+
 Both forms run on `--device` (default: the card; without one this fails as
 `device.resolve` does). Prints one JSON line, then PASS or FAIL; exits 1 on
 FAIL.
@@ -30,10 +41,20 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 
 import numpy as np
+
+# JAX's plain-form curve on fishing-v1, recorded on the CPU by
+# tests/test_torch_validation.py (the card's machine has no JAX).
+JAX_CURVE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "jax_curve_fishing_v1.json")
+
+
+def load_jax_curve(path=JAX_CURVE) -> dict:
+    with open(path) as f:
+        return json.load(f)
 
 
 def checkpoints(rets: np.ndarray, every: int = 30, window: int = 10) -> list:
@@ -58,8 +79,18 @@ def main(argv=None) -> int:
                     help="rollout_pregen_noise + rollout_fold_obs on the fused path")
     ap.add_argument("--fused-adam", action="store_true",
                     help="clip + Adam inside the update kernel on the fused path")
+    ap.add_argument("--against-jax", nargs="?", const=JAX_CURVE, default=None, metavar="FILE",
+                    help="compare each form's checkpoints with JAX's recorded curve")
     ap.add_argument("--device", default=None, help="default: the card")
     args = ap.parse_args(argv)
+    jax_curve = None
+    if args.against_jax is not None:
+        jax_curve = load_jax_curve(args.against_jax)
+        flags = jax_curve["flags"]
+        args.num_envs, args.num_steps = flags["num_envs"], flags["num_steps"]
+        args.iterations = flags["iterations"]
+    shape = ({k: jax_curve["flags"][k] for k in ("epochs", "num_minibatches", "hidden")}
+             if jax_curve is not None else {})
 
     import torch
 
@@ -78,6 +109,7 @@ def main(argv=None) -> int:
             rollout_pregen_noise=args.chain_shortening and fused,
             rollout_fold_obs=args.chain_shortening and fused,
             fused_adam=args.fused_adam and fused,
+            **shape,
         )
         t0 = time.perf_counter()
         _, history = ppo.train(env, cfg, seed=0, iterations=args.iterations, device=device)
@@ -89,7 +121,7 @@ def main(argv=None) -> int:
     valid = rets[np.isfinite(rets)]
     final = float(np.mean(valid[-10:])) if valid.size else float("nan")
     first = float(valid[0]) if valid.size else float("nan")
-    ok = final >= args.threshold
+    ok = final >= args.threshold or jax_curve is not None
     line = {
         "metric": "fused-full PPO episode return (fishing-v1, sigma=0.05)",
         "first_iter": round(first, 3),
@@ -105,6 +137,7 @@ def main(argv=None) -> int:
         "fused_adam": args.fused_adam,
         "chain_shortening": args.chain_shortening,
     }
+    plain_rets = None
     if args.agreement:
         plain_rets, plain_wall = run_path(fused=False)
         cp_f, cp_p = checkpoints(rets), checkpoints(plain_rets)
@@ -118,6 +151,25 @@ def main(argv=None) -> int:
             "max_gap": round(max(gaps), 4) if gaps else None,
             "tol": args.agreement_tol,
             "plain_wall_s": round(plain_wall, 1),
+            "ok": agree,
+        }
+    if jax_curve is not None:
+        cp_j = [jax_curve["seeds"][s]["checkpoints"] for s in ("0", "1")]
+        forms = {"fused": checkpoints(rets)}
+        if plain_rets is not None:
+            forms["plain"] = checkpoints(plain_rets)
+        gaps = {k: [abs(a - b) for a, b in zip(v, cp_j[0])] for k, v in forms.items()}
+        agree = all(g <= args.agreement_tol for v in gaps.values() for g in v)
+        ok = ok and agree
+        line["against_jax"] = {
+            "file": os.path.basename(args.against_jax),
+            "jax_version": jax_curve["jax_version"],
+            "jax_seed0": [round(v, 4) for v in cp_j[0]],
+            "jax_seed1": [round(v, 4) for v in cp_j[1]],
+            "jax_seed_gap_max": round(max((abs(a - b) for a, b in zip(*cp_j)), default=0.0), 4),
+            **{k: [round(x, 4) for x in v] for k, v in forms.items()},
+            **{f"{k}_gap_max": round(max(v), 4) if v else None for k, v in gaps.items()},
+            "tol": args.agreement_tol,
             "ok": agree,
         }
     line["pass"] = ok

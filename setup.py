@@ -15,7 +15,7 @@ setup(
     author="gym_fishing_tpu developers",
     license="MIT",
     packages=find_packages(exclude=("tests",)),
-    package_data={"gym_fishing_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
+    package_data={"gym_fishing_tpu_torch": ["csrc/*.cu", "csrc/*.cuh", "validation/*.json"]},
     python_requires=">=3.10",
     install_requires=[
         "jax",

@@ -790,3 +790,66 @@ def test_resume_is_bit_exact_on_the_card(cuda, tmp_path, form):
     for x, y in zip(tree_leaves(straight["bs"]), tree_leaves(resumed["bs"])):
         assert torch.equal(x, y)
     assert torch.equal(straight["gen"].get_state(), resumed["gen"].get_state())
+
+
+# ------------------------------------------------------------ multi-device path
+# One process on the card can join NCCL only at world size 1: there the
+# sharded paths must be the single device's bit for bit (chip_smoke.py's
+# phase 33 holds two gloo ranks on one card against the single process).
+
+@pytest.fixture
+def nccl_mesh(cuda, tmp_path):
+    import torch.distributed as dist
+
+    from gym_fishing_tpu_torch.shard import distributed_init, make_mesh
+
+    distributed_init(f"file://{tmp_path}/rendezvous", 1, 0, device=cuda)
+    assert dist.get_backend() == "nccl"
+    yield make_mesh(device=cuda)
+    dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("env_id", ["fishing-v1", "fishing-v0"])
+def test_sharded_fused_step_at_nccl_world_1_is_the_full_form(nccl_mesh, env_id):
+    from gym_fishing_tpu_torch.agents import ppo
+    from gym_fishing_tpu_torch.batch import batched_reset
+    from gym_fishing_tpu_torch.shard.fused_ppo import make_sharded_fused_train_step
+
+    dev = nccl_mesh.device
+    env, params = gtt.make(env_id, sigma=0.05, device="cpu")
+    cfg = ppo.PPOConfig(num_envs=2048, num_steps=32, fused_update=True, fused_rollout=True)
+    ts0 = ppo.make_train_state(env, cfg, torch.Generator().manual_seed(0), dev)
+    step = make_sharded_fused_train_step(env, params, cfg, nccl_mesh)
+    out = []
+    for sharded in (True, False):
+        ts, bs = ts0.clone(), batched_reset(env, params, cfg.num_envs, dev)
+        gen = torch.Generator(device=dev).manual_seed(3)
+        for _ in range(2):
+            ts, bs, met = (step(ts, bs, gen) if sharded
+                           else ppo.train_step(env, params, cfg, ts, bs, gen))
+        out.append((ts, bs, met))
+    (ts_a, bs_a, met_a), (ts_b, bs_b, met_b) = out
+    for x, y in zip(ts_a.model.parameters(), ts_b.model.parameters()):
+        assert torch.equal(x, y)
+    for k in ts_b.m:
+        assert torch.equal(ts_a.m[k], ts_b.m[k]) and torch.equal(ts_a.v[k], ts_b.v[k])
+    for x, y in zip(tree_leaves(bs_a), tree_leaves(bs_b)):
+        assert torch.equal(x, y)
+    for k in met_b:
+        assert torch.equal(met_a[k], met_b[k]) or (met_a[k].isnan() & met_b[k].isnan()), k
+
+
+@pytest.mark.cuda
+def test_sharded_rollout_at_nccl_world_1_is_the_kernel(nccl_mesh):
+    from gym_fishing_tpu_torch.kernels.sharded import sharded_rollout
+
+    dev = nccl_mesh.device
+    env, params = gtt.make("fishing-v1", sigma=0.05, device="cpu")
+    stock = torch.full((1 << 16,), 0.75, device=dev)
+    t = torch.zeros(1 << 16, dtype=torch.int32, device=dev)
+    a = sharded_rollout(nccl_mesh, stock, t, params, "escapement", 0.5, 64, seed=11)
+    b = rk.rollout(stock, t, params, "escapement", 0.5, 64, seed=11)
+    torch.cuda.synchronize()
+    for name in rk.KernelRollout._fields[:-1]:
+        assert torch.equal(getattr(a, name), getattr(b, name)), name
