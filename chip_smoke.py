@@ -220,6 +220,11 @@ GRAD_RTOL, GRAD_ATOL, MET_RTOL = 2e-4, 2e-6, 2e-4
 # two float32 ulps of the buffer's largest entry where the twin happens to
 # land closer (several buffers are single sums that cancel over the samples)
 F64_FACTOR, F64_FLOOR_ULPS = 4.0, 2.0
+# dw2c_split vs its plain version from the same scratch: per range a sum of
+# 2048 products in another order (blocks of 64 samples, then the blocks),
+# within 1e-5 of the range's largest entry; under bfloat16 the tensor cores'
+# accumulator truncates inside each block of 64 (64 x 2^-23 = 7.6e-6), 2e-5
+SPLIT_RTOL = {"float32": 1e-5, "bfloat16": 2e-5}
 # NVIDIA's data sheet for the H100 SXM, dense: float32 outside the tensor
 # cores, bf16 inside them (FLOP/s), device memory (bytes/s)
 PEAK = {"float32": 67e12, "bfloat16": 989e12, "bytes": 3.35e12}
@@ -404,6 +409,17 @@ def update_bound(n, obs_dim, hidden, act_dim, compute, head="gaussian"):
     return least_ms(max(by_pipe.values()), 4 * (rows * n + 2 * n_par))
 
 
+def split_bound(n, num_tiles, hidden, compute):
+    """dw2c_split on n samples: 2 x hidden^2 multiply-adds a sample (both
+    towers) at the compute mode's rate; h1 and g_p2 [n, 2H] read once in the
+    mode's type and one partial [2, H, H] a range written."""
+    ranges = -(-n // 2048)
+    ranges = min(ranges, 2 * num_tiles)
+    elt = 2 if compute == "bfloat16" else 4
+    return least_ms(2 * 2 * hidden * hidden * n / PEAK[compute],
+                    2 * n * 2 * hidden * elt + ranges * 2 * hidden * hidden * 4)
+
+
 def rollout_bound(num_envs, num_steps, obs_dim, hidden, act_dim, compute, categorical=False):
     """K4: per env and step the two H-contractions per tower (through W2c and
     Whc) at the compute mode's rate, the input layer in float32, and 4H tanh
@@ -534,6 +550,30 @@ def check_buffers(got, want, what):
             fail(f"{what}: buffer {i} max abs err {err:.3g} > {tol:.3g}")
         worst = max(worst, err)
     return worst
+
+
+def check_split(ws, part, hidden, compute, what, obs_dim=1):
+    """dw2c_split's workspace rows against its plain version's partials: each
+    range's dW2c within SPLIT_RTOL of the range's largest entry, every other
+    entry of the rows zero as they were given. Returns (the largest absolute
+    error, the worst error relative to its range's largest entry)."""
+    h2 = 2 * hidden
+    l_w2 = obs_dim * h2 + h2
+    w2 = ws[:, l_w2:l_w2 + h2 * h2].reshape(-1, h2, h2)
+    h = hidden
+    if (bool(ws[:, :l_w2].any()) or bool(ws[:, l_w2 + h2 * h2:].any())
+            or bool(w2[part.shape[0]:].any()) or bool(w2[:, :h, h:].any())
+            or bool(w2[:, h:, :h].any())):
+        fail(f"{what}: dw2c_split wrote outside its ranges' dW2c blocks")
+    worst = worst_rel = 0.0
+    for j in range(part.shape[0]):
+        err = float((w2[j] - part[j]).abs().max())
+        rel = err / max(float(part[j].abs().max()), 1e-30)
+        if not rel <= SPLIT_RTOL[compute]:
+            fail(f"{what}: range {j}: error {rel:.3g} of its largest entry > "
+                 f"{SPLIT_RTOL[compute]}")
+        worst, worst_rel = max(worst, err), max(worst_rel, rel)
+    return worst, worst_rel
 
 
 def check_float64_bar(uk, got, twin, data, order, weights, stats, kw, what):
@@ -1441,6 +1481,7 @@ def main():
 
     def reset_counts():
         rk.launches = uk.grad_launches = uk.adam_launches = pk.launches = 0
+        uk.split_launches = 0
 
     def counts():
         return {"rollout": rk.launches, "grad": uk.grad_launches, "adam": uk.adam_launches,
@@ -2384,6 +2425,7 @@ def main():
     rng = np.random.default_rng(19)
     wide_err = {"K2": 0.0, "K3": 0.0, "K4": 0.0}
     wide_flips, wide_ms, wide_plain_ms, wide_bound = 0, {}, {}, {}
+    wide_part_ms, split_err, split_rel = {}, 0.0, 0.0
     for hidden in WIDE_HIDDEN:
         for head in ("gaussian", "categorical"):
             weights, data, a = ppo_case(ppo, ppo_fused, rng, head, dev, hidden=hidden,
@@ -2434,31 +2476,72 @@ def main():
                                                                    **kw3), 3)
                 wide_bound["K2", key] = wide_bound["K3", key] = update_bound(
                     n_mb, 1, hidden, a, compute, head)
+                # the wide path's two launches apart: stage 1 (wide_prep and
+                # ppo_grad_wide), then dw2c_split from its scratch, held
+                # against its plain version range by range
+                act, ws1 = uk.wide_stage1(data, order, w, stats, **kw)
+                split = dict(hidden=hidden, obs_dim=1, act_dim=a, num_tiles=MB_TILES, tile=TILE,
+                             head=head, compute=compute)
+                ws2 = uk.dw2c_split(act, torch.zeros_like(ws1), **split)
+                part = uk.dw2c_split_reference(*act.float().view(2, n_mb, 2 * hidden), hidden,
+                                               MB_TILES, TILE)
+                torch.cuda.synchronize()
+                err_s, rel_s = check_split(ws2, part, hidden, compute, "dw2c_split " + what)
+                split_err, split_rel = max(split_err, err_s), max(split_rel, rel_s)
+                wide_part_ms["stage1", key], _ = cuda_ms(
+                    lambda: uk.wide_stage1(data, order, w, stats, **kw), 10)
+                wide_part_ms["split", key], _ = cuda_ms(lambda: uk.dw2c_split(act, ws1, **split),
+                                                        10)
+                wide_plain_ms["split", key], _ = cuda_ms(
+                    lambda: uk.dw2c_split_reference(*act.float().view(2, n_mb, 2 * hidden),
+                                                    hidden, MB_TILES, TILE), 3)
+                wide_bound["split", key] = split_bound(n_mb, MB_TILES, hidden, compute)
+                del act, ws1, ws2, part
             del weights, data, w, m, v, g, g_ref, new, ref
-    # one PyTorch call per product computes none of K2; its three 2H-contractions
-    # alone at hidden 256, as in phase 8
-    h2w = 2 * WIDE_HIDDEN[-1]
-    xa = torch.from_numpy(rng.standard_normal((n_mb, h2w)).astype(np.float32)).to(dev)
-    xb = torch.from_numpy(rng.standard_normal((n_mb, h2w)).astype(np.float32)).to(dev)
-    wm = torch.from_numpy(rng.standard_normal((h2w, h2w)).astype(np.float32)).to(dev)
+    # one PyTorch call per product computes none of K2; its three
+    # H-contractions per tower alone, on the same [N, H] x [H, H] operands per
+    # tower that the kernel and its bound take (W2c's cross-tower blocks are
+    # zero), two towers; and for dw2c_split one batched product over the
+    # towers, the whole minibatch in one sum
     wide_lib_ms = {}
-    for compute, ty in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
-        a_, b_, w_ = xa.to(ty), xb.to(ty), wm.to(ty)
-        three = lambda: (a_ @ w_, a_.T @ b_, b_ @ w_.T)  # noqa: E731
-        three()
-        wide_lib_ms[compute], _ = cuda_ms(three, 10)
-    del xa, xb, wm
+    for hidden in WIDE_HIDDEN:
+        xa = torch.from_numpy(rng.standard_normal((2, n_mb, hidden)).astype(np.float32)).to(dev)
+        xb = torch.from_numpy(rng.standard_normal((2, n_mb, hidden)).astype(np.float32)).to(dev)
+        wm = torch.from_numpy(rng.standard_normal((2, hidden, hidden)).astype(np.float32)).to(dev)
+        for compute, ty in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            a_, b_, w_ = xa.to(ty), xb.to(ty), wm.to(ty)
+            three = lambda: [(a_[t] @ w_[t], a_[t].T @ b_[t], b_[t] @ w_[t].T)  # noqa: E731
+                             for t in range(2)]
+            one = lambda: torch.bmm(a_.transpose(1, 2), b_)  # noqa: E731
+            three()
+            one()
+            wide_lib_ms["three", hidden, compute], _ = cuda_ms(three, 10)
+            wide_lib_ms["split", hidden, compute], _ = cuda_ms(one, 10)
+        del xa, xb, wm, a_, b_, w_
     for name in ("K2", "K3"):
         for (kname, (hidden, head, compute)), ms in wide_ms.items():
             if kname != name:
                 continue
-            bound = wide_bound[name, (hidden, head, compute)]
+            key = (hidden, head, compute)
+            bound = wide_bound[name, key]
             print(f"phase 19: {name} hidden={hidden} {head:11s} {compute:8s}: {ms:.3f} ms, twin "
-                  f"{wide_plain_ms[name, (hidden, head, compute)]:.3f} ms per minibatch of "
-                  f"{MB_TILES} x {TILE} (CUDA events); bound {bound[0]:.4f} ms by {bound[1]} "
-                  f"(share {bound[0] / ms:.3f}) {label}")
-    print(f"phase 19: the three products alone at hidden {WIDE_HIDDEN[-1]} as torch.matmul: "
-          f"{wide_lib_ms['float32']:.3f} ms float32, {wide_lib_ms['bfloat16']:.3f} ms bfloat16")
+                  f"{wide_plain_ms[name, key]:.3f} ms per minibatch of {MB_TILES} x {TILE} (CUDA "
+                  f"events); bound {bound[0]:.4f} ms by {bound[1]} (share {bound[0] / ms:.3f}); "
+                  f"library (the three products per tower, torch.matmul) "
+                  f"{wide_lib_ms['three', hidden, compute]:.3f} ms {label}")
+    for (hidden, head, compute), ms in ((k[1], v) for k, v in wide_part_ms.items()
+                                        if k[0] == "stage1"):
+        key = (hidden, head, compute)
+        sp, bound = wide_part_ms["split", key], wide_bound["split", key]
+        print(f"phase 19: wide K2 hidden={hidden} {head:11s} {compute:8s} in parts: stage 1 "
+              f"{ms:.3f} ms + dw2c_split {sp:.3f} ms = {ms + sp:.3f} ms (whole K2 "
+              f"{wide_ms['K2', key]:.3f}); dw2c_split's plain version "
+              f"{wide_plain_ms['split', key]:.3f} ms, bound {bound[0]:.4f} ms by {bound[1]} "
+              f"(share {bound[0] / sp:.3f}), library (torch.bmm over the towers) "
+              f"{wide_lib_ms['split', hidden, compute]:.3f} ms {label}")
+    print(f"phase 19: dw2c_split ≡ its plain version at hidden {WIDE_HIDDEN}, Gaussian and "
+          f"{WIDE_ACTIONS} classes, float32 and bfloat16: max abs err {split_err:.3g}, worst "
+          f"error {split_rel:.3g} of its range's largest entry (bars {SPLIT_RTOL})")
 
     wide_k4_envs = (("continuous fishing-v1", "fishing-v1", dict(sigma=0.1)),
                     (f"proportional n_actions={WIDE_ACTIONS}", "fishing-v0",
@@ -2581,6 +2664,11 @@ def main():
             want = {"rollout": 0, "grad": 0, "adam": 32 * WIDE_ITERS, "policy": WIDE_ITERS}
             if got != want:
                 fail(f"phase 19: {env_label} full+adam {compute}: launches {got}, expected {want}")
+            # each K3 launch on the wide path runs dw2c_split once
+            if uk.split_launches != 32 * WIDE_ITERS:
+                fail(f"phase 19: {env_label} full+adam {compute}: dw2c_split launched "
+                     f"{uk.split_launches} times, expected {32 * WIDE_ITERS}")
+            got = dict(got, split=uk.split_launches)
             wide_launches[env_label, compute] = got
             wide_iter_ms[env_label, compute] = secs / WIDE_ITERS * 1e3
             print(f"phase 19: {env_label} full+adam {compute} hidden={WIDE_HIDDEN[-1]}: "
@@ -2608,9 +2696,9 @@ def main():
         if continuous:   # K2's wide path on a main path: the full form
             reset_counts()
             w_run(dataclasses.replace(wcfg, fused_adam=False), 2)
-            wide_launches["full", "float32"] = counts()
+            wide_launches["full", "float32"] = dict(counts(), split=uk.split_launches)
             if wide_launches["full", "float32"] != {"rollout": 0, "grad": 64, "adam": 0,
-                                                    "policy": 2}:
+                                                    "policy": 2, "split": 64}:
                 fail(f"phase 19: full at hidden {WIDE_HIDDEN[-1]}: launches "
                      f"{wide_launches['full', 'float32']}")
 
@@ -3053,9 +3141,10 @@ def main():
             "plain_ms": wide_plain_ms["K2", (256, "gaussian", "float32")],
             "bound_ms": wide_bound["K2", (256, "gaussian", "float32")][0],
             "bound_by": wide_bound["K2", (256, "gaussian", "float32")][1],
-            "library_ms": wide_lib_ms["float32"],
-            "library_note": "the three 2H-contractions only",
+            "library_ms": wide_lib_ms["three", 256, "float32"],
+            "library_note": "the three H-contractions per tower only, two towers",
             "bfloat16_ms": wide_ms["K2", (256, "gaussian", "bfloat16")],
+            "bfloat16_library_ms": wide_lib_ms["three", 256, "bfloat16"],
             "categorical_100_ms": wide_ms["K2", (256, "categorical", "float32")],
             "hidden_128_ms": wide_ms["K2", (128, "gaussian", "float32")],
         },
@@ -3070,11 +3159,34 @@ def main():
             "plain_ms": wide_plain_ms["K3", (256, "gaussian", "float32")],
             "bound_ms": wide_bound["K3", (256, "gaussian", "float32")][0],
             "bound_by": wide_bound["K3", (256, "gaussian", "float32")][1],
-            "library_ms": wide_lib_ms["float32"],
-            "library_note": "the three 2H-contractions only",
+            "library_ms": wide_lib_ms["three", 256, "float32"],
+            "library_note": "the three H-contractions per tower only, two towers",
             "bfloat16_ms": wide_ms["K3", (256, "gaussian", "bfloat16")],
+            "bfloat16_library_ms": wide_lib_ms["three", 256, "bfloat16"],
             "categorical_100_ms": wide_ms["K3", (256, "categorical", "float32")],
             "hidden_128_ms": wide_ms["K3", (128, "gaussian", "float32")],
+        },
+        {
+            "name": "dw2c_split (wide path of K2/K3, hidden 256)",
+            "route": "cuda",
+            "source": "gym_fishing_tpu_torch/csrc/ppo_update_kernel.cu",
+            "replaces": "gym_fishing_tpu/kernels/ppo_update_kernel.py:114",
+            "replaces_part": "dW2c of _grad_tile, gym_fishing_tpu/kernels/ppo_update_kernel.py:296",
+            "launches": wide_launches["fishing-v1", "float32"]["split"],
+            "max_abs_err": split_err,
+            "max_err_of_range_max": split_rel,
+            "ms": wide_part_ms["split", (256, "gaussian", "float32")],
+            "plain_ms": wide_plain_ms["split", (256, "gaussian", "float32")],
+            "bound_ms": wide_bound["split", (256, "gaussian", "float32")][0],
+            "bound_by": wide_bound["split", (256, "gaussian", "float32")][1],
+            "library_ms": wide_lib_ms["split", 256, "float32"],
+            "library_note": "torch.bmm over the towers, the whole minibatch in one sum",
+            "bfloat16_ms": wide_part_ms["split", (256, "gaussian", "bfloat16")],
+            "bfloat16_bound_ms": wide_bound["split", (256, "gaussian", "bfloat16")][0],
+            "bfloat16_bound_by": wide_bound["split", (256, "gaussian", "bfloat16")][1],
+            "bfloat16_library_ms": wide_lib_ms["split", 256, "bfloat16"],
+            "stage1_ms": wide_part_ms["stage1", (256, "gaussian", "float32")],
+            "stage1_bfloat16_ms": wide_part_ms["stage1", (256, "gaussian", "bfloat16")],
         },
         {
             "name": "policy_rollout_kernel (wide path, hidden 256)",

@@ -3,7 +3,7 @@ K3's without its optimizer stage) per minibatch, at the bench's shapes.
 
     python gym_fishing_tpu_torch/bench/update_kernels.py [--root DIR] [--reps N] [--errors]
                                                         [--hidden H] [--n-actions A]
-                                                        [--obs-dim D]
+                                                        [--obs-dim D] [--parts]
 
 One minibatch is 128 random tiles of 2048 samples out of the packed buffer
 [R, 2^21] of 16384 envs x 128 steps (R = 8 at the default `--obs-dim 1`,
@@ -13,6 +13,10 @@ head of A classes,
 timed with CUDA events over `--reps` launches after a warm-up, for compute
 float32 and bfloat16. The launcher is called below the wrapper (no weight merging), so
 the time is the two kernels' and the workspace allocation's.
+
+With `--parts` (the wide path, in checkouts that have `dw2c_split`) it also times the
+wide path's two stage-1 launches apart, the same way: ``wide_prep`` with
+``ppo_grad_wide`` (`wide_stage1`), and ``dw2c_split`` from its scratch.
 
 `--root` names the checkout whose ``gym_fishing_tpu_torch`` is imported
 (default: the one this file lies in), so the same inputs can time two
@@ -96,6 +100,8 @@ def main() -> None:
                     help="categorical head of this many classes (default: Gaussian)")
     ap.add_argument("--obs-dim", type=int, default=1,
                     help="observation fields (a window of stacked observations)")
+    ap.add_argument("--parts", action="store_true",
+                    help="also time the wide path's stage 1 and dw2c_split apart")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("update_kernels: needs a CUDA device")
@@ -144,6 +150,22 @@ def main() -> None:
         if not bool(torch.isfinite(gout).all()):
             raise SystemExit(f"update_kernels: non-finite output under {compute}")
         out[f"{compute}_ms"] = start.elapsed_time(end) / args.reps
+        if args.parts:
+            merged = uk.unflatten_merged(w_flat, d, args.hidden, a)
+            act, ws = uk.wide_stage1(data, order, merged, stats, **scal)
+            stage1 = lambda: uk.wide_stage1(data, order, merged, stats, **scal)  # noqa: E731
+            split = lambda: uk.dw2c_split(  # noqa: E731
+                act, ws, hidden=args.hidden, obs_dim=d, act_dim=a, num_tiles=MB_TILES,
+                tile=TILE, head=head, compute=compute)
+            for name, fn in (("stage1", stage1), ("dw2c_split", split)):
+                for _ in range(3):
+                    fn()
+                start.record()
+                for _ in range(args.reps):
+                    fn()
+                end.record()
+                torch.cuda.synchronize()
+                out[f"{compute}_{name}_ms"] = start.elapsed_time(end) / args.reps
     print(json.dumps(out))
 
 

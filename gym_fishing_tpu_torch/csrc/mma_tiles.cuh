@@ -53,3 +53,48 @@ __device__ __forceinline__ void mma_tiles(const __nv_bfloat16* __restrict__ A, i
     }
   }
 }
+
+// One mma.sync m16n8k16 with bf16 inputs and float32 sums, c += A B, in the
+// instruction's own register layout (lane = 4 g + t): a[0..3] hold A's
+// (row g, columns 2t, 2t + 1), (g + 8, 2t..), (g, 2t + 8..), (g + 8,
+// 2t + 8..), two bf16 a register, the lower column in the low half; b0, b1
+// hold B's (rows 2t, 2t + 1; column g) and (2t + 8, 2t + 9; g); c[0..3] are
+// C's (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1). Unlike a wmma
+// fragment this layout is fixed, so a fragment can be built in registers
+// from float32 values (pack_bf16x2) and a result used where it lands.
+__device__ __forceinline__ void mma_16816(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                          unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two float32 values rounded to nearest bf16 and packed, lo in the low half.
+__device__ __forceinline__ unsigned pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// acc[i][f] += A_i * B_f over one k-step of depth kMmaK for a warp's MF x NF
+// grid of tiles: A_i is the [16, kMmaK] tile at A + i * a_fstep (layout
+// LayA, leading dimension lda), B_f the [kMmaK, 16] tile at B + f * b_fstep
+// (LayB, ldb). Each operand tile is loaded once for the whole grid. Alignment
+// as mma_tiles.
+template <typename LayA, typename LayB, int MF, int NF>
+__device__ __forceinline__ void mma_grid(const __nv_bfloat16* __restrict__ A, int lda,
+                                         int a_fstep, const __nv_bfloat16* __restrict__ B,
+                                         int ldb, int b_fstep, AccFrag (&acc)[MF][NF]) {
+  namespace wmma = nvcuda::wmma;
+  wmma::fragment<wmma::matrix_a, 16, 16, kMmaK, __nv_bfloat16, LayA> a[MF];
+  wmma::fragment<wmma::matrix_b, 16, 16, kMmaK, __nv_bfloat16, LayB> b[NF];
+#pragma unroll
+  for (int i = 0; i < MF; ++i) wmma::load_matrix_sync(a[i], A + i * a_fstep, lda);
+#pragma unroll
+  for (int f = 0; f < NF; ++f) wmma::load_matrix_sync(b[f], B + f * b_fstep, ldb);
+#pragma unroll
+  for (int i = 0; i < MF; ++i)
+#pragma unroll
+    for (int f = 0; f < NF; ++f) wmma::mma_sync(acc[i][f], a[i], b[f], acc[i][f]);
+}

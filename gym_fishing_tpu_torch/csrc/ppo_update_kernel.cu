@@ -68,8 +68,10 @@
 //   256, and categorical heads of up to 128 classes at any hidden size, take
 //   ppo_grad_wide (below): the same grid and workspace rows, chunks of 32
 //   samples whose activations alone stay in shared memory, every weight
-//   matrix streamed from L2 in k-slabs, and the accumulators that outgrow the
-//   registers added chunk by chunk into the CTA's own workspace row.
+//   matrix streamed from L2 (under bfloat16 the two W2c products on the
+//   tensor cores), dWhc added chunk by chunk into the CTA's own workspace
+//   row, and h1 and g_p2 written out once, for dW2c as a split-K product
+//   over the whole minibatch (dw2c_split) into the dW2c blocks of the rows.
 // - Stage 2: one thread per gradient entry sums the rows in index order, in
 //   blocks of 16 rows and then the blocks. No float atomics anywhere, so two
 //   identical steps give identical bits. The column sums of stage 1 (db1c,
@@ -707,27 +709,134 @@ __global__ void __launch_bounds__(kThreads, 1)
 // Stage 1 at the widths whose weights do not fit a CTA: hidden 128 and 256,
 // and categorical heads of 17 to 128 classes at any hidden size (the kernel
 // above keeps hidden 32 and 64 with at most 16). Its shared memory holds the
-// activations of a chunk of kWideChunk samples ([S][2H] twice, 132 KiB at
-// hidden 256) and every weight matrix streams from L2 through
-// block_product's slabs (wide_mlp.cuh): the forward product through the
-// towers' W2 blocks side by side, the head's Wm padded to whole tiles, its
-// transpose for g_p2 and the blocks' transposes for g_p1. Products are
-// float32 FMA in both modes, with bf16-rounded inputs under bfloat16.
-// The accumulators that outgrow the registers (dW2c is 512 KiB at hidden
-// 256, dWhc 128 KiB) are added chunk by chunk into the CTA's own workspace
-// row, which only this CTA writes: no atomics, the same thread adds the same
-// entries in the same order every chunk, so the bits stay fixed. Per chunk:
+// activations of a chunk of kWideChunk samples ([S][2H] twice) and every
+// weight matrix streams from L2.
+// - The two W2c products of a chunk (the forward product and g_p1's):
+//   under float32 float32 FMA through block_product's slabs (wide_mlp.cuh),
+//   the towers' W2 blocks side by side and their transposes; under
+//   bfloat16 (hidden 64 and above, kWideMma) mma.sync m16n8k16 (tower_mma):
+//   a warp takes all 32 samples and 2H / 16 columns, its A fragments built
+//   in registers from the float32 activations rounded to bf16, its B
+//   fragments read from L2 out of wide_prep's fragment-ordered bf16 copies
+//   (FWB, GWB), no block barrier inside the product.
+// - The head's products (Wm padded to whole tiles, its transpose for g_p2)
+//   are float32 FMA through the slabs in both modes.
+// - dW2c (512 KiB at hidden 256) is not summed here: each chunk writes its
+//   h1 and g_p2 [S][2H] once to the activation scratch (as bf16 under
+//   bfloat16, the values the mode's product reads), and dw2c_split (below)
+//   takes the product over the whole minibatch afterwards.
+// - dWhc (128 KiB at 128 classes) is added chunk by chunk into the CTA's
+//   own workspace row, which only this CTA writes: no atomics, the same
+//   thread adds the same entries in the same order every chunk, so the bits
+//   stay fixed.
+// Shared memory at hidden 256 (WideSmem<512, BF>): the two activation
+// arrays 130 KiB (row stride 2H + 4 floats; 2H + 8 under bfloat16, 132
+// KiB, for conflict-free A fragments), two 16 KiB slabs, the head outputs
+// 16.5 KiB, the double-buffered sample rows 6 KiB and 12.5 KiB of biases,
+// W1c and sums: 197.6 / 198.6 KiB of the 227 KiB a CTA may have. Per chunk:
 //   h1 (elementwise) | h2 = tanh(h1 W2 + b2) | out = h2 Wm + bh, value by warp
 //   | loss, a warp a sample, the classes over the lanes | dbhc, dWhc, then
-//   g_p2 = (g_top Wm^T) (1 - h2^2) | db2c, dW2c, g_p1 = (g_p2 W2^T) (1 - h1^2)
-//   | db1c, dW1c.
+//   g_p2 = (g_top Wm^T) (1 - h2^2) | db2c, h1 and g_p2 out, g_p1 =
+//   (g_p2 W2^T) (1 - h1^2) | db1c, dW1c.
 constexpr int kWideChunk = 32;
+
+// The activation scratch of the wide path: h1 [n][H2], then g_p2 [n][H2],
+// rows in minibatch order (visited tile g, then sample: g * tile + i),
+// float32, or bf16 under bfloat16. Copies a chunk's [kWideChunk][H2] rows
+// from shared memory (row stride lda) to rows row0.. of one of them; every
+// thread of the block calls it.
+template <int H2, bool BF>
+__device__ __forceinline__ void rows_out(const float* src, int lda, void* act, long long row0) {
+  constexpr int Q = H2 / 4;
+  for (int e = threadIdx.x; e < kWideChunk * Q; e += blockDim.x) {
+    const int s = e / Q, c = e % Q * 4;
+    const float4 v = *reinterpret_cast<const float4*>(src + s * lda + c);
+    const long long o = (row0 + s) * H2 + c;
+    if constexpr (BF) {
+      const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+      uint2 u;
+      u.x = *reinterpret_cast<const unsigned*>(&lo);
+      u.y = *reinterpret_cast<const unsigned*>(&hi);
+      *reinterpret_cast<uint2*>(static_cast<__nv_bfloat16*>(act) + o) = u;
+    } else {
+      *reinterpret_cast<float4*>(static_cast<float*>(act) + o) = v;
+    }
+  }
+}
 static_assert(kWarps * 2 == kWideChunk, "a warp takes two samples of a chunk in the loss");
 
+// Under bfloat16 at hidden 64 and above the two W2c products of a chunk run
+// on the tensor cores (tower_mma); at hidden 32 (a warp's share of the
+// columns would be half an mma tile) they stay FMA.
+template <int H2, bool BF>
+inline constexpr bool kWideMma = BF && H2 >= 128;
+
+// A W2c product of the wide path on the tensor cores: acc = A x B per tower
+// for the chunk's 32 samples (two m16 tiles) and this warp's H2 / 16 columns
+// n0.. (H2 / 128 n8 tiles; warps 0-7 take the policy tower), summed over its
+// tower's H rows in k-steps of 16 by mma.sync m16n8k16 (bf16 inputs, float32
+// sums). A is the float32 activations [32][lda] (lda = H2 + 8: a half-warp's
+// 8-byte reads of rows g and columns 2t fall on distinct banks), rounded to
+// bf16 in registers as they are read, which is what the mode's rounding of
+// the products' inputs defines; B is wide_prep's fragment-ordered bf16 copy
+// (FWB, GWB), one 8-byte load a lane and n8 tile, from L2. No barrier: a
+// warp reads only its own columns of B, and nothing writes A meanwhile.
+// acc[m][f] holds the entries in mma_16816's C layout: rows 16 m + g
+// (+ 8), columns n0 + 8 f + 2t (+ 1).
 template <int H2>
+__device__ __forceinline__ void tower_mma(const float* A, int lda, const uint2* __restrict__ B,
+                                          float (&acc)[2][H2 / 128][4]) {
+  constexpr int H = H2 / 2, NT = H2 / 128, KB = H / 16;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int n0 = warp * (H2 / 16), k0 = n0 / H * H;
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int f = 0; f < NT; ++f)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][f][e] = 0.0f;
+  const uint2* b = B + (n0 + g) * KB * 4 + t;
+  const float* a = A + g * lda + k0 + 2 * t;
+#pragma unroll
+  for (int kb = 0; kb < KB; ++kb) {
+    uint2 bf[NT];
+#pragma unroll
+    for (int f = 0; f < NT; ++f) bf[f] = __ldg(b + (f * 8 * KB + kb) * 4);
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      const float* q = a + m * 16 * lda + kb * 16;
+      const float2 x0 = *reinterpret_cast<const float2*>(q);
+      const float2 x1 = *reinterpret_cast<const float2*>(q + 8 * lda);
+      const float2 x2 = *reinterpret_cast<const float2*>(q + 8);
+      const float2 x3 = *reinterpret_cast<const float2*>(q + 8 * lda + 8);
+      const unsigned af[4] = {pack_bf16x2(x0.x, x0.y), pack_bf16x2(x1.x, x1.y),
+                              pack_bf16x2(x2.x, x2.y), pack_bf16x2(x3.x, x3.y)};
+#pragma unroll
+      for (int f = 0; f < NT; ++f) mma_16816(acc[m][f], af, bf[f].x, bf[f].y);
+    }
+  }
+}
+
+// Calls fn(sample, column, value) for each entry of tower_mma's result held
+// by this thread.
+template <int H2, typename Fn>
+__device__ __forceinline__ void tower_mma_out(const float (&acc)[2][H2 / 128][4], Fn fn) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int n0 = warp * (H2 / 16);
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int f = 0; f < H2 / 128; ++f)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        fn(16 * m + g + e / 2 * 8, n0 + 8 * f + 2 * t + e % 2, acc[m][f][e]);
+}
+
+template <int H2, bool BF>
 struct WideSmem {
   static constexpr int S = kWideChunk;
-  static constexpr int LDA = kActLD<H2>;
+  static constexpr int LDA = kWideMma<H2, BF> ? H2 + 8 : kActLD<H2>;
   static constexpr int ACT0 = 0;                        // [S][LDA]: h1, then g_p1
   static constexpr int ACT1 = ACT0 + S * LDA;           // [S][LDA]: h2, then g_p2
   static constexpr int SLAB = ACT1 + S * LDA;           // [2][kSlabFloats]
@@ -745,7 +854,8 @@ struct WideSmem {
   static constexpr int TOTAL = RED + kWarps * kMet;
   static constexpr size_t BYTES = sizeof(float) * TOTAL;
 };
-static_assert(WideSmem<512>::BYTES <= 232448, "wide stage 1 exceeds the shared memory of a CTA");
+static_assert(WideSmem<512, false>::BYTES <= 232448 && WideSmem<512, true>::BYTES <= 232448,
+              "wide stage 1 exceeds the shared memory of a CTA");
 
 // BIGD: obs_dim above kMaxD, as in ppo_grad_tiles: W1c is read from L2, and
 // dW1c's chunk shares are added into the workspace row.
@@ -754,17 +864,16 @@ __global__ void __launch_bounds__(kThreads, 1)
     ppo_grad_wide(const GradParams p, const float* __restrict__ data,
                   const int* __restrict__ order, const float* __restrict__ w,
                   const float* __restrict__ prep, const float* __restrict__ adv_stats,
-                  float* __restrict__ ws) {
+                  void* __restrict__ act, float* __restrict__ ws) {
   extern __shared__ __align__(128) unsigned char smem[];
   float* sm = reinterpret_cast<float*>(smem);
-  using S_ = WideSmem<H2>;
+  using S_ = WideSmem<H2, BF>;
   constexpr int H = H2 / 2, S = kWideChunk, LDA = S_::LDA, LDO = kWideLDO;
+  constexpr bool MMA = kWideMma<H2, BF>;
   // thread tiles: the W2 products [S][H2], g_p2's product [S][H], the head [S][AP]
   constexpr int TC2 = H2 >= 512 ? 8 : 4, TS2 = S * (H2 / TC2) / kThreads;
   constexpr int TCB = H >= 64 ? 4 : 2, TSB = S * (H / TCB) / kThreads;
   constexpr int TSF = 2, TCF = 4;
-  // outer-product tiles: dW2c's TKW x TKW, dWhc's 8 x 4
-  constexpr int TKW = H >= 64 ? 8 : 4, NTW = H / TKW;
   static_assert(TS2 >= 1 && TSB >= 1 && (S / TSF) * (kWideMaxA / TCF) <= kThreads &&
                     H2 <= kThreads,
                 "tiling");
@@ -790,7 +899,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int na = gauss ? A : 1;
   const Layout L = make_layout(D, H2, A);
   const WidePrep W = wide_prep_layout(H, AP);
-  const long long N = p.n_cols;
+  const long long N = p.n_cols, n_mb = (long long)p.num_tiles * p.tile;
   const int tile_idx = order[blockIdx.x / kSplit];
   if (tile_idx < 0 || (long long)(tile_idx + 1) * p.tile > N) __trap();
   const int part = blockIdx.x % kSplit, n_chunks = p.tile / S;
@@ -858,7 +967,13 @@ __global__ void __launch_bounds__(kThreads, 1)
     __syncthreads();
 
     // h2 = tanh(W2c^T h1 + b2c), per tower
-    {
+    if constexpr (MMA) {
+      float acc[2][H2 / 128][4];
+      tower_mma<H2>(act0, LDA, reinterpret_cast<const uint2*>(prep + W.fwb), acc);
+      tower_mma_out<H2>(acc, [&](int s, int c, float z) {
+        act1[s * LDA + c] = tanhf(z + sb2[c]);
+      });
+    } else {
       float acc[TS2][TC2];
       block_product<TS2, TC2, BF, true>(act0, LDA, H, prep + W.fw, H, H2, slab, f_s0, f_c0, true, acc);
 #pragma unroll
@@ -1038,22 +1153,25 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     __syncthreads();
 
-    // db2c; dW2c += h1^T g_p2 per tower; g_p1 = (g_p2 W2c^T) (1 - h1^2)
+    // db2c; h1 and g_p2 out to the activation scratch (dW2c is dw2c_split's);
+    // g_p1 = (g_p2 W2c^T) (1 - h1^2)
     if (tid < H2)
       for (int s = 0; s < S; ++s) acc_b2 += act1[s * LDA + tid];
-    for (int t = tid; t < 2 * NTW * NTW; t += kThreads) {
-      const int tw = t / (NTW * NTW), r0 = tw * H + t % (NTW * NTW) / NTW * TKW;
-      const int c0 = tw * H + t % NTW * TKW;
-      float acc[TKW][TKW];
-      outer_tile<TKW, TKW, BF>(act0 + r0, LDA, act1 + c0, LDA, S, acc);
-#pragma unroll
-      for (int i = 0; i < TKW; ++i) {
-        float* d = row + L.w2 + (r0 + i) * H2 + c0;
-#pragma unroll
-        for (int j = 0; j < TKW; ++j) d[j] += acc[i][j];
-      }
-    }
     {
+      const long long m0 = (long long)(blockIdx.x / kSplit) * p.tile + (long long)chunk * S;
+      rows_out<H2, BF>(act0, LDA, act, m0);
+      rows_out<H2, BF>(act1, LDA, act, n_mb + m0);
+    }
+    if constexpr (MMA) {
+      __syncthreads();   // every thread's rows_out has read h1
+      float acc[2][H2 / 128][4];
+      tower_mma<H2>(act1, LDA, reinterpret_cast<const uint2*>(prep + W.gwb), acc);
+      tower_mma_out<H2>(acc, [&](int s, int c, float z) {
+        float* hp = act0 + s * LDA + c;
+        const float h = *hp;
+        *hp = z * (1.0f - h * h);
+      });
+    } else {
       float acc[TS2][TC2];
       block_product<TS2, TC2, BF, true>(act1, LDA, H, prep + W.gw, H, H2, slab, f_s0, f_c0, true, acc);
 #pragma unroll
@@ -1116,6 +1234,248 @@ __global__ void __launch_bounds__(kThreads, 1)
       row[L.ls + tid - 4] = z;
     }
   }
+}
+
+// ------------------------------------------------------- dW2c, split-K
+// dW2c = h1^T g_p2 per tower over the n samples of the minibatch, after
+// ppo_grad_wide has written h1 and g_p2 to the activation scratch. The
+// samples are cut into ksplit_count(n, rows) ranges of whole blocks of
+// kKBlock samples (at most kKSplitSamples each, at most one range per
+// workspace row); each tower's [H, H] block into tiles of BM x BM. CTA
+// (range j, tile t) sums its tile over its range and writes it into the dW2c
+// block of workspace row j, which stage 1 zeroed; rows past the ranges and
+// the cross-tower blocks stay zero, and stage 2 adds the rows in its fixed
+// order. No atomics, and each CTA adds its samples in one order, so the bits
+// stay fixed. Within a range the products of a block of kKBlock samples are
+// summed apart and then added to the running sum, so a partial rounds like a
+// sum of kKBlock + kKSplitSamples / kKBlock terms.
+// What bounds it: operations (2 x H^2 multiply-adds a sample: 6.9e10 FLOP
+// for 2^18 samples at hidden 256, against 1.1 GB of float32 operands).
+// * float32: FMA, a thread 4G x 4G entries of the tile in registers (groups
+//   of 4 rows and columns BM / G apart, so a warp's shared-memory reads are
+//   contiguous), operands through a ring of kDwStages cp.async stages of 16
+//   samples.
+// * bfloat16: the operands are already bf16; wmma fragments (mma.sync
+//   m16n8k16, float32 sums) of mma_tiles.cuh, a warp a [BM / 2, BM / WN]
+//   sub-tile, stages of 32 samples; the block sums are fragments too.
+constexpr int kKBlock = 64;            // samples per block sum
+constexpr int kKSplitSamples = 2048;   // samples per range, at most
+constexpr int kDwStages = 3;
+
+__host__ __device__ inline int ksplit_count(long long n, int rows) {
+  const long long s = (n + kKSplitSamples - 1) / kKSplitSamples;
+  return (int)(s < rows ? s : rows);
+}
+
+// First sample of range j of n_split over n samples (n a multiple of kKBlock).
+__host__ __device__ inline long long ksplit_begin(long long n, int n_split, int j) {
+  return (n / kKBlock) * j / n_split * kKBlock;
+}
+
+// The tile edge of dw2c_split at tower width H: the tower, up to 128.
+__host__ __device__ constexpr int dw_tile(int H) { return H < 128 ? H : 128; }
+
+template <int BM>
+struct DwF32 {
+  static constexpr int G = BM >= 128 ? 2 : 1;    // groups of 4 rows (columns) a thread
+  static constexpr int TD = BM / (4 * G);        // threads along each edge
+  static constexpr int NT = TD * TD;
+  static constexpr int BK = 16;                  // samples a stage
+  static constexpr size_t BYTES = sizeof(float) * 2 * kDwStages * BK * BM;
+};
+
+template <int BM>
+struct DwBF {
+  static constexpr int WM = 2, WN = BM >= 128 ? 4 : 2;   // warps along rows, columns
+  static constexpr int MF = BM / (16 * WM), NF = BM / (16 * WN);
+  static constexpr int NT = 32 * WM * WN;
+  static constexpr int BK = 32, LD = BM + 8;     // samples a stage; bf16 row stride
+  static constexpr size_t BYTES = 2 * 2 * kDwStages * BK * LD;
+  static_assert(BYTES >= sizeof(float) * 256 * (NT / 32), "epilogue scratch");
+};
+
+// The CTA's place: (tower, first row, first column of its tile, range j,
+// its samples [k0, k1)).
+struct DwPlace {
+  int tw, r0, c0, j;
+  long long k0, k1;
+};
+
+__device__ inline DwPlace dw_place(const GradParams& p, int BM, int n_split) {
+  const int nt = p.hidden / BM, tiles = 2 * nt * nt;
+  const long long n = (long long)p.num_tiles * p.tile;
+  DwPlace d;
+  const int t = blockIdx.x % tiles;
+  d.j = blockIdx.x / tiles;
+  d.tw = t / (nt * nt);
+  d.r0 = t % (nt * nt) / nt * BM;
+  d.c0 = t % nt * BM;
+  d.k0 = ksplit_begin(n, n_split, d.j);
+  d.k1 = ksplit_begin(n, n_split, d.j + 1);
+  return d;
+}
+
+template <int BM>
+__global__ void __launch_bounds__(DwF32<BM>::NT, 1)
+    dw2c_split_f32(const GradParams p, int n_split, const float* __restrict__ act,
+                   float* __restrict__ ws) {
+  using C = DwF32<BM>;
+  constexpr int G = C::G, TD = C::TD, NT = C::NT, BK = C::BK, TR = 4 * G, GS = BM / G;
+  constexpr int STAGE = BK * BM;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* sA = reinterpret_cast<float*>(smem);   // [kDwStages][BK][BM]
+  float* sB = sA + kDwStages * STAGE;
+  const int H = p.hidden, H2 = 2 * H, tid = threadIdx.x, ty = tid / TD, tx = tid % TD;
+  const long long n = (long long)p.num_tiles * p.tile;
+  const DwPlace d = dw_place(p, BM, n_split);
+  const float* A = act + d.k0 * H2 + d.tw * H + d.r0;
+  const float* B = act + (n + d.k0) * H2 + d.tw * H + d.c0;
+  const int steps = (int)((d.k1 - d.k0) / BK);
+  auto load = [&](int i) {
+    float* a = sA + i % kDwStages * STAGE;
+    float* b = sB + i % kDwStages * STAGE;
+    const long long off = (long long)i * BK * H2;
+    for (int e = tid; e < STAGE / 4; e += NT) {
+      const int kk = e / (BM / 4), mm = e % (BM / 4) * 4;
+      cp_async16(a + kk * BM + mm, A + off + (long long)kk * H2 + mm);
+      cp_async16(b + kk * BM + mm, B + off + (long long)kk * H2 + mm);
+    }
+  };
+  float acc[TR][TR], part[TR][TR];
+#pragma unroll
+  for (int i = 0; i < TR; ++i)
+#pragma unroll
+    for (int c = 0; c < TR; ++c) acc[i][c] = part[i][c] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < kDwStages - 1; ++i) {
+    if (i < steps) load(i);
+    cp_async_commit();
+  }
+  for (int i = 0; i < steps; ++i) {
+    cp_async_wait<kDwStages - 2>();
+    __syncthreads();
+    // the stage read in step i - 1, which every thread has finished
+    if (i + kDwStages - 1 < steps) load(i + kDwStages - 1);
+    cp_async_commit();
+    const float* a = sA + i % kDwStages * STAGE + ty * 4;
+    const float* b = sB + i % kDwStages * STAGE + tx * 4;
+#pragma unroll 4
+    for (int kk = 0; kk < BK; ++kk) {
+      float x[TR], y[TR];
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        float4 u = *reinterpret_cast<const float4*>(a + kk * BM + g * GS);
+        float4 v = *reinterpret_cast<const float4*>(b + kk * BM + g * GS);
+        x[4 * g] = u.x; x[4 * g + 1] = u.y; x[4 * g + 2] = u.z; x[4 * g + 3] = u.w;
+        y[4 * g] = v.x; y[4 * g + 1] = v.y; y[4 * g + 2] = v.z; y[4 * g + 3] = v.w;
+      }
+#pragma unroll
+      for (int r = 0; r < TR; ++r)
+#pragma unroll
+        for (int c = 0; c < TR; ++c) part[r][c] = fmaf(x[r], y[c], part[r][c]);
+    }
+    if ((i + 1) % (kKBlock / BK) == 0) {
+#pragma unroll
+      for (int r = 0; r < TR; ++r)
+#pragma unroll
+        for (int c = 0; c < TR; ++c) {
+          acc[r][c] += part[r][c];
+          part[r][c] = 0.0f;
+        }
+    }
+  }
+  cp_async_wait_all();
+  const Layout L = make_layout(p.obs_dim, H2, p.act_dim);
+  float* out = ws + (long long)d.j * (L.P + 4) + L.w2 + (d.tw * H) * (H2 + 1);
+#pragma unroll
+  for (int r = 0; r < TR; ++r) {
+    const int row = d.r0 + r / 4 * GS + ty * 4 + r % 4;
+#pragma unroll
+    for (int c = 0; c < TR; ++c) out[row * H2 + d.c0 + c / 4 * GS + tx * 4 + c % 4] = acc[r][c];
+  }
+}
+
+template <int BM>
+__global__ void __launch_bounds__(DwBF<BM>::NT, 1)
+    dw2c_split_bf16(const GradParams p, int n_split, const __nv_bfloat16* __restrict__ act,
+                    float* __restrict__ ws) {
+  namespace wmma = nvcuda::wmma;
+  using C = DwBF<BM>;
+  constexpr int MF = C::MF, NF = C::NF, NT = C::NT, BK = C::BK, LD = C::LD;
+  constexpr int STAGE = BK * LD;
+  extern __shared__ __align__(128) unsigned char smem[];
+  __nv_bfloat16* sA = reinterpret_cast<__nv_bfloat16*>(smem);   // [kDwStages][BK][LD]
+  __nv_bfloat16* sB = sA + kDwStages * STAGE;
+  const int H = p.hidden, H2 = 2 * H, tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wm = warp / C::WN, wn = warp % C::WN;
+  const long long n = (long long)p.num_tiles * p.tile;
+  const DwPlace d = dw_place(p, BM, n_split);
+  const __nv_bfloat16* A = act + d.k0 * H2 + d.tw * H + d.r0;
+  const __nv_bfloat16* B = act + (n + d.k0) * H2 + d.tw * H + d.c0;
+  const int steps = (int)((d.k1 - d.k0) / BK);
+  auto load = [&](int i) {
+    __nv_bfloat16* a = sA + i % kDwStages * STAGE;
+    __nv_bfloat16* b = sB + i % kDwStages * STAGE;
+    const long long off = (long long)i * BK * H2;
+    for (int e = tid; e < BK * BM / 8; e += NT) {
+      const int kk = e / (BM / 8), mm = e % (BM / 8) * 8;
+      cp_async16(reinterpret_cast<float*>(a + kk * LD + mm),
+                 reinterpret_cast<const float*>(A + off + (long long)kk * H2 + mm));
+      cp_async16(reinterpret_cast<float*>(b + kk * LD + mm),
+                 reinterpret_cast<const float*>(B + off + (long long)kk * H2 + mm));
+    }
+  };
+  AccFrag acc[MF][NF], blk[MF][NF];
+#pragma unroll
+  for (int i = 0; i < MF; ++i) {
+    zero_frags(acc[i]);
+    zero_frags(blk[i]);
+  }
+#pragma unroll
+  for (int i = 0; i < kDwStages - 1; ++i) {
+    if (i < steps) load(i);
+    cp_async_commit();
+  }
+  for (int i = 0; i < steps; ++i) {
+    cp_async_wait<kDwStages - 2>();
+    __syncthreads();
+    if (i + kDwStages - 1 < steps) load(i + kDwStages - 1);
+    cp_async_commit();
+    // A is h1 [samples][rows]: the fragments' [16 rows, 16 samples] tiles
+    // read column-major; B is g_p2 [samples][columns], read row-major
+    const __nv_bfloat16* a = sA + i % kDwStages * STAGE + wm * MF * 16;
+    const __nv_bfloat16* b = sB + i % kDwStages * STAGE + wn * NF * 16;
+#pragma unroll
+    for (int ks = 0; ks < BK / kMmaK; ++ks)
+      mma_grid<wmma::col_major, wmma::row_major, MF, NF>(a + ks * kMmaK * LD, LD, 16,
+                                                         b + ks * kMmaK * LD, LD, 16, blk);
+    if ((i + 1) % (kKBlock / BK) == 0) {
+#pragma unroll
+      for (int r = 0; r < MF; ++r)
+#pragma unroll
+        for (int c = 0; c < NF; ++c) {
+#pragma unroll
+          for (int e = 0; e < blk[r][c].num_elements; ++e) acc[r][c].x[e] += blk[r][c].x[e];
+          wmma::fill_fragment(blk[r][c], 0.0f);
+        }
+    }
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  // out through a [16][16] float scratch of the warp's own
+  float* scr = reinterpret_cast<float*>(smem) + warp * 256;
+  const Layout L = make_layout(p.obs_dim, H2, p.act_dim);
+  float* out = ws + (long long)d.j * (L.P + 4) + L.w2 + (d.tw * H) * (H2 + 1);
+#pragma unroll
+  for (int r = 0; r < MF; ++r)
+#pragma unroll
+    for (int c = 0; c < NF; ++c) {
+      wmma::store_matrix_sync(scr, acc[r][c], 16, wmma::mem_row_major);
+      __syncwarp();
+      const int row0 = d.r0 + (wm * MF + r) * 16, col0 = d.c0 + (wn * NF + c) * 16;
+      for (int e = lane; e < 256; e += 32) out[(row0 + e / 16) * H2 + col0 + e % 16] = scr[e];
+      __syncwarp();
+    }
 }
 
 // Stage 2: out[i] = sum over the G workspace rows (kSplit per visited tile):
@@ -1226,73 +1586,147 @@ static int launch_tiles(const GradParams* p, const float* data, const int* order
 
 template <int H2, bool BF, bool BIGD>
 static int launch_wide(const GradParams* p, const float* data, const int* order, const float* w,
-                       float* prep, const float* adv, float* ws, cudaStream_t st) {
-  constexpr size_t bytes = WideSmem<H2>::BYTES;
-  cudaError_t e = launch_wide_prep(w, p->obs_dim, H2 / 2, p->act_dim, BF, false, prep, st);
+                       float* prep, const float* adv, void* act, float* ws, cudaStream_t st) {
+  constexpr size_t bytes = WideSmem<H2, BF>::BYTES;
+  cudaError_t e = launch_wide_prep(w, p->obs_dim, H2 / 2, p->act_dim, BF, false, prep, st,
+                                   kWideMma<H2, BF>);
   if (e != cudaSuccess) return (int)e;
   e = cudaFuncSetAttribute(ppo_grad_wide<H2, BF, BIGD>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return (int)e;
   ppo_grad_wide<H2, BF, BIGD><<<p->num_tiles * kSplit, kThreads, bytes, st>>>(
-      *p, data, order, w, prep, adv, ws);
+      *p, data, order, w, prep, adv, act, ws);
   return (int)cudaGetLastError();
+}
+
+template <int H2, bool BF>
+static int launch_dw2c(const GradParams* p, const void* act, float* ws, cudaStream_t st) {
+  constexpr int H = H2 / 2, BM = dw_tile(H), tiles = 2 * (H / BM) * (H / BM);
+  const int n_split = ksplit_count((long long)p->num_tiles * p->tile, p->num_tiles * kSplit);
+  if constexpr (BF) {
+    constexpr size_t bytes = DwBF<BM>::BYTES;
+    const cudaError_t e = cudaFuncSetAttribute(
+        dw2c_split_bf16<BM>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (e != cudaSuccess) return (int)e;
+    dw2c_split_bf16<BM><<<tiles * n_split, DwBF<BM>::NT, bytes, st>>>(
+        *p, n_split, static_cast<const __nv_bfloat16*>(act), ws);
+  } else {
+    constexpr size_t bytes = DwF32<BM>::BYTES;
+    const cudaError_t e = cudaFuncSetAttribute(
+        dw2c_split_f32<BM>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (e != cudaSuccess) return (int)e;
+    dw2c_split_f32<BM><<<tiles * n_split, DwF32<BM>::NT, bytes, st>>>(
+        *p, n_split, static_cast<const float*>(act), ws);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <bool BF>
+static int launch_dw2c_h(const GradParams* p, const void* act, float* ws, cudaStream_t st) {
+  switch (p->hidden) {
+    case 32: return launch_dw2c<64, BF>(p, act, ws, st);
+    case 64: return launch_dw2c<128, BF>(p, act, ws, st);
+    case 128: return launch_dw2c<256, BF>(p, act, ws, st);
+    default: return launch_dw2c<512, BF>(p, act, ws, st);
+  }
 }
 
 template <bool BF, bool BIGD>
 static int launch_path(const GradParams* p, const float* data, const int* order,
-                         const float* w, float* prep, const float* adv, float* ws,
+                         const float* w, float* prep, const float* adv, void* act, float* ws,
                          cudaStream_t st) {
   if (!wide_path(p->hidden, p->act_dim))
     return p->hidden == 64 ? launch_tiles<128, BF, BIGD>(p, data, order, w, adv, ws, st)
                            : launch_tiles<64, BF, BIGD>(p, data, order, w, adv, ws, st);
-  if (prep == nullptr) return (int)cudaErrorInvalidValue;
+  if (prep == nullptr || act == nullptr) return (int)cudaErrorInvalidValue;
   switch (p->hidden) {
-    case 32: return launch_wide<64, BF, BIGD>(p, data, order, w, prep, adv, ws, st);
-    case 64: return launch_wide<128, BF, BIGD>(p, data, order, w, prep, adv, ws, st);
-    case 128: return launch_wide<256, BF, BIGD>(p, data, order, w, prep, adv, ws, st);
-    default: return launch_wide<512, BF, BIGD>(p, data, order, w, prep, adv, ws, st);
+    case 32: return launch_wide<64, BF, BIGD>(p, data, order, w, prep, adv, act, ws, st);
+    case 64: return launch_wide<128, BF, BIGD>(p, data, order, w, prep, adv, act, ws, st);
+    case 128: return launch_wide<256, BF, BIGD>(p, data, order, w, prep, adv, act, ws, st);
+    default: return launch_wide<512, BF, BIGD>(p, data, order, w, prep, adv, act, ws, st);
   }
 }
 
 template <bool BF>
 static int launch_stage1(const GradParams* p, const float* data, const int* order,
-                         const float* w, float* prep, const float* adv, float* ws,
+                         const float* w, float* prep, const float* adv, void* act, float* ws,
                          cudaStream_t st) {
-  return p->obs_dim > kMaxD ? launch_path<BF, true>(p, data, order, w, prep, adv, ws, st)
-                            : launch_path<BF, false>(p, data, order, w, prep, adv, ws, st);
+  return p->obs_dim > kMaxD ? launch_path<BF, true>(p, data, order, w, prep, adv, act, ws, st)
+                            : launch_path<BF, false>(p, data, order, w, prep, adv, act, ws, st);
 }
 
-// Stages 1 and 2: gout[P + 4] = (merged gradients, metric sums).
+static int stage1(const GradParams* p, const float* data, const int* order, const float* w,
+                  float* prep, const float* adv, void* act, float* ws, cudaStream_t st) {
+  return p->compute == BFLOAT16
+             ? launch_stage1<true>(p, data, order, w, prep, adv, act, ws, st)
+             : launch_stage1<false>(p, data, order, w, prep, adv, act, ws, st);
+}
+
+// dW2c of the wide path from the activation scratch into the workspace rows.
+static int dw2c_stage(const GradParams* p, const void* act, float* ws, cudaStream_t st) {
+  if (act == nullptr) return (int)cudaErrorInvalidValue;
+  return p->compute == BFLOAT16 ? launch_dw2c_h<true>(p, act, ws, st)
+                                : launch_dw2c_h<false>(p, act, ws, st);
+}
+
+// Stages 1 (with dw2c_split on the wide path) and 2: gout[P + 4] = (merged
+// gradients, metric sums).
 static int grad_stages(const GradParams* p, const float* data, const int* order, const float* w,
-                       float* prep, const float* adv, float* ws, float* gout, cudaStream_t st) {
+                       float* prep, const float* adv, void* act, float* ws, float* gout,
+                       cudaStream_t st) {
   int err = check_params(p);
   if (err) return err;
-  err = p->compute == BFLOAT16 ? launch_stage1<true>(p, data, order, w, prep, adv, ws, st)
-                               : launch_stage1<false>(p, data, order, w, prep, adv, ws, st);
+  err = stage1(p, data, order, w, prep, adv, act, ws, st);
   if (err) return err;
+  if (wide_path(p->hidden, p->act_dim)) {
+    err = dw2c_stage(p, act, ws, st);
+    if (err) return err;
+  }
   const int PW = make_layout(p->obs_dim, 2 * p->hidden, p->act_dim).P + 4;
   reduce_rows<<<(PW + 255) / 256, 256, 0, st>>>(ws, p->num_tiles * kSplit, PW, gout);
   return (int)cudaGetLastError();
 }
 
-// prep: prep_floats(hidden, act_dim) floats of scratch (none for the
-// narrow path: it may be null there).
+// prep: prep_floats(hidden, act_dim) floats of scratch, act:
+// ppo_grad_act_bytes(hidden, act_dim, compute, G * tile) bytes (none for
+// the narrow path: both may be null there).
 extern "C" int ppo_grad_launch(const GradParams* p, const float* data, const int* order,
-                               const float* w, float* prep, const float* adv, float* ws,
-                               float* gout, void* stream) {
-  return grad_stages(p, data, order, w, prep, adv, ws, gout, (cudaStream_t)stream);
+                               const float* w, float* prep, void* act, const float* adv,
+                               float* ws, float* gout, void* stream) {
+  return grad_stages(p, data, order, w, prep, adv, act, ws, gout, (cudaStream_t)stream);
 }
 
 extern "C" int ppo_grad_adam_launch(const GradParams* p, const AdamParams* q, const float* data,
                                     const int* order, const float* w, const float* m,
-                                    const float* v, float* prep, const float* adv, float* ws,
-                                    float* gout, float* w_out, float* m_out, float* v_out,
-                                    void* stream) {
+                                    const float* v, float* prep, void* act, const float* adv,
+                                    float* ws, float* gout, float* w_out, float* m_out,
+                                    float* v_out, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
-  const int err = grad_stages(p, data, order, w, prep, adv, ws, gout, st);
+  const int err = grad_stages(p, data, order, w, prep, adv, act, ws, gout, st);
   if (err) return err;
   clip_adam<<<1, kAdamThreads, 0, st>>>(*p, *q, gout, w, m, v, w_out, m_out, v_out);
   return (int)cudaGetLastError();
+}
+
+// The two launches of the wide path's stage 1 apart, for timing them and
+// holding dw2c_split against its plain version: wide_prep and ppo_grad_wide
+// (the workspace rows without dW2c, and the activation scratch), then
+// dw2c_split alone (the rows' dW2c blocks from the scratch).
+extern "C" int ppo_grad_stage1_launch(const GradParams* p, const float* data, const int* order,
+                                      const float* w, float* prep, void* act, const float* adv,
+                                      float* ws, void* stream) {
+  const int err = check_params(p);
+  if (err) return err;
+  if (!wide_path(p->hidden, p->act_dim)) return (int)cudaErrorInvalidValue;
+  return stage1(p, data, order, w, prep, adv, act, ws, (cudaStream_t)stream);
+}
+
+extern "C" int ppo_grad_dw2c_launch(const GradParams* p, const void* act, float* ws,
+                                    void* stream) {
+  const int err = check_params(p);
+  if (err) return err;
+  if (!wide_path(p->hidden, p->act_dim)) return (int)cudaErrorInvalidValue;
+  return dw2c_stage(p, act, ws, (cudaStream_t)stream);
 }
 
 extern "C" int ppo_grad_params_size(void) { return (int)sizeof(GradParams); }
@@ -1301,13 +1735,27 @@ extern "C" int ppo_grad_prep_floats(int hidden, int act_dim) {
   return wide_path(hidden, act_dim) ? wide_prep_layout(hidden, wide_ap(act_dim)).total : 0;
 }
 
+// Bytes of the activation scratch for n samples: h1 and g_p2 [n][2H], 4
+// bytes an entry under float32 and 2 under bfloat16 (none on the narrow path).
+extern "C" long long ppo_grad_act_bytes(int hidden, int act_dim, int compute, long long n) {
+  if (!wide_path(hidden, act_dim)) return 0;
+  return 2 * n * 2 * hidden * (compute == BFLOAT16 ? 2 : 4);
+}
+
 extern "C" int ppo_adam_params_size(void) { return (int)sizeof(AdamParams); }
 
 // The grid plan the wrapper sizes the workspace by: samples per chunk, and
-// workspace rows per visited tile.
+// workspace rows per visited tile; dw2c_split's block and range of samples
+// and its range count for n samples over `rows` workspace rows.
 extern "C" int ppo_grad_chunk(void) { return kChunk; }
 
 extern "C" int ppo_grad_split(void) { return kSplit; }
+
+extern "C" int ppo_grad_kblock(void) { return kKBlock; }
+
+extern "C" int ppo_grad_ksplit_samples(void) { return kKSplitSamples; }
+
+extern "C" int ppo_grad_ksplit_count(long long n, int rows) { return ksplit_count(n, rows); }
 
 extern "C" const char* cuda_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);

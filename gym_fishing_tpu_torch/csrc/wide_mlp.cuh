@@ -10,10 +10,15 @@
 // as plain row-major operands (both towers' W2 blocks side by side, their
 // transposes, the policy head padded to a multiple of 8 classes and its
 // transpose, the value head), and block_product runs one block-wide product
-// over a double-buffered ring of two slabs filled by cp.async. Products are
-// float32 FMA in both compute modes; under bfloat16 the inputs that the mode
-// rounds are rounded where they are read (the weights by wide_prep), which
-// is the function the mode defines.
+// over a double-buffered ring of two slabs filled by cp.async, as float32
+// FMA; under bfloat16 the inputs that the mode rounds are rounded where they
+// are read (the weights by wide_prep), which is the function the mode
+// defines. K2/K3 under bfloat16 run their two W2c products on the tensor
+// cores instead (ppo_update_kernel.cu::tower_mma), from bf16 copies of the
+// two W2 operands that wide_prep adds after that layout when asked
+// (bf_copy), in the order of an mma.sync B fragment; K4's wide path reads
+// the float32 layout only. dW2c of the update kernels is not a block product
+// at all: see ppo_update_kernel.cu::dw2c_split.
 
 #pragma once
 
@@ -45,6 +50,17 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
+// Groups of cp.async copies: close the group of this thread's copies issued
+// since the last commit; wait until at most N of its groups are in flight.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
@@ -67,9 +83,11 @@ __device__ __forceinline__ float warp_max(float v) {
 __host__ __device__ inline int wide_ap(int A) { return (A + 7) / 8 * 8; }
 
 // Offsets (floats) into wide_prep's output, for tower width H and padded
-// head width AP: FW [H][2H], GW [H][2H], MP [H][AP], MT [AP][H], WV [H].
+// head width AP: FW [H][2H], GW [H][2H], MP [H][AP], MT [AP][H], WV [H],
+// then FWB and GWB, bf16 copies of FW and GW in the order of an mma.sync
+// B fragment (frag_index), 2H x H bf16 each.
 struct WidePrep {
-  int fw, gw, mp, mt, wv, total;
+  int fw, gw, mp, mt, wv, fwb, gwb, total;
 };
 
 __host__ __device__ inline WidePrep wide_prep_layout(int H, int AP) {
@@ -79,8 +97,20 @@ __host__ __device__ inline WidePrep wide_prep_layout(int H, int AP) {
   w.mp = w.gw + 2 * H * H;
   w.mt = w.mp + H * AP;
   w.wv = w.mt + AP * H;
-  w.total = w.wv + H;
+  w.fwb = w.wv + H;      // a multiple of 4 floats: 8-byte loads
+  w.gwb = w.fwb + H * H;
+  w.total = w.gwb + H * H;
   return w;
+}
+
+// Where entry (k, n) of a [H][2H] operand B (k < H, n < 2H) lies in its
+// bf16 copy: column n's H values in blocks of 16 k, each block ordered as
+// the lanes t = 0..3 of an m16n8k16 B fragment take them, (2t, 2t + 1,
+// 2t + 8, 2t + 9), so that lane (g, t) reads its two registers b0, b1 of
+// column n = n0 + g as one 8-byte word at 4 (n (H / 16) + k / 16) + t.
+__host__ __device__ inline int frag_index(int k, int n, int H) {
+  const int r = k % 16;
+  return ((n * (H / 16) + k / 16) * 4 + r % 8 / 2) * 4 + r / 8 * 2 + r % 2;
 }
 
 // The merged weights w (make_layout(D, 2H, A)) as the wide products read them:
@@ -88,12 +118,13 @@ __host__ __device__ inline WidePrep wide_prep_layout(int H, int AP) {
 //   GW[k][t H + n] = W2c[t H + n][t H + k]   (B of the backward product)
 //   MP[k][a] = Whc[k][a], MT[a][k] = Whc[k][a] for a < A, zero for A <= a < AP
 //   WV[k] = Whc[H + k][A]
-// rounded to bf16 where round_w2 (FW, GW) and round_head (MP, MT, WV) say.
-// The cross-tower blocks of W2c and Whc are zero by construction
-// (merge_weights) and stay so under K3's masked update; the products rely on
-// it, and a non-zero entry traps.
+// rounded to bf16 where round_w2 (FW, GW) and round_head (MP, MT, WV) say;
+// with bf_copy also FWB and GWB, FW and GW as bf16 (for round_w2 weights, the
+// same values). The cross-tower blocks of W2c and Whc are zero by
+// construction (merge_weights) and stay so under K3's masked update; the
+// products rely on it, and a non-zero entry traps.
 __global__ void __launch_bounds__(256) wide_prep(const float* __restrict__ w, int D, int H, int A,
-                                                 bool round_w2, bool round_head,
+                                                 bool round_w2, bool round_head, bool bf_copy,
                                                  float* __restrict__ out) {
   const int H2 = 2 * H, A1 = A + 1, AP = wide_ap(A);
   const Layout L = make_layout(D, H2, A);
@@ -112,6 +143,12 @@ __global__ void __launch_bounds__(256) wide_prep(const float* __restrict__ w, in
       const int t = r / H, k = r % H, n = c % H;  // W2c[t H + k][t H + n]
       out[P.fw + k * H2 + t * H + n] = x;
       out[P.gw + n * H2 + t * H + k] = x;
+      if (bf_copy) {
+        reinterpret_cast<__nv_bfloat16*>(out + P.fwb)[frag_index(k, t * H + n, H)] =
+            __float2bfloat16_rn(x);
+        reinterpret_cast<__nv_bfloat16*>(out + P.gwb)[frag_index(n, t * H + k, H)] =
+            __float2bfloat16_rn(x);
+      }
     } else if (i < n_w2 + n_wh) {
       const int q = i - n_w2, r = q / A1, c = q % A1;
       const float v = w[L.wh + q];
@@ -261,8 +298,9 @@ __device__ __forceinline__ void outer_tile(const float* a, int lda, const float*
 // Launch wide_prep over the merged weights w into out (wide_prep_layout(H,
 // wide_ap(A)).total floats).
 inline cudaError_t launch_wide_prep(const float* w, int D, int H, int A, bool round_w2,
-                                    bool round_head, float* out, cudaStream_t st) {
+                                    bool round_head, float* out, cudaStream_t st,
+                                    bool bf_copy = false) {
   const int n = 4 * H * H + 2 * H * (A + 1) + (wide_ap(A) - A) * H;
-  wide_prep<<<(n + 255) / 256, 256, 0, st>>>(w, D, H, A, round_w2, round_head, out);
+  wide_prep<<<(n + 255) / 256, 256, 0, st>>>(w, D, H, A, round_w2, round_head, bf_copy, out);
   return cudaGetLastError();
 }

@@ -14,7 +14,9 @@ K3 then masks the cross-tower blocks, clips by global norm and applies Adam.
 
 - `fused_minibatch_grad` and `fused_minibatch_grad_adam` are the wrappers:
   on a CUDA tensor they launch ``csrc/ppo_update_kernel.cu`` (and add one to
-  `grad_launches` or `adam_launches`), on a CPU tensor they run the twin.
+  `grad_launches` or `adam_launches`, and on the wide path one to
+  `split_launches` for its ``dw2c_split``), on a CPU tensor they run the
+  twin.
 - `fused_minibatch_grad_reference` and `fused_minibatch_grad_adam_reference`
   are the twins: the same arithmetic as plain tensor ops over the gathered
   tiles. Under ``compute="bfloat16"`` the three 2H-contractions (forward
@@ -38,11 +40,20 @@ every CTA writes one workspace row (`stage1_rows`), stage 2 sums the rows in
 index order (no float atomics: identical calls give identical bits), and
 K3's stage 3 clips and applies Adam in one CTA. Hidden 128 and 256, and
 categorical heads of 17 to `KERNEL_MAX_LOGITS` classes at any hidden size,
-take the kernel's wide path (``csrc/wide_mlp.cuh``): the same grid and
-workspace rows, every weight matrix streamed from L2 in k-slabs, products
-as float32 FMA in both modes (bf16-rounded inputs under bfloat16). What bounds the kernel
-beside the products is the float32 work around them: the tanh of both
-hidden layers, the head and the loss.
+take the kernel's wide path (`wide_path`; ``ppo_grad_wide`` and
+``csrc/wide_mlp.cuh``): the same grid and workspace rows, every weight
+matrix streamed from L2, the two W2c products as float32 FMA under
+float32 and on the tensor cores under bfloat16 (bf16 fragments built from
+the float32 activations, float32 sums). There stage 1 writes h1 and g_p2
+once to an activation scratch (`act_scratch`; bf16 under bfloat16), and a
+second kernel, ``dw2c_split``, takes dW2c = h1^T g_p2 per tower as a
+split-K product over ranges of the samples (`split_k_ranges`,
+`split_k_tiles`) into the dW2c blocks of the workspace rows, so stage 2
+and the output stay as they are (`dw2c_split` wraps it alone,
+`dw2c_split_reference` is its plain version, and
+`fused_minibatch_grad_split_reference` the whole pipeline's). What bounds
+the kernel beside the products is the float32 work around them: the tanh
+of both hidden layers, the head and the loss.
 
 Up to 4 observation fields each thread of stage 1 keeps its column's dW1c
 sums in registers; longer observations (windows of stacked observations, up
@@ -90,12 +101,16 @@ KERNEL_MAX_ACT_DIM = 16      # Gaussian action columns
 KERNEL_MAX_LOGITS = 128      # categorical classes
 KERNEL_CHUNK = 64  # samples per chunk inside a tile
 KERNEL_SPLIT = 2   # CTAs, and workspace rows, per visited tile
+KERNEL_MAX_NARROW_LOGITS = 16   # policy outputs of the narrow path (hidden 32/64)
+KERNEL_KBLOCK = 64              # dw2c_split: samples per block sum
+KERNEL_KSPLIT_SAMPLES = 2048    # dw2c_split: samples per range, at most
 
 _SOURCE = "ppo_update_kernel"
 
 # Kernel launches made by the wrappers (the CPU twin does not count).
 grad_launches = 0
 adam_launches = 0
+split_launches = 0   # dw2c_split, launched by K2 and K3 on the wide path
 
 
 class PPOGrads(NamedTuple):
@@ -388,39 +403,158 @@ def stage1_rows(num_tiles: int) -> int:
     return num_tiles * KERNEL_SPLIT
 
 
+def wide_path(hidden: int, act_dim: int) -> bool:
+    """Whether the kernel takes its wide path (``ppo_grad_wide`` and
+    ``dw2c_split``): hidden above 64, or more than `KERNEL_MAX_NARROW_LOGITS`
+    outputs of the policy head."""
+    return hidden > 64 or act_dim > KERNEL_MAX_NARROW_LOGITS
+
+
+def split_k_ranges(num_tiles: int, tile: int) -> list:
+    """The sample ranges ``[k0, k1)`` of ``dw2c_split`` over the minibatch's
+    ``num_tiles * tile`` samples: whole blocks of `KERNEL_KBLOCK`, at most
+    `KERNEL_KSPLIT_SAMPLES` a range and one range per workspace row. Range j
+    goes to workspace row j."""
+    n = num_tiles * tile
+    n_split = min(-(-n // KERNEL_KSPLIT_SAMPLES), stage1_rows(num_tiles))
+    nb = n // KERNEL_KBLOCK
+    return [(nb * j // n_split * KERNEL_KBLOCK, nb * (j + 1) // n_split * KERNEL_KBLOCK)
+            for j in range(n_split)]
+
+
+def split_k_tiles(hidden: int) -> list:
+    """The output tiles of ``dw2c_split``, in CTA order: (tower, first row,
+    first column, edge) of each square tile of a tower's [H, H] block of
+    dW2c, the edge ``min(H, 128)``."""
+    bm = min(hidden, 128)
+    nt = hidden // bm
+    return [(tw, t // nt * bm, t % nt * bm, bm) for tw in range(2) for t in range(nt * nt)]
+
+
+def act_scratch(hidden: int, act_dim: int, n: int, compute: str):
+    """(entries, dtype) of the activation scratch that the wide path's stage 1
+    writes and ``dw2c_split`` reads for n samples: h1 [n, 2H], then g_p2
+    [n, 2H], bf16 under bfloat16; None on the narrow path."""
+    if not wide_path(hidden, act_dim):
+        return None
+    return 2 * n * 2 * hidden, torch.bfloat16 if compute == "bfloat16" else torch.float32
+
+
 def _launch(data, tile_order, w_flat, adv_stats, hidden, adam=None, **scal):
-    """Stage 1 (`KERNEL_SPLIT` CTAs per visited tile -> partials), stage 2
-    (fixed-order reduce) and, with ``adam = (AdamParams, m, v, w_out, m_out, v_out)``,
-    stage 3 (clip + Adam into the outputs). Returns the reduced [P + 4]
-    buffer: merged gradients, then the 4 metric sums. A tile index outside
-    the data traps the kernel (checking it here would sync with the card)."""
-    p = _grad_params(data, tile_order, hidden, **scal)
+    """Stage 1 (`KERNEL_SPLIT` CTAs per visited tile -> partials; on the wide
+    path then ``dw2c_split``), stage 2 (fixed-order reduce) and, with
+    ``adam = (AdamParams, m, v, w_out, m_out, v_out)``, stage 3 (clip + Adam
+    into the outputs). Returns the reduced [P + 4] buffer: merged gradients,
+    then the 4 metric sums. A tile index outside the data traps the kernel
+    (checking it here would sync with the card)."""
+    global split_launches
+    p, lib, prep, act, ws = _stage1_buffers(data, tile_order, w_flat, hidden, scal)
     n_par = w_flat.numel()
-    dev = data.device
-    ws = torch.empty((stage1_rows(tile_order.shape[0]), n_par + 4), dtype=torch.float32,
-                     device=dev)
-    gout = torch.empty((n_par + 4,), dtype=torch.float32, device=dev)
-    lib = library()
-    # the wide path's weights laid out for its streamed products (none otherwise)
-    n_prep = lib.ppo_grad_prep_floats(hidden, scal["act_dim"])
-    prep = torch.empty((n_prep,), dtype=torch.float32, device=dev) if n_prep else None
-    ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    gout = torch.empty((n_par + 4,), dtype=torch.float32, device=data.device)
+    with torch.cuda.device(data.device):
+        stream = torch.cuda.current_stream(data.device).cuda_stream
         if adam is None:
-            err = lib.ppo_grad_launch(ctypes.addressof(p), ptr(data), ptr(tile_order),
-                                      ptr(w_flat), ptr(prep), ptr(adv_stats), ptr(ws),
-                                      ptr(gout), stream)
+            err = lib.ppo_grad_launch(
+                ctypes.addressof(p), _ptr(data), _ptr(tile_order), _ptr(w_flat), _ptr(prep),
+                _ptr(act), _ptr(adv_stats), _ptr(ws), _ptr(gout), stream)
             what = "ppo_grad_kernel launch"
         else:
             q, m, v, w_out, m_out, v_out = adam
             err = lib.ppo_grad_adam_launch(
-                ctypes.addressof(p), ctypes.addressof(q), ptr(data),
-                ptr(tile_order), ptr(w_flat), ptr(m), ptr(v), ptr(prep), ptr(adv_stats),
-                ptr(ws), ptr(gout), ptr(w_out), ptr(m_out), ptr(v_out), stream)
+                ctypes.addressof(p), ctypes.addressof(q), _ptr(data), _ptr(tile_order),
+                _ptr(w_flat), _ptr(m), _ptr(v), _ptr(prep), _ptr(act), _ptr(adv_stats),
+                _ptr(ws), _ptr(gout), _ptr(w_out), _ptr(m_out), _ptr(v_out), stream)
             what = "ppo_grad_adam_kernel launch"
     _build.check(lib, err, what)
+    if act is not None:
+        split_launches += 1
     return gout
+
+
+def _ptr(x):
+    return None if x is None else x.data_ptr()
+
+
+def _stage1_buffers(data, tile_order, w_flat, hidden, scal):
+    """(GradParams, library, prep, activation scratch, workspace) of one
+    launch; prep and the scratch are None on the narrow path."""
+    p = _grad_params(data, tile_order, hidden, **scal)
+    dev = data.device
+    g = tile_order.shape[0]
+    ws = torch.empty((stage1_rows(g), w_flat.numel() + 4), dtype=torch.float32, device=dev)
+    lib = library()
+    # the wide path's weights laid out for its streamed products, and its
+    # h1 and g_p2 for dw2c_split (none otherwise)
+    n_prep = lib.ppo_grad_prep_floats(hidden, scal["act_dim"])
+    prep = torch.empty((n_prep,), dtype=torch.float32, device=dev) if n_prep else None
+    shape = act_scratch(hidden, scal["act_dim"], g * scal["tile"], scal["compute"])
+    act = None if shape is None else torch.empty((shape[0],), dtype=shape[1], device=dev)
+    return p, lib, prep, act, ws
+
+
+def wide_stage1(data, tile_order, merged_w, adv_stats, *, clip_eps, vf_coef, ent_coef, obs_dim,
+                act_dim, tile=2048, head="gaussian", compute="float32"):
+    """The wide path's stage 1 alone on CUDA tensors (``wide_prep`` and
+    ``ppo_grad_wide``; no ``dw2c_split``, no reduce): returns (activation
+    scratch, workspace rows without dW2c). A timing and checking aid for
+    `dw2c_split` (chip_smoke.py, the card tests); the main path launches it
+    through `fused_minibatch_grad` and `fused_minibatch_grad_adam`."""
+    scal = dict(clip_eps=clip_eps, vf_coef=vf_coef, ent_coef=ent_coef, obs_dim=obs_dim,
+                act_dim=act_dim, tile=tile, head=head, compute=compute)
+    hidden = _check(data, tile_order, merged_w, adv_stats, obs_dim, act_dim, tile, head, compute)
+    if data.device.type != "cuda" or not wide_path(hidden, act_dim):
+        raise ValueError("wide_stage1 launches the wide path's stage 1 on CUDA tensors")
+    w_flat = flatten_merged(merged_w)
+    p, lib, prep, act, ws = _stage1_buffers(data, tile_order, w_flat, hidden, scal)
+    with torch.cuda.device(data.device):
+        err = lib.ppo_grad_stage1_launch(
+            ctypes.addressof(p), _ptr(data), _ptr(tile_order), _ptr(w_flat), _ptr(prep),
+            _ptr(act), _ptr(adv_stats), _ptr(ws),
+            torch.cuda.current_stream(data.device).cuda_stream)
+    _build.check(lib, err, "ppo_grad_wide launch")
+    return act, ws
+
+
+def dw2c_split(act, ws, *, hidden, obs_dim, act_dim, num_tiles, tile, head="gaussian",
+               compute="float32"):
+    """dW2c of the wide path, split over the samples: into the dW2c block of
+    workspace row j (``ws`` [rows, P + 4], written in place and returned),
+    the sum over range j of `split_k_ranges` of h1^T g_p2 per tower, from the
+    activation scratch ``act`` (h1 [n, 2H], then g_p2 [n, 2H], flat; bf16
+    under bfloat16). On a CUDA tensor this launches ``dw2c_split`` (and adds
+    one to `split_launches`), on a CPU tensor it runs
+    `dw2c_split_reference`."""
+    global split_launches
+    n = num_tiles * tile
+    shape = act_scratch(hidden, act_dim, n, compute)
+    rows = stage1_rows(num_tiles)
+    P = sum(r * c for r, c in merged_shapes(obs_dim, hidden, act_dim))
+    if (shape is None or act.shape != (shape[0],) or act.dtype != shape[1]
+            or ws.shape != (rows, P + 4) or ws.dtype != torch.float32
+            or act.device != ws.device):
+        raise ValueError("dw2c_split takes the wide path's scratch "
+                         f"{shape} and float32 workspace rows ({rows}, {P + 4})")
+    if act.device.type == "cpu":
+        h1, gp2 = act.float().view(2, n, 2 * hidden)
+        part = dw2c_split_reference(h1, gp2, hidden, num_tiles, tile)
+        l_w2 = obs_dim * 2 * hidden + 2 * hidden
+        ws[:part.shape[0], l_w2:l_w2 + 4 * hidden * hidden] = part.reshape(part.shape[0], -1)
+        return ws
+    if not (act.is_contiguous() and ws.is_contiguous()):
+        raise ValueError("act and ws must be contiguous")
+    na = act_dim if head == "gaussian" else 1
+    rows_packed = packed_rows(obs_dim + na + 4)
+    check_kernel_limits(hidden, obs_dim, act_dim, tile, rows_packed, head)
+    p = _GradParams(clip_eps=0.0, vf_coef=0.0, inv_n=1.0 / n, ent_coef=0.0, obs_dim=obs_dim,
+                    act_dim=act_dim, head=HEADS.index(head), compute=COMPUTES.index(compute),
+                    hidden=hidden, tile=tile, num_tiles=num_tiles, rows=rows_packed, n_cols=n)
+    lib = library()
+    with torch.cuda.device(act.device):
+        err = lib.ppo_grad_dw2c_launch(ctypes.addressof(p), _ptr(act), _ptr(ws),
+                                       torch.cuda.current_stream(act.device).cuda_stream)
+    _build.check(lib, err, "dw2c_split launch")
+    split_launches += 1
+    return ws
 
 
 @functools.cache
@@ -432,15 +566,27 @@ def library() -> ctypes.CDLL:
         raise RuntimeError("struct GradParams and _GradParams disagree in size")
     if lib.ppo_adam_params_size() != ctypes.sizeof(_AdamParams):
         raise RuntimeError("struct AdamParams and _AdamParams disagree in size")
-    if (lib.ppo_grad_chunk(), lib.ppo_grad_split()) != (KERNEL_CHUNK, KERNEL_SPLIT):
-        raise RuntimeError("the kernel's chunk and split disagree with KERNEL_CHUNK, KERNEL_SPLIT")
+    if ((lib.ppo_grad_chunk(), lib.ppo_grad_split(), lib.ppo_grad_kblock(),
+         lib.ppo_grad_ksplit_samples())
+            != (KERNEL_CHUNK, KERNEL_SPLIT, KERNEL_KBLOCK, KERNEL_KSPLIT_SAMPLES)):
+        raise RuntimeError("the kernel's chunk, split, block and range disagree with "
+                           "KERNEL_CHUNK, KERNEL_SPLIT, KERNEL_KBLOCK, KERNEL_KSPLIT_SAMPLES")
     ptr = ctypes.c_void_p
-    lib.ppo_grad_launch.argtypes = [ptr] * 9
+    lib.ppo_grad_launch.argtypes = [ptr] * 10
     lib.ppo_grad_launch.restype = ctypes.c_int
-    lib.ppo_grad_adam_launch.argtypes = [ptr] * 15
+    lib.ppo_grad_adam_launch.argtypes = [ptr] * 16
     lib.ppo_grad_adam_launch.restype = ctypes.c_int
+    lib.ppo_grad_stage1_launch.argtypes = [ptr] * 9
+    lib.ppo_grad_stage1_launch.restype = ctypes.c_int
+    lib.ppo_grad_dw2c_launch.argtypes = [ptr] * 4
+    lib.ppo_grad_dw2c_launch.restype = ctypes.c_int
     lib.ppo_grad_prep_floats.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.ppo_grad_prep_floats.restype = ctypes.c_int
+    lib.ppo_grad_act_bytes.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                       ctypes.c_longlong]
+    lib.ppo_grad_act_bytes.restype = ctypes.c_longlong
+    lib.ppo_grad_ksplit_count.argtypes = [ctypes.c_longlong, ctypes.c_int]
+    lib.ppo_grad_ksplit_count.restype = ctypes.c_int
     return lib
 
 
@@ -471,10 +617,18 @@ def split3_matmul_reference(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a_lo @ b_hi + a_hi @ b_lo) + a_hi @ b_hi
 
 
-def _grad_merged_reference(data, tile_order, merged, adv_stats, *, clip_eps, vf_coef,
-                           ent_coef, obs_dim, act_dim, tile, head, compute):
+def _grad_merged_reference(data, tile_order, merged, adv_stats, **kw):
     """The kernel's pass as plain tensor ops on merged weights: (7 merged
     gradients, metric sums (4,))."""
+    g, met, _, _ = _grad_merged_parts(data, tile_order, merged, adv_stats, **kw)
+    return g, met
+
+
+def _grad_merged_parts(data, tile_order, merged, adv_stats, *, clip_eps, vf_coef,
+                       ent_coef, obs_dim, act_dim, tile, head, compute):
+    """`_grad_merged_reference`'s (gradients, metric sums), then dW2c's
+    operands h1 and g_p2 [2H, n] as its product takes them (bf16-rounded
+    under bfloat16), the samples in minibatch order."""
     dev = data.device
     cols = (tile_order.to(torch.int64)[:, None] * tile
             + torch.arange(tile, device=dev)).reshape(-1)
@@ -544,7 +698,60 @@ def _grad_merged_reference(data, tile_order, merged, adv_stats, *, clip_eps, vf_
     g_p1c = (rnd(w2c) @ rnd(g_p2c)) * (1.0 - h1c * h1c)
     dw1c = obs @ g_p1c.T
     db1c = g_p1c.sum(1, keepdim=True)
-    return (dw1c, db1c, dw2c, db2c, dwhc, dbhc, dls), met
+    return (dw1c, db1c, dw2c, db2c, dwhc, dbhc, dls), met, rnd(h1c), rnd(g_p2c)
+
+
+def dw2c_split_reference(h1: torch.Tensor, gp2: torch.Tensor, hidden: int, num_tiles: int,
+                         tile: int) -> torch.Tensor:
+    """Plain twin of the ``dw2c_split`` kernel: from h1 and g_p2 [n, 2H] in
+    minibatch order (as the activation scratch holds them), the partial
+    dW2c [2H, 2H] of each range of `split_k_ranges`, per tower
+    ``h1[k0:k1, t]^T g_p2[k0:k1, t]`` with the cross-tower blocks zero:
+    [ranges, 2H, 2H]. `reduce_rows_reference` sums them as stage 2 does."""
+    ranges = split_k_ranges(num_tiles, tile)
+    h = hidden
+    out = torch.zeros((len(ranges), 2 * h, 2 * h), dtype=h1.dtype, device=h1.device)
+    for j, (k0, k1) in enumerate(ranges):
+        for t in range(2):
+            tw = slice(t * h, (t + 1) * h)
+            out[j, tw, tw] = h1[k0:k1, tw].T @ gp2[k0:k1, tw]
+    return out
+
+
+def reduce_rows_reference(rows: torch.Tensor) -> torch.Tensor:
+    """Stage 2's sum over the first axis in its order: blocks of 16 rows in
+    row order, then the blocks' sums in order."""
+    z = torch.zeros_like(rows[0])
+    for g0 in range(0, rows.shape[0], 16):
+        b = torch.zeros_like(rows[0])
+        for g in range(g0, min(rows.shape[0], g0 + 16)):
+            b = b + rows[g]
+        z = z + b
+    return z
+
+
+def fused_minibatch_grad_split_reference(data, tile_order, weights, adv_stats, *, clip_eps,
+                                         vf_coef, ent_coef, obs_dim, act_dim, tile=2048,
+                                         head="gaussian", compute="float32", reduce=None):
+    """The wide path's pipeline as plain tensor ops, same signature and
+    outputs as `fused_minibatch_grad`: stage 1's h1 and g_p2 as the
+    activation scratch holds them, `dw2c_split_reference`'s partials over
+    the same ranges, their sum in stage 2's order for dW2c, and the other
+    buffers and the metric sums as the twin computes them."""
+    merged = merge_weights(weights)
+    hidden = _check(data, tile_order, merged, adv_stats, obs_dim, act_dim, tile, head, compute)
+    g, met, h1, gp2 = _grad_merged_parts(
+        data, tile_order, merged, adv_stats, clip_eps=clip_eps, vf_coef=vf_coef,
+        ent_coef=ent_coef, obs_dim=obs_dim, act_dim=act_dim, tile=tile, head=head,
+        compute=compute)
+    if compute == "bfloat16":   # the scratch's own type
+        h1, gp2 = h1.to(torch.bfloat16), gp2.to(torch.bfloat16)
+    part = dw2c_split_reference(h1.T.float(), gp2.T.float(), hidden, tile_order.shape[0], tile)
+    g = (*g[:2], reduce_rows_reference(part), *g[3:])
+    if reduce is not None:
+        flat = reduce(torch.cat([flatten_merged(g), met]))
+        g, met = unflatten_merged(flat, obs_dim, hidden, act_dim), flat[-4:]
+    return _split_grads(g, hidden, act_dim), met
 
 
 def _clip_adam_reference(g, w, m, v, *, head, ent_coef, lr, bc1, bc2, beta1, beta2, adam_eps,

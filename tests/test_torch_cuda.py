@@ -365,6 +365,71 @@ def test_ppo_grad_kernels_match_twin_at_the_wide_widths(cuda, hidden, head, act_
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hidden,head,act_dim", WIDE_CASES)
+def test_dw2c_split_matches_its_plain_version(cuda, hidden, head, act_dim, compute):
+    """On 24 shuffled tiles of 256 samples (three ranges): the wide path's
+    stage 1 writes h1 and g_p2 in minibatch order as the twin computes them
+    (to float32 rounding; under bfloat16 to one bf16 rounding, 2^-8 of the
+    entry, where a last-bit difference of the float32 value rounds to the
+    neighbouring bf16 value), and dw2c_split's partial of each range, from
+    that scratch, equals `dw2c_split_reference`'s: sums of 2048 products in
+    another order (1e-5 of the range's largest entry; under bfloat16 the
+    tensor cores' truncating accumulator inside blocks of 64 samples, 2e-5).
+    The rows past the ranges, the cross-tower blocks and every entry outside
+    dW2c are left as they were."""
+    weights, data, a = _ppo_case(head, 64 * 256, hidden, seed=5, act_dim=act_dim)
+    data, weights = data.to(cuda), tuple(w.to(cuda) for w in weights)
+    order = torch.randperm(64, generator=torch.Generator().manual_seed(1))[:24]
+    order = order.to(cuda, torch.int32)
+    stats = torch.tensor([0.05, 1.1], device=cuda)
+    kw = dict(clip_eps=0.2, vf_coef=0.5, ent_coef=0.01, obs_dim=1, act_dim=a, tile=256,
+              head=head, compute=compute)
+    merged = uk.merge_weights(weights)
+    n, h2 = 24 * 256, 2 * hidden
+    act, ws = uk.wide_stage1(data, order, merged, stats, **kw)
+    _, _, h1, gp2 = uk._grad_merged_parts(data, order, merged, stats, **kw)
+    torch.cuda.synchronize()
+    rel = 2.0 ** -8 if compute == "bfloat16" else 1e-5
+    for got, want in zip(act.float().view(2, n, h2), (h1.T, gp2.T)):
+        assert bool(((got - want).abs() <= rel * want.abs() + 1e-5 * float(want.abs().max())
+                     + 1e-7).all())
+    ranges = uk.split_k_ranges(24, 256)
+    assert len(ranges) == 3
+    out = torch.zeros_like(ws)
+    before = uk.split_launches
+    uk.dw2c_split(act, out, hidden=hidden, obs_dim=1, act_dim=a, num_tiles=24, tile=256,
+                  head=head, compute=compute)
+    assert uk.split_launches == before + 1
+    part = uk.dw2c_split_reference(*act.float().view(2, n, h2), hidden, 24, 256)
+    torch.cuda.synchronize()
+    l_w2 = h2 + h2
+    w2 = out[:, l_w2:l_w2 + h2 * h2].reshape(-1, h2, h2)
+    assert float(out[:, :l_w2].abs().sum()) == 0.0
+    assert float(out[:, l_w2 + h2 * h2:].abs().sum()) == 0.0
+    assert float(w2[len(ranges):].abs().sum()) == 0.0
+    bar = 2e-5 if compute == "bfloat16" else 1e-5
+    for j in range(len(ranges)):
+        err = float((w2[j] - part[j]).abs().max())
+        assert err <= bar * float(part[j].abs().max()) + 1e-7, (j, err)
+
+
+@pytest.mark.cuda
+def test_act_scratch_and_ranges_agree_with_the_library(cuda):
+    """The wrapper's activation scratch and split-K ranges are the kernel's."""
+    lib = uk.library()
+    for hidden, act_dim in ((32, 17), (64, 100), (128, 1), (256, 128), (64, 3), (32, 1)):
+        for ci, compute in enumerate(uk.COMPUTES):
+            for num_tiles, tile in ((1, 64), (8, 256), (128, 2048), (3, 1024)):
+                n = num_tiles * tile
+                shape = uk.act_scratch(hidden, act_dim, n, compute)
+                size = 0 if shape is None else shape[0] * shape[1].itemsize
+                assert lib.ppo_grad_act_bytes(hidden, act_dim, ci, n) == size
+                assert lib.ppo_grad_ksplit_count(n, uk.stage1_rows(num_tiles)) == len(
+                    uk.split_k_ranges(num_tiles, tile))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("hidden,act_dim", [(512, 1), (48, 1), (64, 129)])
 def test_ppo_grad_kernel_refuses_wider_sizes_before_the_launch(cuda, hidden, act_dim):
     head = "gaussian" if act_dim == 1 else "categorical"
@@ -459,30 +524,35 @@ def test_ppo_grad_adam_kernel_matches_twin(cuda, head, max_grad_norm):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hidden", [64, 256])
+@pytest.mark.parametrize("hidden,compute", [(64, "float32"), (256, "float32"),
+                                            (256, "bfloat16")])
 @pytest.mark.parametrize("adam", [False, True])
-def test_ppo_update_kernels_are_deterministic(cuda, adam, hidden):
-    """Stage 2 sums the per-tile partials in index order and no float atomic
-    is used (the wide path adds each chunk into its CTA's own row): two
-    identical launches give identical bits."""
-    _assert_deterministic(cuda, adam, hidden, obs_dim=1)
+def test_ppo_update_kernels_are_deterministic(cuda, adam, hidden, compute):
+    """Stage 2 sums the workspace rows in index order and no float atomic is
+    used (the wide path adds dWhc chunk by chunk into its CTA's own row, and
+    dw2c_split writes each range's dW2c into a row of its own, every CTA
+    summing its samples in one order): two identical launches give identical
+    bits, also where bfloat16 puts the wide path's dW2c on the tensor cores."""
+    _assert_deterministic(cuda, adam, hidden, obs_dim=1, compute=compute)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hidden", [64, 256])
+@pytest.mark.parametrize("hidden,compute", [(64, "float32"), (256, "float32"),
+                                            (256, "bfloat16")])
 @pytest.mark.parametrize("adam", [False, True])
-def test_ppo_update_kernels_are_deterministic_at_24_rows(cuda, adam, hidden):
+def test_ppo_update_kernels_are_deterministic_at_24_rows(cuda, adam, hidden, compute):
     """The same at 12 observation fields (24 rows), where the threads own
     dW1c's entries."""
-    _assert_deterministic(cuda, adam, hidden, obs_dim=12)
+    _assert_deterministic(cuda, adam, hidden, obs_dim=12, compute=compute)
 
 
-def _assert_deterministic(cuda, adam, hidden, obs_dim):
+def _assert_deterministic(cuda, adam, hidden, obs_dim, compute):
     weights, data, a = _ppo_case("gaussian", 64 * 256, hidden, seed=4, obs_dim=obs_dim)
     data, weights = data.to(cuda), tuple(w.to(cuda) for w in weights)
     order = torch.arange(0, 64, 2, dtype=torch.int32, device=cuda)
     stats = torch.tensor([0.0, 1.0], device=cuda)
-    kw = dict(clip_eps=0.2, vf_coef=0.5, ent_coef=0.0, obs_dim=obs_dim, act_dim=a, tile=256)
+    kw = dict(clip_eps=0.2, vf_coef=0.5, ent_coef=0.0, obs_dim=obs_dim, act_dim=a, tile=256,
+              compute=compute)
     if adam:
         w = uk.merge_weights(weights)
         zeros = tuple(torch.zeros_like(x) for x in w)

@@ -1,0 +1,187 @@
+"""The wide path's dW2c as a split-K product (``csrc/ppo_update_kernel.cu::
+dw2c_split``): its geometry, its scratch and its plain pipeline against the
+JAX kernel.
+
+On the wide path (hidden 128 and 256, and categorical heads of more than
+16 classes) stage 1 writes h1 and g_p2 [n, 2H] to an activation scratch
+(bf16 under bfloat16), and ``dw2c_split`` sums h1^T g_p2 per tower over
+ranges of the samples into the workspace rows, which stage 2 adds in its
+fixed order. Here the plain version of that pipeline
+(`fused_minibatch_grad_split_reference`) runs through `ppo_fused.fused_grad`
+in place of the kernel and is held against JAX's ``fused_grad`` (the Pallas
+kernel in interpret mode, as tests/test_torch_ppo_update_kernel.py runs it),
+at several ranges, under that file's wide-width tolerances: rtol 2e-4 /
+atol 2e-6 in float32 (sums in another order), 2e-3 / 2e-5 under bfloat16
+(a float32 difference of one ulp can round an input of a product to the
+neighbouring bf16 value). The card tests (tests/test_torch_cuda.py) hold
+the kernel against the same plain version.
+"""
+
+import functools
+
+import numpy as np
+import pytest
+import torch
+from test_torch_ppo_update_kernel import _assert_trees_close, _case_wide, _np, _packed_t
+
+from gym_fishing_tpu.agents import ppo_fused as jfused
+from gym_fishing_tpu_torch.agents import ppo_fused
+from gym_fishing_tpu_torch.convert import actor_critic_from_numpy, actor_critic_to_numpy
+from gym_fishing_tpu_torch.kernels import ppo_update_kernel as uk
+
+actor_critic_from_numpy = functools.partial(actor_critic_from_numpy, device="cpu")
+
+torch.set_num_threads(1)
+
+
+def test_split_plan_matches_the_cuda_source():
+    """The block, the range and the narrow path's widest head as the CUDA
+    source states them; its tile edge is the tower's, up to 128."""
+    from test_torch_device import _cuda_constant
+
+    assert _cuda_constant("kKBlock") == uk.KERNEL_KBLOCK
+    assert _cuda_constant("kKSplitSamples") == uk.KERNEL_KSPLIT_SAMPLES
+    assert _cuda_constant("kMaxA") == uk.KERNEL_MAX_NARROW_LOGITS
+    src = (uk._build.CSRC / "ppo_update_kernel.cu").read_text()
+    assert "constexpr int dw_tile(int H) { return H < 128 ? H : 128; }" in src
+    assert ("static bool wide_path(int hidden, int act_dim) { return hidden > 64 || "
+            "act_dim > kMaxA; }") in src
+
+
+@pytest.mark.parametrize("num_tiles,tile", [(1, 64), (2, 128), (8, 256), (3, 1024), (64, 256),
+                                            (128, 2048), (5, 192), (1, 4096)])
+def test_split_ranges_cover_every_sample_once(num_tiles, tile):
+    """The ranges are whole blocks of KERNEL_KBLOCK samples, at most
+    KERNEL_KSPLIT_SAMPLES each, at most one per workspace row, contiguous
+    and in order from 0 to n."""
+    n = num_tiles * tile
+    ranges = uk.split_k_ranges(num_tiles, tile)
+    assert 1 <= len(ranges) <= uk.stage1_rows(num_tiles)
+    assert len(ranges) == min(-(-n // uk.KERNEL_KSPLIT_SAMPLES), uk.stage1_rows(num_tiles))
+    covered = np.zeros(n, np.int64)
+    for k0, k1 in ranges:
+        assert k0 % uk.KERNEL_KBLOCK == 0 and k1 % uk.KERNEL_KBLOCK == 0 and k1 > k0
+        covered[k0:k1] += 1
+    assert (covered == 1).all()
+    assert [r[0] for r in ranges[1:]] == [r[1] for r in ranges[:-1]]
+    if len(ranges) < uk.stage1_rows(num_tiles):
+        assert max(k1 - k0 for k0, k1 in ranges) <= uk.KERNEL_KSPLIT_SAMPLES
+
+
+@pytest.mark.parametrize("hidden", [32, 64, 128, 256])
+def test_split_tiles_cover_each_tower_block_once(hidden):
+    """The output tiles cover each tower's [H, H] block of dW2c exactly once
+    and no cross-tower entry."""
+    seen = np.zeros((2 * hidden, 2 * hidden), np.int64)
+    for tw, r0, c0, bm in uk.split_k_tiles(hidden):
+        assert bm == min(hidden, 128) and hidden % bm == 0
+        seen[tw * hidden + r0:tw * hidden + r0 + bm, tw * hidden + c0:tw * hidden + c0 + bm] += 1
+    block = np.zeros_like(seen)
+    block[:hidden, :hidden] = block[hidden:, hidden:] = 1
+    np.testing.assert_array_equal(seen, block)
+
+
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hidden,act_dim,num_tiles,tile", [
+    (128, 1, 8, 256), (256, 1, 128, 2048), (64, 100, 3, 1024), (32, 17, 2, 64)])
+def test_scratch_size_is_what_the_split_reads(hidden, act_dim, num_tiles, tile, compute):
+    """The activation scratch the wrapper allocates holds exactly the h1 and
+    g_p2 rows that the ranges read, in the mode's type: 2 x n x 2H entries,
+    and the narrow path allocates none."""
+    n = num_tiles * tile
+    size, dtype = uk.act_scratch(hidden, act_dim, n, compute)
+    assert dtype == (torch.bfloat16 if compute == "bfloat16" else torch.float32)
+    end = max(k1 for _, k1 in uk.split_k_ranges(num_tiles, tile))
+    assert size == 2 * end * 2 * hidden == 2 * n * 2 * hidden
+    assert uk.act_scratch(64, 3, n, compute) is None
+    assert uk.act_scratch(32, 16, n, compute) is None
+
+
+@pytest.mark.parametrize("num_tiles,tile", [(8, 256), (12, 512)])
+def test_dw2c_split_cpu_wrapper_fills_the_rows_of_its_ranges(num_tiles, tile):
+    """On CPU tensors `dw2c_split` runs its plain version: row j of the
+    workspace gets range j's partial in its dW2c block, the other rows and
+    entries are left as they were, and stage 2's order of the rows gives
+    h1^T g_p2 per tower."""
+    hidden, obs_dim, act_dim = 128, 1, 1
+    n = num_tiles * tile
+    rng = np.random.default_rng(0)
+    act = torch.from_numpy(rng.standard_normal(2 * n * 2 * hidden).astype(np.float32))
+    p = sum(r * c for r, c in uk.merged_shapes(obs_dim, hidden, act_dim))
+    ws = torch.zeros((uk.stage1_rows(num_tiles), p + 4))
+    before = uk.split_launches
+    uk.dw2c_split(act, ws, hidden=hidden, obs_dim=obs_dim, act_dim=act_dim,
+                  num_tiles=num_tiles, tile=tile)
+    assert uk.split_launches == before
+    ranges = uk.split_k_ranges(num_tiles, tile)
+    l_w2, h2 = obs_dim * 2 * hidden + 2 * hidden, 2 * hidden
+    w2 = ws[:, l_w2:l_w2 + h2 * h2].reshape(-1, h2, h2)
+    assert float(ws[:, :l_w2].abs().sum()) == 0.0
+    assert float(ws[:, l_w2 + h2 * h2:].abs().sum()) == 0.0
+    assert float(w2[len(ranges):].abs().sum()) == 0.0
+    assert float(w2[:, :hidden, hidden:].abs().sum()) == float(w2[:, hidden:, :hidden].abs().sum())
+    assert float(w2[:, :hidden, hidden:].abs().sum()) == 0.0
+    h1, gp2 = act.view(2, n, h2).double()
+    want = h1.T @ gp2
+    want[:hidden, hidden:] = want[hidden:, :hidden] = 0.0
+    # float32 sums of up to 6144 products of unit normals, against float64
+    got = uk.reduce_rows_reference(w2).double()
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                               atol=1e-5 * float(want.abs().max()))
+    for j, (k0, k1) in enumerate(ranges):
+        part = h1[k0:k1, :hidden].T @ gp2[k0:k1, :hidden]
+        np.testing.assert_allclose(w2[j, :hidden, :hidden].double().numpy(), part.numpy(),
+                                   rtol=0, atol=1e-5 * float(part.abs().max()))
+
+
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hidden,head", [(128, "gaussian"), (256, "gaussian"),
+                                         (128, "categorical"), (256, "categorical")])
+def test_split_pipeline_matches_jax_kernel(hidden, head, compute, monkeypatch):
+    """Stage 1's h1 and g_p2, dw2c_split's plain version over three ranges of
+    2048 samples and stage 2's order of the rows, with the other buffers as
+    the twin gives them, equal JAX's fused gradient (interpret mode) at
+    hidden 128 and 256, the Gaussian head and 100 classes."""
+    n, tile = 6144, 1024
+    assert len(uk.split_k_ranges(n // tile, tile)) == 3
+    cfg, params, packed, a = _case_wide(head, hidden, seed=hidden + 1, n=n)
+    kw = dict(obs_dim=1, act_dim=a, tile=tile, head=head, compute=compute)
+    j_grads, j_met = jfused.fused_grad(params, jfused.pack_feature_major(packed), cfg.clip_eps,
+                                       cfg.vf_coef, cfg.ent_coef, interpret=True, **kw)
+    monkeypatch.setattr(ppo_fused, "fused_minibatch_grad",
+                        uk.fused_minibatch_grad_split_reference)
+    model = actor_critic_from_numpy(_np(params))
+    grads, met = ppo_fused.fused_grad(dict(model.named_parameters()), _packed_t(packed),
+                                      cfg.clip_eps, cfg.vf_coef, cfg.ent_coef, **kw)
+    tol = dict(rtol=2e-4, atol=2e-6) if compute == "float32" else dict(rtol=2e-3, atol=2e-5)
+    _assert_trees_close(actor_critic_to_numpy(grads), j_grads, **tol)
+    for name in ("loss", "pg_loss", "v_loss", "entropy", "approx_kl"):
+        np.testing.assert_allclose(float(met[name]), float(j_met[name]), rtol=2e-4, atol=2e-6,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hidden,head,a", [(256, "gaussian", 1), (64, "categorical", 100)])
+def test_split_pipeline_equals_the_twin_over_many_ranges(hidden, head, a, compute):
+    """Over a minibatch of 24 tiles of 512 samples (6 ranges) in shuffled
+    order, the plain pipeline's dW2c equals the twin's single product to
+    float32 rounding, and every other buffer and metric sum bit for bit."""
+    from test_torch_cuda import _ppo_case
+
+    weights, data, a_ = _ppo_case(head, 32 * 512, hidden, seed=11,
+                                  act_dim=None if head == "gaussian" else a)
+    weights = tuple(w.detach() for w in weights)
+    order = torch.from_numpy(np.random.default_rng(2).permutation(32)[:24].astype(np.int32))
+    assert len(uk.split_k_ranges(24, 512)) == 6
+    kw = dict(clip_eps=0.2, vf_coef=0.5, ent_coef=0.01, obs_dim=1, act_dim=a_, tile=512,
+              head=head, compute=compute)
+    stats = torch.tensor([0.05, 1.1])
+    got, met = uk.fused_minibatch_grad_split_reference(data, order, weights, stats, **kw)
+    want, met_ref = uk.fused_minibatch_grad_reference(data, order, weights, stats, **kw)
+    for name, g, w in zip(uk.PPOGrads._fields, got, want):
+        if name in ("dW2p", "dW2v"):
+            tol = 1e-5 * float(w.abs().max()) + 1e-9
+            assert float((g - w).abs().max()) <= tol, name
+        else:
+            assert torch.equal(g, w), name
+    assert torch.equal(met, met_ref)
