@@ -43,7 +43,8 @@ curve against JAX's. Phases, each of which raises on failure:
 7. the PPO kernels' build (update kernels and policy rollout): seconds,
    ptxas registers, shared memory and spills, and the tensor-core
    instructions (HMMA) in the policy rollout's machine code: some under
-   bfloat16, none under float32;
+   bfloat16, none under float32; in its wide path's some in every bfloat16
+   instantiation at hidden 64 and above, none in the others;
 8. K2 (fused minibatch gradient) ≡ its twin at full width: numpy-made
    packed data [8, 2^21], one minibatch of 128 random tiles of 2048, both
    heads (fishing-v1 Gaussian, fishing-v0 categorical with 3 actions),
@@ -187,6 +188,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -451,9 +453,11 @@ def issue_ms(instructions_per_step, num_envs, num_steps):
             / (PER_SM_CLOCK["all"] * SM_CLOCKS_PER_S) * 1e3)
 
 
-def hmma_counts(_build, name):
+def hmma_counts(_build, name, kernel=None):
     """{mangled name: HMMA instructions} of every instantiation of the kernel
-    `name` in the machine code of the built library csrc/<name>.cu."""
+    `kernel` (default: `name`) in the machine code of the built library
+    csrc/<name>.cu."""
+    kernel = kernel or name
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(_build.library_path(name))],
                           capture_output=True, text=True, timeout=300, check=True).stdout
@@ -461,7 +465,7 @@ def hmma_counts(_build, name):
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split(":", 1)[1].strip()
-            fn = fn if name in fn else None
+            fn = fn if kernel in fn else None
             if fn:
                 counts[fn] = 0
         elif fn and "HMMA" in line:
@@ -1736,6 +1740,20 @@ def main():
         if (n_hmma > 0) != bf16:
             fail(f"{fn}: {n_hmma} HMMA instructions under "
                  f"{'bfloat16' if bf16 else 'float32'}")
+    # the wide path: its products on the tensor cores under bfloat16 at hidden
+    # 64 and above, FMA under float32 and at hidden 32
+    wide_hmma = hmma_counts(_build, "policy_rollout_kernel", "policy_rollout_wide")
+    if len(wide_hmma) != 2 * len(pk.KERNEL_HIDDEN):
+        fail(f"phase 7: {len(wide_hmma)} instantiations of policy_rollout_wide, expected "
+             f"{2 * len(pk.KERNEL_HIDDEN)}")
+    for fn, n_hmma in wide_hmma.items():
+        hidden, bf16 = int(re.search(r"ILi(\d+)E", fn).group(1)), "Lb1E" in fn
+        mma = bf16 and hidden >= 64
+        print(f"phase 7: policy_rollout_wide hidden={hidden} "
+              f"({'bfloat16' if bf16 else 'float32'}): {n_hmma} HMMA")
+        if (n_hmma > 0) != mma:
+            fail(f"{fn}: {n_hmma} HMMA instructions under {'bfloat16' if bf16 else 'float32'} "
+                 f"at hidden {hidden}")
 
     # ---------------------------------------------------------------- 8
     rng = np.random.default_rng(7)
@@ -3201,8 +3219,11 @@ def main():
             "bound_by": wide_bound["K4", (256, "fishing-v1", "float32")][1],
             "library_ms": None,
             "bfloat16_ms": wide_ms["K4", (256, "fishing-v1", "bfloat16")],
+            "bfloat16_bound_ms": wide_bound["K4", (256, "fishing-v1", "bfloat16")][0],
             "categorical_100_ms": wide_ms["K4", (256, "fishing-v0", "float32")],
+            "categorical_100_bfloat16_ms": wide_ms["K4", (256, "fishing-v0", "bfloat16")],
             "hidden_128_ms": wide_ms["K4", (128, "fishing-v1", "float32")],
+            "hidden_128_bfloat16_ms": wide_ms["K4", (128, "fishing-v1", "bfloat16")],
         },
         {
             "name": "ppo_grad_kernel (observation windows, obs_dim 6 and 12)",

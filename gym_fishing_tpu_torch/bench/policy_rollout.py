@@ -28,16 +28,19 @@ above 1e-4 under float32, 5e-3 under bfloat16, or another t), and over the
 others the largest and the mean absolute error of each packed row.
 
 With `--phases` it times nothing of the shipped kernel: it builds an
-instrumented copy (into the gitignored ``_build/``) in which lane 0 of warp
-0 of every CTA reads ``clock64()`` at the kernel's entry, before a step's
-forward, after it, after the step's tail (sampling, decode, dynamics,
-stores) and after the GAE pass, and writes the four sums in place of the
-CTA's statistics, which the copy therefore gets wrong. Prints, per compute
-mode at B = 16384, the cycles a warp spends before its first step (loading
-the weights), per step in its forward and in its tail, and after its last
-step (the bootstrap forward and the GAE pass), averaged over the CTAs:
-elapsed cycles of one warp among the 16 that share an SM, not its own
-instructions.
+instrumented copy (into the gitignored ``_build/``) in which thread 0 of
+every CTA reads ``clock64()`` at the kernel's entry, at the borders of each
+step's parts and after the GAE pass, and writes the sums in place of the
+CTA's statistics (and, on the wide path, of its first env's carried
+harvest and running return), which the copy therefore gets wrong. Prints,
+per compute mode at B = 16384, the cycles before the first step (loading
+the weights), per step in each part, and after the last step (the
+bootstrap forward and the GAE pass), averaged over the CTAs: elapsed cycles
+of one warp among those that share an SM, not its own instructions. The
+parts of a step are the forward and the tail (sampling, decode, dynamics,
+stores) in policy_rollout_kernel (hidden 32 and 64, at most 16 logits);
+in policy_rollout_wide the input layer, the W2 product with its tanh, the
+head and value, and the tail.
 """
 
 from __future__ import annotations
@@ -67,37 +70,82 @@ def smi(query: str) -> str:
 WIDE_SECTION = "// ------------------------------------------------------------------ wide\n"
 
 
-def instrument(source: str) -> str:
-    """`source` with the clocks added to policy_rollout_kernel (hidden 32
-    and 64, at most 16 logits); raises if an anchor is not found."""
-    if source.count(WIDE_SECTION) != 1:
-        raise RuntimeError("the rollout kernel's source has no single wide section")
-    source, wide = source.split(WIDE_SECTION)
-    edits = [
-        ("  extern __shared__ __align__(16) float sm[];\n",
-         "  extern __shared__ __align__(16) float sm[];\n"
-         "  const long long c_entry = clock64();\n"),
-        ("  for (int t = 0; t < T; ++t) {\n    forward(c.inp);\n",
-         "  long long cyc_fwd = 0, cyc_tail = 0;\n  const long long c_loop = clock64();\n"
-         "  for (int t = 0; t < T; ++t) {\n"
-         "    const long long c0 = clock64();\n    forward(c.inp);\n"
-         "    const long long c1 = clock64();\n"),
-        ("    // the next forward overwrites the head outputs this step's tail read\n"
-         "    __syncwarp();\n",
-         "    __syncwarp();\n    cyc_fwd += c1 - c0;\n    cyc_tail += clock64() - c1;\n"),
-        ("    st[3] = c.srw;\n  }\n",
-         "    st[3] = c.srw;\n  }\n  if (tid == 0) {\n"
-         "    sm[L_::STAT] = (float)(c_loop - c_entry);\n"
-         "    sm[L_::STAT + 1] = (float)cyc_fwd;\n    sm[L_::STAT + 2] = (float)cyc_tail;\n"
-         "    sm[L_::STAT + 3] = (float)(clock64() - c_loop - cyc_fwd - cyc_tail);\n  }\n"),
-        ("    for (int s = 0; s < kEnvs; ++s) z += sm[L_::STAT + s * kStats + tid];\n",
-         "    z = sm[L_::STAT + tid];\n"),
-    ]
+def _edit(source: str, edits, what: str) -> str:
     for old, new in edits:
         if source.count(old) != 1:
-            raise RuntimeError(f"the rollout kernel's source has no single {old!r}")
+            raise RuntimeError(f"the {what}'s source has no single {old!r}")
         source = source.replace(old, new)
-    return source + WIDE_SECTION + wide
+    return source
+
+
+# policy_rollout_kernel: thread 0 sums its forward's and its tail's cycles
+NARROW_EDITS = [
+    ("  extern __shared__ __align__(16) float sm[];\n",
+     "  extern __shared__ __align__(16) float sm[];\n"
+     "  const long long c_entry = clock64();\n"),
+    ("  for (int t = 0; t < T; ++t) {\n    forward(c.inp);\n",
+     "  long long cyc_fwd = 0, cyc_tail = 0;\n  const long long c_loop = clock64();\n"
+     "  for (int t = 0; t < T; ++t) {\n"
+     "    const long long c0 = clock64();\n    forward(c.inp);\n"
+     "    const long long c1 = clock64();\n"),
+    ("    // the next forward overwrites the head outputs this step's tail read\n"
+     "    __syncwarp();\n",
+     "    __syncwarp();\n    cyc_fwd += c1 - c0;\n    cyc_tail += clock64() - c1;\n"),
+    ("    st[3] = c.srw;\n  }\n",
+     "    st[3] = c.srw;\n  }\n  if (tid == 0) {\n"
+     "    sm[L_::STAT] = (float)(c_loop - c_entry);\n"
+     "    sm[L_::STAT + 1] = (float)cyc_fwd;\n    sm[L_::STAT + 2] = (float)cyc_tail;\n"
+     "    sm[L_::STAT + 3] = (float)(clock64() - c_loop - cyc_fwd - cyc_tail);\n  }\n"),
+    ("    for (int s = 0; s < kEnvs; ++s) z += sm[L_::STAT + s * kStats + tid];\n",
+     "    z = sm[L_::STAT + tid];\n"),
+]
+
+# policy_rollout_wide: thread 0 sums the cycles of each part of a step
+# (forward's input layer, W2 product, head and value; the tail) over the
+# T steps; the bootstrap forward after them counts to the end. The part
+# borders are block barriers, so every warp of the CTA has reached them.
+_WIDE_ENTRY = ("  const long long c_entry = clock64();\n"
+               "  long long cyc_in = 0, cyc_w2 = 0, cyc_head = 0, cyc_tail = 0;\n")
+_M1 = "    const long long m1 = clock64();\n    cyc_in += m1 - m0;\n"
+_M2 = "    const long long m2 = clock64();\n    cyc_w2 += m2 - m1;\n"
+WIDE_EDITS = [
+    ("  auto forward = [&]() {\n",
+     "  auto forward = [&]() {\n    const long long m0 = clock64();\n"),
+    ("  for (int t = 0; t < T; ++t) {\n    forward();\n",
+     "  const long long c_loop = clock64();\n"
+     "  for (int t = 0; t < T; ++t) {\n    forward();\n    const long long c1 = clock64();\n"),
+    ("    // the next forward overwrites the head outputs and values this step read\n"
+     "    __syncthreads();\n  }\n",
+     "    __syncthreads();\n    cyc_tail += clock64() - c1;\n  }\n"
+     "  const long long c_last = clock64();\n"
+     "  const long long s_in = cyc_in, s_w2 = cyc_w2, s_head = cyc_head;\n"),
+    ("    st[3] = c.srw;\n  }\n",
+     "    st[3] = c.srw;\n  }\n  if (tid == 0) {\n"
+     "    sm[L_::STAT] = (float)(c_loop - c_entry);\n"
+     "    sm[L_::STAT + 1] = (float)s_in;\n    sm[L_::STAT + 2] = (float)s_w2;\n"
+     "    sm[L_::STAT + 3] = (float)s_head;\n    hv_out[env] = (float)cyc_tail;\n"
+     "    ret_out[env] = (float)(clock64() - c_last);\n  }\n"),
+    ("    __syncthreads();\n  };\n",
+     "    __syncthreads();\n    cyc_head += clock64() - m2;\n  };\n"),
+    ("  extern __shared__ __align__(16) float sm[];\n  constexpr bool MMA = kWideMma<2 * H, BF>;\n",
+     "  extern __shared__ __align__(16) float sm[];\n  constexpr bool MMA = kWideMma<2 * H, BF>;\n"
+     + _WIDE_ENTRY),
+    ("    __syncthreads();\n    // the W2 product", "    __syncthreads();\n" + _M1
+     + "    // the W2 product"),
+    ("    __syncthreads();\n    // the heads:", "    __syncthreads();\n" + _M2 + "    // the heads:"),
+    ("    for (int s = 0; s < E; ++s) z += sm[L_::STAT + s * kStats + tid];\n",
+     "    z = sm[L_::STAT + tid];\n"),
+]
+
+
+def instrument(source: str) -> str:
+    """`source` with the clocks added to policy_rollout_kernel and to
+    policy_rollout_wide; raises if an anchor is not found."""
+    if source.count(WIDE_SECTION) != 1:
+        raise RuntimeError("the rollout kernel's source has no single wide section")
+    narrow, wide = source.split(WIDE_SECTION)
+    return (_edit(narrow, NARROW_EDITS, "rollout kernel") + WIDE_SECTION
+            + _edit(wide, WIDE_EDITS, "wide rollout kernel"))
 
 
 def phases(state_of, weights, scal, hidden, roll_kw) -> None:
@@ -113,16 +161,33 @@ def phases(state_of, weights, scal, hidden, roll_kw) -> None:
     path.write_text(instrument(path.read_text()))
     _build.CSRC = csrc   # this process builds and loads the instrumented copy only
     B = 16384
+    A = 1 if roll_kw["scheme"] == "continuous" else roll_kw["n_actions"]
+    lib = pk.library()
+    wide = lib.policy_rollout_prep_floats(hidden, A) > 0   # the wide path lays out its weights
     state = state_of(B)
-    ctas = -(-B // pk.KERNEL_ENVS_PER_CTA)
-    out = {"card": smi("name,power.limit"), "B": B, "T": T, "hidden": hidden}
+    out = {"card": smi("name,power.limit"), "B": B, "T": T, "hidden": hidden, "act_dim": A,
+           "kernel": "policy_rollout_wide" if wide else "policy_rollout_kernel"}
     for compute in uk.COMPUTES:
+        E = lib.policy_rollout_envs_per_cta(hidden, A, uk.COMPUTES.index(compute))
+        ctas = -(-B // E)
         for _ in range(3):
             roll = pk.policy_rollout(*state, weights, scal, T, compute=compute, **roll_kw)
         torch.cuda.synchronize()
-        before, fwd, tail, after = (float(v) / ctas for v in roll.stats)
-        out[compute] = {"cycles_before_first_step": before, "forward_cycles_per_step": fwd / T,
-                        "tail_cycles_per_step": tail / T, "cycles_after_last_step": after}
+        sums = [float(v) / ctas for v in roll.stats]
+        if wide:
+            tail, after = (float(x[::E].double().mean()) for x in (roll.harvest, roll.ep_ret))
+            out[compute] = {"envs_per_cta": E, "cycles_before_first_step": sums[0],
+                            "input_layer_cycles_per_step": sums[1] / T,
+                            "w2_product_cycles_per_step": sums[2] / T,
+                            "head_value_cycles_per_step": sums[3] / T,
+                            "tail_cycles_per_step": tail / T,
+                            "cycles_after_last_step": after}
+        else:
+            before, fwd, tail, after = sums
+            out[compute] = {"cycles_before_first_step": before,
+                            "forward_cycles_per_step": fwd / T,
+                            "tail_cycles_per_step": tail / T, "cycles_after_last_step": after}
+        out[compute]["sm_clock"] = smi("clocks.sm")
     print(json.dumps(out))
 
 

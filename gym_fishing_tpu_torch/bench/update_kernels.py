@@ -21,7 +21,9 @@ wide path's two stage-1 launches apart, the same way: ``wide_prep`` with
 `--root` names the checkout whose ``gym_fishing_tpu_torch`` is imported
 (default: the one this file lies in), so the same inputs can time two
 versions of the kernel in turns on one card, one process each. Prints one
-JSON line; needs a CUDA device.
+JSON line, with a hash of the output's bits per compute mode (two
+checkouts whose kernels should agree bit for bit give the same hash);
+needs a CUDA device.
 
 With `--errors` it times nothing and prints instead, for compute float32,
 each gradient buffer's largest error against the twin evaluated in float64,
@@ -34,6 +36,7 @@ twin's and 2 ulps.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import subprocess
@@ -150,6 +153,7 @@ def main() -> None:
         if not bool(torch.isfinite(gout).all()):
             raise SystemExit(f"update_kernels: non-finite output under {compute}")
         out[f"{compute}_ms"] = start.elapsed_time(end) / args.reps
+        out[f"{compute}_sha256"] = hashlib.sha256(gout.cpu().numpy().tobytes()).hexdigest()[:16]
         if args.parts:
             merged = uk.unflatten_merged(w_flat, d, args.hidden, a)
             act, ws = uk.wide_stage1(data, order, merged, stats, **scal)

@@ -13,6 +13,11 @@
 // Under bf16 inputs (2^-9) that is far below the mode's own rounding. It is
 // why the float32 mode does not run as split TF32 products here: see the note
 // on numerics in ppo_update_kernel.cu.
+//
+// Below them, mma.sync m16n8k16 by hand in the instruction's fixed register
+// layout (mma_16816), and tower_mma: the W2c product of the wide paths under
+// bfloat16, shared by the update kernels (ppo_grad_wide) and the policy
+// rollout (policy_rollout_wide).
 
 #pragma once
 
@@ -97,4 +102,80 @@ __device__ __forceinline__ void mma_grid(const __nv_bfloat16* __restrict__ A, in
   for (int i = 0; i < MF; ++i)
 #pragma unroll
     for (int f = 0; f < NF; ++f) wmma::mma_sync(acc[i][f], a[i], b[f], acc[i][f]);
+}
+
+// A pair of adjacent entries of an A operand as one bf16x2 register: float32
+// activations rounded to nearest even as they are read, or bf16 ones as they
+// lie. p is 8-byte (float) or 4-byte (bf16) aligned.
+__device__ __forceinline__ unsigned bf16_pair(const float* p) {
+  const float2 x = *reinterpret_cast<const float2*>(p);
+  return pack_bf16x2(x.x, x.y);
+}
+
+__device__ __forceinline__ unsigned bf16_pair(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const unsigned*>(p);
+}
+
+// Under bfloat16 at hidden 64 and above the wide paths' W2c products run on
+// the tensor cores (tower_mma); at hidden 32 a warp's share of the columns
+// would be half an mma tile, and they stay FMA.
+template <int H2, bool BF>
+inline constexpr bool kWideMma = BF && H2 >= 128;
+
+// A W2c product of a wide path on the tensor cores, for a CTA of 16 warps:
+// acc = A x B per tower for MT m16 tiles of rows (16 MT samples or envs) and
+// this warp's H2 / 16 columns n0.. (H2 / 128 n8 tiles; warps 0-7 take the
+// policy tower), summed over its tower's H rows in k-steps of 16 by mma.sync
+// m16n8k16 (bf16 inputs, float32 sums). A is [16 MT][lda] in shared memory,
+// float32 activations rounded to bf16 in registers as they are read (which
+// is what the mode's rounding of the products' inputs defines) or bf16 ones;
+// lda = H2 + 8 elements, so that a half-warp's reads of rows g and columns 2t
+// fall on distinct banks. B is wide_prep's fragment-ordered bf16 copy (FWB,
+// GWB; frag_index), one 8-byte load a lane and n8 tile, from L2. No barrier:
+// a warp reads only its own columns of B, and nothing writes A meanwhile.
+// acc[m][f] holds the entries in mma_16816's C layout: rows 16 m + g
+// (+ 8), columns n0 + 8 f + 2t (+ 1).
+template <int H2, int MT, typename TA>
+__device__ __forceinline__ void tower_mma(const TA* A, int lda, const uint2* __restrict__ B,
+                                          float (&acc)[MT][H2 / 128][4]) {
+  constexpr int H = H2 / 2, NT = H2 / 128, KB = H / 16;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int n0 = warp * (H2 / 16), k0 = n0 / H * H;
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int f = 0; f < NT; ++f)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][f][e] = 0.0f;
+  const uint2* b = B + (n0 + g) * KB * 4 + t;
+  const TA* a = A + g * lda + k0 + 2 * t;
+#pragma unroll
+  for (int kb = 0; kb < KB; ++kb) {
+    uint2 bf[NT];
+#pragma unroll
+    for (int f = 0; f < NT; ++f) bf[f] = __ldg(b + (f * 8 * KB + kb) * 4);
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      const TA* q = a + m * 16 * lda + kb * 16;
+      const unsigned af[4] = {bf16_pair(q), bf16_pair(q + 8 * lda), bf16_pair(q + 8),
+                              bf16_pair(q + 8 * lda + 8)};
+#pragma unroll
+      for (int f = 0; f < NT; ++f) mma_16816(acc[m][f], af, bf[f].x, bf[f].y);
+    }
+  }
+}
+
+// Calls fn(row, column, value) for each entry of tower_mma's result held by
+// this thread.
+template <int H2, int MT, typename Fn>
+__device__ __forceinline__ void tower_mma_out(const float (&acc)[MT][H2 / 128][4], Fn fn) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int n0 = warp * (H2 / 16);
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int f = 0; f < H2 / 128; ++f)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        fn(16 * m + g + e / 2 * 8, n0 + 8 * f + 2 * t + e % 2, acc[m][f][e]);
 }

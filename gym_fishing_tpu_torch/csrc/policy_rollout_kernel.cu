@@ -47,7 +47,8 @@
 // waves of 264 resident CTAs.) That plan holds hidden 32 and 64 with at most
 // 16 logits; hidden 128 and 256, and categorical heads of up to 128 classes
 // at any hidden size, take policy_rollout_wide (below), whose 16 warps step
-// their 64 envs together and stream the weights from L2 every step.
+// their envs together (128 on the tensor cores under bfloat16, 64 under
+// float32) and read the weights from L2 every step.
 // - compute = float32: float32 FMA. Lanes 0-15 take the policy tower, lanes
 //   16-31 the value tower, each lane 8 envs x H/16 columns: per 4 rows of a
 //   tower's block a lane makes 8 broadcast LDS.128 of h1 and 4 LDS.128 of
@@ -88,6 +89,7 @@
 
 #include "fishing_dynamics.cuh"
 #include "merged_mlp.cuh"
+#include "mma_tiles.cuh"
 #include "wide_mlp.cuh"
 
 struct PolicyRolloutParams {
@@ -658,81 +660,187 @@ __global__ void __launch_bounds__(kThreads, 2) policy_rollout_kernel(
 // Hidden 128 and 256, and categorical heads of 17 to 128 classes at any
 // hidden size (the kernel above keeps hidden 32 and 64 with at most 16
 // logits). At hidden 256 a tower's W2 block is 256 KiB in float32, so the
-// weights cannot stay in shared memory: a CTA of 16 warps steps 64 envs
-// together, keeps only their activations ([64][2H], 132 KiB at hidden 256)
-// and the head outputs in shared memory, and streams W2's blocks and the
-// policy head from L2 through block_product's slabs (wide_mlp.cuh) every
-// step: 640 KiB per CTA and step at hidden 256, which 64 envs share. The
-// products are float32 FMA in both modes, with bf16-rounded inputs under
-// bfloat16 (the weights rounded once by wide_prep). Sampling, decode and
-// dynamics: warp w owns envs 4w..4w+3, lane i < 4 carries env 4w + i; the
-// categorical sampler takes one env at a time on the whole warp, classes
-// 4l..4l+3 on lane l: the max and the sum by warp reductions, each
-// exp(out_k - mx) once, the CDF by a scan of the lanes' running sums.
+// weights cannot stay in shared memory: a CTA of 16 warps steps its envs
+// together, keeps only their activations and head outputs in shared memory,
+// and reads the weights from L2 every step (wide_prep lays them out once per
+// launch, wide_mlp.cuh). Two plans, by what the products run on:
+// - compute = bfloat16 at hidden 64 and above (kWideMma): the W2c product
+//   and the policy head on the tensor cores, mma.sync m16n8k16 with bf16
+//   inputs and float32 sums. 128 envs a CTA, so B = 16384 is one wave of
+//   128 CTAs. h1 and h2 are kept as bf16 ([128][2H + 8], 130 KiB at hidden
+//   256): every consumer of them rounds them to bf16 under this mode (the
+//   products, the value head), so the values do not change. The W2c product
+//   is tower_mma (mma_tiles.cuh): a warp takes 2H / 16 columns of one tower
+//   over the rows of 64 envs at a time (at hidden 256 two passes, which
+//   keeps 64 accumulators a thread), its B fragments 8-byte loads from
+//   wide_prep's FWB copy; after a pass's product a block barrier, then each
+//   thread writes h2 = tanh(. + b2) over the h1 rows the pass read. The
+//   policy head: a warp takes one m16 tile of envs and every other n8 tile
+//   of the padded classes, B from wide_prep's MPB copy. The value head is a
+//   warp dot of h2 with Wv.
+// - otherwise (compute = float32, and bfloat16 at hidden 32): 64 envs a CTA
+//   ([64][2H] float32 activations, 132 KiB at hidden 256); the W2 product
+//   and the categorical head are float32 FMA through block_product's slabs,
+//   with bf16-rounded inputs under bfloat16 (the weights rounded once by
+//   wide_prep); the Gaussian head's mean is a warp dot like the value. The
+//   slabs share their space with the head outputs, dead while the products
+//   run. At hidden 256 (WideRollSmem::KM) the W2 product is FMA-bound only
+//   if its shared loads are few: h1 is written k-major, so a thread's 8 envs
+//   x 8 columns take one k as two broadcast LDS.128 of h1 (one warp, one
+//   s0) and two LDS.128 of the slab, its columns two runs of 4 so that a
+//   quarter-warp's pieces are consecutive: 10 wavefronts a warp for 64 FMA,
+//   where 8 scalar loads of h1 and 8 contiguous columns a lane (two lanes a
+//   bank) took 24. A slab there holds 16 rows of W2 (32 KiB), so a product
+//   is 16 rounds of cp.async and block barrier, not 32; h2 goes back over
+//   h1 row-major for the head and the value. Below hidden 256 that layout
+//   measured slower, so h1 stays row-major there, read through slabs of
+//   kSlabFloats (16 KiB). Each output sums its k in order in either
+//   layout, so the bits are the 64-env FMA kernel's of before.
+// Sampling, decode and dynamics: warp w owns the CTA's envs E/16 w.. (E/16
+// = 8 or 4), lane i < E/16 carries env E/16 w + i; the categorical sampler
+// draws the warp's envs four at a time on the whole warp (warp_categorical).
 constexpr int kWideThreads = 512;
 constexpr int kWideWarps = kWideThreads / 32;
-constexpr int kWideEnvsPerWarp = kEnvs / kWideWarps;  // 4
-static_assert(kWideEnvsPerWarp * kWideWarps == kEnvs && 4 * 32 == kWideMaxA, "wide plan");
+static_assert(4 * 32 == kWideMaxA, "the sampler's lanes take 4 classes each");
 
-template <int H>
+// envs a CTA of the wide path takes
+template <bool MMA>
+inline constexpr int kWideEnvs = MMA ? 128 : kEnvs;
+
+// The FMA plan's slab: 16 rows of the W2 operand at hidden 256
+constexpr int kWideSlab = 2 * kSlabFloats;
+
+constexpr int cmax(int a, int b) { return a > b ? a : b; }
+
+// The index, in uint2, of the B fragment word of lane (g, t) for k-step kb
+// and n8 tile nt of the policy head in shared memory: k-step major, so that
+// a warp's words of one k-step and tile are 256 consecutive bytes
+// (wide_prep's MPB order puts a column's k-steps together, 512 bytes
+// between the lanes g at hidden 256: eight lanes a bank).
+__device__ __forceinline__ int head_b_index(int kb, int nt, int g, int t) {
+  return ((kb * (kWideMaxA / 8) + nt) * 8 + g) * 4 + t;
+}
+
+template <int H, bool MMA>
 struct WideRollSmem {
   static constexpr int H2 = 2 * H;
-  static constexpr int LDA = kActLD<H2>;
-  static constexpr int ACT = 0;                         // [kEnvs][LDA]: h1, then h2
-  static constexpr int SLAB = ACT + kEnvs * LDA;        // [2][kSlabFloats]
-  static constexpr int OUT = SLAB + 2 * kSlabFloats;    // [kEnvs][kWideLDO]
-  static constexpr int VAL = OUT + kEnvs * kWideLDO;    // [kEnvs]
-  static constexpr int INP = VAL + kEnvs;               // [kEnvs]
-  static constexpr int W1 = INP + kEnvs;                // [H2] (folded when fold_obs)
+  static constexpr int E = kWideEnvs<MMA>;
+  // row stride of the activations: bf16 elements under MMA (a half-warp's
+  // 4-byte fragment reads of rows g and columns 2t fall on distinct banks),
+  // floats otherwise
+  static constexpr int LDA = MMA ? H2 + 8 : kActLD<H2>;
+  // FMA at hidden 256: h1 k-major (row stride LDK) and deep slabs; below
+  // it the FMA product keeps h1 row-major and slabs of kSlabFloats
+  static constexpr bool KM = !MMA && H2 >= 512;
+  static constexpr int LDK = E;
+  static constexpr int SLABF = KM ? kWideSlab : kSlabFloats;
+  // MMA: [E][LDA] bf16, h1 then h2; KM: h1 k-major [H2][LDK], then h2
+  // [E][LDA]; otherwise [E][LDA] floats, h1 then h2
+  static constexpr int ACT = 0;
+  static constexpr int ACT_FLOATS = MMA ? cmax(E * LDA / 2, E * kWideLDO) : E * LDA;
+  static constexpr int SLAB = ACT + ACT_FLOATS;  // FMA: [2][SLABF]
+  // MMA: the policy head's bf16 B fragments, staged once (head_b_index)
+  static constexpr int MPB = SLAB;
+  // [E][kWideLDO]; each plan puts them where a step is done with what lay
+  // there before they are written: under MMA over the activations, under
+  // FMA in the slabs' space
+  static constexpr int OUT = MMA ? ACT : SLAB;
+  static constexpr int VAL = SLAB + (MMA ? H * kWideMaxA / 2 : cmax(E * kWideLDO, 2 * SLABF));
+  static constexpr int INP = VAL + E;                     // [E]
+  static constexpr int W1 = INP + E;                      // [H2] (folded when fold_obs)
   static constexpr int B1 = W1 + H2;
   static constexpr int B2 = B1 + H2;
-  static constexpr int BH = B2 + H2;                    // [kWideMaxA + 4]
-  static constexpr int STAT = BH + kWideMaxA + 4;       // [kEnvs][kStats]
-  static constexpr int TOTAL = STAT + kEnvs * kStats;
+  static constexpr int BH = B2 + H2;                      // [kWideMaxA + 4]
+  static constexpr int STAT = BH + kWideMaxA + 4;         // [E][kStats]
+  static constexpr int TOTAL = STAT + E * kStats;
   static constexpr size_t BYTES = sizeof(float) * TOTAL;
+  static_assert(SLAB % 4 == 0, "alignment");
 };
-static_assert(WideRollSmem<256>::BYTES <= 232448, "the wide rollout exceeds a CTA's shared memory");
+static_assert(WideRollSmem<256, false>::BYTES <= 232448 &&
+                  WideRollSmem<256, true>::BYTES <= 232448,
+              "the wide rollout exceeds a CTA's shared memory");
 
-// One env's categorical draw on the whole warp: the class a = min(#{k : cdf_k
-// < u}, A - 1) and its log-probability, from the head outputs o[0, A).
-__device__ __forceinline__ void warp_categorical(const float* o, int A, float u, int lane,
-                                                 int& cls, float& logp) {
-  float e[4], mx = -CUDART_INF_F;
+// The categorical draws of a warp's EW envs (env q's head outputs at o + q
+// ldo, its uniform u in lane q) on the whole warp, classes 4l..4l+3 on lane
+// l: lane q < EW gets env q's class a = min(#{k : cdf_k < u}, A - 1) and
+// its log-probability. The max and the sum by warp reductions, each
+// exp(out_k - mx) once, the CDF by a scan of the lanes' running sums. Four
+// envs at a time side by side, so that their reductions' shuffles overlap
+// (one env at a time waited out each reduction's latency: at 100 classes
+// and 8 envs a warp the tail took 10 times the Gaussian head's); each
+// env's arithmetic is the same as if it were drawn alone, and the same in
+// both plans.
+template <int EW>
+__device__ __forceinline__ void warp_categorical(const float* o, int ldo, int A, float u,
+                                                 int lane, int& cls, float& logp) {
+  constexpr int NE = EW < 4 ? EW : 4;
+  static_assert(EW % NE == 0, "envs in groups of four");
+#pragma unroll 1
+  for (int q0 = 0; q0 < EW; q0 += NE) {
+    float e[NE][4], mx[NE], se[NE], incl[NE];
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int a = 4 * lane + j;
-    e[j] = a < A ? o[a] : -CUDART_INF_F;
-    mx = fmaxf(mx, e[j]);
+    for (int q = 0; q < NE; ++q) {
+      mx[q] = -CUDART_INF_F;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int a = 4 * lane + j;
+        e[q][j] = a < A ? o[(q0 + q) * ldo + a] : -CUDART_INF_F;
+        mx[q] = fmaxf(mx[q], e[q][j]);
+      }
+    }
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1)
+#pragma unroll
+      for (int q = 0; q < NE; ++q)
+        mx[q] = fmaxf(mx[q], __shfl_xor_sync(WIDE_FULL_MASK, mx[q], d));
+#pragma unroll
+    for (int q = 0; q < NE; ++q) {
+      se[q] = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        e[q][j] = 4 * lane + j < A ? expf(e[q][j] - mx[q]) : 0.0f;
+        se[q] += e[q][j];
+      }
+    }
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1)
+#pragma unroll
+      for (int q = 0; q < NE; ++q) se[q] += __shfl_xor_sync(WIDE_FULL_MASK, se[q], d);
+    // the lane's running sums of the softmax (over e), then the lanes
+    // before it by a scan
+#pragma unroll
+    for (int q = 0; q < NE; ++q) {
+      float r = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        r += e[q][j] / se[q];
+        e[q][j] = r;
+      }
+      incl[q] = r;
+    }
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1)
+#pragma unroll
+      for (int q = 0; q < NE; ++q) {
+        const float y = __shfl_up_sync(WIDE_FULL_MASK, incl[q], d);
+        if (lane >= d) incl[q] += y;
+      }
+#pragma unroll
+    for (int q = 0; q < NE; ++q) {
+      float before = __shfl_up_sync(WIDE_FULL_MASK, incl[q], 1);
+      if (lane == 0) before = 0.0f;
+      const float uq = __shfl_sync(WIDE_FULL_MASK, u, q0 + q);
+      int below = 0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) below += 4 * lane + j < A && before + e[q][j] < uq ? 1 : 0;
+      below = __reduce_add_sync(WIDE_FULL_MASK, below);
+      const int k = below < A - 1 ? below : A - 1;
+      if (lane == q0 + q) {
+        cls = k;
+        logp = (o[(q0 + q) * ldo + k] - mx[q]) - logf(se[q]);
+      }
+    }
   }
-  mx = warp_max(mx);
-  float se = 0.0f;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    e[j] = 4 * lane + j < A ? expf(e[j] - mx) : 0.0f;
-    se += e[j];
-  }
-  se = warp_sum(se);
-  // the lane's running sums of the softmax, then the lanes before it by a scan
-  float run[4], r = 0.0f;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    r += e[j] / se;
-    run[j] = r;
-  }
-  float incl = r;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const float y = __shfl_up_sync(WIDE_FULL_MASK, incl, d);
-    if (lane >= d) incl += y;
-  }
-  float before = __shfl_up_sync(WIDE_FULL_MASK, incl, 1);
-  if (lane == 0) before = 0.0f;
-  int below = 0;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) below += 4 * lane + j < A && before + run[j] < u ? 1 : 0;
-  below = __reduce_add_sync(WIDE_FULL_MASK, below);
-  cls = below < A - 1 ? below : A - 1;
-  logp = (o[cls] - mx) - logf(se);
 }
 
 template <int H, bool BF>
@@ -744,13 +852,20 @@ __global__ void __launch_bounds__(kWideThreads, 1) policy_rollout_wide(
     float* __restrict__ stock_out, int* __restrict__ t_out, float* __restrict__ hv_out,
     float* __restrict__ ret_out, int* __restrict__ len_out, float* __restrict__ ws) {
   extern __shared__ __align__(16) float sm[];
-  using L_ = WideRollSmem<H>;
-  constexpr int H2 = 2 * H, LDA = L_::LDA, LDO = kWideLDO;
-  // thread tiles: the W2 product [kEnvs][H2], the policy head [kEnvs][AP]
-  constexpr int TC = H2 >= 512 ? 8 : 4, TS = kEnvs * (H2 / TC) / kWideThreads;
+  constexpr bool MMA = kWideMma<2 * H, BF>;
+  using L_ = WideRollSmem<H, MMA>;
+  constexpr int H2 = 2 * H, E = L_::E, EW = E / kWideWarps, LDA = L_::LDA, LDO = kWideLDO;
+  // FMA thread tiles: the W2 product [E][H2], the policy head [E][AP]
+  constexpr int TC = H2 >= 512 ? 8 : 4, TS = E * (H2 / TC) / kWideThreads;
   constexpr int TSF = 4, TCF = 4;
-  static_assert(TS >= 1 && (kEnvs / TSF) * (kWideMaxA / TCF) <= kWideThreads, "tiling");
+  static_assert(MMA || (TS >= 1 && (E / TSF) * (kWideMaxA / TCF) <= kWideThreads), "tiling");
+  // MMA: m16 tiles of envs per pass of the W2 product (at most 64
+  // accumulators a thread), and the head's n8 tiles a warp takes at most
+  constexpr int MT = E / 16, NT = H2 >= 128 ? H2 / 128 : 1, MTP = MT < 16 / NT ? MT : 16 / NT;
+  constexpr int KB = H / 16, HEAD_NT = kWideMaxA / 8 / (kWideWarps / MT);
+  static_assert(!MMA || (MT % MTP == 0 && kWideWarps % MT == 0), "mma plan");
   float* act = sm + L_::ACT;
+  __nv_bfloat16* actb = reinterpret_cast<__nv_bfloat16*>(sm + L_::ACT);
   float* slab = sm + L_::SLAB;
   float* outs = sm + L_::OUT;
   float* sval = sm + L_::VAL;
@@ -777,14 +892,31 @@ __global__ void __launch_bounds__(kWideThreads, 1) policy_rollout_wide(
   const long long B = p.num_envs;
   const int T = p.num_steps;
   const long long TB = (long long)T * B;
-  const int e0 = warp * kWideEnvsPerWarp;
-  const long long env = (long long)blockIdx.x * kEnvs + e0 + lane;
-  const bool active = lane < kWideEnvsPerWarp && env < B;
+  const int e0 = warp * EW;
+  const long long env = (long long)blockIdx.x * E + e0 + lane;
+  const bool active = lane < EW && env < B;
   const int model = p.growth == MIXTURE ? p.model_idx : p.growth;
-  const int f_s0 = tid / (H2 / TC) * TS, f_c0 = tid % (H2 / TC) * TC;
+  // FMA: this thread's tile of the W2 product, TS envs from f_s0 and TC
+  // columns; at TC = 8 two runs of 4, f_c0.. and f_c0 + CS.. in one tower
+  // (block_product), so that a warp reads 16 consecutive bytes a lane
+  constexpr int CS = TC == 8 ? H / 2 : 0;
+  const int f_s0 = tid / (H2 / TC) * TS, f_cg = tid % (H2 / TC);
+  const int f_c0 = CS ? f_cg / (H / TC) * H + f_cg % (H / TC) * (TC / 2) : f_cg * TC;
   const int ncgf = AP / TCF;
-  const bool h_mine = tid < (kEnvs / TSF) * ncgf;
+  const bool h_mine = tid < (E / TSF) * ncgf;
   const int h_s0 = h_mine ? tid / ncgf * TSF : 0, h_c0 = h_mine ? tid % ncgf * TCF : 0;
+  // MMA head: this warp's m16 tile of envs and its first n8 tile of classes
+  const int g = lane >> 2, t4 = lane & 3, hm = warp % MT, hn0 = warp / MT;
+
+  if constexpr (MMA) {
+    // the policy head's B fragments from wide_prep's MPB copy, once
+    const uint2* src = reinterpret_cast<const uint2*>(prep + W.mpb);
+    uint2* dst = reinterpret_cast<uint2*>(sm + L_::MPB);
+    for (int i = tid; i < AP / 8 * KB * 32; i += kWideThreads) {
+      const int col = i / (KB * 4);  // src index ((nt 8 + g) KB + kb) 4 + t
+      dst[head_b_index(i / 4 % KB, col / 8, col % 8, i % 4)] = src[i];
+    }
+  }
 
   EnvCarry c = {};
   if (active) {
@@ -796,46 +928,164 @@ __global__ void __launch_bounds__(kWideThreads, 1) policy_rollout_wide(
   }
   // the first input is noise-free
   c.inp = fold ? fminf(fmaxf(c.x, 0.0f), two_K) : fminf(fmaxf(c.x / K - 1.0f, -1.0f), 1.0f);
-  if (lane < kWideEnvsPerWarp) sinp[e0 + lane] = c.inp;
+  if (lane < EW) sinp[e0 + lane] = c.inp;
   __syncthreads();
 
   // head outputs and values of the CTA's envs from the inputs in sinp
   auto forward = [&]() {
-    for (int e = tid; e < kEnvs * H2; e += kWideThreads) {
-      const int s = e / H2, j = e % H2;
-      act[s * LDA + j] = tanhf(__fadd_rn(__fmul_rn(sm[L_::W1 + j], sinp[s]), sm[L_::B1 + j]));
+    // the input layer, h1 = tanh(w1 m + b1), rank 1, as the twin computes it
+    if constexpr (MMA) {
+      for (int e = tid; e < E * H; e += kWideThreads) {
+        const int s = e / H, j = 2 * (e % H);
+        const float m = sinp[s];
+        const float2 w1 = *reinterpret_cast<const float2*>(sm + L_::W1 + j);
+        const float2 b1 = *reinterpret_cast<const float2*>(sm + L_::B1 + j);
+        *reinterpret_cast<unsigned*>(actb + s * LDA + j) =
+            pack_bf16x2(tanhf(__fadd_rn(__fmul_rn(w1.x, m), b1.x)),
+                        tanhf(__fadd_rn(__fmul_rn(w1.y, m), b1.y)));
+      }
+    } else if constexpr (L_::KM) {
+      for (int e = tid; e < E * H2; e += kWideThreads) {
+        const int j = e / E, s = e % E;
+        act[j * L_::LDK + s] =
+            tanhf(__fadd_rn(__fmul_rn(sm[L_::W1 + j], sinp[s]), sm[L_::B1 + j]));
+      }
+    } else {
+      for (int e = tid; e < E * H2; e += kWideThreads) {
+        const int s = e / H2, j = e % H2;
+        act[s * LDA + j] = tanhf(__fadd_rn(__fmul_rn(sm[L_::W1 + j], sinp[s]), sm[L_::B1 + j]));
+      }
     }
     __syncthreads();
-    {
+    // the W2 product, h2 = tanh(h1 W2 + b2) per tower, over h1 in place
+    if constexpr (MMA) {
+      const uint2* fwb = reinterpret_cast<const uint2*>(prep + W.fwb);
+#pragma unroll 1
+      for (int r0 = 0; r0 < E; r0 += 16 * MTP) {
+        float acc[MTP][NT][4];
+        tower_mma<H2>(actb + r0 * LDA, LDA, fwb, acc);
+        __syncthreads();  // every warp has read these rows of h1
+        tower_mma_out<H2>(acc, [&](int s, int col, float z) {
+          actb[(r0 + s) * LDA + col] = __float2bfloat16_rn(tanhf(z + sm[L_::B2 + col]));
+        });
+      }
+    } else {
       float acc[TS][TC];
-      block_product<TS, TC, BF>(act, LDA, H, prep + W.fw, H, H2, slab, f_s0, f_c0, true, acc);
+      block_product<TS, TC, BF, false, L_::KM, L_::SLABF, CS>(
+          act, L_::KM ? L_::LDK : LDA, H, prep + W.fw, H, H2, slab, f_s0, f_c0, true, acc);
+      // h2 row-major over h1, four columns a store
 #pragma unroll
       for (int i = 0; i < TS; ++i)
 #pragma unroll
-        for (int q = 0; q < TC; ++q)
-          act[(f_s0 + i) * LDA + f_c0 + q] = tanhf(acc[i][q] + sm[L_::B2 + f_c0 + q]);
+        for (int r = 0; r < TC / 4; ++r) {
+          const int col = f_c0 + (CS && r >= TC / 8 ? CS - TC / 2 : 0) + 4 * r;
+          float v[4];
+          load_row<4>(sm + L_::B2 + col, v);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) v[q] = tanhf(acc[i][4 * r + q] + v[q]);
+          store_row<4>(act + (f_s0 + i) * LDA + col, v);
+        }
     }
     __syncthreads();
-    float acc[TSF][TCF];
-    block_product<TSF, TCF, BF>(act, LDA, AP, prep + W.mp, H, AP, slab, h_s0, h_c0, h_mine, acc);
-    if (h_mine)
+    // the heads: the policy outputs from h2's policy columns (zero past A),
+    // the value a warp dot of its value columns with Wv, a warp E/16 envs
+    float hacc[HEAD_NT][4];
+    if constexpr (MMA) {
+      // a warp's m16 tile of envs and every other n8 tile of classes, B from
+      // the staged fragments
+      const uint2* mpb = reinterpret_cast<const uint2*>(sm + L_::MPB);
+      const int n_tiles = AP / 8;
 #pragma unroll
-      for (int i = 0; i < TSF; ++i)
+      for (int j = 0; j < HEAD_NT; ++j)
 #pragma unroll
-        for (int q = 0; q < TCF; ++q) {
-          const int a = h_c0 + q;
-          outs[(h_s0 + i) * LDO + a] = a < A ? acc[i][q] + sm[L_::BH + a] : 0.0f;
+        for (int q = 0; q < 4; ++q) hacc[j][q] = 0.0f;
+      const __nv_bfloat16* a = actb + (16 * hm + g) * LDA + 2 * t4;
+#pragma unroll 2
+      for (int kb = 0; kb < KB; ++kb) {
+        const __nv_bfloat16* q = a + kb * 16;
+        const unsigned af[4] = {bf16_pair(q), bf16_pair(q + 8 * LDA), bf16_pair(q + 8),
+                                bf16_pair(q + 8 * LDA + 8)};
+#pragma unroll
+        for (int j = 0; j < HEAD_NT; ++j) {
+          const int nt = hn0 + j * (kWideWarps / MT);
+          if (nt < n_tiles) {
+            const uint2 bf = mpb[head_b_index(kb, nt, g, t4)];
+            mma_16816(hacc[j], af, bf.x, bf.y);
+          }
         }
-    for (int q = 0; q < kWideEnvsPerWarp; ++q) {
-      const int s = e0 + q;
-      float z = 0.0f;
-      for (int k = lane; k < H; k += 32) {
-        float h2 = act[s * LDA + H + k];
-        if constexpr (BF) h2 = bf16_round(h2);
-        z = fmaf(h2, prep[W.wv + k], z);
       }
-      z = warp_sum(z);
-      if (lane == 0) sval[s] = z + sm[L_::BH + A];
+    } else if (!gauss) {
+      float acc[TSF][TCF];
+      block_product<TSF, TCF, BF, false, false, L_::SLABF>(act, LDA, AP, prep + W.mp, H, AP,
+                                                           slab, h_s0, h_c0, h_mine, acc);
+      if (h_mine)
+#pragma unroll
+        for (int i = 0; i < TSF; ++i)
+#pragma unroll
+          for (int q = 0; q < TCF; ++q) {
+            const int a = h_c0 + q;
+            outs[(h_s0 + i) * LDO + a] = a < A ? acc[i][q] + sm[L_::BH + a] : 0.0f;
+          }
+    }
+    {
+      // the lane's terms k = lane + 32 i, one chain an env, then one
+      // butterfly an env, the warp's envs side by side; under FMA the
+      // Gaussian head's one mean likewise, from h2's policy columns and MT's
+      // first row (a block product would leave all but 32 threads idle)
+      constexpr int KL = H / 32;
+      const bool dot_mean = !MMA && gauss;
+      float wv[KL], z[EW], wm[KL], zm[EW];
+#pragma unroll
+      for (int i = 0; i < KL; ++i) {
+        wv[i] = prep[W.wv + lane + 32 * i];
+        wm[i] = dot_mean ? prep[W.mt + lane + 32 * i] : 0.0f;
+      }
+#pragma unroll
+      for (int q = 0; q < EW; ++q) {
+        const int s = e0 + q;
+        z[q] = 0.0f;
+        zm[q] = 0.0f;
+#pragma unroll
+        for (int i = 0; i < KL; ++i) {
+          const int k = lane + 32 * i;
+          float h2;
+          if constexpr (MMA) {
+            h2 = __bfloat162float(actb[s * LDA + H + k]);
+          } else {
+            h2 = act[s * LDA + H + k];
+            if constexpr (BF) h2 = bf16_round(h2);
+            if (dot_mean) {
+              float h2p = act[s * LDA + k];
+              if constexpr (BF) h2p = bf16_round(h2p);
+              zm[q] = fmaf(h2p, wm[i], zm[q]);
+            }
+          }
+          z[q] = fmaf(h2, wv[i], z[q]);
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < EW; ++q) {
+        const float v = warp_sum(z[q]);
+        if (lane == 0) sval[e0 + q] = v + sm[L_::BH + A];
+        if (dot_mean) {
+          const float m = warp_sum(zm[q]);
+          if (lane == 0) outs[(e0 + q) * LDO] = m + sm[L_::BH];
+        }
+      }
+    }
+    if constexpr (MMA) {
+      __syncthreads();  // every warp has read h2, which the head outputs overwrite
+      const int n_tiles = AP / 8;
+#pragma unroll
+      for (int j = 0; j < HEAD_NT; ++j) {
+        const int nt = hn0 + j * (kWideWarps / MT);
+        if (nt < n_tiles)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int a_out = 8 * nt + 2 * t4 + q % 2, s = 16 * hm + g + q / 2 * 8;
+            outs[s * LDO + a_out] = a_out < A ? hacc[j][q] + sm[L_::BH + a_out] : 0.0f;
+          }
+      }
     }
     __syncthreads();
   };
@@ -853,22 +1103,17 @@ __global__ void __launch_bounds__(kWideThreads, 1) policy_rollout_wide(
         quota = (fminf(fmaxf(act_v, -1.0f), 1.0f) + 1.0f) * K * p.action_scale;
       }
     } else {
-      for (int q = 0; q < kWideEnvsPerWarp; ++q) {
-        const float u = __shfl_sync(WIDE_FULL_MASK, za, q);
-        int k;
-        float lp;
-        warp_categorical(outs + (e0 + q) * LDO, A, u, lane, k, lp);
-        if (lane == q) {
-          act_v = (float)k;
-          logp = lp;
-          quota = categorical_quota(p, k, c.h, K);
-        }
+      int k = 0;
+      warp_categorical<EW>(outs + e0 * LDO, LDO, A, za, lane, k, logp);
+      if (active) {
+        act_v = (float)k;
+        quota = categorical_quota(p, k, c.h, K);
       }
     }
     if (active)
       env_step(p, model, c, act_v, logp, quota, sval[e0 + lane], zp, nf, col, TB, packed, fold,
                obs_noise, K, inv_K, two_K);
-    if (lane < kWideEnvsPerWarp) sinp[e0 + lane] = c.inp;
+    if (lane < EW) sinp[e0 + lane] = c.inp;
     // the next forward overwrites the head outputs and values this step read
     __syncthreads();
   }
@@ -885,7 +1130,7 @@ __global__ void __launch_bounds__(kWideThreads, 1) policy_rollout_wide(
   }
 
   // episode statistics: this CTA's sums in env order -> ws row blockIdx.x
-  if (lane < kWideEnvsPerWarp) {
+  if (lane < EW) {
     float* st = sm + L_::STAT + (e0 + lane) * kStats;
     st[0] = c.nd;
     st[1] = c.sr;
@@ -895,7 +1140,7 @@ __global__ void __launch_bounds__(kWideThreads, 1) policy_rollout_wide(
   __syncthreads();
   if (tid < kStats) {
     float z = 0.0f;
-    for (int s = 0; s < kEnvs; ++s) z += sm[L_::STAT + s * kStats + tid];
+    for (int s = 0; s < E; ++s) z += sm[L_::STAT + s * kStats + tid];
     ws[(long long)blockIdx.x * kStats + tid] = z;
   }
 }
@@ -929,6 +1174,12 @@ static int check_params(const PolicyRolloutParams* p) {
 // every other size policy_rollout_wide, whose weights wide_prep lays out first.
 static bool wide_path(int hidden, int act_dim) { return hidden > 64 || act_dim > kMaxA; }
 
+// The envs a CTA takes: kEnvs, or kWideEnvs on the wide path's tensor cores.
+static int envs_per_cta(int hidden, int act_dim, int compute) {
+  return wide_path(hidden, act_dim) && compute == BFLOAT16 && hidden >= 64 ? kWideEnvs<true>
+                                                                           : kEnvs;
+}
+
 // The launchers' tensors.
 struct RollArgs {
   const float *w, *stock_in;
@@ -960,14 +1211,23 @@ static int launch(const PolicyRolloutParams* p, const RollArgs& a, unsigned grid
   return (int)cudaGetLastError();
 }
 
+// wide_prep for the wide path at hidden H: the fragment-ordered bf16 copies
+// (FWB, MPB; GWB comes along) where the products run on the tensor cores.
+template <int H, bool BF>
+static int launch_prep(const PolicyRolloutParams* p, const float* w, float* prep,
+                       cudaStream_t st) {
+  constexpr bool MMA = kWideMma<2 * H, BF>;
+  return (int)launch_wide_prep(w, 1, H, p->act_dim, BF, BF, prep, st, MMA, MMA);
+}
+
 template <int H, bool BF>
 static int launch_wide(const PolicyRolloutParams* p, const RollArgs& a, unsigned grid,
                        cudaStream_t st) {
-  constexpr size_t bytes = WideRollSmem<H>::BYTES;
-  cudaError_t e = launch_wide_prep(a.w, 1, H, p->act_dim, BF, BF, a.prep, st);
-  if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(policy_rollout_wide<H, BF>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  constexpr size_t bytes = WideRollSmem<H, kWideMma<2 * H, BF>>::BYTES;
+  int err = launch_prep<H, BF>(p, a.w, a.prep, st);
+  if (err) return err;
+  cudaError_t e = cudaFuncSetAttribute(policy_rollout_wide<H, BF>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return (int)e;
   policy_rollout_wide<H, BF><<<grid, kWideThreads, bytes, st>>>(
       *p, a.w, a.prep, a.stock_in, a.t_in, a.hv_in, a.ret_in, a.len_in, a.noise, a.packed,
@@ -989,9 +1249,9 @@ static int launch_mode(const PolicyRolloutParams* p, const RollArgs& a, unsigned
   }
 }
 
-// ws: [ceil(B / policy_rollout_envs_per_cta())][4] scratch; stats: [4];
-// prep: policy_rollout_prep_floats(hidden, act_dim) floats of scratch (none
-// for the narrow path: it may be null there).
+// ws: [ceil(B / policy_rollout_envs_per_cta(hidden, act_dim, compute))][4]
+// scratch; stats: [4]; prep: policy_rollout_prep_floats(hidden, act_dim)
+// floats of scratch (none for the narrow path: it may be null there).
 extern "C" int policy_rollout_launch(const PolicyRolloutParams* p, const float* w,
                                      const float* stock_in, const int* t_in, const float* hv_in,
                                      const float* ret_in, const int* len_in, const float* noise,
@@ -1002,7 +1262,8 @@ extern "C" int policy_rollout_launch(const PolicyRolloutParams* p, const float* 
   if (err) return err;
   if (p->has_noise && noise == nullptr) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  const unsigned grid = (unsigned)((p->num_envs + kEnvs - 1) / kEnvs);
+  const int E = envs_per_cta(p->hidden, p->act_dim, p->compute);
+  const unsigned grid = (unsigned)((p->num_envs + E - 1) / E);
   const RollArgs a{w,         stock_in, t_in,  hv_in,  ret_in,  len_in, noise, packed,
                    stock_out, t_out,    hv_out, ret_out, len_out, ws,     prep};
   err = p->compute == BFLOAT16 ? launch_mode<true>(p, a, grid, st)
@@ -1012,13 +1273,39 @@ extern "C" int policy_rollout_launch(const PolicyRolloutParams* p, const float* 
   return (int)cudaGetLastError();
 }
 
+// wide_prep alone, as policy_rollout_launch runs it before the wide kernel,
+// into prep (policy_rollout_prep_floats floats); for the card test of the
+// layout. Only hidden, act_dim and compute of p are read.
+extern "C" int policy_rollout_wide_prep(const PolicyRolloutParams* p, const float* w,
+                                        float* prep, void* stream) {
+  if (!wide_path(p->hidden, p->act_dim) || prep == nullptr) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const bool bf = p->compute == BFLOAT16;
+  switch (p->hidden) {
+    case 32: return bf ? launch_prep<32, true>(p, w, prep, st) : launch_prep<32, false>(p, w, prep, st);
+    case 64: return bf ? launch_prep<64, true>(p, w, prep, st) : launch_prep<64, false>(p, w, prep, st);
+    case 128: return bf ? launch_prep<128, true>(p, w, prep, st) : launch_prep<128, false>(p, w, prep, st);
+    default: return bf ? launch_prep<256, true>(p, w, prep, st) : launch_prep<256, false>(p, w, prep, st);
+  }
+}
+
 extern "C" int policy_rollout_prep_floats(int hidden, int act_dim) {
   return wide_path(hidden, act_dim) ? wide_prep_layout(hidden, wide_ap(act_dim)).total : 0;
 }
 
+// wide_prep_layout's offsets at these sizes, fw .. mpb then total, into out[9]
+// (the wrapper's views of wide_prep's regions).
+extern "C" void policy_rollout_prep_layout(int hidden, int act_dim, int* out) {
+  const WidePrep w = wide_prep_layout(hidden, wide_ap(act_dim));
+  const int offs[9] = {w.fw, w.gw, w.mp, w.mt, w.wv, w.fwb, w.gwb, w.mpb, w.total};
+  for (int i = 0; i < 9; ++i) out[i] = offs[i];
+}
+
 extern "C" int policy_rollout_params_size(void) { return (int)sizeof(PolicyRolloutParams); }
 
-extern "C" int policy_rollout_envs_per_cta(void) { return kEnvs; }
+extern "C" int policy_rollout_envs_per_cta(int hidden, int act_dim, int compute) {
+  return envs_per_cta(hidden, act_dim, compute);
+}
 
 extern "C" const char* cuda_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);

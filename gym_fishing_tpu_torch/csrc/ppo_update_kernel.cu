@@ -767,71 +767,8 @@ __device__ __forceinline__ void rows_out(const float* src, int lda, void* act, l
 static_assert(kWarps * 2 == kWideChunk, "a warp takes two samples of a chunk in the loss");
 
 // Under bfloat16 at hidden 64 and above the two W2c products of a chunk run
-// on the tensor cores (tower_mma); at hidden 32 (a warp's share of the
-// columns would be half an mma tile) they stay FMA.
-template <int H2, bool BF>
-inline constexpr bool kWideMma = BF && H2 >= 128;
-
-// A W2c product of the wide path on the tensor cores: acc = A x B per tower
-// for the chunk's 32 samples (two m16 tiles) and this warp's H2 / 16 columns
-// n0.. (H2 / 128 n8 tiles; warps 0-7 take the policy tower), summed over its
-// tower's H rows in k-steps of 16 by mma.sync m16n8k16 (bf16 inputs, float32
-// sums). A is the float32 activations [32][lda] (lda = H2 + 8: a half-warp's
-// 8-byte reads of rows g and columns 2t fall on distinct banks), rounded to
-// bf16 in registers as they are read, which is what the mode's rounding of
-// the products' inputs defines; B is wide_prep's fragment-ordered bf16 copy
-// (FWB, GWB), one 8-byte load a lane and n8 tile, from L2. No barrier: a
-// warp reads only its own columns of B, and nothing writes A meanwhile.
-// acc[m][f] holds the entries in mma_16816's C layout: rows 16 m + g
-// (+ 8), columns n0 + 8 f + 2t (+ 1).
-template <int H2>
-__device__ __forceinline__ void tower_mma(const float* A, int lda, const uint2* __restrict__ B,
-                                          float (&acc)[2][H2 / 128][4]) {
-  constexpr int H = H2 / 2, NT = H2 / 128, KB = H / 16;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int n0 = warp * (H2 / 16), k0 = n0 / H * H;
-#pragma unroll
-  for (int m = 0; m < 2; ++m)
-#pragma unroll
-    for (int f = 0; f < NT; ++f)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[m][f][e] = 0.0f;
-  const uint2* b = B + (n0 + g) * KB * 4 + t;
-  const float* a = A + g * lda + k0 + 2 * t;
-#pragma unroll
-  for (int kb = 0; kb < KB; ++kb) {
-    uint2 bf[NT];
-#pragma unroll
-    for (int f = 0; f < NT; ++f) bf[f] = __ldg(b + (f * 8 * KB + kb) * 4);
-#pragma unroll
-    for (int m = 0; m < 2; ++m) {
-      const float* q = a + m * 16 * lda + kb * 16;
-      const float2 x0 = *reinterpret_cast<const float2*>(q);
-      const float2 x1 = *reinterpret_cast<const float2*>(q + 8 * lda);
-      const float2 x2 = *reinterpret_cast<const float2*>(q + 8);
-      const float2 x3 = *reinterpret_cast<const float2*>(q + 8 * lda + 8);
-      const unsigned af[4] = {pack_bf16x2(x0.x, x0.y), pack_bf16x2(x1.x, x1.y),
-                              pack_bf16x2(x2.x, x2.y), pack_bf16x2(x3.x, x3.y)};
-#pragma unroll
-      for (int f = 0; f < NT; ++f) mma_16816(acc[m][f], af, bf[f].x, bf[f].y);
-    }
-  }
-}
-
-// Calls fn(sample, column, value) for each entry of tower_mma's result held
-// by this thread.
-template <int H2, typename Fn>
-__device__ __forceinline__ void tower_mma_out(const float (&acc)[2][H2 / 128][4], Fn fn) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int n0 = warp * (H2 / 16);
-#pragma unroll
-  for (int m = 0; m < 2; ++m)
-#pragma unroll
-    for (int f = 0; f < H2 / 128; ++f)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        fn(16 * m + g + e / 2 * 8, n0 + 8 * f + 2 * t + e % 2, acc[m][f][e]);
-}
+// on the tensor cores (tower_mma, mma_tiles.cuh, for the chunk's 32 samples:
+// two m16 tiles); at hidden 32 they stay FMA (kWideMma).
 
 template <int H2, bool BF>
 struct WideSmem {

@@ -13,12 +13,13 @@
 // over a double-buffered ring of two slabs filled by cp.async, as float32
 // FMA; under bfloat16 the inputs that the mode rounds are rounded where they
 // are read (the weights by wide_prep), which is the function the mode
-// defines. K2/K3 under bfloat16 run their two W2c products on the tensor
-// cores instead (ppo_update_kernel.cu::tower_mma), from bf16 copies of the
+// defines. Under bfloat16 at hidden 64 and above the W2c products run on the
+// tensor cores instead (mma_tiles.cuh::tower_mma), from bf16 copies of the
 // two W2 operands that wide_prep adds after that layout when asked
-// (bf_copy), in the order of an mma.sync B fragment; K4's wide path reads
-// the float32 layout only. dW2c of the update kernels is not a block product
-// at all: see ppo_update_kernel.cu::dw2c_split.
+// (bf_copy), in the order of an mma.sync B fragment; K4's policy head there
+// reads a third such copy, of MP (bf_head), which K2/K3 never ask for. dW2c
+// of the update kernels is not a block product at all: see
+// ppo_update_kernel.cu::dw2c_split.
 
 #pragma once
 
@@ -85,9 +86,12 @@ __host__ __device__ inline int wide_ap(int A) { return (A + 7) / 8 * 8; }
 // Offsets (floats) into wide_prep's output, for tower width H and padded
 // head width AP: FW [H][2H], GW [H][2H], MP [H][AP], MT [AP][H], WV [H],
 // then FWB and GWB, bf16 copies of FW and GW in the order of an mma.sync
-// B fragment (frag_index), 2H x H bf16 each.
+// B fragment (frag_index), 2H x H bf16 each, then MPB, MP's, AP x H bf16.
+// Only K4's wide path writes MPB; K2/K3 size their scratch by the same
+// total and carry its space unused (H AP / 2 floats, 64 KiB at hidden 256
+// and 128 classes).
 struct WidePrep {
-  int fw, gw, mp, mt, wv, fwb, gwb, total;
+  int fw, gw, mp, mt, wv, fwb, gwb, mpb, total;
 };
 
 __host__ __device__ inline WidePrep wide_prep_layout(int H, int AP) {
@@ -99,12 +103,14 @@ __host__ __device__ inline WidePrep wide_prep_layout(int H, int AP) {
   w.wv = w.mt + AP * H;
   w.fwb = w.wv + H;      // a multiple of 4 floats: 8-byte loads
   w.gwb = w.fwb + H * H;
-  w.total = w.gwb + H * H;
+  w.mpb = w.gwb + H * H;
+  w.total = w.mpb + H * AP / 2;
   return w;
 }
 
-// Where entry (k, n) of a [H][2H] operand B (k < H, n < 2H) lies in its
-// bf16 copy: column n's H values in blocks of 16 k, each block ordered as
+// Where entry (k, n) of a [H][N] operand B (k < H, n < N: 2H for FW and GW,
+// AP for MP) lies in its bf16 copy: column n's H values in blocks of 16 k,
+// each block ordered as
 // the lanes t = 0..3 of an m16n8k16 B fragment take them, (2t, 2t + 1,
 // 2t + 8, 2t + 9), so that lane (g, t) reads its two registers b0, b1 of
 // column n = n0 + g as one 8-byte word at 4 (n (H / 16) + k / 16) + t.
@@ -120,12 +126,13 @@ __host__ __device__ inline int frag_index(int k, int n, int H) {
 //   WV[k] = Whc[H + k][A]
 // rounded to bf16 where round_w2 (FW, GW) and round_head (MP, MT, WV) say;
 // with bf_copy also FWB and GWB, FW and GW as bf16 (for round_w2 weights, the
-// same values). The cross-tower blocks of W2c and Whc are zero by
-// construction (merge_weights) and stay so under K3's masked update; the
-// products rely on it, and a non-zero entry traps.
+// same values), and with bf_head MPB, MP as bf16 (likewise for round_head).
+// The cross-tower blocks of W2c and Whc are zero by construction
+// (merge_weights) and stay so under K3's masked update; the products rely on
+// it, and a non-zero entry traps.
 __global__ void __launch_bounds__(256) wide_prep(const float* __restrict__ w, int D, int H, int A,
                                                  bool round_w2, bool round_head, bool bf_copy,
-                                                 float* __restrict__ out) {
+                                                 bool bf_head, float* __restrict__ out) {
   const int H2 = 2 * H, A1 = A + 1, AP = wide_ap(A);
   const Layout L = make_layout(D, H2, A);
   const WidePrep P = wide_prep_layout(H, AP);
@@ -160,6 +167,9 @@ __global__ void __launch_bounds__(256) wide_prep(const float* __restrict__ w, in
       if (c < A) {
         out[P.mp + r * AP + c] = x;
         out[P.mt + c * H + r] = x;
+        if (bf_head)
+          reinterpret_cast<__nv_bfloat16*>(out + P.mpb)[frag_index(r, c, H)] =
+              __float2bfloat16_rn(x);
       } else {
         out[P.wv + r - H] = x;
       }
@@ -167,13 +177,16 @@ __global__ void __launch_bounds__(256) wide_prep(const float* __restrict__ w, in
       const int q = i - n_w2 - n_wh, a = A + q / H, k = q % H;
       out[P.mp + k * AP + a] = 0.0f;
       out[P.mt + a * H + k] = 0.0f;
+      if (bf_head)
+        reinterpret_cast<__nv_bfloat16*>(out + P.mpb)[frag_index(k, a, H)] =
+            __float2bfloat16_rn(0.0f);
     }
   }
 }
 
 // One block-wide product C[s][c] = sum over k < K of A[s][off(c) + k] B[k][c],
 // for the rows s of A in shared memory (row stride lda) and B [K][NB]
-// row-major in global memory, whose rows stream through `slab` ([2][kSlabFloats]
+// row-major in global memory, whose rows stream through `slab` ([2][SLAB]
 // floats of shared memory) in slabs of ks rows, one in flight while the other
 // is read. off(c) = c / tw * tw: with tw = H the columns of tower t read A's
 // columns t H.., the block-diagonal product. This thread sums rows s0.. (TS) x
@@ -183,15 +196,23 @@ __global__ void __launch_bounds__(256) wide_prep(const float* __restrict__ w, in
 // SLAB_SUMS each slab's products are summed apart and then added to acc, so
 // a sum of K terms rounds like one of ks + K / ks: the update kernels need
 // it to keep the float32 twin's accuracy at hidden 256 (a sum of 256 terms
-// in one chain rounds twice as far as the hidden-64 kernel's 64). K and NB
-// are multiples of 4, B's rows 16-byte aligned.
-template <int TS, int TC, bool RA, bool SLAB_SUMS = false>
+// in one chain rounds twice as far as the hidden-64 kernel's 64). With AKM
+// A is k-major instead, A[off(c) + k][s] at row stride lda: a thread reads
+// its TS rows of one k as TS / 4 LDS.128, which the threads of a warp that
+// share s0 take as one broadcast; and with CS > 0 (AKM only) the thread's
+// TC columns are two runs of TC / 2, c0.. and c0 + CS.., so that lanes whose
+// c0 are TC / 2 apart read the slab as consecutive 16-byte pieces (eight
+// contiguous columns a lane put two lanes of each quarter-warp on the same
+// banks). K and NB are multiples of 4, B's rows 16-byte aligned.
+template <int TS, int TC, bool RA, bool SLAB_SUMS = false, bool AKM = false,
+          int SLAB = kSlabFloats, int CS = 0>
 __device__ __forceinline__ void block_product(const float* A, int lda, int tw,
                                               const float* __restrict__ B, int K, int NB,
                                               float* slab, int s0, int c0, bool mine,
                                               float (&acc)[TS][TC]) {
+  static_assert(CS == 0 || (AKM && TC % 8 == 0), "split column runs: k-major A, 4-wide runs");
   int ks = 32;
-  while (ks > 4 && (K % ks || ks * NB > kSlabFloats)) ks >>= 1;
+  while (ks > 4 && (K % ks || ks * NB > SLAB)) ks >>= 1;
   const int n_slabs = K / ks, pieces = ks * NB / 4;
   auto fetch = [&](int sl, float* dst) {
     const float* src = B + (size_t)sl * ks * NB;
@@ -201,15 +222,15 @@ __device__ __forceinline__ void block_product(const float* A, int lda, int tw,
   for (int i = 0; i < TS; ++i)
 #pragma unroll
     for (int c = 0; c < TC; ++c) acc[i][c] = 0.0f;
-  const float* a0 = A + s0 * lda + c0 / tw * tw;
+  const float* a0 = AKM ? A + (c0 / tw * tw) * lda + s0 : A + s0 * lda + c0 / tw * tw;
   fetch(0, slab);
   cp_async_wait_all();
   __syncthreads();
   for (int sl = 0; sl < n_slabs; ++sl) {
-    const float* cur = slab + (sl & 1) * kSlabFloats;
-    if (sl + 1 < n_slabs) fetch(sl + 1, slab + ((sl + 1) & 1) * kSlabFloats);
+    const float* cur = slab + (sl & 1) * SLAB;
+    if (sl + 1 < n_slabs) fetch(sl + 1, slab + ((sl + 1) & 1) * SLAB);
     if (mine) {
-      const float* ak = a0 + sl * ks;
+      const float* ak = a0 + sl * ks * (AKM ? lda : 1);
       const float* bk = cur + c0;
       float part[TS][TC];
       float (&sum)[TS][TC] = SLAB_SUMS ? part : acc;
@@ -219,38 +240,64 @@ __device__ __forceinline__ void block_product(const float* A, int lda, int tw,
 #pragma unroll
           for (int c = 0; c < TC; ++c) part[i][c] = 0.0f;
       }
+      if constexpr (AKM) {
 #pragma unroll 2
-      for (int k = 0; k < ks; k += 4) {
-        if constexpr (TS <= 4) {
-          float a[TS][4];
+        for (int k = 0; k < ks; ++k) {
+          float a[TS], b[TC];
+          load_row<TS>(ak + k * lda, a);
+          if constexpr (CS > 0) {
+            float b0[TC / 2], b1[TC / 2];
+            load_row<TC / 2>(bk + k * NB, b0);
+            load_row<TC / 2>(bk + k * NB + CS, b1);
+#pragma unroll
+            for (int c = 0; c < TC / 2; ++c) {
+              b[c] = b0[c];
+              b[TC / 2 + c] = b1[c];
+            }
+          } else {
+            load_row<TC>(bk + k * NB, b);
+          }
 #pragma unroll
           for (int i = 0; i < TS; ++i) {
-            load_row<4>(ak + i * lda + k, a[i]);
-            if constexpr (RA) {
+            if constexpr (RA) a[i] = bf16_round(a[i]);
 #pragma unroll
-              for (int q = 0; q < 4; ++q) a[i][q] = bf16_round(a[i][q]);
-            }
+            for (int c = 0; c < TC; ++c) sum[i][c] = fmaf(a[i], b[c], sum[i][c]);
           }
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            float b[TC];
-            load_row<TC>(bk + (k + q) * NB, b);
-#pragma unroll
-            for (int i = 0; i < TS; ++i)
-#pragma unroll
-              for (int c = 0; c < TC; ++c) sum[i][c] = fmaf(a[i][q], b[c], sum[i][c]);
-          }
-        } else {
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            float b[TC];
-            load_row<TC>(bk + (k + q) * NB, b);
+        }
+      } else {
+#pragma unroll 2
+        for (int k = 0; k < ks; k += 4) {
+          if constexpr (TS <= 4) {
+            float a[TS][4];
 #pragma unroll
             for (int i = 0; i < TS; ++i) {
-              float a = ak[i * lda + k + q];
-              if constexpr (RA) a = bf16_round(a);
+              load_row<4>(ak + i * lda + k, a[i]);
+              if constexpr (RA) {
 #pragma unroll
-              for (int c = 0; c < TC; ++c) sum[i][c] = fmaf(a, b[c], sum[i][c]);
+                for (int q = 0; q < 4; ++q) a[i][q] = bf16_round(a[i][q]);
+              }
+            }
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              float b[TC];
+              load_row<TC>(bk + (k + q) * NB, b);
+#pragma unroll
+              for (int i = 0; i < TS; ++i)
+#pragma unroll
+                for (int c = 0; c < TC; ++c) sum[i][c] = fmaf(a[i][q], b[c], sum[i][c]);
+            }
+          } else {
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              float b[TC];
+              load_row<TC>(bk + (k + q) * NB, b);
+#pragma unroll
+              for (int i = 0; i < TS; ++i) {
+                float a = ak[i * lda + k + q];
+                if constexpr (RA) a = bf16_round(a);
+#pragma unroll
+                for (int c = 0; c < TC; ++c) sum[i][c] = fmaf(a, b[c], sum[i][c]);
+              }
             }
           }
         }
@@ -299,8 +346,9 @@ __device__ __forceinline__ void outer_tile(const float* a, int lda, const float*
 // wide_ap(A)).total floats).
 inline cudaError_t launch_wide_prep(const float* w, int D, int H, int A, bool round_w2,
                                     bool round_head, float* out, cudaStream_t st,
-                                    bool bf_copy = false) {
+                                    bool bf_copy = false, bool bf_head = false) {
   const int n = 4 * H * H + 2 * H * (A + 1) + (wide_ap(A) - A) * H;
-  wide_prep<<<(n + 255) / 256, 256, 0, st>>>(w, D, H, A, round_w2, round_head, bf_copy, out);
+  wide_prep<<<(n + 255) / 256, 256, 0, st>>>(w, D, H, A, round_w2, round_head, bf_copy, bf_head,
+                                             out);
   return cudaGetLastError();
 }

@@ -32,8 +32,11 @@ Under ``compute="bfloat16"`` the inputs of the two H-contractions per tower
 kernel runs them on the tensor cores at hidden 32 and 64 with at most 16
 actions. Hidden 128 and 256, and up to `KERNEL_MAX_ACTIONS` classes at any
 hidden size, take the kernel's wide path (``csrc/wide_mlp.cuh``), which
-streams the weights from L2 every step and runs the products as float32
-FMA on the same rounded inputs.
+reads the weights from L2 every step as ``wide_prep`` lays them out
+(`wide_prep_reference` is its plain version): under bfloat16 at hidden 64
+and above its W2c product and policy head run on the tensor cores, 128 envs
+a CTA; otherwise its products are float32 FMA on the same rounded inputs,
+64 envs a CTA (the library's ``policy_rollout_envs_per_cta`` says which).
 
 The kernel multiplies W2c and Whc per tower and relies on their cross-tower
 blocks being zero (it traps on any other). The wrapper and the twin take the
@@ -85,7 +88,10 @@ _SOURCE = "policy_rollout_kernel"
 # Limits of the CUDA kernel (the twin takes any size).
 KERNEL_HIDDEN = (32, 64, 128, 256)
 KERNEL_MAX_ACTIONS = 128
-KERNEL_ENVS_PER_CTA = 64  # sizes the statistics' scratch rows; the library exports its own
+# Envs a CTA of the narrow kernel takes; the wrapper sizes the statistics'
+# scratch rows by the library's policy_rollout_envs_per_cta, which gives each
+# path's
+KERNEL_ENVS_PER_CTA = 64
 
 # Kernel launches made by `policy_rollout` (the CPU twin does not count).
 launches = 0
@@ -276,9 +282,10 @@ def policy_rollout(
     packed = torch.empty((PACKED_ROWS, num_steps * B), dtype=torch.float32, device=dev)
     out_f = [torch.empty_like(stock) for _ in range(3)]  # stock, harvest, ep_ret
     out_t, out_len = torch.empty_like(t), torch.empty_like(ep_len)
-    ws = torch.empty((-(-B // KERNEL_ENVS_PER_CTA), 4), dtype=torch.float32, device=dev)
-    stats = torch.empty((4,), dtype=torch.float32, device=dev)
     lib = library()
+    ws = torch.empty((-(-B // lib.policy_rollout_envs_per_cta(hidden, A, p.compute)), 4),
+                     dtype=torch.float32, device=dev)
+    stats = torch.empty((4,), dtype=torch.float32, device=dev)
     # the wide path's weights laid out for its streamed products (none otherwise)
     n_prep = lib.policy_rollout_prep_floats(hidden, A)
     prep = torch.empty((n_prep,), dtype=torch.float32, device=dev) if n_prep else None
@@ -304,13 +311,108 @@ def library() -> ctypes.CDLL:
     lib = _build.load(_SOURCE)
     if lib.policy_rollout_params_size() != ctypes.sizeof(_Params):
         raise RuntimeError("struct PolicyRolloutParams and _Params disagree in size")
-    if lib.policy_rollout_envs_per_cta() != KERNEL_ENVS_PER_CTA:
-        raise RuntimeError("csrc/policy_rollout_kernel.cu and KERNEL_ENVS_PER_CTA disagree")
+    lib.policy_rollout_envs_per_cta.argtypes = [ctypes.c_int] * 3
+    lib.policy_rollout_envs_per_cta.restype = ctypes.c_int
     lib.policy_rollout_launch.argtypes = [ctypes.c_void_p] * 18
     lib.policy_rollout_launch.restype = ctypes.c_int
+    lib.policy_rollout_wide_prep.argtypes = [ctypes.c_void_p] * 4
+    lib.policy_rollout_wide_prep.restype = ctypes.c_int
     lib.policy_rollout_prep_floats.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.policy_rollout_prep_floats.restype = ctypes.c_int
+    lib.policy_rollout_prep_layout.argtypes = [ctypes.c_int, ctypes.c_int,
+                                              ctypes.POINTER(ctypes.c_int)]
+    lib.policy_rollout_prep_layout.restype = None
     return lib
+
+
+# ------------------------------------------------------------ wide_prep
+
+class WidePrep(NamedTuple):
+    """``wide_prep``'s output by region, for tower width H and the head
+    padded to AP = 8 ceil(A / 8) classes (``csrc/wide_mlp.cuh::wide_prep_layout``
+    places them): float32 FW [H][2H], GW [H][2H], MP [H][AP], MT [AP][H]
+    and WV [H], then FWB and GWB (2H x H bf16 each) and MPB (AP x H bf16),
+    bf16 copies of FW, GW and MP in the order of an mma.sync B fragment
+    (`frag_index`)."""
+
+    fw: torch.Tensor
+    gw: torch.Tensor
+    mp: torch.Tensor
+    mt: torch.Tensor
+    wv: torch.Tensor
+    fwb: torch.Tensor
+    gwb: torch.Tensor
+    mpb: torch.Tensor
+
+
+def frag_index(k, n, hidden: int):
+    """Where entry (k, n) of a [hidden][N] operand lies in its bf16 copy:
+    column n's values in blocks of 16 k, each block ordered as the lanes
+    t = 0..3 of an m16n8k16 B fragment take them, (2t, 2t + 1, 2t + 8,
+    2t + 9) (``csrc/wide_mlp.cuh::frag_index``); ints or integer tensors."""
+    r = k % 16
+    return ((n * (hidden // 16) + k // 16) * 4 + r % 8 // 2) * 4 + r // 8 * 2 + r % 2
+
+
+def _bf16_copy(m: torch.Tensor, hidden: int) -> torch.Tensor:
+    """The [hidden][N] operand m as bf16 in fragment order (`frag_index`)."""
+    k = torch.arange(hidden).repeat_interleave(m.shape[1])
+    n = torch.arange(m.shape[1]).repeat(hidden)
+    out = torch.empty(m.numel(), dtype=torch.bfloat16)
+    out[frag_index(k, n, hidden)] = m.reshape(-1).to(torch.bfloat16)
+    return out
+
+
+def wide_prep_reference(weights: tuple, compute: str = "float32") -> WidePrep:
+    """Plain version of ``wide_prep``: the regions it lays out from the 13
+    kernel-layout arrays (ppo_fused.kernel_weights), on the CPU, rounded to
+    bf16 under bfloat16, the head zero in its padding classes."""
+    w2c, whc = (x.detach().cpu() for x in merge_weights(weights)[2:5:2])
+    H, A = w2c.shape[0] // 2, whc.shape[1] - 1
+    AP = -(-A // 8) * 8
+    rnd = ((lambda x: x.to(torch.bfloat16).to(torch.float32)) if compute == "bfloat16"
+           else (lambda x: x))
+    fw = rnd(torch.cat([w2c[:H, :H], w2c[H:, H:]], 1))     # FW[k][t H + n] = W2c[t H + k][t H + n]
+    gw = rnd(torch.cat([w2c[:H, :H].T, w2c[H:, H:].T], 1))  # GW[k][t H + n] = W2c[t H + n][t H + k]
+    mp = torch.zeros(H, AP)
+    mp[:, :A] = rnd(whc[:H, :A])
+    return WidePrep(fw, gw, mp, mp.T.contiguous(), rnd(whc[H:, A]).contiguous(),
+                    _bf16_copy(fw, H), _bf16_copy(gw, H), _bf16_copy(mp, H))
+
+
+def wide_prep(weights: tuple, compute: str = "float32") -> WidePrep:
+    """``wide_prep``'s output for the 13 kernel-layout arrays at sizes that
+    take the wide path, by region: views of the scratch the kernel reads,
+    at the offsets the library exports. The kernel writes the bf16 copies
+    only where the wide path runs on the tensor cores; elsewhere they hold
+    whatever the scratch held. On a CUDA tensor it launches
+    ``policy_rollout_wide_prep`` (the wide path's first launch, alone), on
+    a CPU tensor it runs `wide_prep_reference`."""
+    if compute not in COMPUTES:
+        raise ValueError(f"unknown compute {compute!r}")
+    if weights[0].device.type == "cpu":
+        return wide_prep_reference(weights, compute)
+    hidden, A = weights[0].shape[1], weights[4].shape[1]
+    check_kernel_limits(hidden, A)
+    lib = library()
+    n_prep = lib.policy_rollout_prep_floats(hidden, A)
+    if not n_prep:
+        raise ValueError(f"hidden {hidden} with {A} head outputs takes the narrow kernel")
+    p = _Params(hidden=hidden, act_dim=A, compute=COMPUTES.index(compute))
+    dev = weights[0].device
+    w = flatten_merged(merge_weights(weights))
+    prep = torch.empty((n_prep,), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.policy_rollout_wide_prep(ctypes.addressof(p), w.data_ptr(), prep.data_ptr(),
+                                           torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, err, "policy_rollout_wide_prep launch")
+    offs = (ctypes.c_int * 9)()
+    lib.policy_rollout_prep_layout(hidden, A, offs)
+    H, AP = hidden, (offs[3] - offs[2]) // hidden
+    region = [prep[offs[i]:offs[i + 1]] for i in range(8)]
+    dense = [r.view(*shape) for r, shape in zip(region, ((H, 2 * H), (H, 2 * H), (H, AP),
+                                                         (AP, H), (H,)))]
+    return WidePrep(*dense, *(r.view(torch.bfloat16) for r in region[5:]))
 
 
 # --------------------------------------------------------------------- twin

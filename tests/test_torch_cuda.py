@@ -695,26 +695,38 @@ def test_policy_rollout_kernel_matches_twin_at_the_wide_widths(cuda, env_id, hid
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B", [5, 3 * pk.KERNEL_ENVS_PER_CTA + 17])
-def test_policy_rollout_wide_ragged_batch(cuda, B):
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B", [5, 3 * 64 + 17, 3 * 128 + 17])
+def test_policy_rollout_wide_ragged_batch(cuda, B, compute):
+    """Batches that end inside the last CTA of either plan of the wide path
+    (64 envs a CTA under float32, 128 on the tensor cores)."""
     args, kw = _k4_case("fishing-v0", 128, "philox", cuda, B=B, sigma=0.1, n_actions=100)
-    kw["compute"] = "float32"
+    kw["compute"] = compute
     _assert_k4_matches_twin(args, kw, 3 + args[-1])
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hidden", [32, 64])
-def test_policy_rollout_bf16_products_equal_float32_on_exact_inputs(cuda, hidden):
+@pytest.mark.parametrize("n_actions", [0, 100])
+@pytest.mark.parametrize("hidden", [32, 64, 128, 256])
+def test_policy_rollout_bf16_products_equal_float32_on_exact_inputs(cuda, hidden, n_actions):
     """The tensor-core path against the FMA path, without the twin between
-    them. Hidden activations are tanh values and cannot be held representable
-    in bf16 in general, so the case saturates them: W1 = 0 and b1 = +-20
-    make every h1 exactly +-1, and W2 = +-32 with b2 = 16 makes every
-    pre-activation a multiple of 64 plus 16, so every h2 is exactly +-1, its
-    sign decided by the whole product through W2. With the heads rounded to bf16
-    beforehand neither mode rounds anything, and the two kernels differ only
-    in the order of their float32 sums: the float32 bar holds, for no env
-    left out."""
-    args, kw = _k4_case("fishing-v1", hidden, "philox", cuda, sigma=0.1)
+    them, on the narrow kernel (hidden 32 and 64 with the Gaussian head)
+    and on the wide path (hidden 128 and 256, and 100 classes at every
+    width; at hidden 32 its bf16 products stay FMA). Hidden activations are
+    tanh values and cannot be held representable in bf16 in general, so the
+    case saturates them: W1 = 0 and b1 = +-20 make every h1 exactly +-1, and
+    W2 = +-32 with b2 = 16 makes every pre-activation a multiple of 64 plus
+    16, so every h2 is exactly +-1, its sign decided by the whole product
+    through W2. With the heads rounded to bf16 beforehand neither mode
+    rounds anything, and the two kernels differ only in the order of their
+    float32 sums: the float32 bar holds, for no env left out. The 100
+    logits, whose last bits could move a draw across a class boundary, are
+    made exact in any order: the policy head's weights are multiples of
+    2^-6 below 1, so every partial sum of +-1 times them is a float32."""
+    if n_actions:
+        args, kw = _k4_case("fishing-v0", hidden, "philox", cuda, sigma=0.1, n_actions=n_actions)
+    else:
+        args, kw = _k4_case("fishing-v1", hidden, "philox", cuda, sigma=0.1)
     gen = torch.Generator().manual_seed(hidden)
 
     def sign(shape):
@@ -728,6 +740,8 @@ def test_policy_rollout_bf16_products_equal_float32_on_exact_inputs(cuda, hidden
         w[base + 2].copy_(32.0 * sign(w[base + 2].shape))
         w[base + 3].fill_(16.0)
         w[base + 4].copy_(w[base + 4].to(torch.bfloat16).float())
+    if n_actions:
+        w[4].copy_(torch.round(w[4].clamp(-0.98, 0.98) * 64.0) / 64.0)
     args = (*args[:5], tuple(w), *args[6:])
     runs = {c: pk.policy_rollout(*args, **dict(kw, compute=c)) for c in ("float32", "bfloat16")}
     torch.cuda.synchronize()
@@ -763,16 +777,77 @@ def test_policy_rollout_wrapper_refuses_before_the_launch(cuda, which):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hidden", [64, 256])
-@pytest.mark.parametrize("env_id", ["fishing-v1", "fishing-v0"])
-def test_policy_rollout_kernel_is_deterministic(cuda, env_id, hidden):
+@pytest.mark.parametrize("hidden,compute", [(64, "float32"), (256, "float32"),
+                                            (256, "bfloat16")])
+@pytest.mark.parametrize("env_id,overrides", [("fishing-v1", {}), ("fishing-v0", {}),
+                                              ("fishing-v0", dict(n_actions=100))])
+def test_policy_rollout_kernel_is_deterministic(cuda, env_id, overrides, hidden, compute):
     """The statistics are summed per CTA and then over the CTAs in index
-    order, with no float atomics: two identical calls give identical bits."""
-    args, kw = _k4_case(env_id, hidden, "philox", cuda, sigma=0.1)
+    order, with no float atomics: two identical calls give identical bits,
+    also on the wide path's tensor cores and at 100 classes."""
+    args, kw = _k4_case(env_id, hidden, "philox", cuda, sigma=0.1, **overrides)
+    kw["compute"] = compute
     a, b = (pk.policy_rollout(*args, **kw) for _ in range(2))
     torch.cuda.synchronize()
     for x, y in zip(a[:-1], b[:-1]):
         assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hidden,n_actions", [(32, 100), (64, 100), (128, 0), (256, 0),
+                                              (256, 100)])
+def test_wide_prep_lays_out_the_weights_as_its_plain_version(cuda, hidden, n_actions, compute):
+    """wide_prep's regions, at the offsets the library exports, bit for bit
+    against wide_prep_reference, and its fragment-ordered bf16 copies (FWB,
+    GWB, MPB; written where the wide path runs on the tensor cores, bfloat16
+    at hidden 64 and above) entry by entry against the kernel's own float32
+    regions rounded to bf16, read through frag_index: the MPB copy of the
+    policy head, zero in its padding classes, is what the bf16 head
+    multiplies."""
+    if n_actions:
+        args, _ = _k4_case("fishing-v0", hidden, "philox", cuda, sigma=0.1, n_actions=n_actions)
+    else:
+        args, _ = _k4_case("fishing-v1", hidden, "philox", cuda, sigma=0.1)
+    weights = args[5]
+    got = pk.wide_prep(weights, compute)
+    torch.cuda.synchronize()
+    got = pk.WidePrep(*(x.cpu() for x in got))
+    want = pk.wide_prep_reference(weights, compute)
+    mma = compute == "bfloat16" and hidden >= 64
+    names = pk.WidePrep._fields if mma else pk.WidePrep._fields[:5]
+    for name in names:
+        g, w = getattr(got, name), getattr(want, name)
+        bits = torch.int16 if g.dtype == torch.bfloat16 else torch.int32
+        assert g.shape == w.shape and torch.equal(g.view(bits), w.view(bits)), name
+    if not mma:
+        return
+    H, A, AP = hidden, weights[4].shape[1], got.mp.shape[1]
+    for dense, copy in ((got.fw, got.fwb), (got.gw, got.gwb), (got.mp, got.mpb)):
+        n_cols = dense.shape[1]
+        k = torch.arange(H).repeat_interleave(n_cols)
+        n = torch.arange(n_cols).repeat(H)
+        entries = copy[pk.frag_index(k, n, H)].view(H, n_cols)
+        assert torch.equal(entries.view(torch.int16), dense.to(torch.bfloat16).view(torch.int16))
+    assert not got.mp[:, A:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden,act_dim,compute,envs", [
+    (32, 1, "bfloat16", 64), (64, 16, "bfloat16", 64),        # the narrow kernel
+    (32, 17, "bfloat16", 64), (32, 100, "float32", 64),       # wide, FMA
+    (128, 1, "float32", 64), (256, 100, "float32", 64),
+    (64, 17, "bfloat16", 128), (128, 1, "bfloat16", 128),     # wide, tensor cores
+    (256, 100, "bfloat16", 128)])
+def test_policy_rollout_envs_per_cta_by_path(cuda, hidden, act_dim, compute, envs):
+    """The envs a CTA takes, which the wrapper reads from the library to size
+    the statistics' scratch: 128 on the wide path's tensor cores (bfloat16
+    at hidden 64 and above), 64 elsewhere; the wide path lays out its
+    weights, the narrow kernel (hidden 32 and 64, at most 16 logits) none."""
+    lib = pk.library()
+    assert lib.policy_rollout_envs_per_cta(hidden, act_dim, pk.COMPUTES.index(compute)) == envs
+    wide = hidden > 64 or act_dim > 16
+    assert (lib.policy_rollout_prep_floats(hidden, act_dim) > 0) == wide
 
 
 def _train(env, params, cfg, ts, bstate, gen, n):

@@ -508,12 +508,74 @@ def test_wrapper_computes_the_towers_it_is_given():
 
 
 def test_stats_scratch_follows_the_kernels_cta():
-    """The wrapper sizes the statistics' scratch by KERNEL_ENVS_PER_CTA, which
-    `library()` holds against the value the built source exports."""
+    """The wrapper sizes the statistics' scratch by the envs a CTA takes as
+    the library exports them for each path (the card test holds that export
+    against each path's plan); KERNEL_ENVS_PER_CTA is the narrow kernel's."""
+    import inspect
+
     source = (_build.CSRC / "policy_rollout_kernel.cu").read_text()
     assert f"constexpr int kEnvsPerWarp = {pk.KERNEL_ENVS_PER_CTA // 8};" in source
     assert "constexpr int kThreads = 256;" in source
-    assert "policy_rollout_envs_per_cta" in source
+    assert "extern \"C\" int policy_rollout_envs_per_cta(int hidden, int act_dim, int compute)" \
+        in source
+    assert "B // lib.policy_rollout_envs_per_cta(hidden, A, p.compute)" in \
+        inspect.getsource(pk.policy_rollout)
+
+
+@pytest.mark.parametrize("hidden", pk.KERNEL_HIDDEN)
+@pytest.mark.parametrize("n_cols", ["2H", 8, 104, 128])
+def test_frag_index_is_a_bijection(hidden, n_cols):
+    """Every entry of a [hidden][N] operand has its own place in the bf16
+    copy, and lane t's 8-byte word of column n and k-block kb holds rows
+    2t, 2t + 1, 2t + 8, 2t + 9 of the block, in that order."""
+    n_cols = 2 * hidden if n_cols == "2H" else n_cols
+    k = torch.arange(hidden).repeat_interleave(n_cols)
+    n = torch.arange(n_cols).repeat(hidden)
+    idx = pk.frag_index(k, n, hidden)
+    assert torch.equal(idx.sort().values, torch.arange(hidden * n_cols))
+    kb, t, col = 1 if hidden > 16 else 0, 3, n_cols - 1
+    word = [pk.frag_index(16 * kb + r, col, hidden) for r in (2 * t, 2 * t + 1, 2 * t + 8,
+                                                               2 * t + 9)]
+    assert word == [4 * ((col * (hidden // 16) + kb) * 4 + t) + i for i in range(4)]
+
+
+def _split_weights(hidden, act_dim, seed=0):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(0.3 * rng.standard_normal(shape).astype(np.float32))
+                 for shape in pk._split_shapes(hidden, act_dim))
+
+
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hidden,act_dim", [(32, 20), (64, 1), (64, 100), (128, 3)])
+def test_wide_prep_reference_lays_out_the_merged_weights(hidden, act_dim, compute):
+    """The plain version of wide_prep, which the card test holds the kernel's
+    regions against bit for bit: each block is the merged weights' (rounded
+    under bfloat16), the head is zero in its padding classes, and the bf16
+    copies hold FW, GW and MP rounded, in fragment order. On a CPU tensor
+    `wide_prep` is this plain version."""
+    weights = _split_weights(hidden, act_dim)
+    w2c, whc = merge_weights(weights)[2:5:2]
+    H, A = hidden, act_dim
+    rnd = ((lambda x: x.to(torch.bfloat16).float()) if compute == "bfloat16"
+           else (lambda x: x))
+    prep = pk.wide_prep(weights, compute)
+    AP = -(-A // 8) * 8
+    fw, gw, mp = prep.fw, prep.gw, prep.mp
+    assert fw.shape == gw.shape == (H, 2 * H) and mp.shape == (H, AP)
+    for t in range(2):
+        block = w2c[t * H:(t + 1) * H, t * H:(t + 1) * H]
+        assert torch.equal(fw[:, t * H:(t + 1) * H], rnd(block))
+        assert torch.equal(gw[:, t * H:(t + 1) * H], rnd(block).T)
+    assert torch.equal(mp[:, :A], rnd(whc[:H, :A])) and not mp[:, A:].any()
+    assert torch.equal(prep.mt, mp.T)
+    assert torch.equal(prep.wv, rnd(whc[H:, A]))
+    for dense, copy in ((fw, prep.fwb), (gw, prep.gwb), (mp, prep.mpb)):
+        n_cols = dense.shape[1]
+        assert copy.dtype == torch.bfloat16 and copy.shape == (H * n_cols,)
+        k = torch.arange(H).repeat_interleave(n_cols)
+        n = torch.arange(n_cols).repeat(H)
+        assert torch.equal(copy[pk.frag_index(k, n, H)].view(H, n_cols).float(),
+                           dense.to(torch.bfloat16).float())
 
 
 # -------------------------------------------------------------------- build
@@ -536,14 +598,31 @@ def test_header_edit_changes_the_library_path(tmp_path, monkeypatch):
 
 def test_phase_clocks_find_the_narrow_kernel():
     """bench/policy_rollout.py --phases clocks policy_rollout_kernel's entry,
-    each step's forward and tail and its end, and leaves the wide kernel as
-    it is."""
+    each step's forward and tail and its end."""
     from gym_fishing_tpu_torch.bench.policy_rollout import WIDE_SECTION, instrument
     from gym_fishing_tpu_torch.kernels import _build
 
     src = (_build.CSRC / "policy_rollout_kernel.cu").read_text()
     out = instrument(src)
-    assert out.count("clock64()") == 6
-    assert out.endswith(WIDE_SECTION + src.split(WIDE_SECTION)[1])
+    assert out.split(WIDE_SECTION)[0].count("clock64()") == 6
+    assert "sm[L_::STAT + 1] = (float)cyc_fwd;" in out.split(WIDE_SECTION)[0]
     with pytest.raises(RuntimeError, match="wide section"):
         instrument("__global__ void k() {}")
+
+
+def test_phase_clocks_find_the_wide_kernel():
+    """... and policy_rollout_wide's entry, the borders of each step's input
+    layer, W2 product, head and value and tail, and its end; a source
+    without those anchors is refused."""
+    from gym_fishing_tpu_torch.bench.policy_rollout import WIDE_SECTION, instrument
+    from gym_fishing_tpu_torch.kernels import _build
+
+    src = (_build.CSRC / "policy_rollout_kernel.cu").read_text()
+    wide = instrument(src).split(WIDE_SECTION)[1]
+    assert wide.count("clock64()") == 10
+    for part in ("cyc_in += m1 - m0;", "cyc_w2 += m2 - m1;", "cyc_head += clock64() - m2;",
+                 "cyc_tail += clock64() - c1;", "hv_out[env] = (float)cyc_tail;"):
+        assert wide.count(part) == 1
+    narrow, old = src.split(WIDE_SECTION)
+    with pytest.raises(RuntimeError, match="wide rollout kernel"):
+        instrument(narrow + WIDE_SECTION + old.replace("    // the heads:", "    // heads:"))
