@@ -422,6 +422,66 @@ def split_bound(n, num_tiles, hidden, compute):
                     2 * n * 2 * hidden * elt + ranges * 2 * hidden * hidden * 4)
 
 
+def reduce_bound(rows, n_par):
+    """reduce_rows: the workspace's rows of P + 4 floats read once, one row
+    written (bytes)."""
+    return least_ms(0.0, 4 * (rows + 1) * (n_par + 4))[0]
+
+
+def clip_adam_bound(n_par):
+    """K3's stage 3: g, w, m and v read once, w, m and v written once, 28
+    bytes a merged parameter; its few operations an entry are far below."""
+    return least_ms(0.0, 28 * n_par)
+
+
+def check_clip_adam(uk, data, order, w, m, v, stats, kw, what):
+    """K3's stage 3 alone (`clip_adam`) against its plain version on the same
+    buffers on the card, from the twin's merged gradients, under phase 9's
+    bars (the weights through their update, the moments as they are), at
+    both clip regimes, and from a zero first moment with the threshold at
+    half the twin's norm, where m = (1 - beta1) g scale holds the grid-wide
+    norm in every entry; then timed at kw's. Returns (max abs error, ms,
+    plain ms, (bound ms, by))."""
+    hidden, a = w[0].shape[1] // 2, kw["act_dim"]
+    g, met = uk._grad_merged_reference(data, order, w, stats, clip_eps=kw["clip_eps"],
+                                       vf_coef=kw["vf_coef"], ent_coef=kw["ent_coef"],
+                                       obs_dim=kw["obs_dim"], act_dim=a, tile=kw["tile"],
+                                       head=kw["head"], compute="float32")
+    gout = torch.cat([uk.flatten_merged(g), met])
+    flat = [uk.flatten_merged(t) for t in (w, m, v)]
+    ckw = dict(obs_dim=kw["obs_dim"], hidden=hidden, act_dim=a, head=kw["head"],
+               ent_coef=kw["ent_coef"], lr=kw["lr"], bc1=kw["bc1"], bc2=kw["bc2"])
+    m0 = [flat[0], torch.zeros_like(flat[1]), flat[2]]
+    half = 0.5 * uk.clip_norm_reference(gout, obs_dim=kw["obs_dim"], hidden=hidden, act_dim=a,
+                                        head=kw["head"], ent_coef=kw["ent_coef"])
+    err = 0.0
+    for bufs, max_grad_norm in ((flat, 1e6), (flat, 1e-3), (m0, half)):
+        got = uk.clip_adam(gout, *bufs, max_grad_norm=max_grad_norm, **ckw)
+        ref = uk.clip_adam_reference(gout, *bufs, max_grad_norm=max_grad_norm, **ckw)
+        torch.cuda.synchronize()
+        new = [uk.unflatten_merged(x, kw["obs_dim"], hidden, a) for x in got]
+        want = [uk.unflatten_merged(x, kw["obs_dim"], hidden, a) for x in ref]
+        name = f"clip_adam {what} max_grad_norm={max_grad_norm:g}"
+        err = max(err, check_buffers([x - y for x, y in zip(new[0], w)],
+                                     [x - y for x, y in zip(want[0], w)], name + " dw"),
+                  check_buffers(new[1], want[1], name + " m"),
+                  check_buffers(new[2], want[2], name + " v"))
+    ckw["max_grad_norm"] = kw["max_grad_norm"]
+    ms, _ = cuda_ms(lambda: uk.clip_adam(gout, *flat, **ckw), 20)
+    plain, _ = cuda_ms(lambda: uk.clip_adam_reference(gout, *flat, **ckw), 5)
+    return err, ms, plain, clip_adam_bound(flat[0].numel())
+
+
+def print_clip_adam(phase, hidden, ms, plain_ms, bound, err, label):
+    for key in sorted(k for k in ms if k[0] == hidden):
+        print(f"phase {phase}: clip_adam (K3's stage 3 alone) hidden={hidden} {key[1]:11s}: "
+              f"{ms[key] * 1e3:.1f} us, twin {plain_ms[key] * 1e3:.1f} us (CUDA events, "
+              f"median); bound {bound[key][0] * 1e3:.2f} us by {bound[key][1]} (share "
+              f"{bound[key][0] / ms[key]:.3f}); ≡ twin at both clip regimes and at half "
+              f"the norm, max abs err "
+              f"{err:.3g} so far; {label}")
+
+
 def rollout_bound(num_envs, num_steps, obs_dim, hidden, act_dim, compute, categorical=False):
     """K4: per env and step the two H-contractions per tower (through W2c and
     Whc) at the compute mode's rate, the input layer in float32, and 4H tanh
@@ -453,10 +513,10 @@ def issue_ms(instructions_per_step, num_envs, num_steps):
             / (PER_SM_CLOCK["all"] * SM_CLOCKS_PER_S) * 1e3)
 
 
-def hmma_counts(_build, name, kernel=None):
-    """{mangled name: HMMA instructions} of every instantiation of the kernel
-    `kernel` (default: `name`) in the machine code of the built library
-    csrc/<name>.cu."""
+def hmma_counts(_build, name, kernel=None, opcode="HMMA"):
+    """{mangled name: HMMA instructions (or those of `opcode`)} of every
+    instantiation of the kernel `kernel` (default: `name`) in the machine
+    code of the built library csrc/<name>.cu."""
     kernel = kernel or name
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(_build.library_path(name))],
@@ -468,7 +528,7 @@ def hmma_counts(_build, name, kernel=None):
             fn = fn if kernel in fn else None
             if fn:
                 counts[fn] = 0
-        elif fn and "HMMA" in line:
+        elif fn and opcode in line:
             counts[fn] += 1
     return counts
 
@@ -1485,7 +1545,7 @@ def main():
 
     def reset_counts():
         rk.launches = uk.grad_launches = uk.adam_launches = pk.launches = 0
-        uk.split_launches = 0
+        uk.split_launches = uk.clip_adam_launches = 0
 
     def counts():
         return {"rollout": rk.launches, "grad": uk.grad_launches, "adam": uk.adam_launches,
@@ -1734,6 +1794,14 @@ def main():
         print(f"phase 7: {_build.library_path(name).name} in {build_s[name]:.2f} s (built "
               "beside rollout_kernel in phase 2)")
         print_ptxas(_build, name)
+    # the bf16 dw2c_split: its two instantiations (64 and 128 wide tiles) take
+    # their operands by TMA and multiply on wgmma
+    dw_ops = [hmma_counts(_build, "ppo_update_kernel", "dw2c_split_bf16", op)
+              for op in ("HGMMA", "UTMALDG")]
+    if len(dw_ops[0]) != 2 or not all(dw_ops[0][k] > 0 and dw_ops[1][k] > 0 for k in dw_ops[0]):
+        fail(f"phase 7: dw2c_split_bf16's instantiations (HGMMA, UTMALDG): {dw_ops}")
+    print(f"phase 7: dw2c_split_bf16, 2 instantiations: HGMMA (wgmma) and UTMALDG (TMA loads) "
+          f"{sorted((dw_ops[0][k], dw_ops[1][k]) for k in dw_ops[0])}")
     for fn, n_hmma in hmma_counts(_build, "policy_rollout_kernel").items():
         bf16 = "Lb1E" in fn   # the mangled template argument BF = true
         print(f"phase 7: {fn[:40]} ({'bfloat16' if bf16 else 'float32'}): {n_hmma} HMMA")
@@ -1812,8 +1880,9 @@ def main():
               f"{lib_ms[c]:.3f} ms; N={N_PPO} hidden=64 {label}")
 
     # ---------------------------------------------------------------- 9
-    adam_err = 0.0
+    adam_err = clip_adam_err = 0.0
     adam_ms, adam_plain_ms = {}, {}
+    clip_ms, clip_plain_ms, clip_bound = {}, {}, {}
     for head, (weights, data, a) in cases.items():
         w = uk.merge_weights(weights)
         m = tuple(torch.from_numpy(0.01 * rng.standard_normal(x.shape).astype(np.float32))
@@ -1838,6 +1907,10 @@ def main():
             check_metrics(met, met_ref, what)
             adam_err = max(adam_err, err)
             print(f"phase 9: {what:40s} max abs err {err:.3g}")
+            if max_grad_norm == 1e-3:   # K3's stage 3 alone, from the twin's gradients
+                clip_err, clip_ms[64, head], clip_plain_ms[64, head], clip_bound[64, head] = \
+                    check_clip_adam(uk, data, order, w, m, v, stats, kw, what)
+                clip_adam_err = max(clip_adam_err, clip_err)
             if head == "gaussian" and max_grad_norm == 1e-3:
                 for compute in ("float32", "bfloat16"):
                     kw_c = dict(kw, compute=compute)
@@ -1851,6 +1924,7 @@ def main():
               f"minibatch of {MB_TILES} x {TILE} samples (CUDA events); bound "
               f"{grad_bound[c][0]:.4f} ms by {grad_bound[c][1]} (share "
               f"{grad_bound[c][0] / adam_ms[c]:.3f}); {label}")
+    print_clip_adam(9, 64, clip_ms, clip_plain_ms, clip_bound, clip_adam_err, label)
     del cases
 
     # --------------------------------------------------------------- 10
@@ -2475,6 +2549,11 @@ def main():
                            check_buffers(new[2], ref[2], "K3 " + what + " v"))
                 check_metrics(met3, met3_ref, "K3 " + what)
                 wide_err["K2"], wide_err["K3"] = max(wide_err["K2"], err), max(wide_err["K3"], err3)
+                if compute == "float32":   # K3's stage 3 alone: it has no compute mode
+                    clip_err, clip_ms[hidden, head], clip_plain_ms[hidden, head], \
+                        clip_bound[hidden, head] = check_clip_adam(uk, data, order, w, m, v,
+                                                                   stats, kw3, "K3 " + what)
+                    clip_adam_err = max(clip_adam_err, clip_err)
                 line = f"phase 19: K2/K3 {what:38s} max abs err {err:.3g} / {err3:.3g}"
                 if compute == "float32":
                     worst64 = check_float64_bar(uk, g, g_ref, data, order, weights, stats, kw,
@@ -2551,12 +2630,18 @@ def main():
                                         if k[0] == "stage1"):
         key = (hidden, head, compute)
         sp, bound = wide_part_ms["split", key], wide_bound["split", key]
+        n_par = sum(r * c for r, c in uk.merged_shapes(
+            1, hidden, WIDE_ACTIONS if head == "categorical" else 1))
         print(f"phase 19: wide K2 hidden={hidden} {head:11s} {compute:8s} in parts: stage 1 "
               f"{ms:.3f} ms + dw2c_split {sp:.3f} ms = {ms + sp:.3f} ms (whole K2 "
-              f"{wide_ms['K2', key]:.3f}); dw2c_split's plain version "
+              f"{wide_ms['K2', key]:.3f}, so reduce_rows {wide_ms['K2', key] - ms - sp:.3f} ms "
+              f"against its bound by bytes {reduce_bound(2 * MB_TILES, n_par):.4f} ms); "
+              f"dw2c_split's plain version "
               f"{wide_plain_ms['split', key]:.3f} ms, bound {bound[0]:.4f} ms by {bound[1]} "
               f"(share {bound[0] / sp:.3f}), library (torch.bmm over the towers) "
               f"{wide_lib_ms['split', hidden, compute]:.3f} ms {label}")
+    for hidden in WIDE_HIDDEN:
+        print_clip_adam(19, hidden, clip_ms, clip_plain_ms, clip_bound, clip_adam_err, label)
     print(f"phase 19: dw2c_split ≡ its plain version at hidden {WIDE_HIDDEN}, Gaussian and "
           f"{WIDE_ACTIONS} classes, float32 and bfloat16: max abs err {split_err:.3g}, worst "
           f"error {split_rel:.3g} of its range's largest entry (bars {SPLIT_RTOL})")
@@ -2682,11 +2767,12 @@ def main():
             want = {"rollout": 0, "grad": 0, "adam": 32 * WIDE_ITERS, "policy": WIDE_ITERS}
             if got != want:
                 fail(f"phase 19: {env_label} full+adam {compute}: launches {got}, expected {want}")
-            # each K3 launch on the wide path runs dw2c_split once
-            if uk.split_launches != 32 * WIDE_ITERS:
+            # each K3 launch on the wide path runs dw2c_split and clip_adam once
+            if uk.split_launches != 32 * WIDE_ITERS or uk.clip_adam_launches != 32 * WIDE_ITERS:
                 fail(f"phase 19: {env_label} full+adam {compute}: dw2c_split launched "
-                     f"{uk.split_launches} times, expected {32 * WIDE_ITERS}")
-            got = dict(got, split=uk.split_launches)
+                     f"{uk.split_launches} times, clip_adam {uk.clip_adam_launches}, expected "
+                     f"{32 * WIDE_ITERS} each")
+            got = dict(got, split=uk.split_launches, clip_adam=uk.clip_adam_launches)
             wide_launches[env_label, compute] = got
             wide_iter_ms[env_label, compute] = secs / WIDE_ITERS * 1e3
             print(f"phase 19: {env_label} full+adam {compute} hidden={WIDE_HIDDEN[-1]}: "
@@ -2714,9 +2800,10 @@ def main():
         if continuous:   # K2's wide path on a main path: the full form
             reset_counts()
             w_run(dataclasses.replace(wcfg, fused_adam=False), 2)
-            wide_launches["full", "float32"] = dict(counts(), split=uk.split_launches)
+            wide_launches["full", "float32"] = dict(counts(), split=uk.split_launches,
+                                                    clip_adam=uk.clip_adam_launches)
             if wide_launches["full", "float32"] != {"rollout": 0, "grad": 64, "adam": 0,
-                                                    "policy": 2, "split": 64}:
+                                                    "policy": 2, "split": 64, "clip_adam": 0}:
                 fail(f"phase 19: full at hidden {WIDE_HIDDEN[-1]}: launches "
                      f"{wide_launches['full', 'float32']}")
 
@@ -3205,6 +3292,26 @@ def main():
             "bfloat16_library_ms": wide_lib_ms["split", 256, "bfloat16"],
             "stage1_ms": wide_part_ms["stage1", (256, "gaussian", "float32")],
             "stage1_bfloat16_ms": wide_part_ms["stage1", (256, "gaussian", "bfloat16")],
+        },
+        {
+            "name": "clip_adam (K3's stage 3: masked global-norm clip and Adam, hidden 256)",
+            "route": "cuda",
+            "source": "gym_fishing_tpu_torch/csrc/ppo_update_kernel.cu",
+            "replaces": "gym_fishing_tpu/kernels/ppo_update_kernel.py:455",
+            "replaces_part": "_optimizer_step of _ppo_grad_adam_kernel, "
+                             "gym_fishing_tpu/kernels/ppo_update_kernel.py:501",
+            "launches": wide_launches["fishing-v1", "float32"]["clip_adam"],
+            "max_abs_err": clip_adam_err,
+            "ms": clip_ms[256, "gaussian"],
+            "plain_ms": clip_plain_ms[256, "gaussian"],
+            "bound_ms": clip_bound[256, "gaussian"][0],
+            "bound_by": clip_bound[256, "gaussian"][1],
+            "library_ms": None,
+            "categorical_100_ms": clip_ms[256, "categorical"],
+            "categorical_100_bound_ms": clip_bound[256, "categorical"][0],
+            "hidden_128_ms": clip_ms[128, "gaussian"],
+            "hidden_64_ms": clip_ms[64, "gaussian"],
+            "hidden_64_bound_ms": clip_bound[64, "gaussian"][0],
         },
         {
             "name": "policy_rollout_kernel (wide path, hidden 256)",

@@ -126,11 +126,14 @@ def smi(query: str) -> str:
 
 def median_ms(fn, reps: int) -> float:
     """Median device milliseconds of `reps` calls of `fn`, each between its
-    own pair of CUDA events, after WARMUP calls."""
+    own pair of CUDA events, after WARMUP calls. The calls are queued behind
+    a device-side wait of ~30 ms, so that a launch of a few microseconds
+    times the card and not the host that prepares the next one."""
     for _ in range(WARMUP):
         fn()
     pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
              for _ in range(reps)]
+    torch.cuda._sleep(60_000_000)   # SM clocks
     for start, end in pairs:
         start.record()
         fn()

@@ -143,16 +143,18 @@ def _time_kernel(env_id, num_envs, num_steps, iters, warmup, sigma, device, seed
     return time.perf_counter() - t0, total
 
 
-def ppo_setup(num_envs, num_steps, sigma, fused, fused_adam, compute_dtype, device, seed):
-    """fishing-v1, its params, the PPOConfig of a `fused` form, a fresh
-    train state, the device generator and the reset batch state. The fused
-    rollout gets host params, which its kernel reads without a sync; the
-    other forms step with params on the device."""
-    env, params = make("fishing-v1", sigma=sigma,
-                       device="cpu" if fused == "full" else device)
-    cfg = ppo.PPOConfig(num_envs=num_envs, num_steps=num_steps, fused_update=fused != "off",
-                        fused_rollout=fused == "full", fused_adam=fused_adam,
-                        compute_dtype=compute_dtype)
+def ppo_setup(num_envs, num_steps, sigma, fused, fused_adam, compute_dtype, device, seed,
+              hidden=64, env_id="fishing-v1", env_kwargs=None):
+    """The env (`env_id` made with `env_kwargs`, by default fishing-v1 at
+    `sigma`), its params, the PPOConfig of a `fused` form at `hidden` units
+    a layer, a fresh train state, the device generator and the reset batch
+    state. The fused rollout gets host params, which its kernel reads
+    without a sync; the other forms step with params on the device."""
+    env_kwargs = {"sigma": sigma} if env_kwargs is None else env_kwargs
+    env, params = make(env_id, device="cpu" if fused == "full" else device, **env_kwargs)
+    cfg = ppo.PPOConfig(num_envs=num_envs, num_steps=num_steps, hidden=hidden,
+                        fused_update=fused != "off", fused_rollout=fused == "full",
+                        fused_adam=fused_adam, compute_dtype=compute_dtype)
     ts = ppo.make_train_state(env, cfg, torch.Generator().manual_seed(seed), device)
     gen = torch.Generator(device=device).manual_seed(seed)
     return env, params, cfg, ts, gen, batched_reset(env, params, num_envs, device)
@@ -169,30 +171,44 @@ def measure_ppo_train(
     compute_dtype: str = "float32",
     device=None,
     seed: int = 0,
+    hidden: int = 64,
+    env_id: str = "fishing-v1",
+    env_kwargs: dict | None = None,
+    read_metrics: bool = False,
 ) -> dict:
     """Time whole PPO iterations (rollout + GAE + 4 x 8 minibatch updates)
-    on fishing-v1, chained through the train state and the batch state.
+    on fishing-v1 (or `env_id` made with `env_kwargs`) at `hidden` units a
+    layer, chained through the train state and the batch state.
 
     ``fused="off"``: the plain form (autograd + hand-written clip and Adam).
     ``fused="update"``: every minibatch gradient through K2, or with
     `fused_adam` gradient + clip + Adam through K3. ``fused="full"``: as
     ``update``, with rollout + GAE + packing in one launch of the
-    policy-rollout kernel (K4).
+    policy-rollout kernel (K4). `read_metrics` reads every metric to the
+    host after each iteration, as a training loop that logs them does.
     """
     if fused not in ("off", "update", "full"):
         raise ValueError(f"unknown fused form {fused!r}")
     device = resolve(device)
     env, params, cfg, ts, gen, bstate = ppo_setup(num_envs, num_steps, sigma, fused, fused_adam,
-                                                  compute_dtype, device, seed)
+                                                  compute_dtype, device, seed, hidden, env_id,
+                                                  env_kwargs)
+
+    def step(ts, bstate):
+        ts, bstate, metrics = ppo.train_step(env, params, cfg, ts, bstate, gen)
+        if read_metrics:
+            for x in metrics.values():
+                float(x)
+        return ts, bstate, metrics
 
     for _ in range(warmup):
-        ts, bstate, metrics = ppo.train_step(env, params, cfg, ts, bstate, gen)
+        ts, bstate, metrics = step(ts, bstate)
     if warmup:
         _finish(metrics["loss"])
     t0 = time.perf_counter()
     for _ in range(iters):
-        ts, bstate, metrics = ppo.train_step(env, params, cfg, ts, bstate, gen)
-    _finish(metrics["loss"])
+        ts, bstate, metrics = step(ts, bstate)
+    loss = _finish(metrics["loss"])
     dt = time.perf_counter() - t0
 
     steps_per_s = num_envs * num_steps * iters / dt
@@ -203,6 +219,8 @@ def measure_ppo_train(
         "rollout_flags": {"pregen_noise": False, "fold_obs": cfg.fused_rollout and
                           cfg.rollout_fold_obs, "vector_gae": False},
         "compute_dtype": cfg.compute_dtype,
+        "hidden": hidden,
+        "env": env_id,
         "device": _device_name(device),
         "num_envs": num_envs,
         "num_steps": num_steps,
@@ -210,6 +228,8 @@ def measure_ppo_train(
         "num_minibatches": cfg.num_minibatches,
         "iters": iters,
         "seconds": dt,
+        "ms_per_iter": dt / iters * 1e3,
+        "loss": loss,
         "steps_per_s": steps_per_s,
         "vs_baseline": steps_per_s / BASELINE_STEPS_PER_S,
     }

@@ -1,9 +1,10 @@
-"""Time stages 1 and 2 of the fused PPO update kernels (K2's whole work, and
-K3's without its optimizer stage) per minibatch, at the bench's shapes.
+"""Time the fused PPO update kernels per minibatch at the bench's shapes: K2
+(stages 1 and 2) and K3 (the same, then its optimizer stage), and with
+`--parts` their parts apart.
 
     python gym_fishing_tpu_torch/bench/update_kernels.py [--root DIR] [--reps N] [--errors]
                                                         [--hidden H] [--n-actions A]
-                                                        [--obs-dim D] [--parts]
+                                                        [--obs-dim D] [--parts] [--ppo]
 
 One minibatch is 128 random tiles of 2048 samples out of the packed buffer
 [R, 2^21] of 16384 envs x 128 steps (R = 8 at the default `--obs-dim 1`,
@@ -12,11 +13,21 @@ the fields rounded up to a multiple of 8 otherwise), hidden `--hidden`
 head of A classes,
 timed with CUDA events over `--reps` launches after a warm-up, for compute
 float32 and bfloat16. The launcher is called below the wrapper (no weight merging), so
-the time is the two kernels' and the workspace allocation's.
+the time is the kernels' and the workspace allocation's. K3 starts from small random
+moments at Adam count 5 and clips (max_grad_norm 0.5).
 
-With `--parts` (the wide path, in checkouts that have `dw2c_split`) it also times the
-wide path's two stage-1 launches apart, the same way: ``wide_prep`` with
-``ppo_grad_wide`` (`wide_stage1`), and ``dw2c_split`` from its scratch.
+With `--parts` it also times K3's stage 3 alone (`clip_adam`, from K2's
+output; `rollout_instructions.median_ms`, per-call CUDA-event pairs queued behind a
+device-side wait) with its bound, 28 bytes a merged parameter (g, w, m, v read, w,
+m, v written) at 3.35 TB/s, and on the wide path its two stage-1 launches apart,
+the same way as K2 (``wide_prep`` with ``ppo_grad_wide``, `wide_stage1`;
+``dw2c_split`` from its scratch).
+
+With `--ppo` it times whole PPO iterations instead (`measure_ppo_train`, 16384
+envs x 128 steps, 2 warm-up and `--reps` timed iterations, every metric read after
+each): the forms ``full+adam`` under float32 and bfloat16 and ``off``, at hidden
+256 on fishing-v1 (sigma 0.05) and on ``fishing-v0`` with 100 classes, and at
+hidden 64 on fishing-v1.
 
 `--root` names the checkout whose ``gym_fishing_tpu_torch`` is imported
 (default: the one this file lies in), so the same inputs can time two
@@ -39,13 +50,35 @@ import argparse
 import hashlib
 import json
 import os
-import subprocess
 import sys
 
 import numpy as np
 import torch
 
 N, TILE, MB_TILES = 16384 * 128, 2048, 128
+HBM_BYTES_S = 3.35e12   # NVIDIA's data sheet for the H100 SXM
+PPO_CASES = [  # (env id, env kwargs, hidden, fused form, fused_adam, compute)
+    *[(env_id, env_kwargs, 256, fused, fused != "off", compute)
+      for env_id, env_kwargs in (("fishing-v1", {"sigma": 0.05}),
+                                 ("fishing-v0", {"n_actions": 100}))
+      for fused, compute in (("full", "float32"), ("full", "bfloat16"), ("off", "float32"))],
+    *[("fishing-v1", {"sigma": 0.05}, 64, fused, fused != "off", compute)
+      for fused, compute in (("full", "float32"), ("full", "bfloat16"), ("off", "float32"))],
+]
+
+
+def ppo_table(measure_ppo_train, iters: int) -> dict:
+    out = {}
+    for env_id, env_kwargs, hidden, fused, fused_adam, compute in PPO_CASES:
+        res = measure_ppo_train(num_envs=16384, num_steps=128, iters=iters, warmup=2,
+                                fused=fused, fused_adam=fused_adam, compute_dtype=compute,
+                                hidden=hidden, env_id=env_id, env_kwargs=env_kwargs,
+                                read_metrics=True)
+        if not res["loss"] == res["loss"]:
+            raise SystemExit(f"update_kernels: a NaN loss in {env_id} {fused} {compute}")
+        form = res["mode"][4:]
+        out[f"{env_id} {env_kwargs} hidden={hidden} {form} {compute}"] = res["ms_per_iter"]
+    return out
 
 
 def error_table(uk, ppo, ppo_fused, dev) -> None:
@@ -104,17 +137,26 @@ def main() -> None:
     ap.add_argument("--obs-dim", type=int, default=1,
                     help="observation fields (a window of stacked observations)")
     ap.add_argument("--parts", action="store_true",
-                    help="also time the wide path's stage 1 and dw2c_split apart")
+                    help="also time clip_adam, and the wide path's stage 1 and dw2c_split, apart")
+    ap.add_argument("--ppo", action="store_true",
+                    help="time whole PPO iterations instead, --reps of each case")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("update_kernels: needs a CUDA device")
     sys.path.insert(0, os.path.abspath(args.root))
     from gym_fishing_tpu_torch.agents import ppo, ppo_fused
+    from gym_fishing_tpu_torch.bench.rollout_instructions import median_ms, smi
+    from gym_fishing_tpu_torch.bench.throughput import measure_ppo_train
     from gym_fishing_tpu_torch.kernels import ppo_update_kernel as uk
 
     dev = torch.device("cuda", 0)
     if args.errors:
         error_table(uk, ppo, ppo_fused, dev)
+        return
+    if args.ppo:
+        print(json.dumps({"root": os.path.abspath(args.root), "iters": args.reps,
+                          "card": smi("name,power.limit"),
+                          **ppo_table(measure_ppo_train, args.reps)}))
         return
     rng = np.random.default_rng(7)
     gauss = args.n_actions == 0
@@ -132,12 +174,15 @@ def main() -> None:
     data = torch.from_numpy(rows).to(dev)
     order = torch.from_numpy(rng.permutation(N // TILE)[:MB_TILES].astype(np.int32)).to(dev)
     stats = torch.tensor([0.0, 1.0], device=dev)
+    m_flat = torch.from_numpy(0.01 * rng.standard_normal(w_flat.numel()).astype(np.float32))
+    v_flat = torch.from_numpy(1e-4 * rng.random(w_flat.numel()).astype(np.float32))
+    m_flat, v_flat = m_flat.to(dev), v_flat.to(dev)
+    adam = dict(lr=3e-4, bc1=1 - 0.9 ** 5, bc2=1 - 0.999 ** 5, beta1=0.9, beta2=0.999,
+                adam_eps=1e-5, max_grad_norm=0.5)
 
     out = {"root": os.path.abspath(args.root), "reps": args.reps, "hidden": args.hidden,
            "head": head, "act_dim": a, "obs_dim": d, "rows": rows.shape[0],
-           "card": subprocess.run(
-               ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-               capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]}
+           "card": smi("name,power.limit")}
     for compute in uk.COMPUTES:
         scal = dict(clip_eps=0.2, vf_coef=0.5, ent_coef=0.0, obs_dim=d, act_dim=a, tile=TILE,
                     head=head, compute=compute)
@@ -154,7 +199,31 @@ def main() -> None:
             raise SystemExit(f"update_kernels: non-finite output under {compute}")
         out[f"{compute}_ms"] = start.elapsed_time(end) / args.reps
         out[f"{compute}_sha256"] = hashlib.sha256(gout.cpu().numpy().tobytes()).hexdigest()[:16]
+        q = uk._AdamParams(lr=adam["lr"], bc1=adam["bc1"], bc2=adam["bc2"],
+                           max_grad_norm=adam["max_grad_norm"], beta1=0.9, beta2=0.999,
+                           one_minus_b1=1.0 - 0.9, one_minus_b2=1.0 - 0.999,
+                           adam_eps=adam["adam_eps"], pad0=0.0)
+        outs = [torch.empty_like(w_flat) for _ in range(3)]
+        run3 = lambda: uk._launch(data, order, w_flat, stats, args.hidden,  # noqa: E731
+                                  adam=(q, m_flat, v_flat, *outs), **scal)
+        for _ in range(5):
+            run3()
+        start.record()
+        for _ in range(args.reps):
+            run3()
+        end.record()
+        torch.cuda.synchronize()
+        out[f"{compute}_k3_ms"] = start.elapsed_time(end) / args.reps
+        out[f"{compute}_k3_sha256"] = hashlib.sha256(
+            torch.cat(outs).cpu().numpy().tobytes()).hexdigest()[:16]
         if args.parts:
+            kw3 = dict(obs_dim=d, hidden=args.hidden, act_dim=a, head=head, ent_coef=0.0,
+                       **adam)
+            clip = lambda: uk.clip_adam(gout, w_flat, m_flat, v_flat, **kw3)  # noqa: E731
+            out[f"{compute}_clip_adam_ms"] = median_ms(clip, max(args.reps, 20))
+            out["clip_adam_bound_ms"] = 28 * w_flat.numel() / HBM_BYTES_S * 1e3
+            out["clip_adam_ctas"] = uk.library().ppo_clip_adam_ctas(d, args.hidden, a)
+        if args.parts and uk.wide_path(args.hidden, a):
             merged = uk.unflatten_merged(w_flat, d, args.hidden, a)
             act, ws = uk.wide_stage1(data, order, merged, stats, **scal)
             stage1 = lambda: uk.wide_stage1(data, order, merged, stats, **scal)  # noqa: E731

@@ -1,6 +1,6 @@
 // Tensor-core products of bf16 tiles held in shared memory, through the
-// warp-level wmma fragments of <mma.h> (mma.sync class instructions: no wgmma,
-// no TMA): m16n16k16 products of bf16 inputs with float32 sums. With inputs
+// warp-level wmma fragments of <mma.h> (mma.sync class instructions, no
+// wgmma): m16n16k16 products of bf16 inputs with float32 sums. With inputs
 // rounded to nearest even this is the function the bf16 compute mode defines,
 // up to the order of the sums.
 //
@@ -15,14 +15,16 @@
 // on numerics in ppo_update_kernel.cu.
 //
 // Below them, mma.sync m16n8k16 by hand in the instruction's fixed register
-// layout (mma_16816), and tower_mma: the W2c product of the wide paths under
-// bfloat16, shared by the update kernels (ppo_grad_wide) and the policy
-// rollout (policy_rollout_wide).
+// layout (mma_16816); warpgroup products on wgmma from swizzled shared memory
+// (wgmma_bf16_mn, for dw2c_split under bfloat16); and tower_mma: the W2c
+// product of the wide paths under bfloat16, shared by the update kernels
+// (ppo_grad_wide) and the policy rollout (policy_rollout_wide).
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <mma.h>
+#include <stdint.h>
 
 constexpr int kMmaK = 16;  // depth of one k-step
 
@@ -82,26 +84,79 @@ __device__ __forceinline__ unsigned pack_bf16x2(float lo, float hi) {
   return *reinterpret_cast<const unsigned*>(&v);
 }
 
-// acc[i][f] += A_i * B_f over one k-step of depth kMmaK for a warp's MF x NF
-// grid of tiles: A_i is the [16, kMmaK] tile at A + i * a_fstep (layout
-// LayA, leading dimension lda), B_f the [kMmaK, 16] tile at B + f * b_fstep
-// (LayB, ldb). Each operand tile is loaded once for the whole grid. Alignment
-// as mma_tiles.
-template <typename LayA, typename LayB, int MF, int NF>
-__device__ __forceinline__ void mma_grid(const __nv_bfloat16* __restrict__ A, int lda,
-                                         int a_fstep, const __nv_bfloat16* __restrict__ B,
-                                         int ldb, int b_fstep, AccFrag (&acc)[MF][NF]) {
-  namespace wmma = nvcuda::wmma;
-  wmma::fragment<wmma::matrix_a, 16, 16, kMmaK, __nv_bfloat16, LayA> a[MF];
-  wmma::fragment<wmma::matrix_b, 16, 16, kMmaK, __nv_bfloat16, LayB> b[NF];
-#pragma unroll
-  for (int i = 0; i < MF; ++i) wmma::load_matrix_sync(a[i], A + i * a_fstep, lda);
-#pragma unroll
-  for (int f = 0; f < NF; ++f) wmma::load_matrix_sync(b[f], B + f * b_fstep, ldb);
-#pragma unroll
-  for (int i = 0; i < MF; ++i)
-#pragma unroll
-    for (int f = 0; f < NF; ++f) wmma::mma_sync(acc[i][f], a[i], b[f], acc[i][f]);
+// Warpgroup products (wgmma, sm_90a) of bf16 operands held in shared memory
+// MN-major (A's M index and B's N index contiguous, as a [samples][columns]
+// tile of activations lies: both operands transposed in wgmma's terms) in
+// boxes of 64 elements x 128-byte rows under the 128-byte swizzle (TMA's
+// CU_TENSOR_MAP_SWIZZLE_128B into a 1024-byte aligned box): 8-row groups
+// 1024 bytes apart along K, 64-element blocks `lbo` bytes apart along M or
+// N. wgmma_bf16_mn<N>: the warpgroup's m64 x N float32 tile d (N / 2
+// registers a thread) += A^T B over one k-step of 16 samples, or = A^T B
+// with accumulate = 0; warp w of the warpgroup holds rows 16 w + g (+ 8) and
+// columns 8 j + 2 t (+ 1) at d[4 j + 2 h + e], lane 4 g + t (mma_16816's C
+// layout, n8 tile by n8 tile). Between wgmma_fence and wgmma_wait_all the
+// accumulators belong to the tensor cores.
+__device__ __forceinline__ uint64_t wgmma_desc_mn128(uint32_t addr, uint32_t lbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)((lbo >> 4) & 0x3FFF) << 16 |
+         (uint64_t)(1024 >> 4) << 32 | (uint64_t)1 << 62;   // layout type 1: 128-byte swizzle
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_bf16_mn(float (&d)[N / 2], uint64_t desc_a, uint64_t desc_b,
+                                              int accumulate);
+
+template <>
+__device__ __forceinline__ void wgmma_bf16_mn<64>(float (&d)[32], uint64_t desc_a,
+                                                  uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %34, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 1, 1;\n\t}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16_mn<128>(float (&d)[64], uint64_t desc_a,
+                                                  uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %66, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 1, 1;\n\t}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
 // A pair of adjacent entries of an A operand as one bf16x2 register: float32

@@ -76,8 +76,10 @@
 //   blocks of 16 rows and then the blocks. No float atomics anywhere, so two
 //   identical steps give identical bits. The column sums of stage 1 (db1c,
 //   db2c, dW1c) likewise add each chunk's share to their running sums once.
-// - Stage 3 (K3 only): one CTA takes the masked global norm in a fixed
-//   reduction order, clips, and applies Adam to the ~17k merged parameters.
+// - Stage 3 (K3 only): the masked global norm, the clip and Adam over the
+//   merged parameters as a grid-wide pass of two launches (clip_norm_parts,
+//   clip_adam_apply): per-CTA partial sums of squares, then every CTA sums
+//   them in one fixed order and updates its run.
 //
 // Numerics: float32 IEEE arithmetic (FMA contraction allowed, no
 // --use_fast_math). compute = bfloat16: product inputs rounded with
@@ -98,9 +100,11 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <stdio.h>
 
 #include "merged_mlp.cuh"
 #include "mma_tiles.cuh"
+#include "tma_ring.cuh"
 #include "wide_mlp.cuh"
 
 struct GradParams {
@@ -1186,18 +1190,22 @@ __global__ void __launch_bounds__(kThreads, 1)
 // stay fixed. Within a range the products of a block of kKBlock samples are
 // summed apart and then added to the running sum, so a partial rounds like a
 // sum of kKBlock + kKSplitSamples / kKBlock terms.
-// What bounds it: operations (2 x H^2 multiply-adds a sample: 6.9e10 FLOP
-// for 2^18 samples at hidden 256, against 1.1 GB of float32 operands).
-// * float32: FMA, a thread 4G x 4G entries of the tile in registers (groups
+// It computes dW2c of _grad_tile (gym_fishing_tpu/kernels/ppo_update_kernel.py
+// :296) out of the chunk loop.
+// * float32: what bounds it is operations (2 x H^2 multiply-adds a sample:
+//   6.9e10 FLOP for 2^18 samples at hidden 256, against 1.1 GB of float32
+//   operands). FMA, a thread 4G x 4G entries of the tile in registers (groups
 //   of 4 rows and columns BM / G apart, so a warp's shared-memory reads are
 //   contiguous), operands through a ring of kDwStages cp.async stages of 16
 //   samples.
-// * bfloat16: the operands are already bf16; wmma fragments (mma.sync
-//   m16n8k16, float32 sums) of mma_tiles.cuh, a warp a [BM / 2, BM / WN]
-//   sub-tile, stages of 32 samples; the block sums are fragments too.
+// * bfloat16 (dw2c_split_bf16 below): what bounds it is bytes (0.54 GB of bf16
+//   operands at hidden 256, 0.16 ms at 3.35 TB/s, against 0.07 ms of tensor
+//   core work).
 constexpr int kKBlock = 64;            // samples per block sum
 constexpr int kKSplitSamples = 2048;   // samples per range, at most
 constexpr int kDwStages = 3;
+// bfloat16: stages of kKBlock samples in the TMA ring
+constexpr int kDwRing = 6;
 
 __host__ __device__ inline int ksplit_count(long long n, int rows) {
   const long long s = (n + kKSplitSamples - 1) / kKSplitSamples;
@@ -1221,14 +1229,22 @@ struct DwF32 {
   static constexpr size_t BYTES = sizeof(float) * 2 * kDwStages * BK * BM;
 };
 
+// bfloat16: a CTA's tile is BM x BM, BM = 64 at hidden 32 (both towers in
+// one tile, whose cross-tower quarters are not written) and 64, else 128; the
+// operands arrive by TMA in boxes of kKBlock samples x 64 columns (128-byte
+// rows, 128-byte swizzle), BM / 64 boxes of h1 and of g_p2 a stage. BM / 64
+// consumer warpgroups (one a 64-row slab of the tile) and one producer warp.
+__host__ __device__ constexpr int dw_bf_tile(int H) { return H <= 64 ? 64 : 128; }
+
 template <int BM>
 struct DwBF {
-  static constexpr int WM = 2, WN = BM >= 128 ? 4 : 2;   // warps along rows, columns
-  static constexpr int MF = BM / (16 * WM), NF = BM / (16 * WN);
-  static constexpr int NT = 32 * WM * WN;
-  static constexpr int BK = 32, LD = BM + 8;     // samples a stage; bf16 row stride
-  static constexpr size_t BYTES = 2 * 2 * kDwStages * BK * LD;
-  static_assert(BYTES >= sizeof(float) * 256 * (NT / 32), "epilogue scratch");
+  static constexpr int BOXES = BM / 64;           // boxes of each operand a stage
+  static constexpr int CONSUMERS = 128 * BOXES;   // a warpgroup a 64-row slab of the tile
+  static constexpr int THREADS = CONSUMERS + 32;  // and the producer warp
+  static constexpr int BOX_BYTES = kKBlock * 64 * 2;
+  static constexpr int STAGE_BYTES = 2 * BOXES * BOX_BYTES;
+  static constexpr size_t BYTES = (size_t)kDwRing * STAGE_BYTES + 1024;   // + the alignment
+  static_assert(kKBlock == 64, "a stage is one block of 64 samples");
 };
 
 // The CTA's place: (tower, first row, first column of its tile, range j,
@@ -1332,87 +1348,123 @@ __global__ void __launch_bounds__(DwF32<BM>::NT, 1)
   }
 }
 
+// dW2c under bfloat16. Each range's per-tower block is a product of two
+// [2048, H] bf16 operands into an [H, H] float32 block: 2^18 samples at
+// hidden 256 read 0.54 GB and do 6.9e10 FLOP, so the bound is bytes, and
+// what the kernel needs is enough operand bytes in flight on every SM.
+// * A CTA takes one BM x BM tile of a tower's block and one range: at hidden
+//   256 the tower's 2 x 2 tiles of 128 are four CTAs, each fetching its own
+//   h1 and g_p2 columns, so each operand byte is read from DRAM once and
+//   from L2 twice (a 2 x 2 cluster that multicast each box to the two CTAs
+//   sharing it was measured slower on the H100, 0.277 against 0.267 ms: the
+//   ring moves ~2.1 TB/s of DRAM reads whatever it requests, and the second
+//   read from L2 costs nothing). Below hidden 256 a tile is a whole tower
+//   block (or at hidden 32 both).
+// * The producer warp keeps a ring of kDwRing stages of one block of 64
+//   samples (32 KB at BM = 128) requested by TMA into 128-byte swizzled
+//   shared memory; the consumers wait on one mbarrier a stage and release
+//   it on an `empty` barrier that counts the consumer warps (a stage is
+//   refilled only when all its readers are done).
+// * Each consumer warpgroup runs its 64-row slab of the tile on wgmma
+//   (m64 x BM x k16, bf16 from the swizzled boxes as they lie, transposed:
+//   h1 and g_p2 are sample-major; float32 sums in registers): a stage's 64
+//   samples are summed apart into `blk`, then added to the range's sum
+//   `acc` (the float32 accumulation of 64 + 32 terms that the bar of 2e-5 of
+//   a range's largest entry is set for), 2 x 64 registers a thread at BM =
+//   128. mma.sync with ldmatrix (a warp a [64, 32] sub-tile) took 0.29 ms at
+//   hidden 256 with the same ring, and its products alone 0.26 ms: with
+//   wgmma the products hide under the loads.
+// * The epilogue stores each thread's pairs of columns into the range's
+//   workspace row, as float2 where the row's offset allows (P + 4 is odd).
 template <int BM>
-__global__ void __launch_bounds__(DwBF<BM>::NT, 1)
-    dw2c_split_bf16(const GradParams p, int n_split, const __nv_bfloat16* __restrict__ act,
+__global__ void __launch_bounds__(DwBF<BM>::THREADS, 1)
+    dw2c_split_bf16(const GradParams p, int n_split, const __grid_constant__ CUtensorMap act_map,
                     float* __restrict__ ws) {
-  namespace wmma = nvcuda::wmma;
   using C = DwBF<BM>;
-  constexpr int MF = C::MF, NF = C::NF, NT = C::NT, BK = C::BK, LD = C::LD;
-  constexpr int STAGE = BK * LD;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* sA = reinterpret_cast<__nv_bfloat16*>(smem);   // [kDwStages][BK][LD]
-  __nv_bfloat16* sB = sA + kDwStages * STAGE;
+  constexpr int BOXES = C::BOXES, BOX = C::BOX_BYTES;
+  extern __shared__ __align__(128) unsigned char dsmem[];
+  __shared__ __align__(8) uint64_t full[kDwRing], empty[kDwRing];
+  const uint32_t ring = (smem_u32(dsmem) + 1023u) & ~1023u;   // the swizzle's alignment
   const int H = p.hidden, H2 = 2 * H, tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = warp / C::WN, wn = warp % C::WN;
   const long long n = (long long)p.num_tiles * p.tile;
-  const DwPlace d = dw_place(p, BM, n_split);
-  const __nv_bfloat16* A = act + d.k0 * H2 + d.tw * H + d.r0;
-  const __nv_bfloat16* B = act + (n + d.k0) * H2 + d.tw * H + d.c0;
-  const int steps = (int)((d.k1 - d.k0) / BK);
-  auto load = [&](int i) {
-    __nv_bfloat16* a = sA + i % kDwStages * STAGE;
-    __nv_bfloat16* b = sB + i % kDwStages * STAGE;
-    const long long off = (long long)i * BK * H2;
-    for (int e = tid; e < BK * BM / 8; e += NT) {
-      const int kk = e / (BM / 8), mm = e % (BM / 8) * 8;
-      cp_async16(reinterpret_cast<float*>(a + kk * LD + mm),
-                 reinterpret_cast<const float*>(A + off + (long long)kk * H2 + mm));
-      cp_async16(reinterpret_cast<float*>(b + kk * LD + mm),
-                 reinterpret_cast<const float*>(B + off + (long long)kk * H2 + mm));
+  // the CTA's place: range j, tower tw, tile (tr, tc) of the tower's block;
+  // r0 and c0 are its first row and column in the merged [2H, 2H] block,
+  // which are also its first h1 and g_p2 columns in the scratch
+  const int per_range = BM > H ? 1 : 2 * (H / BM) * (H / BM), per_tower = per_range / 2;
+  const int j = blockIdx.x / per_range, tw = BM > H ? 0 : blockIdx.x % per_range / per_tower;
+  const int tile = BM > H ? 0 : blockIdx.x % per_tower, tr = tile >> 1, tc = tile & 1;
+  const int r0 = tw * H + tr * BM, c0 = tw * H + tc * BM;
+  const long long k0 = ksplit_begin(n, n_split, j);
+  const int steps = (int)((ksplit_begin(n, n_split, j + 1) - k0) / kKBlock);
+  if (tid == 0) {
+    for (int s = 0; s < kDwRing; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], C::CONSUMERS / 32);
     }
-  };
-  AccFrag acc[MF][NF], blk[MF][NF];
-#pragma unroll
-  for (int i = 0; i < MF; ++i) {
-    zero_frags(acc[i]);
-    zero_frags(blk[i]);
+    mbar_fence_init();
   }
-#pragma unroll
-  for (int i = 0; i < kDwStages - 1; ++i) {
-    if (i < steps) load(i);
-    cp_async_commit();
-  }
-  for (int i = 0; i < steps; ++i) {
-    cp_async_wait<kDwStages - 2>();
-    __syncthreads();
-    if (i + kDwStages - 1 < steps) load(i + kDwStages - 1);
-    cp_async_commit();
-    // A is h1 [samples][rows]: the fragments' [16 rows, 16 samples] tiles
-    // read column-major; B is g_p2 [samples][columns], read row-major
-    const __nv_bfloat16* a = sA + i % kDwStages * STAGE + wm * MF * 16;
-    const __nv_bfloat16* b = sB + i % kDwStages * STAGE + wn * NF * 16;
-#pragma unroll
-    for (int ks = 0; ks < BK / kMmaK; ++ks)
-      mma_grid<wmma::col_major, wmma::row_major, MF, NF>(a + ks * kMmaK * LD, LD, 16,
-                                                         b + ks * kMmaK * LD, LD, 16, blk);
-    if ((i + 1) % (kKBlock / BK) == 0) {
-#pragma unroll
-      for (int r = 0; r < MF; ++r)
-#pragma unroll
-        for (int c = 0; c < NF; ++c) {
-#pragma unroll
-          for (int e = 0; e < blk[r][c].num_elements; ++e) acc[r][c].x[e] += blk[r][c].x[e];
-          wmma::fill_fragment(blk[r][c], 0.0f);
-        }
-    }
-  }
-  cp_async_wait_all();
   __syncthreads();
-  // out through a [16][16] float scratch of the warp's own
-  float* scr = reinterpret_cast<float*>(smem) + warp * 256;
-  const Layout L = make_layout(p.obs_dim, H2, p.act_dim);
-  float* out = ws + (long long)d.j * (L.P + 4) + L.w2 + (d.tw * H) * (H2 + 1);
+
+  if (warp == C::CONSUMERS / 32) {
+    if (lane == 0) {
+      for (int i = 0; i < steps; ++i) {
+        const int s = i % kDwRing;
+        if (i >= kDwRing) mbar_wait(&empty[s], (i / kDwRing - 1) & 1);
+        mbar_expect_tx(&full[s], C::STAGE_BYTES);
+        const uint32_t a = ring + s * C::STAGE_BYTES, b = a + BOXES * BOX;
+        const int ka = (int)(k0 + (long long)i * kKBlock), kb = (int)(n + ka);
 #pragma unroll
-  for (int r = 0; r < MF; ++r)
-#pragma unroll
-    for (int c = 0; c < NF; ++c) {
-      wmma::store_matrix_sync(scr, acc[r][c], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int row0 = d.r0 + (wm * MF + r) * 16, col0 = d.c0 + (wn * NF + c) * 16;
-      for (int e = lane; e < 256; e += 32) out[(row0 + e / 16) * H2 + col0 + e % 16] = scr[e];
-      __syncwarp();
+        for (int x = 0; x < BOXES; ++x) {
+          tma_load_2d(a + x * BOX, &act_map, r0 + 64 * x, ka, &full[s]);
+          tma_load_2d(b + x * BOX, &act_map, c0 + 64 * x, kb, &full[s]);
+        }
+      }
     }
+  } else {
+    const int wgi = warp / 4, wq = warp % 4;   // warpgroup (64-row slab), its warp
+    float acc[BM / 2], blk[BM / 2];
+#pragma unroll
+    for (int e = 0; e < BM / 2; ++e) acc[e] = 0.0f;
+    for (int i = 0; i < steps; ++i) {
+      const int s = i % kDwRing;
+      mbar_wait(&full[s], (i / kDwRing) & 1);
+      // A: the slab's h1 box; B: the tile's BM g_p2 columns, BOXES boxes; a
+      // k-step is 16 rows of 128 bytes further
+      const uint32_t a = ring + s * C::STAGE_BYTES + wgi * BOX, b = a - wgi * BOX + BOXES * BOX;
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < kKBlock / kMmaK; ++ks)
+        wgmma_bf16_mn<BM>(blk, wgmma_desc_mn128(a + ks * 2048, BOX),
+                          wgmma_desc_mn128(b + ks * 2048, BOX), ks);
+      wgmma_commit();
+      wgmma_wait_all();
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+#pragma unroll
+      for (int e = 0; e < BM / 2; ++e) acc[e] += blk[e];
+    }
+    const Layout L = make_layout(p.obs_dim, H2, p.act_dim);
+    float* out = ws + (long long)j * (L.P + 4) + L.w2;
+    // a row of P + 4 floats: P is odd, so every other row's entries pair up
+    // at 8-byte boundaries only one float further on
+    const bool pairs = (((long long)j * (L.P + 4) + L.w2) & 1) == 0;
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int jn = 0; jn < BM / 8; ++jn)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = r0 + wgi * 64 + wq * 16 + g + 8 * h, col = c0 + 8 * jn + 2 * t;
+        if ((row < H) != (col < H)) continue;   // at hidden 32 the tile holds both towers
+        float* o = out + (long long)row * H2 + col;
+        const float x = acc[4 * jn + 2 * h], y = acc[4 * jn + 2 * h + 1];
+        if (pairs) {
+          *reinterpret_cast<float2*>(o) = make_float2(x, y);
+        } else {
+          o[0] = x;
+          o[1] = y;
+        }
+      }
+  }
 }
 
 // Stage 2: out[i] = sum over the G workspace rows (kSplit per visited tile):
@@ -1433,71 +1485,254 @@ __global__ void __launch_bounds__(256) reduce_rows(const float* __restrict__ ws,
   out[i] = z;
 }
 
-// Stage 3: masked global-norm clip + Adam over the merged buffer, one CTA.
-constexpr int kAdamThreads = 1024;
+// Stage 3 (K3 only): the masked global-norm clip and Adam over the merged
+// buffer [P], as a grid-wide pass in two launches. Replaces the optimizer
+// step of _ppo_grad_adam_kernel (gym_fishing_tpu/kernels/ppo_update_kernel.py::
+// _optimizer_step, :500-560): the cross-tower blocks of dW2c and dWhc masked,
+// the Gaussian head's entropy term -ent_coef joined to log_std's gradient
+// before the clip, the categorical log_std and its moments carried through,
+// then optax's Adam with the host's bias corrections.
+// What bounds it: bytes, 28 a parameter (g, w, m, v read, w, m, v written):
+// 7.4 MB at hidden 256, 2.2 us at 3.35 TB/s. One CTA took 0.33-0.54 ms there,
+// latency-bound on one SM while the other 131 idled.
+// What the design does about it: the buffer is cut into CTA runs (adam_plan)
+// that fill the card: runs of kAdamRun floats over W1c, b1c, W2c and b2c,
+// read and written 16 bytes a thread, W2c's mask taken per float4 from
+// shifts (2H is a power of two, and a float4 never straddles a tower); then
+// blocks of kAdamHeadRows rows of Whc, walked row by row (a warp a row, its
+// lanes along the A + 1 columns in fixed chunks of 32), so no entry needs a
+// / or %; then one CTA for bhc and log_std. clip_norm_parts writes each CTA's sum of squares of
+// the masked gradient to a slot of its own; clip_adam_apply's CTAs each sum
+// all slots in one fixed order, so every CTA holds the same norm bits, and
+// apply the clip and Adam to their run. A thread's entries of a run are a
+// fixed count, so their loads go out together, and clip_adam_apply is a
+// programmatic dependent launch: its body and head CTAs load their run while
+// clip_norm_parts still runs, so the second launch's latency overlaps the
+// first. No atomics: two
+// identical launches give identical bits. The masked cross-tower entries get a zero gradient, so
+// zero weights and moments there stay exactly zero.
+constexpr int kAdamThreads = 256;
+constexpr int kAdamRun = 2048;      // floats of a body CTA's run: 2 float4 a thread
+constexpr int kAdamHeadRows = 16;   // rows of Whc a head CTA walks: 2 a warp
+constexpr int kAdamBody4 = kAdamRun / (4 * kAdamThreads);   // float4 a thread of a body run
+constexpr int kAdamHeadChunks = (kWideMaxA + 1 + 31) / 32;   // 32-column chunks of a Whc row
+static_assert(kAdamRun == 8 * kAdamThreads && kAdamHeadRows == 2 * kAdamThreads / 32, "runs");
 
-__global__ void __launch_bounds__(kAdamThreads) clip_adam(
+// CTAs over [0, L.wh) (W1c, b1c, W2c, b2c), over Whc's 2H rows, and in all
+// (one more for bhc and log_std).
+struct AdamPlan {
+  int body, head, ctas;
+};
+
+__host__ __device__ inline AdamPlan adam_plan(const Layout& L, int H2) {
+  AdamPlan a;
+  a.body = (L.wh + kAdamRun - 1) / kAdamRun;
+  a.head = H2 / kAdamHeadRows;
+  a.ctas = a.body + a.head + 1;
+  return a;
+}
+
+// A thread's entries in its CTA's run, each a fixed number a thread, so that
+// their loads go out together: the k-th float4 of a body run (its index, a
+// multiple of 4; -1 past the body) and its masked gradient; in a head run
+// the entry of chunk k of row rr of this warp (-1 past the row) and its
+// masked gradient.
+__device__ __forceinline__ int body_entry(const GradParams& p, const Layout& L, int k,
+                                          const float* __restrict__ grad, float4& g) {
+  const int H = p.hidden, H2 = 2 * H;
+  const int i = blockIdx.x * kAdamRun + 4 * (k * kAdamThreads + threadIdx.x);
+  if (i >= L.wh) return -1;
+  g = *reinterpret_cast<const float4*>(grad + i);
+  if (i >= L.w2 && i < L.b2) {
+    const int e = i - L.w2, lg = __ffs(H2) - 1;   // 2H is a power of two
+    if (((e >> lg) < H) != ((e & (H2 - 1)) < H)) g = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+  return i;
+}
+
+__device__ __forceinline__ int head_entry(const GradParams& p, const Layout& L, const AdamPlan& a,
+                                          int rr, int k, const float* __restrict__ grad,
+                                          float& g) {
+  const int A = p.act_dim, A1 = A + 1, c = (threadIdx.x & 31) + 32 * k;
+  const int r = (blockIdx.x - a.body) * kAdamHeadRows + 2 * (threadIdx.x >> 5) + rr;
+  if (c >= A1) return -1;
+  const int i = L.wh + r * A1 + c;
+  g = (r < p.hidden ? c < A : c == A) ? grad[i] : 0.0f;
+  return i;
+}
+
+// The tail run (bhc, then log_std): the gradient of entry i, and whether it
+// is a parameter (the categorical head has no log_std).
+__device__ __forceinline__ float tail_grad(const GradParams& p, const Layout& L, int i,
+                                           const float* __restrict__ grad, bool& param) {
+  const bool gauss = p.head == GAUSSIAN;
+  param = i < L.ls || gauss;
+  return i < L.ls ? grad[i] : gauss ? grad[i] - p.ent_coef : 0.0f;
+}
+
+// Sum of x over the CTA in a fixed order (a butterfly in each warp, then the
+// warps' sums in warp order), the same bits in every thread.
+__device__ __forceinline__ float cta_sum(float x, float* red) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = x;
+  __syncthreads();
+  float z = 0.0f;
+#pragma unroll
+  for (int v = 0; v < kAdamThreads / 32; ++v) z += red[v];
+  return z;
+}
+
+// Programmatic dependent launch: clip_adam_apply is launched to start while
+// clip_norm_parts runs, loads what does not depend on it, and waits for it
+// (and its writes) only before it reads the partial sums.
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+}
+
+__device__ __forceinline__ void wait_prerequisites() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+
+__global__ void __launch_bounds__(kAdamThreads) clip_norm_parts(const GradParams p,
+                                                              const float* __restrict__ grad,
+                                                              float* __restrict__ parts) {
+  __shared__ float red[kAdamThreads / 32];
+  launch_dependents();
+  const Layout L = make_layout(p.obs_dim, 2 * p.hidden, p.act_dim);
+  const AdamPlan a = adam_plan(L, 2 * p.hidden);
+  float ss = 0.0f;
+  if (blockIdx.x < a.body) {
+#pragma unroll
+    for (int k = 0; k < kAdamBody4; ++k) {
+      float4 g;
+      if (body_entry(p, L, k, grad, g) < 0) continue;
+      ss = fmaf(g.x, g.x, ss);
+      ss = fmaf(g.y, g.y, ss);
+      ss = fmaf(g.z, g.z, ss);
+      ss = fmaf(g.w, g.w, ss);
+    }
+  } else if (blockIdx.x < a.body + a.head) {
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr)
+#pragma unroll
+      for (int k = 0; k < kAdamHeadChunks; ++k) {
+        float g;
+        if (head_entry(p, L, a, rr, k, grad, g) >= 0) ss = fmaf(g, g, ss);
+      }
+  } else {
+    for (int i = L.bh + threadIdx.x; i < L.P; i += kAdamThreads) {
+      bool param;
+      const float g = tail_grad(p, L, i, grad, param);
+      ss = fmaf(g, g, ss);
+    }
+  }
+  ss = cta_sum(ss, red);
+  if (threadIdx.x == 0) parts[blockIdx.x] = ss;
+}
+
+__device__ __forceinline__ void adam_entry(const AdamParams& q, float g, float w, float m,
+                                           float v, float& w_out, float& m_out, float& v_out) {
+  const float mn = q.beta1 * m + q.one_minus_b1 * g;
+  const float vn = q.beta2 * v + q.one_minus_b2 * (g * g);
+  const float mhat = mn / q.bc1, vhat = vn / q.bc2;
+  w_out = w - q.lr * mhat / (sqrtf(vhat) + q.adam_eps);
+  m_out = mn;
+  v_out = vn;
+}
+
+__global__ void __launch_bounds__(kAdamThreads) clip_adam_apply(
     const GradParams p, const AdamParams q, const float* __restrict__ grad,
     const float* __restrict__ w, const float* __restrict__ m, const float* __restrict__ v,
-    float* __restrict__ w_out, float* __restrict__ m_out, float* __restrict__ v_out) {
-  __shared__ float red[kAdamThreads];
-  const int tid = threadIdx.x;
-  const int H2 = 2 * p.hidden, H = p.hidden, A = p.act_dim, A1 = A + 1;
-  const bool gauss = p.head == GAUSSIAN;
-  const Layout L = make_layout(p.obs_dim, H2, A);
-  // the gradient of entry i: cross-tower blocks masked, the Gaussian
-  // entropy term joined to log_std's; the categorical log_std is no parameter
-  auto masked = [&](int i) -> float {
-    float g = grad[i];
-    if (i >= L.w2 && i < L.b2) {
-      const int r = (i - L.w2) / H2, c = (i - L.w2) % H2;
-      if (!((r < H && c < H) || (r >= H && c >= H))) g = 0.0f;
-    } else if (i >= L.wh && i < L.bh) {
-      const int r = (i - L.wh) / A1, c = (i - L.wh) % A1;
-      if (!((r < H && c < A) || (r >= H && c == A))) g = 0.0f;
-    } else if (i >= L.ls) {
-      g = gauss ? g - p.ent_coef : 0.0f;
+    float* __restrict__ w_out, float* __restrict__ m_out, float* __restrict__ v_out,
+    const float* __restrict__ parts) {
+  __shared__ float red[kAdamThreads / 32];
+  const Layout L = make_layout(p.obs_dim, 2 * p.hidden, p.act_dim);
+  const AdamPlan a = adam_plan(L, 2 * p.hidden);
+  // a body or head CTA's run into registers before the wait: stage 2's
+  // gradients and the weights and moments are there before clip_norm_parts
+  // starts
+  const bool body = blockIdx.x < a.body, head = !body && blockIdx.x < a.body + a.head;
+  int bi[kAdamBody4], hi[2][kAdamHeadChunks];
+  float4 bg[kAdamBody4], bw[kAdamBody4], bm[kAdamBody4], bv[kAdamBody4];
+  float hg[2][kAdamHeadChunks], hw[2][kAdamHeadChunks], hm[2][kAdamHeadChunks],
+      hv[2][kAdamHeadChunks];
+  if (body) {
+#pragma unroll
+    for (int k = 0; k < kAdamBody4; ++k) {
+      bi[k] = body_entry(p, L, k, grad, bg[k]);
+      if (bi[k] < 0) continue;
+      bw[k] = *reinterpret_cast<const float4*>(w + bi[k]);
+      bm[k] = *reinterpret_cast<const float4*>(m + bi[k]);
+      bv[k] = *reinterpret_cast<const float4*>(v + bi[k]);
     }
-    return g;
-  };
+  } else if (head) {
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr)
+#pragma unroll
+      for (int k = 0; k < kAdamHeadChunks; ++k) {
+        hi[rr][k] = head_entry(p, L, a, rr, k, grad, hg[rr][k]);
+        if (hi[rr][k] < 0) continue;
+        hw[rr][k] = w[hi[rr][k]];
+        hm[rr][k] = m[hi[rr][k]];
+        hv[rr][k] = v[hi[rr][k]];
+      }
+  }
+  wait_prerequisites();
   float ss = 0.0f;
-  for (int i = tid; i < L.P; i += kAdamThreads) {
-    const float g = masked(i);
-    ss = fmaf(g, g, ss);
-  }
-  red[tid] = ss;
-  __syncthreads();
-  for (int s = kAdamThreads / 2; s > 0; s >>= 1) {
-    if (tid < s) red[tid] += red[tid + s];
-    __syncthreads();
-  }
-  const float norm = sqrtf(red[0]);
+  for (int k = threadIdx.x; k < a.ctas; k += kAdamThreads) ss += parts[k];
+  const float norm = sqrtf(cta_sum(ss, red));
   const float scale = norm < q.max_grad_norm ? 1.0f : q.max_grad_norm / norm;
-  for (int i = tid; i < L.P; i += kAdamThreads) {
-    if (!gauss && i >= L.ls) {
-      w_out[i] = w[i];
-      m_out[i] = m[i];
-      v_out[i] = v[i];
-      continue;
+  if (body) {
+#pragma unroll
+    for (int k = 0; k < kAdamBody4; ++k) {
+      if (bi[k] < 0) continue;
+      float4 wo, mo, vo;
+      adam_entry(q, bg[k].x * scale, bw[k].x, bm[k].x, bv[k].x, wo.x, mo.x, vo.x);
+      adam_entry(q, bg[k].y * scale, bw[k].y, bm[k].y, bv[k].y, wo.y, mo.y, vo.y);
+      adam_entry(q, bg[k].z * scale, bw[k].z, bm[k].z, bv[k].z, wo.z, mo.z, vo.z);
+      adam_entry(q, bg[k].w * scale, bw[k].w, bm[k].w, bv[k].w, wo.w, mo.w, vo.w);
+      *reinterpret_cast<float4*>(w_out + bi[k]) = wo;
+      *reinterpret_cast<float4*>(m_out + bi[k]) = mo;
+      *reinterpret_cast<float4*>(v_out + bi[k]) = vo;
     }
-    const float g = masked(i) * scale;
-    const float mn = q.beta1 * m[i] + q.one_minus_b1 * g;
-    const float vn = q.beta2 * v[i] + q.one_minus_b2 * (g * g);
-    const float mhat = mn / q.bc1, vhat = vn / q.bc2;
-    w_out[i] = w[i] - q.lr * mhat / (sqrtf(vhat) + q.adam_eps);
-    m_out[i] = mn;
-    v_out[i] = vn;
+  } else if (head) {
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr)
+#pragma unroll
+      for (int k = 0; k < kAdamHeadChunks; ++k) {
+        const int i = hi[rr][k];
+        if (i >= 0)
+          adam_entry(q, hg[rr][k] * scale, hw[rr][k], hm[rr][k], hv[rr][k], w_out[i], m_out[i],
+                     v_out[i]);
+      }
+  } else {
+    for (int i = L.bh + threadIdx.x; i < L.P; i += kAdamThreads) {
+      bool param;
+      const float g = tail_grad(p, L, i, grad, param);
+      if (param) {
+        adam_entry(q, g * scale, w[i], m[i], v[i], w_out[i], m_out[i], v_out[i]);
+      } else {
+        w_out[i] = w[i];
+        m_out[i] = m[i];
+        v_out[i] = v[i];
+      }
+    }
   }
 }
 
-static int check_params(const GradParams* p) {
+// The network's sizes, which every stage reads.
+static bool sizes_ok(const GradParams* p) {
   const bool gauss = p->head == GAUSSIAN;
-  const int na = gauss ? p->act_dim : 1;
-  if ((p->hidden != 32 && p->hidden != 64 && p->hidden != 128 && p->hidden != 256) ||
-      p->obs_dim < 1 || p->obs_dim > kMaxObsD || p->act_dim < 1 ||
-      p->act_dim > (gauss ? kMaxGaussA : kWideMaxA) ||
-      (p->head != GAUSSIAN && p->head != CATEGORICAL) ||
-      (p->compute != FLOAT32 && p->compute != BFLOAT16) ||
+  return (p->hidden == 32 || p->hidden == 64 || p->hidden == 128 || p->hidden == 256) &&
+         p->obs_dim >= 1 && p->obs_dim <= kMaxObsD && p->act_dim >= 1 &&
+         p->act_dim <= (gauss ? kMaxGaussA : kWideMaxA) &&
+         (p->head == GAUSSIAN || p->head == CATEGORICAL);
+}
+
+static int check_params(const GradParams* p) {
+  const int na = p->head == GAUSSIAN ? p->act_dim : 1;
+  if (!sizes_ok(p) || (p->compute != FLOAT32 && p->compute != BFLOAT16) ||
       (p->rows != 8 && p->rows != 16 && p->rows != kMaxRows) || p->obs_dim + na + 4 > p->rows ||
       p->tile < kChunk || p->tile % kChunk || p->num_tiles < 1 || p->n_cols < p->tile ||
       p->n_cols % p->tile)
@@ -1539,14 +1774,21 @@ static int launch_wide(const GradParams* p, const float* data, const int* order,
 template <int H2, bool BF>
 static int launch_dw2c(const GradParams* p, const void* act, float* ws, cudaStream_t st) {
   constexpr int H = H2 / 2, BM = dw_tile(H), tiles = 2 * (H / BM) * (H / BM);
-  const int n_split = ksplit_count((long long)p->num_tiles * p->tile, p->num_tiles * kSplit);
+  const long long n = (long long)p->num_tiles * p->tile;
+  const int n_split = ksplit_count(n, p->num_tiles * kSplit);
   if constexpr (BF) {
-    constexpr size_t bytes = DwBF<BM>::BYTES;
+    constexpr int BB = dw_bf_tile(H);
+    constexpr int per_range = BB > H ? 1 : 2 * (H / BB) * (H / BB);
+    constexpr size_t bytes = DwBF<BB>::BYTES;
+    // h1 then g_p2: one bf16 matrix [2n][2H]
+    CUtensorMap map;
+    const int err = encode_bf16_map(&map, act, 2 * n, H2, kKBlock, 64);
+    if (err) return err;
     const cudaError_t e = cudaFuncSetAttribute(
-        dw2c_split_bf16<BM>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+        dw2c_split_bf16<BB>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (e != cudaSuccess) return (int)e;
-    dw2c_split_bf16<BM><<<tiles * n_split, DwBF<BM>::NT, bytes, st>>>(
-        *p, n_split, static_cast<const __nv_bfloat16*>(act), ws);
+    dw2c_split_bf16<BB><<<per_range * n_split, DwBF<BB>::THREADS, bytes, st>>>(*p, n_split, map,
+                                                                             ws);
   } else {
     constexpr size_t bytes = DwF32<BM>::BYTES;
     const cudaError_t e = cudaFuncSetAttribute(
@@ -1633,6 +1875,28 @@ extern "C" int ppo_grad_launch(const GradParams* p, const float* data, const int
   return grad_stages(p, data, order, w, prep, adv, act, ws, gout, (cudaStream_t)stream);
 }
 
+// Stage 3 in its two launches; parts: adam_plan(...).ctas floats of scratch.
+static int clip_adam_stage(const GradParams* p, const AdamParams* q, const float* gout,
+                           const float* w, const float* m, const float* v, float* w_out,
+                           float* m_out, float* v_out, float* parts, cudaStream_t st) {
+  const AdamPlan a = adam_plan(make_layout(p->obs_dim, 2 * p->hidden, p->act_dim), 2 * p->hidden);
+  clip_norm_parts<<<a.ctas, kAdamThreads, 0, st>>>(*p, gout, parts);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.ctas);
+  cfg.blockDim = dim3(kAdamThreads);
+  cfg.stream = st;
+  cudaLaunchAttribute early[1];
+  early[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  early[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = early;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, clip_adam_apply, *p, *q, gout, w, m, v, w_out, m_out, v_out,
+                         static_cast<const float*>(parts));
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+}
+
 extern "C" int ppo_grad_adam_launch(const GradParams* p, const AdamParams* q, const float* data,
                                     const int* order, const float* w, const float* m,
                                     const float* v, float* prep, void* act, const float* adv,
@@ -1641,8 +1905,23 @@ extern "C" int ppo_grad_adam_launch(const GradParams* p, const AdamParams* q, co
   const cudaStream_t st = (cudaStream_t)stream;
   const int err = grad_stages(p, data, order, w, prep, adv, act, ws, gout, st);
   if (err) return err;
-  clip_adam<<<1, kAdamThreads, 0, st>>>(*p, *q, gout, w, m, v, w_out, m_out, v_out);
-  return (int)cudaGetLastError();
+  // stage 2 has read the workspace: its first entries hold stage 3's partial sums
+  return clip_adam_stage(p, q, gout, w, m, v, w_out, m_out, v_out, ws, st);
+}
+
+// Stage 3 alone, from a merged gradient buffer gout [P + 4] as stage 2 writes
+// it; parts: ppo_clip_adam_ctas(...) floats of scratch.
+extern "C" int ppo_clip_adam_launch(const GradParams* p, const AdamParams* q, const float* gout,
+                                    const float* w, const float* m, const float* v,
+                                    float* w_out, float* m_out, float* v_out, float* parts,
+                                    void* stream) {
+  if (!sizes_ok(p)) return (int)cudaErrorInvalidValue;
+  return clip_adam_stage(p, q, gout, w, m, v, w_out, m_out, v_out, parts, (cudaStream_t)stream);
+}
+
+// The CTAs of stage 3, each with a partial sum of its own in the scratch.
+extern "C" int ppo_clip_adam_ctas(int obs_dim, int hidden, int act_dim) {
+  return adam_plan(make_layout(obs_dim, 2 * hidden, act_dim), 2 * hidden).ctas;
 }
 
 // The two launches of the wide path's stage 1 apart, for timing them and
@@ -1695,5 +1974,12 @@ extern "C" int ppo_grad_ksplit_samples(void) { return kKSplitSamples; }
 extern "C" int ppo_grad_ksplit_count(long long n, int rows) { return ksplit_count(n, rows); }
 
 extern "C" const char* cuda_error_string(int err) {
+  static char msg[96];
+  if (err == kTensorMapError) return "cuTensorMapEncodeTiled not found by the runtime";
+  if (err > kTensorMapError) {
+    snprintf(msg, sizeof msg, "cuTensorMapEncodeTiled failed with CUresult %d",
+             err - kTensorMapError);
+    return msg;
+  }
   return cudaGetErrorString((cudaError_t)err);
 }

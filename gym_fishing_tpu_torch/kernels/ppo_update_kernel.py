@@ -14,9 +14,10 @@ K3 then masks the cross-tower blocks, clips by global norm and applies Adam.
 
 - `fused_minibatch_grad` and `fused_minibatch_grad_adam` are the wrappers:
   on a CUDA tensor they launch ``csrc/ppo_update_kernel.cu`` (and add one to
-  `grad_launches` or `adam_launches`, and on the wide path one to
-  `split_launches` for its ``dw2c_split``), on a CPU tensor they run the
-  twin.
+  `grad_launches` or `adam_launches`, on the wide path one to
+  `split_launches` for its ``dw2c_split``, and under Adam one to
+  `clip_adam_launches` for its stage 3), on a CPU tensor they run the
+  twin. `clip_adam` runs stage 3 alone (`clip_adam_reference` its twin).
 - `fused_minibatch_grad_reference` and `fused_minibatch_grad_adam_reference`
   are the twins: the same arithmetic as plain tensor ops over the gathered
   tiles. Under ``compute="bfloat16"`` the three 2H-contractions (forward
@@ -38,7 +39,9 @@ source's note on numerics has the numbers). Each visited tile is shared by
 `KERNEL_SPLIT` CTAs of 16 warps that walk chunks of `KERNEL_CHUNK` samples;
 every CTA writes one workspace row (`stage1_rows`), stage 2 sums the rows in
 index order (no float atomics: identical calls give identical bits), and
-K3's stage 3 clips and applies Adam in one CTA. Hidden 128 and 256, and
+K3's stage 3 clips and applies Adam over the whole card in two launches
+(per-CTA partial sums of squares, then every CTA sums them in one order
+and updates its run; `clip_adam` runs it alone). Hidden 128 and 256, and
 categorical heads of 17 to `KERNEL_MAX_LOGITS` classes at any hidden size,
 take the kernel's wide path (`wide_path`; ``ppo_grad_wide`` and
 ``csrc/wide_mlp.cuh``): the same grid and workspace rows, every weight
@@ -47,9 +50,10 @@ float32 and on the tensor cores under bfloat16 (bf16 fragments built from
 the float32 activations, float32 sums). There stage 1 writes h1 and g_p2
 once to an activation scratch (`act_scratch`; bf16 under bfloat16), and a
 second kernel, ``dw2c_split``, takes dW2c = h1^T g_p2 per tower as a
-split-K product over ranges of the samples (`split_k_ranges`,
-`split_k_tiles`) into the dW2c blocks of the workspace rows, so stage 2
-and the output stay as they are (`dw2c_split` wraps it alone,
+split-K product over ranges of the samples (`split_k_ranges`;
+`split_k_tiles` under float32, and under bfloat16 operands by TMA into a
+ring of shared-memory stages, products on ``wgmma``) into the dW2c blocks
+of the workspace rows, so stage 2 and the output stay as they are (`dw2c_split` wraps it alone,
 `dw2c_split_reference` is its plain version, and
 `fused_minibatch_grad_split_reference` the whole pipeline's). What bounds
 the kernel beside the products is the float32 work around them: the tanh
@@ -111,6 +115,7 @@ _SOURCE = "ppo_update_kernel"
 grad_launches = 0
 adam_launches = 0
 split_launches = 0   # dw2c_split, launched by K2 and K3 on the wide path
+clip_adam_launches = 0   # K3's stage 3 (clip + Adam), inside each K3 launch or alone
 
 
 class PPOGrads(NamedTuple):
@@ -376,13 +381,61 @@ def fused_minibatch_grad_adam(
                          act_dim, tile, head, compute)
     w, m, v = (flatten_merged(x) for x in (merged_w, merged_m, merged_v))
     outs = [torch.empty_like(w) for _ in range(3)]
-    q = _AdamParams(lr=lr, bc1=bc1, bc2=bc2, max_grad_norm=max_grad_norm, beta1=beta1,
-                    beta2=beta2, one_minus_b1=1.0 - beta1, one_minus_b2=1.0 - beta2,
-                    adam_eps=adam_eps, pad0=0.0)
+    q = _adam_params(lr, bc1, bc2, beta1, beta2, adam_eps, max_grad_norm)
     gout = _launch(data, tile_order, w, adv_stats, hidden, adam=(q, m, v, *outs), **scal)
     adam_launches += 1
     new = tuple(unflatten_merged(o, obs_dim, hidden, act_dim) for o in outs)
     return (*new, gout[-4:])
+
+
+def _adam_params(lr, bc1, bc2, beta1, beta2, adam_eps, max_grad_norm) -> _AdamParams:
+    return _AdamParams(lr=lr, bc1=bc1, bc2=bc2, max_grad_norm=max_grad_norm, beta1=beta1,
+                       beta2=beta2, one_minus_b1=1.0 - beta1, one_minus_b2=1.0 - beta2,
+                       adam_eps=adam_eps, pad0=0.0)
+
+
+def clip_adam(gout, w, m, v, *, obs_dim, hidden, act_dim, head="gaussian", ent_coef, lr, bc1,
+              bc2, beta1=ADAM_B1, beta2=ADAM_B2, adam_eps=ADAM_EPS, max_grad_norm=0.5):
+    """K3's stage 3 alone (the masked global-norm clip and Adam) on flat
+    buffers: from the merged gradients ``gout`` [P + 4] as stage 2 writes
+    them (the 7 merged buffers, then the 4 metric sums, which it does not
+    read) and the flat merged weights and moments ``w``, ``m``, ``v`` [P],
+    returns the new (w, m, v), flat. On a CUDA tensor this launches the
+    kernel's stage 3 (and adds one to `clip_adam_launches`), on a CPU tensor
+    it runs `clip_adam_reference`. A timing and checking aid; the main path
+    runs stage 3 inside `fused_minibatch_grad_adam`."""
+    global clip_adam_launches
+    P = sum(r * c for r, c in merged_shapes(obs_dim, hidden, act_dim))
+    if (gout.shape != (P + 4,) or any(x.shape != (P,) for x in (w, m, v))
+            or any(x.dtype != torch.float32 or x.device != gout.device
+                   for x in (gout, w, m, v))):
+        raise ValueError(f"clip_adam takes float32 gout ({P + 4},) and w, m, v ({P},) on one "
+                         "device")
+    kw = dict(obs_dim=obs_dim, hidden=hidden, act_dim=act_dim, head=head, ent_coef=ent_coef,
+              lr=lr, bc1=bc1, bc2=bc2, beta1=beta1, beta2=beta2, adam_eps=adam_eps,
+              max_grad_norm=max_grad_norm)
+    if gout.device.type == "cpu":
+        return clip_adam_reference(gout, w, m, v, **kw)
+    if not all(x.is_contiguous() and x.data_ptr() % 16 == 0 for x in (gout, w, m, v)):
+        raise ValueError("gout, w, m and v must be contiguous and 16-byte aligned")
+    na = act_dim if head == "gaussian" else 1
+    check_kernel_limits(hidden, obs_dim, act_dim, KERNEL_CHUNK, packed_rows(obs_dim + na + 4),
+                        head)
+    p = _GradParams(clip_eps=0.0, vf_coef=0.0, inv_n=0.0, ent_coef=ent_coef, obs_dim=obs_dim,
+                    act_dim=act_dim, head=HEADS.index(head), compute=0, hidden=hidden, tile=0,
+                    num_tiles=0, rows=0, n_cols=0)
+    q = _adam_params(lr, bc1, bc2, beta1, beta2, adam_eps, max_grad_norm)
+    lib = library()
+    outs = [torch.empty_like(w) for _ in range(3)]
+    parts = torch.empty((lib.ppo_clip_adam_ctas(obs_dim, hidden, act_dim),),
+                        dtype=torch.float32, device=w.device)
+    with torch.cuda.device(w.device):
+        err = lib.ppo_clip_adam_launch(
+            ctypes.addressof(p), ctypes.addressof(q), _ptr(gout), _ptr(w), _ptr(m), _ptr(v),
+            *(_ptr(o) for o in outs), _ptr(parts), torch.cuda.current_stream(w.device).cuda_stream)
+    _build.check(lib, err, "clip_adam launch")
+    clip_adam_launches += 1
+    return tuple(outs)
 
 
 def _grad_params(data, tile_order, hidden, clip_eps, vf_coef, ent_coef, obs_dim, act_dim,
@@ -425,7 +478,9 @@ def split_k_ranges(num_tiles: int, tile: int) -> list:
 def split_k_tiles(hidden: int) -> list:
     """The output tiles of ``dw2c_split``, in CTA order: (tower, first row,
     first column, edge) of each square tile of a tower's [H, H] block of
-    dW2c, the edge ``min(H, 128)``."""
+    dW2c, the edge ``min(H, 128)``. So under float32; under bfloat16 the
+    same at hidden 128 and 256, while at hidden 32 one 64-wide CTA tile covers both
+    towers and writes their blocks."""
     bm = min(hidden, 128)
     nt = hidden // bm
     return [(tw, t // nt * bm, t % nt * bm, bm) for tw in range(2) for t in range(nt * nt)]
@@ -447,7 +502,7 @@ def _launch(data, tile_order, w_flat, adv_stats, hidden, adam=None, **scal):
     into the outputs). Returns the reduced [P + 4] buffer: merged gradients,
     then the 4 metric sums. A tile index outside the data traps the kernel
     (checking it here would sync with the card)."""
-    global split_launches
+    global split_launches, clip_adam_launches
     p, lib, prep, act, ws = _stage1_buffers(data, tile_order, w_flat, hidden, scal)
     n_par = w_flat.numel()
     gout = torch.empty((n_par + 4,), dtype=torch.float32, device=data.device)
@@ -468,6 +523,8 @@ def _launch(data, tile_order, w_flat, adv_stats, hidden, adam=None, **scal):
     _build.check(lib, err, what)
     if act is not None:
         split_launches += 1
+    if adam is not None:
+        clip_adam_launches += 1
     return gout
 
 
@@ -580,6 +637,10 @@ def library() -> ctypes.CDLL:
     lib.ppo_grad_stage1_launch.restype = ctypes.c_int
     lib.ppo_grad_dw2c_launch.argtypes = [ptr] * 4
     lib.ppo_grad_dw2c_launch.restype = ctypes.c_int
+    lib.ppo_clip_adam_launch.argtypes = [ptr] * 11
+    lib.ppo_clip_adam_launch.restype = ctypes.c_int
+    lib.ppo_clip_adam_ctas.argtypes = [ctypes.c_int] * 3
+    lib.ppo_clip_adam_ctas.restype = ctypes.c_int
     lib.ppo_grad_prep_floats.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.ppo_grad_prep_floats.restype = ctypes.c_int
     lib.ppo_grad_act_bytes.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -754,19 +815,27 @@ def fused_minibatch_grad_split_reference(data, tile_order, weights, adv_stats, *
     return _split_grads(g, hidden, act_dim), met
 
 
-def _clip_adam_reference(g, w, m, v, *, head, ent_coef, lr, bc1, bc2, beta1, beta2, adam_eps,
-                         max_grad_norm):
-    """K3's optimizer step on merged triples: masked global-norm clip + Adam."""
-    h = w[2].shape[0] // 2
-    a = w[4].shape[1] - 1
-    m_w2c, m_whc = _block_diag_masks(h, a, w[0].device)
+def _masked_grads(g, head, ent_coef):
+    """The merged gradients as K3's optimizer step reads them (cross-tower
+    blocks masked, the Gaussian entropy term joined to log_std's, the
+    categorical log_std's zero) and their global norm."""
+    h = g[2].shape[0] // 2
+    a = g[4].shape[1] - 1
+    m_w2c, m_whc = _block_diag_masks(h, a, g[0].device)
     gauss = head == "gaussian"
     g = list(g)
     g[2] = g[2] * m_w2c
     g[4] = g[4] * m_whc
     g[6] = g[6] - ent_coef if gauss else torch.zeros_like(g[6])
     n_buf = 7 if gauss else 6
-    norm = torch.sqrt(sum((x * x).sum() for x in g[:n_buf]))
+    return g, torch.sqrt(sum((x * x).sum() for x in g[:n_buf]))
+
+
+def _clip_adam_reference(g, w, m, v, *, head, ent_coef, lr, bc1, bc2, beta1, beta2, adam_eps,
+                         max_grad_norm):
+    """K3's optimizer step on merged triples: masked global-norm clip + Adam."""
+    gauss = head == "gaussian"
+    g, norm = _masked_grads(g, head, ent_coef)
     scale = torch.where(norm < max_grad_norm, torch.ones_like(norm), max_grad_norm / norm)
     new_w, new_m, new_v = [], [], []
     for i in range(7):
@@ -782,6 +851,25 @@ def _clip_adam_reference(g, w, m, v, *, head, ent_coef, lr, bc1, bc2, beta1, bet
         new_m.append(mi)
         new_v.append(vi)
     return tuple(new_w), tuple(new_m), tuple(new_v)
+
+
+def clip_norm_reference(gout, *, obs_dim, hidden, act_dim, head="gaussian", ent_coef):
+    """The global norm that `clip_adam` clips by, of the merged gradient
+    buffer `gout` (P + 4 floats), as a float."""
+    g = unflatten_merged(gout, obs_dim, hidden, act_dim)
+    return float(_masked_grads(g, head, ent_coef)[1])
+
+
+def clip_adam_reference(gout, w, m, v, *, obs_dim, hidden, act_dim, head="gaussian", ent_coef,
+                        lr, bc1, bc2, beta1=ADAM_B1, beta2=ADAM_B2, adam_eps=ADAM_EPS,
+                        max_grad_norm=0.5):
+    """Plain twin of `clip_adam`: `_clip_adam_reference` on the flat buffers'
+    merged views; returns the new (w, m, v), flat."""
+    views = [unflatten_merged(x, obs_dim, hidden, act_dim) for x in (gout, w, m, v)]
+    new = _clip_adam_reference(*views, head=head, ent_coef=ent_coef, lr=lr, bc1=bc1, bc2=bc2,
+                               beta1=beta1, beta2=beta2, adam_eps=adam_eps,
+                               max_grad_norm=max_grad_norm)
+    return tuple(flatten_merged(x) for x in new)
 
 
 def fused_minibatch_grad_reference(data, tile_order, weights, adv_stats, *, clip_eps, vf_coef,

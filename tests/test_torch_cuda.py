@@ -364,29 +364,40 @@ def test_ppo_grad_kernels_match_twin_at_the_wide_widths(cuda, hidden, head, act_
         _assert_buffers_close(got, want)
 
 
+# (hidden, head, act_dim, visited tiles, tile): 24 tiles of 256 samples
+# (three ranges) at every wide size; the main path's minibatch at hidden 256
+# (128 tiles of 2048: 128 ranges, 2 x 2 tiles a tower under bfloat16); and
+# 75 tiles of 512, 19 ranges of 31 or 32 blocks of 64 samples
+SPLIT_CASES = ([(*c, 24, 256) for c in WIDE_CASES]
+               + [(256, "gaussian", None, 128, 2048), (256, "categorical", 100, 128, 2048),
+                  (256, "gaussian", None, 75, 512), (128, "gaussian", None, 75, 512)])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("compute", ["float32", "bfloat16"])
-@pytest.mark.parametrize("hidden,head,act_dim", WIDE_CASES)
-def test_dw2c_split_matches_its_plain_version(cuda, hidden, head, act_dim, compute):
-    """On 24 shuffled tiles of 256 samples (three ranges): the wide path's
-    stage 1 writes h1 and g_p2 in minibatch order as the twin computes them
-    (to float32 rounding; under bfloat16 to one bf16 rounding, 2^-8 of the
-    entry, where a last-bit difference of the float32 value rounds to the
-    neighbouring bf16 value), and dw2c_split's partial of each range, from
-    that scratch, equals `dw2c_split_reference`'s: sums of 2048 products in
-    another order (1e-5 of the range's largest entry; under bfloat16 the
-    tensor cores' truncating accumulator inside blocks of 64 samples, 2e-5).
-    The rows past the ranges, the cross-tower blocks and every entry outside
-    dW2c are left as they were."""
-    weights, data, a = _ppo_case(head, 64 * 256, hidden, seed=5, act_dim=act_dim)
+@pytest.mark.parametrize("hidden,head,act_dim,num_tiles,tile", SPLIT_CASES)
+def test_dw2c_split_matches_its_plain_version(cuda, hidden, head, act_dim, num_tiles, tile,
+                                              compute):
+    """On `num_tiles` shuffled tiles: the wide path's stage 1 writes h1 and
+    g_p2 in minibatch order as the twin computes them (to float32 rounding;
+    under bfloat16 to one bf16 rounding, 2^-8 of the entry, where a last-bit
+    difference of the float32 value rounds to the neighbouring bf16 value),
+    and dw2c_split's partial of each range, from that scratch, equals
+    `dw2c_split_reference`'s: sums of up to 2048 products in another order
+    (1e-5 of the range's largest entry; under bfloat16 the tensor cores'
+    truncating accumulator inside blocks of 64 samples, 2e-5). The rows past
+    the ranges, the cross-tower blocks and every entry outside dW2c are left
+    as they were."""
+    total = max(64, num_tiles * 4 // 3)
+    weights, data, a = _ppo_case(head, total * tile, hidden, seed=5, act_dim=act_dim)
     data, weights = data.to(cuda), tuple(w.to(cuda) for w in weights)
-    order = torch.randperm(64, generator=torch.Generator().manual_seed(1))[:24]
+    order = torch.randperm(total, generator=torch.Generator().manual_seed(1))[:num_tiles]
     order = order.to(cuda, torch.int32)
     stats = torch.tensor([0.05, 1.1], device=cuda)
-    kw = dict(clip_eps=0.2, vf_coef=0.5, ent_coef=0.01, obs_dim=1, act_dim=a, tile=256,
+    kw = dict(clip_eps=0.2, vf_coef=0.5, ent_coef=0.01, obs_dim=1, act_dim=a, tile=tile,
               head=head, compute=compute)
     merged = uk.merge_weights(weights)
-    n, h2 = 24 * 256, 2 * hidden
+    n, h2 = num_tiles * tile, 2 * hidden
     act, ws = uk.wide_stage1(data, order, merged, stats, **kw)
     _, _, h1, gp2 = uk._grad_merged_parts(data, order, merged, stats, **kw)
     torch.cuda.synchronize()
@@ -394,14 +405,14 @@ def test_dw2c_split_matches_its_plain_version(cuda, hidden, head, act_dim, compu
     for got, want in zip(act.float().view(2, n, h2), (h1.T, gp2.T)):
         assert bool(((got - want).abs() <= rel * want.abs() + 1e-5 * float(want.abs().max())
                      + 1e-7).all())
-    ranges = uk.split_k_ranges(24, 256)
-    assert len(ranges) == 3
+    ranges = uk.split_k_ranges(num_tiles, tile)
+    assert len(ranges) == -(-n // 2048)
     out = torch.zeros_like(ws)
     before = uk.split_launches
-    uk.dw2c_split(act, out, hidden=hidden, obs_dim=1, act_dim=a, num_tiles=24, tile=256,
+    uk.dw2c_split(act, out, hidden=hidden, obs_dim=1, act_dim=a, num_tiles=num_tiles, tile=tile,
                   head=head, compute=compute)
     assert uk.split_launches == before + 1
-    part = uk.dw2c_split_reference(*act.float().view(2, n, h2), hidden, 24, 256)
+    part = uk.dw2c_split_reference(*act.float().view(2, n, h2), hidden, num_tiles, tile)
     torch.cuda.synchronize()
     l_w2 = h2 + h2
     w2 = out[:, l_w2:l_w2 + h2 * h2].reshape(-1, h2, h2)
@@ -521,6 +532,63 @@ def test_ppo_grad_adam_kernel_matches_twin(cuda, head, max_grad_norm):
     for got, want in zip(new[1:], ref[1:]):
         _assert_buffers_close(got, want)
     np.testing.assert_allclose(met.cpu().numpy(), met_ref.cpu().numpy(), rtol=2e-4, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_grad_norm", [1e6, 1e-3, "half"])
+@pytest.mark.parametrize("head,act_dim", [("gaussian", None), ("categorical", 100)])
+@pytest.mark.parametrize("hidden", [64, 128, 256])
+def test_clip_adam_matches_its_twin(cuda, hidden, head, act_dim, max_grad_norm):
+    """K3's stage 3 alone (`clip_adam`: the grid-wide masked norm, clip and
+    Adam) equals its twin on the same buffers under the K3 bars (the weights
+    through their update, the moments as they are; the norm is summed in
+    another order), below the clip threshold and clipped, and ("half") from
+    a zero first moment with the threshold at half the norm, where m =
+    (1 - beta1) g scale: a norm off by one CTA's partial sum of squares
+    moves the largest entries of m past the bar; the cross-tower
+    blocks of the new weights and moments stay exactly zero, the
+    categorical log_std and its moments pass through bit for bit, and two
+    launches give the same bits."""
+    weights, _, a = _ppo_case(head, 256, hidden, seed=9, act_dim=act_dim)
+    w = uk.merge_weights(tuple(x.to(cuda) for x in weights))
+    gen = torch.Generator().manual_seed(4)
+    m_w2c, m_whc = uk._block_diag_masks(hidden, a, cuda)
+    masks = [None, None, m_w2c, None, m_whc, None, None]
+    # moments as training leaves them: none on the cross-tower blocks
+    m, v = [], []
+    for x, mask in zip(w, masks):
+        mx = (0.01 * torch.randn(x.shape, generator=gen)).to(cuda)
+        vx = (1e-4 * torch.rand(x.shape, generator=gen)).to(cuda)
+        m.append(mx if mask is None else mx * mask)
+        v.append(vx if mask is None else vx * mask)
+    n_par = sum(x.numel() for x in w)
+    gout = (0.01 * torch.randn(n_par + 4, generator=gen)).to(cuda)
+    flat = [uk.flatten_merged(t) for t in (w, m, v)]
+    kw = dict(obs_dim=1, hidden=hidden, act_dim=a, head=head, ent_coef=0.01, lr=3e-4,
+              bc1=1 - 0.9 ** 5, bc2=1 - 0.999 ** 5, max_grad_norm=max_grad_norm)
+    if max_grad_norm == "half":
+        m = [torch.zeros_like(x) for x in w]
+        flat[1] = uk.flatten_merged(m)
+        kw["max_grad_norm"] = 0.5 * uk.clip_norm_reference(gout, obs_dim=1, hidden=hidden,
+                                                           act_dim=a, head=head, ent_coef=0.01)
+    before = uk.clip_adam_launches
+    got = uk.clip_adam(gout, *flat, **kw)
+    again = uk.clip_adam(gout, *flat, **kw)
+    assert uk.clip_adam_launches == before + 2
+    want = uk.clip_adam_reference(gout, *flat, **kw)
+    torch.cuda.synchronize()
+    for x, y in zip(got, again):
+        assert torch.equal(x, y)
+    new = [uk.unflatten_merged(x, 1, hidden, a) for x in got]
+    ref = [uk.unflatten_merged(x, 1, hidden, a) for x in want]
+    _assert_buffers_close([n - o for n, o in zip(new[0], w)], [r - o for r, o in zip(ref[0], w)])
+    for g_t, r_t in zip(new[1:], ref[1:]):
+        _assert_buffers_close(g_t, r_t)
+    for t in new:
+        assert not bool((t[2] * (1 - m_w2c)).any()) and not bool((t[4] * (1 - m_whc)).any())
+    if head == "categorical":
+        for t, old in zip(new, (w, m, v)):
+            assert torch.equal(t[6], old[6])
 
 
 @pytest.mark.cuda

@@ -362,6 +362,16 @@ def test_measure_ppo_train_on_cpu_when_asked(fused, fused_adam):
                                     "vector_gae": False}
 
 
+def test_measure_ppo_train_takes_the_width_and_env_on_cpu():
+    """The PPO iteration timer at another width and env (a categorical head
+    of 5 classes, K4 + K3), reading every metric after each iteration."""
+    res = measure_ppo_train(num_envs=64, num_steps=32, iters=1, warmup=1, fused="full",
+                            fused_adam=True, device="cpu", hidden=32, env_id="fishing-v0",
+                            env_kwargs={"n_actions": 5}, read_metrics=True)
+    assert res["hidden"] == 32 and res["env"] == "fishing-v0" and res["mode"] == "ppo-full+adam"
+    assert res["ms_per_iter"] > 0 and np.isfinite(res["loss"])
+
+
 def test_ppo_breakdown_reads_the_train_step_ranges_on_cpu():
     from gym_fishing_tpu_torch.bench.profile import RANGES, ppo_breakdown
 

@@ -518,3 +518,65 @@ def test_twin_adam_at_the_wide_widths_matches_jax_kernel(hidden, head):
         for got, want in zip(got_t, want_t):
             np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4, atol=1e-9)
     np.testing.assert_allclose(met.numpy(), np.asarray(j_met), rtol=2e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("max_grad_norm", [1e6, 1e-3, "half"])
+@pytest.mark.parametrize("hidden,head", [(64, "gaussian"), (64, "categorical"),
+                                         (256, "gaussian"), (256, "categorical")])
+def test_clip_adam_alone_matches_k3_and_jax(hidden, head, max_grad_norm):
+    """K3's stage 3 alone (`clip_adam`, here its twin on CPU tensors), from
+    the merged gradients as stage 2 lays them out, equals
+    `fused_minibatch_grad_adam_reference`'s optimizer step bit for bit and
+    JAX's K3 (interpret mode) under test_twin_adam_matches_jax_kernel's bars:
+    one step from non-zero moments at count 5, below and above the clip
+    threshold, and ("half") from a zero first moment with the threshold at
+    half the gradient's masked norm, where m = (1 - beta1) g scale holds the
+    norm in every entry; at hidden 64 and 256, fishing-v1's Gaussian head
+    and 100 classes."""
+    cfg, params, packed, a = _case_wide(head, hidden, seed=7)
+    jw = jk.merge_weights(jfused.kernel_weights(params, head))
+    rng = np.random.default_rng(1)
+    m_np = [0.01 * rng.standard_normal(x.shape).astype(np.float32) for x in jw]
+    v_np = [1e-4 * rng.random(x.shape).astype(np.float32) for x in jw]
+    masks = [np.asarray(x) for x in jk._block_diag_masks(hidden, a)]
+    for arrs in (m_np, v_np):   # no moment on the cross-tower blocks
+        arrs[2] = arrs[2] * masks[0]
+        arrs[4] = arrs[4] * masks[1]
+    order = np.array([1, 0], np.int32)
+    mu, inv_std, lr = 0.03, 0.95, 3e-4
+    bc1, bc2 = 1.0 - 0.9 ** 5, 1.0 - 0.999 ** 5
+    w = tuple(_torch(x) for x in jw)
+    data, order_t, stats = _packed_t(packed), torch.from_numpy(order), torch.tensor([mu, inv_std])
+    kw = dict(clip_eps=cfg.clip_eps, vf_coef=cfg.vf_coef, ent_coef=cfg.ent_coef, obs_dim=1,
+              act_dim=a, tile=128, head=head)
+    g, met = uk._grad_merged_reference(data, order_t, w, stats, compute="float32", **kw)
+    gout = torch.cat([uk.flatten_merged(g), met])
+    if max_grad_norm == "half":
+        m_np = [np.zeros_like(x) for x in m_np]
+        max_grad_norm = 0.5 * uk.clip_norm_reference(gout, obs_dim=1, hidden=hidden, act_dim=a,
+                                                     head=head, ent_coef=cfg.ent_coef)
+    scal = np.zeros(jk.ADAM_NUM_SCALARS, np.float32)
+    scal[:6] = [cfg.clip_eps, cfg.vf_coef, 1.0 / 256, mu, inv_std, cfg.ent_coef]
+    scal[8:11] = [lr, bc1, bc2]
+    j_w, j_m, j_v, _ = jk.fused_minibatch_grad_adam(
+        jfused.pack_feature_major(packed), jnp.asarray(order), jw,
+        tuple(map(jnp.asarray, m_np)), tuple(map(jnp.asarray, v_np)), jnp.asarray(scal),
+        obs_dim=1, act_dim=a, tile=128, head=head, max_grad_norm=max_grad_norm,
+        interpret=True)
+
+    m, v = tuple(map(torch.from_numpy, m_np)), tuple(map(torch.from_numpy, v_np))
+    adam = dict(lr=lr, bc1=bc1, bc2=bc2, max_grad_norm=max_grad_norm)
+    before = uk.clip_adam_launches
+    flat = uk.clip_adam(gout, *(uk.flatten_merged(t) for t in (w, m, v)), obs_dim=1,
+                        hidden=hidden, act_dim=a, head=head, ent_coef=cfg.ent_coef, **adam)
+    assert uk.clip_adam_launches == before   # the twin launches nothing
+    *ref, _ = uk.fused_minibatch_grad_adam_reference(data, order_t, w, m, v, stats, **kw, **adam)
+    for got, want in zip(flat, ref):
+        assert torch.equal(got, uk.flatten_merged(want))
+    new = [uk.unflatten_merged(x, 1, hidden, a) for x in flat]
+    for got, want, old in zip(new[0], j_w, w):   # weights through their ~lr update
+        np.testing.assert_allclose((got - old).numpy(), np.asarray(want) - old.numpy(),
+                                   rtol=1e-3, atol=1e-8)
+    for got_t, want_t in ((new[1], j_m), (new[2], j_v)):
+        for got, want in zip(got_t, want_t):
+            np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4, atol=1e-9)

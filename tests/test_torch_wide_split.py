@@ -48,6 +48,105 @@ def test_split_plan_matches_the_cuda_source():
             "act_dim > kMaxA; }") in src
 
 
+def test_optimizer_and_ring_plans_match_the_cuda_source():
+    """K3's stage 3 cuts the merged buffer into runs of kAdamRun floats (2
+    float4 a thread of kAdamThreads) and blocks of kAdamHeadRows rows of Whc
+    (2 a warp); the bf16 dw2c_split keeps kDwRing stages of one block of
+    KERNEL_KBLOCK samples, at least 4 (the 32 KB of one stage in flight
+    behind the one being read) and within a CTA's shared memory, a CTA a
+    tile of 128 at hidden 128 and 256 (64 below), as ``split_k_tiles``
+    lists them, with no cluster."""
+    from test_torch_device import _cuda_constant
+
+    threads, run, rows = (_cuda_constant(k) for k in ("kAdamThreads", "kAdamRun",
+                                                       "kAdamHeadRows"))
+    assert (threads, run, rows) == (256, 2048, 16)
+    assert run == 8 * threads and rows == 2 * threads // 32
+    ring = _cuda_constant("kDwRing")
+    stage = 2 * 2 * uk.KERNEL_KBLOCK * 64 * 2   # two boxes of h1 and two of g_p2, bf16
+    assert ring == 6 and ring * stage + 1024 <= 232448
+    src = (uk._build.CSRC / "ppo_update_kernel.cu").read_text()
+    assert "constexpr int dw_bf_tile(int H) { return H <= 64 ? 64 : 128; }" in src
+    assert ("const int tile = BM > H ? 0 : blockIdx.x % per_tower, tr = tile >> 1, "
+            "tc = tile & 1;") in src
+    assert [t[3] for t in uk.split_k_tiles(256)] == [128] * 8
+    assert "cluster_ctarank" not in src and "ClusterDimension" not in src
+
+
+def _adam_visits(obs_dim, hidden, act_dim, gauss):
+    """A plain mirror of stage 3's region plan (``body_entry``,
+    ``head_entry`` and ``tail_grad`` in csrc/ppo_update_kernel.cu): (flat
+    index, masked, parameter) of every entry each CTA visits, in the
+    kernel's own terms: float4 runs over W1c, b1c, W2c and b2c with W2c's
+    mask from the float4's first entry by shifts, rows of Whc walked a warp
+    a row in chunks of 32 columns, then bhc and log_std. Returns (indices,
+    masked, parameter, CTAs)."""
+    from test_torch_device import _cuda_constant
+
+    threads, run, rows = (_cuda_constant(k) for k in ("kAdamThreads", "kAdamRun",
+                                                       "kAdamHeadRows"))
+    h, h2, a1 = hidden, 2 * hidden, act_dim + 1
+    w2 = obs_dim * h2 + h2
+    b2 = w2 + h2 * h2
+    wh = b2 + h2
+    bh = wh + h2 * a1
+    ls = bh + a1
+    n_par = ls + act_dim
+    lg = h2.bit_length() - 1
+    assert 1 << lg == h2 and w2 % 4 == 0 and wh % 4 == 0
+    body, head = -(-wh // run), h2 // rows
+    idx, masked, param = [], [], []
+    for cta in range(body):
+        i = cta * run + 4 * np.arange(run // 4)   # k * threads + tid, in float4s
+        i = i[i < wh]
+        e = i - w2
+        cross = (i >= w2) & (i < b2) & (((e >> lg) < h) != ((e & (h2 - 1)) < h))
+        for q in range(4):
+            idx.append(i + q)
+            masked.append(cross)
+            param.append(np.ones_like(cross))
+    for cta in range(head):
+        for warp in range(threads // 32):
+            for rr in range(2):
+                r = cta * rows + 2 * warp + rr
+                c = (np.arange(32)[None, :] + 32 * np.arange(-(-129 // 32))[:, None]).ravel()
+                c = c[c < a1]   # chunk k of 32 columns, lanes 0-31, up to 129 columns
+                keep = c < act_dim if r < h else c == act_dim
+                idx.append(wh + r * a1 + c)
+                masked.append(~keep)
+                param.append(np.ones_like(keep))
+    tail = np.arange(bh, n_par)
+    idx.append(tail)
+    masked.append(np.zeros(tail.shape, bool))
+    param.append((tail < ls) | gauss)
+    return (np.concatenate(idx), np.concatenate(masked), np.concatenate(param),
+            body + head + 1)
+
+
+@pytest.mark.parametrize("obs_dim,hidden,act_dim,head", [
+    (1, 64, 1, "gaussian"), (1, 256, 1, "gaussian"), (1, 256, 100, "categorical"),
+    (6, 128, 3, "gaussian"), (1, 32, 17, "categorical"), (12, 64, 128, "categorical")])
+def test_clip_adam_region_plan_masks_as_the_block_diag_masks(obs_dim, hidden, act_dim, head):
+    """Stage 3's CTAs visit every merged entry exactly once; the entries the
+    plan masks are exactly the cross-tower blocks of `_block_diag_masks`
+    (dW2c and dWhc), everything else passes its gradient through, and the one
+    entry block that is no parameter is the categorical head's log_std."""
+    gauss = head == "gaussian"
+    idx, masked, param, ctas = _adam_visits(obs_dim, hidden, act_dim, gauss)
+    shapes = uk.merged_shapes(obs_dim, hidden, act_dim)
+    n_par = sum(r * c for r, c in shapes)
+    np.testing.assert_array_equal(np.bincount(idx, minlength=n_par), np.ones(n_par, np.int64))
+    order = np.argsort(idx)
+    m_w2c, m_whc = uk._block_diag_masks(hidden, act_dim)
+    keep = uk.flatten_merged([torch.ones(s) for s in shapes[:2]] + [m_w2c, torch.ones(shapes[3]),
+                              m_whc] + [torch.ones(s) for s in shapes[5:]])
+    np.testing.assert_array_equal(masked[order], keep.numpy() == 0)
+    is_ls = np.arange(n_par) >= n_par - act_dim
+    np.testing.assert_array_equal(param[order], ~is_ls | gauss)
+    assert ctas == -(-(n_par - (2 * act_dim + 1) - 2 * hidden * (act_dim + 1))
+                     // 2048) + 2 * hidden // 16 + 1
+
+
 @pytest.mark.parametrize("num_tiles,tile", [(1, 64), (2, 128), (8, 256), (3, 1024), (64, 256),
                                             (128, 2048), (5, 192), (1, 4096)])
 def test_split_ranges_cover_every_sample_once(num_tiles, tile):
