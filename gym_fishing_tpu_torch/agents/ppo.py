@@ -53,6 +53,7 @@ from gym_fishing_tpu_torch.kernels.ppo_update_kernel import (
     LOG_2PI,
     LOG_2PI_E,
 )
+from gym_fishing_tpu_torch.utils.trace import span
 
 if TYPE_CHECKING:
     from gym_fishing_tpu_torch.shard.mesh import Mesh
@@ -478,59 +479,61 @@ def train_step(env: Env, env_params: EnvParams, cfg: PPOConfig, ts: TrainState,
     if cfg.fused_update:
         from gym_fishing_tpu_torch.agents import ppo_fused
 
-    # the two named ranges are what bench/profile.py reads from a trace
-    if cfg.fused_rollout:
-        if not cfg.fused_update:
-            raise NotImplementedError("fused_rollout requires fused_update=True")
-        if env.observation_space.shape != (1,):
-            raise NotImplementedError("fused_rollout supports scalar observations only")
-        if act_noise is not None or env_noise is not None:
-            raise ValueError("the fused rollout takes its draws as rollout_noise planes")
-        with torch.profiler.record_function("train_step/rollout"):
-            roll, bstate = ppo_fused.fused_rollout_collect(env, env_params, cfg, ts, bstate,
-                                                           generator, rollout_noise)
-        packed_t, traj = roll.packed_t, None
-        obs_dim = act_dim = 1
-    else:
-        if rollout_noise is not None:
-            raise ValueError("rollout_noise is the fused rollout's; use act_noise, env_noise")
-        if mesh is not None:
-            envs = mesh.env_slice(cfg.num_envs)
-            if bstate.episode_return.shape[0] != envs.stop - envs.start:
-                raise ValueError(f"bstate holds {bstate.episode_return.shape[0]} envs, not the "
-                                 f"rank's {envs.stop - envs.start} of {cfg.num_envs}")
-            act_noise = None if act_noise is None else act_noise[:, envs]
-            env_noise = None if env_noise is None else env_noise[:, :, envs]
-        with torch.profiler.record_function("train_step/rollout"):
-            bstate, _, traj, last_value = collect_rollout(env, env_params, cfg, ts.model,
-                                                          bstate, generator, act_noise,
-                                                          env_noise, mesh)
-            advantages, returns = compute_gae(cfg, traj, last_value)
-            packed = _pack(traj, advantages, returns)
-        obs_dim = traj.obs.shape[-1]
-        act_dim = packed.shape[1] - obs_dim - 4
-
-    with torch.profiler.record_function("train_step/update"):
-        if cfg.fused_update:
-            head = "gaussian" if continuous else "categorical"
-            kern_act_dim = act_dim if continuous else env.config.n_actions
-            if traj is not None:
-                packed_t = ppo_fused.pack_feature_major(packed)
-            scan = (ppo_fused.fused_epoch_scan_adam if cfg.fused_adam
-                    else ppo_fused.fused_epoch_scan)
-            metrics = scan(cfg, ts, packed_t, obs_dim, kern_act_dim, generator, head=head,
-                           perms=perms)
+    # the spans' names are what the benchmark's trace readers match
+    with span("train_step"):
+        if cfg.fused_rollout:
+            if not cfg.fused_update:
+                raise NotImplementedError("fused_rollout requires fused_update=True")
+            if env.observation_space.shape != (1,):
+                raise NotImplementedError("fused_rollout supports scalar observations only")
+            if act_noise is not None or env_noise is not None:
+                raise ValueError("the fused rollout takes its draws as rollout_noise planes")
+            with span("train_step/rollout"):
+                roll, bstate = ppo_fused.fused_rollout_collect(env, env_params, cfg, ts, bstate,
+                                                               generator, rollout_noise)
+            packed_t, traj = roll.packed_t, None
+            obs_dim = act_dim = 1
         else:
-            metrics = _plain_epochs(cfg, ts, packed, obs_dim, act_dim, continuous, generator,
-                                    perms, mesh)
-    metrics = {k: v.mean() for k, v in metrics.items()}
-    if traj is None:
-        metrics.update(_stats_metrics(roll.stats, cfg.num_steps * cfg.num_envs))
-    elif mesh is None:
-        metrics.update(_episode_metrics(traj))
-    else:
-        metrics.update(_stats_metrics(mesh.all_reduce(_episode_sums(traj)),
-                                      cfg.num_steps * cfg.num_envs))
+            if rollout_noise is not None:
+                raise ValueError("rollout_noise is the fused rollout's; use act_noise, env_noise")
+            if mesh is not None:
+                envs = mesh.env_slice(cfg.num_envs)
+                if bstate.episode_return.shape[0] != envs.stop - envs.start:
+                    raise ValueError(f"bstate holds {bstate.episode_return.shape[0]} envs, not "
+                                     f"the rank's {envs.stop - envs.start} of {cfg.num_envs}")
+                act_noise = None if act_noise is None else act_noise[:, envs]
+                env_noise = None if env_noise is None else env_noise[:, :, envs]
+            with span("train_step/rollout"):
+                bstate, _, traj, last_value = collect_rollout(env, env_params, cfg, ts.model,
+                                                              bstate, generator, act_noise,
+                                                              env_noise, mesh)
+                advantages, returns = compute_gae(cfg, traj, last_value)
+                packed = _pack(traj, advantages, returns)
+            obs_dim = traj.obs.shape[-1]
+            act_dim = packed.shape[1] - obs_dim - 4
+
+        with span("train_step/update"):
+            if cfg.fused_update:
+                head = "gaussian" if continuous else "categorical"
+                kern_act_dim = act_dim if continuous else env.config.n_actions
+                if traj is not None:
+                    packed_t = ppo_fused.pack_feature_major(packed)
+                scan = (ppo_fused.fused_epoch_scan_adam if cfg.fused_adam
+                        else ppo_fused.fused_epoch_scan)
+                metrics = scan(cfg, ts, packed_t, obs_dim, kern_act_dim, generator, head=head,
+                               perms=perms)
+            else:
+                metrics = _plain_epochs(cfg, ts, packed, obs_dim, act_dim, continuous,
+                                        generator, perms, mesh)
+        with span("train_step/metrics"):
+            metrics = {k: v.mean() for k, v in metrics.items()}
+            if traj is None:
+                metrics.update(_stats_metrics(roll.stats, cfg.num_steps * cfg.num_envs))
+            elif mesh is None:
+                metrics.update(_episode_metrics(traj))
+            else:
+                metrics.update(_stats_metrics(mesh.all_reduce(_episode_sums(traj)),
+                                              cfg.num_steps * cfg.num_envs))
     return ts, bstate, metrics
 
 

@@ -44,6 +44,7 @@ from gym_fishing_tpu_torch.kernels.ppo_update_kernel import (
     unmerge_weights,
 )
 from gym_fishing_tpu_torch.shard.mesh import Mesh, fold_rank
+from gym_fishing_tpu_torch.utils.trace import span
 
 
 def _pi_head(head: str) -> str:
@@ -208,29 +209,40 @@ def fused_epoch_scan(cfg, ts, packed_t: torch.Tensor, obs_dim: int, act_dim: int
     metric sums over the local count are the global means. Every rank takes
     the same clip + Adam step. At one rank the buffer is used as the
     collective leaves it, so the step is the single device's bit for bit."""
-    tile, per_mb, tile_sum, tile_sumsq = _tiling(cfg, packed_t, obs_dim, act_dim, head)
+    with span("train_step/update/merge"):
+        tile, per_mb, tile_sum, tile_sumsq = _tiling(cfg, packed_t, obs_dim, act_dim, head)
     n_mb = per_mb * tile * (1 if mesh is None else mesh.world)
     reduce = None
     if mesh is not None:
+        def all_reduce(buf):
+            with span("train_step/update/allreduce"):
+                return mesh.all_reduce(buf)
+
         def reduce(buf):
-            mesh.all_reduce(buf)
+            all_reduce(buf)
             return buf if mesh.world == 1 else buf.mul_(1.0 / mesh.world)
     history = []
     for e in range(cfg.epochs):
         perm = _tile_perm(e, tile_sum.shape[0], generator, perms, packed_t.device)
         for i in range(cfg.num_minibatches):
-            order = perm[i * per_mb:(i + 1) * per_mb]
-            sums = _adv_sums(tile_sum, tile_sumsq, order)
-            if mesh is not None:
-                sums = mesh.all_reduce(sums)
-            grads, mets = fused_grad(
-                ts.params(), packed_t, cfg.clip_eps, cfg.vf_coef, cfg.ent_coef,
-                obs_dim=obs_dim, act_dim=act_dim, tile=tile, tile_order=order,
-                adv_stats=_adv_stats_from_sums(sums, n_mb), head=head,
-                compute=cfg.compute_dtype, reduce=reduce)
-            apply_gradients(ts, grads, cfg)
+            with span("train_step/update/minibatch"):
+                with span("train_step/update/adv_stats"):
+                    order = perm[i * per_mb:(i + 1) * per_mb]
+                    sums = _adv_sums(tile_sum, tile_sumsq, order)
+                    if mesh is not None:
+                        sums = all_reduce(sums)
+                    adv_stats = _adv_stats_from_sums(sums, n_mb)
+                with span("train_step/update/k2"):
+                    grads, mets = fused_grad(
+                        ts.params(), packed_t, cfg.clip_eps, cfg.vf_coef, cfg.ent_coef,
+                        obs_dim=obs_dim, act_dim=act_dim, tile=tile, tile_order=order,
+                        adv_stats=adv_stats, head=head, compute=cfg.compute_dtype,
+                        reduce=reduce)
+                with span("train_step/update/adam"):
+                    apply_gradients(ts, grads, cfg)
             history.append(mets)
-    return {k: torch.stack([h[k] for h in history]) for k in history[0]}
+    with span("train_step/update/metrics"):
+        return {k: torch.stack([h[k] for h in history]) for k in history[0]}
 
 
 def fused_epoch_scan_adam(cfg, ts, packed_t: torch.Tensor, obs_dim: int, act_dim: int,
@@ -255,52 +267,60 @@ def fused_epoch_scan_adam(cfg, ts, packed_t: torch.Tensor, obs_dim: int, act_dim
         raise NotImplementedError("fused_epoch_scan_adam is single-device: the sharded step "
                                   "reduces K2's gradients before the optimizer "
                                   "(fused_epoch_scan(mesh=))")
-    tile, per_mb, tile_sum, tile_sumsq = _tiling(cfg, packed_t, obs_dim, act_dim, head)
-    n_mb = per_mb * tile
-    params = ts.params()
-    log_std0 = params["log_std"].detach().clone() if head == "gaussian" else None
-    w = merge_weights(kernel_weights(params, head))
-    m = merge_weights(kernel_weights(ts.m, head))
-    v = merge_weights(kernel_weights(ts.v, head))
+    with span("train_step/update/merge"):
+        tile, per_mb, tile_sum, tile_sumsq = _tiling(cfg, packed_t, obs_dim, act_dim, head)
+        n_mb = per_mb * tile
+        params = ts.params()
+        log_std0 = params["log_std"].detach().clone() if head == "gaussian" else None
+        w = merge_weights(kernel_weights(params, head))
+        m = merge_weights(kernel_weights(ts.m, head))
+        v = merge_weights(kernel_weights(ts.v, head))
     count = ts.count
     mets = []
     for e in range(cfg.epochs):
         perm = _tile_perm(e, tile_sum.shape[0], generator, perms, packed_t.device)
         for i in range(cfg.num_minibatches):
-            order = perm[i * per_mb:(i + 1) * per_mb]
-            count1 = count + 1
-            w, m, v, met = fused_minibatch_grad_adam(
-                packed_t, order, w, m, v, _adv_stats(tile_sum, tile_sumsq, order, n_mb),
-                clip_eps=cfg.clip_eps, vf_coef=cfg.vf_coef, ent_coef=cfg.ent_coef,
-                lr=learning_rate(cfg, count), bc1=1.0 - ADAM_B1 ** count1,
-                bc2=1.0 - ADAM_B2 ** count1, obs_dim=obs_dim, act_dim=act_dim, tile=tile,
-                head=head, compute=cfg.compute_dtype, max_grad_norm=cfg.max_grad_norm)
+            with span("train_step/update/minibatch"):
+                with span("train_step/update/adv_stats"):
+                    order = perm[i * per_mb:(i + 1) * per_mb]
+                    adv_stats = _adv_stats(tile_sum, tile_sumsq, order, n_mb)
+                count1 = count + 1
+                with span("train_step/update/k3"):
+                    w, m, v, met = fused_minibatch_grad_adam(
+                        packed_t, order, w, m, v, adv_stats, clip_eps=cfg.clip_eps,
+                        vf_coef=cfg.vf_coef, ent_coef=cfg.ent_coef,
+                        lr=learning_rate(cfg, count), bc1=1.0 - ADAM_B1 ** count1,
+                        bc2=1.0 - ADAM_B2 ** count1, obs_dim=obs_dim, act_dim=act_dim,
+                        tile=tile, head=head, compute=cfg.compute_dtype,
+                        max_grad_norm=cfg.max_grad_norm)
             mets.append(met)
             count = count1
 
-    h = params["pi_d1.weight"].shape[0]
-    a = params[f"{_pi_head(head)}.weight"].shape[0]
-    with torch.no_grad():
-        for name, val in params_from_kernel(unmerge_weights(w, h, a), head).items():
-            params[name].copy_(val.reshape(params[name].shape))
-    for store, merged in ((ts.m, m), (ts.v, v)):
-        for name, val in params_from_kernel(unmerge_weights(merged, h, a), head).items():
-            store[name] = val.reshape(params[name].shape).contiguous()
-    ts.count = count
-    ts.step += cfg.epochs * cfg.num_minibatches
+    with span("train_step/update/writeback"):
+        h = params["pi_d1.weight"].shape[0]
+        a = params[f"{_pi_head(head)}.weight"].shape[0]
+        with torch.no_grad():
+            for name, val in params_from_kernel(unmerge_weights(w, h, a), head).items():
+                params[name].copy_(val.reshape(params[name].shape))
+        for store, merged in ((ts.m, m), (ts.v, v)):
+            for name, val in params_from_kernel(unmerge_weights(merged, h, a), head).items():
+                store[name] = val.reshape(params[name].shape).contiguous()
+        ts.count = count
+        ts.step += cfg.epochs * cfg.num_minibatches
 
-    met = torch.stack(mets) / n_mb                       # [E*M, 4]
-    if head == "gaussian":
-        entropy = torch.sum(log_std0 + 0.5 * LOG_2PI_E).expand(met.shape[0])
-    else:
-        entropy = met[:, 3]
-    return {
-        "pg_loss": met[:, 0],
-        "v_loss": met[:, 1],
-        "entropy": entropy,
-        "approx_kl": met[:, 2],
-        "loss": met[:, 0] + cfg.vf_coef * met[:, 1] - cfg.ent_coef * entropy,
-    }
+    with span("train_step/update/metrics"):
+        met = torch.stack(mets) / n_mb                       # [E*M, 4]
+        if head == "gaussian":
+            entropy = torch.sum(log_std0 + 0.5 * LOG_2PI_E).expand(met.shape[0])
+        else:
+            entropy = met[:, 3]
+        return {
+            "pg_loss": met[:, 0],
+            "v_loss": met[:, 1],
+            "entropy": entropy,
+            "approx_kl": met[:, 2],
+            "loss": met[:, 0] + cfg.vf_coef * met[:, 1] - cfg.ent_coef * entropy,
+        }
 
 
 # ------------------------------------------------------------ fused rollout
@@ -394,34 +414,39 @@ def fused_rollout_collect(env, env_params: EnvParams, cfg, ts, bstate: BatchStat
     scheme = env.config.scheme
     head = "gaussian" if scheme == "continuous" else "categorical"
     device = bstate.episode_return.device
-    seed, offset = ((0, 0) if noise is not None
-                    else rollout_seed_offset(generator, device, cfg.num_steps))
-    seed = fold_rank(seed, rank)
-    scalars = rollout_scalars(env_params, seed, offset)
-    roll = policy_rollout(
-        bstate.env.stock.float().contiguous(),
-        bstate.env.t.to(torch.int32).contiguous(),
-        bstate.env.harvest.float().contiguous(),
-        bstate.episode_return.float().contiguous(),
-        bstate.episode_length.to(torch.int32).contiguous(),
-        kernel_weights(ts.params(), head),
-        scalars,
-        cfg.num_steps,
-        growth=env.config.growth,
-        noise_form=env.config.noise_form,
-        gamma=cfg.gamma,
-        gae_lambda=cfg.gae_lambda,
-        scheme=scheme,
-        n_actions=env.config.n_actions,
-        obs_noise=scalars.sigma_m > 0.0,
-        compute=cfg.compute_dtype,
-        fold_obs=cfg.rollout_fold_obs,
-        noise=noise,
-    )
-    dtype = env_params.dtype
-    new_bstate = BatchState(
-        env=EnvState(stock=roll.stock.to(dtype), harvest=roll.harvest.to(dtype), t=roll.t),
-        episode_return=roll.ep_ret.to(dtype),
-        episode_length=roll.ep_len,
-    )
+    with span("train_step/rollout/prep"):
+        seed, offset = ((0, 0) if noise is not None
+                        else rollout_seed_offset(generator, device, cfg.num_steps))
+        seed = fold_rank(seed, rank)
+        scalars = rollout_scalars(env_params, seed, offset)
+        state = (bstate.env.stock.float().contiguous(),
+                 bstate.env.t.to(torch.int32).contiguous(),
+                 bstate.env.harvest.float().contiguous(),
+                 bstate.episode_return.float().contiguous(),
+                 bstate.episode_length.to(torch.int32).contiguous())
+        weights = kernel_weights(ts.params(), head)
+    with span("train_step/rollout/k4"):
+        roll = policy_rollout(
+            *state,
+            weights,
+            scalars,
+            cfg.num_steps,
+            growth=env.config.growth,
+            noise_form=env.config.noise_form,
+            gamma=cfg.gamma,
+            gae_lambda=cfg.gae_lambda,
+            scheme=scheme,
+            n_actions=env.config.n_actions,
+            obs_noise=scalars.sigma_m > 0.0,
+            compute=cfg.compute_dtype,
+            fold_obs=cfg.rollout_fold_obs,
+            noise=noise,
+        )
+    with span("train_step/rollout/state"):
+        dtype = env_params.dtype
+        new_bstate = BatchState(
+            env=EnvState(stock=roll.stock.to(dtype), harvest=roll.harvest.to(dtype), t=roll.t),
+            episode_return=roll.ep_ret.to(dtype),
+            episode_length=roll.ep_len,
+        )
     return roll, new_bstate

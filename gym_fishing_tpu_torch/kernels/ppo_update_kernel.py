@@ -111,6 +111,17 @@ KERNEL_KSPLIT_SAMPLES = 2048    # dw2c_split: samples per range, at most
 
 _SOURCE = "ppo_update_kernel"
 
+# The update's stages by the __global__ kernels that one K2/K3 call launches
+# (csrc/ppo_update_kernel.cu and csrc/wide_mlp.cuh): a host span around the
+# call cannot split them, their names in a device trace can. Every kernel of
+# the two sources is named here once; a test holds the table to the sources.
+KERNEL_STAGES = {
+    "stage1": ("wide_prep", "ppo_grad_tiles", "ppo_grad_wide"),
+    "dw2c": ("dw2c_split_f32", "dw2c_split_bf16"),
+    "reduce": ("reduce_rows",),
+    "optimizer": ("clip_norm_parts", "clip_adam_apply"),
+}
+
 # Kernel launches made by the wrappers (the CPU twin does not count).
 grad_launches = 0
 adam_launches = 0

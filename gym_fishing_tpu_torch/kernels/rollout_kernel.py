@@ -55,6 +55,7 @@ from gym_fishing_tpu_torch.core.types import (
 from gym_fishing_tpu_torch.dynamics.growth import get_growth_fn
 from gym_fishing_tpu_torch.dynamics.noise import apply_process_noise
 from gym_fishing_tpu_torch.kernels import _build
+from gym_fishing_tpu_torch.utils.trace import span
 
 POLICIES = ("escapement", "constant_mortality", "constant")
 SCHEMES = ("continuous", "proportional", "relative")
@@ -228,48 +229,54 @@ def rollout(
     on a CPU tensor it runs `rollout_reference`.
     """
     global launches
-    _check_args(stock, t, ep_ret, harvest, noise, num_steps, growth, noise_form,
-                policy, scheme, n_actions, obs_noise, seed, offset)
-    if stock.device.type == "cpu":
-        return rollout_reference(
-            stock, t, params, policy, policy_param, num_steps, growth=growth,
-            noise_form=noise_form, scheme=scheme, n_actions=n_actions,
-            obs_noise=obs_noise, ep_ret=ep_ret, harvest=harvest, seed=seed,
-            offset=offset, noise=noise,
-        )
-    if stock.device.type != "cuda":
-        raise ValueError(f"rollout runs on CUDA or CPU tensors, not {stock.device}")
-
-    s = _scalars(params, policy_param)
-    B = stock.shape[0]
-    if ep_ret is None:
-        ep_ret = torch.zeros_like(stock)
-    if harvest is None:
-        harvest = torch.full_like(stock, s["init_harvest"])
-    p = _Params(
-        **s, n_actions=n_actions, growth=_GROWTHS.index(growth),
-        noise_form=NOISE_FORMS.index(noise_form), policy=POLICIES.index(policy),
-        scheme=SCHEMES.index(scheme), obs_noise=int(obs_noise), num_steps=num_steps,
-        has_noise=int(noise is not None), num_envs=B, offset=offset, keys=_round_keys(seed),
-    )
-    out_f = [torch.empty_like(stock) for _ in range(5)]  # stock, ep_ret, reward, eps, harvest
-    out_t, out_epc = torch.empty_like(t), torch.empty_like(t)
-    lib = library(configuration(growth, s["model_idx"], noise_form, policy, scheme, obs_noise,
-                                noise is not None, p.r_drift))
-    with torch.cuda.device(stock.device):
-        stream = torch.cuda.current_stream(stock.device).cuda_stream
-        err = lib.rollout_launch(
-            ctypes.addressof(p), stock.data_ptr(), t.data_ptr(), ep_ret.data_ptr(),
-            harvest.data_ptr(), None if noise is None else noise.data_ptr(),
-            out_f[0].data_ptr(), out_t.data_ptr(), out_f[1].data_ptr(),
-            out_f[2].data_ptr(), out_f[3].data_ptr(), out_epc.data_ptr(),
-            out_f[4].data_ptr(), stream,
-        )
-    _build.check(lib, err, "rollout_kernel launch")
-    launches += 1
-    used = 0 if noise is not None else draws_per_call(num_steps, obs_noise)
-    return KernelRollout(out_f[0], out_t, out_f[1], out_f[2], out_f[3], out_epc,
-                         out_f[4], (offset + used) % _U64)
+    with span("rollout_kernel/rollout"):
+        if stock.device.type == "cpu":
+            _check_args(stock, t, ep_ret, harvest, noise, num_steps, growth, noise_form,
+                        policy, scheme, n_actions, obs_noise, seed, offset)
+            return rollout_reference(
+                stock, t, params, policy, policy_param, num_steps, growth=growth,
+                noise_form=noise_form, scheme=scheme, n_actions=n_actions,
+                obs_noise=obs_noise, ep_ret=ep_ret, harvest=harvest, seed=seed,
+                offset=offset, noise=noise,
+            )
+        with span("rollout_kernel/prep"):
+            _check_args(stock, t, ep_ret, harvest, noise, num_steps, growth, noise_form,
+                        policy, scheme, n_actions, obs_noise, seed, offset)
+            if stock.device.type != "cuda":
+                raise ValueError(f"rollout runs on CUDA or CPU tensors, not {stock.device}")
+            s = _scalars(params, policy_param)
+            B = stock.shape[0]
+            if ep_ret is None:
+                ep_ret = torch.zeros_like(stock)
+            if harvest is None:
+                harvest = torch.full_like(stock, s["init_harvest"])
+            p = _Params(
+                **s, n_actions=n_actions, growth=_GROWTHS.index(growth),
+                noise_form=NOISE_FORMS.index(noise_form), policy=POLICIES.index(policy),
+                scheme=SCHEMES.index(scheme), obs_noise=int(obs_noise), num_steps=num_steps,
+                has_noise=int(noise is not None), num_envs=B, offset=offset,
+                keys=_round_keys(seed),
+            )
+            # stock, ep_ret, reward, eps, harvest
+            out_f = [torch.empty_like(stock) for _ in range(5)]
+            out_t, out_epc = torch.empty_like(t), torch.empty_like(t)
+            lib = library(configuration(growth, s["model_idx"], noise_form, policy, scheme,
+                                        obs_noise, noise is not None, p.r_drift))
+        with span("rollout_kernel/launch"):
+            with torch.cuda.device(stock.device):
+                stream = torch.cuda.current_stream(stock.device).cuda_stream
+                err = lib.rollout_launch(
+                    ctypes.addressof(p), stock.data_ptr(), t.data_ptr(), ep_ret.data_ptr(),
+                    harvest.data_ptr(), None if noise is None else noise.data_ptr(),
+                    out_f[0].data_ptr(), out_t.data_ptr(), out_f[1].data_ptr(),
+                    out_f[2].data_ptr(), out_f[3].data_ptr(), out_epc.data_ptr(),
+                    out_f[4].data_ptr(), stream,
+                )
+            _build.check(lib, err, "rollout_kernel launch")
+        launches += 1
+        used = 0 if noise is not None else draws_per_call(num_steps, obs_noise)
+        return KernelRollout(out_f[0], out_t, out_f[1], out_f[2], out_f[3], out_epc,
+                             out_f[4], (offset + used) % _U64)
 
 
 def philox_normals(seed: int, offset: int, num_envs: int, device) -> torch.Tensor:

@@ -30,6 +30,7 @@ from gym_fishing_tpu_torch.agents.ppo import PPOConfig, _stats_metrics
 from gym_fishing_tpu_torch.core.env import Env
 from gym_fishing_tpu_torch.core.types import EnvParams
 from gym_fishing_tpu_torch.shard.mesh import Mesh
+from gym_fishing_tpu_torch.utils.trace import span
 
 
 def make_sharded_fused_train_step(env: Env, env_params: EnvParams, cfg: PPOConfig, mesh: Mesh):
@@ -72,15 +73,18 @@ def make_sharded_fused_train_step(env: Env, env_params: EnvParams, cfg: PPOConfi
         if bstate.episode_return.shape[0] != local_cfg.num_envs:
             raise ValueError(f"bstate holds {bstate.episode_return.shape[0]} envs, not the "
                              f"rank's {local_cfg.num_envs} of {cfg.num_envs}")
-        with torch.profiler.record_function("train_step/rollout"):
-            roll, bstate = ppo_fused.fused_rollout_collect(
-                env, env_params, local_cfg, ts, bstate, generator, rollout_noise, mesh.rank)
-        with torch.profiler.record_function("train_step/update"):
-            metrics = ppo_fused.fused_epoch_scan(local_cfg, ts, roll.packed_t, 1, kern_act_dim,
-                                                 generator, head=head, perms=perms, mesh=mesh)
-        metrics = {k: v.mean() for k, v in metrics.items()}
-        stats = mesh.all_reduce(roll.stats.clone())
-        metrics.update(_stats_metrics(stats, cfg.num_envs * cfg.num_steps))
+        with span("train_step"):
+            with span("train_step/rollout"):
+                roll, bstate = ppo_fused.fused_rollout_collect(
+                    env, env_params, local_cfg, ts, bstate, generator, rollout_noise, mesh.rank)
+            with span("train_step/update"):
+                metrics = ppo_fused.fused_epoch_scan(local_cfg, ts, roll.packed_t, 1,
+                                                     kern_act_dim, generator, head=head,
+                                                     perms=perms, mesh=mesh)
+            with span("train_step/metrics"):
+                metrics = {k: v.mean() for k, v in metrics.items()}
+                stats = mesh.all_reduce(roll.stats.clone())
+                metrics.update(_stats_metrics(stats, cfg.num_envs * cfg.num_steps))
         return ts, bstate, metrics
 
     return step

@@ -22,7 +22,6 @@ import gym_fishing_tpu_torch as gtt
 from gym_fishing_tpu_torch import convert
 from gym_fishing_tpu_torch.agents import ppo
 from gym_fishing_tpu_torch.bench import measure, measure_ppo_train
-from gym_fishing_tpu_torch.bench.profile import ppo_breakdown
 from gym_fishing_tpu_torch.bench.stage1_phases import instrument
 from gym_fishing_tpu_torch.device import resolve
 from gym_fishing_tpu_torch.kernels import _build
@@ -69,8 +68,6 @@ ENTRY_POINTS = {
                                       warmup=0, device=device),
     "measure_ppo_train": lambda device: measure_ppo_train(num_envs=16, num_steps=8, iters=1,
                                                           warmup=0, device=device),
-    "ppo_breakdown": lambda device: ppo_breakdown(num_envs=16, num_steps=8, iters=1, warmup=0,
-                                                  device=device),
 }
 
 

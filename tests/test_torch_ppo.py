@@ -372,21 +372,3 @@ def test_measure_ppo_train_takes_the_width_and_env_on_cpu():
     assert res["ms_per_iter"] > 0 and np.isfinite(res["loss"])
 
 
-def test_ppo_breakdown_reads_the_train_step_ranges_on_cpu():
-    from gym_fishing_tpu_torch.bench.profile import RANGES, ppo_breakdown
-
-    res = ppo_breakdown(num_envs=128, num_steps=8, fused="update", fused_adam=True, iters=1,
-                        device="cpu")
-    assert set(res["ranges"]) == set(RANGES) and res["wall_ms_per_iter"] > 0
-    assert all(r["host_ms"] > 0 for r in res["ranges"].values())
-    # a CPU run measures no device time and says so
-    assert res["device_busy_ms_per_iter"] is None and res["idle_share"] is None
-
-
-def test_ppo_breakdown_takes_the_full_form_on_cpu():
-    from gym_fishing_tpu_torch.bench.profile import RANGES, ppo_breakdown
-
-    res = ppo_breakdown(num_envs=128, num_steps=8, fused="full", fused_adam=True, iters=1,
-                        device="cpu")
-    assert res["mode"] == "ppo-full+adam" and set(res["ranges"]) == set(RANGES)
-    assert all(r["host_ms"] > 0 for r in res["ranges"].values())
