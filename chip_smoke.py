@@ -44,7 +44,9 @@ curve against JAX's. Phases, each of which raises on failure:
    ptxas registers, shared memory and spills, and the tensor-core
    instructions (HMMA) in the policy rollout's machine code: some under
    bfloat16, none under float32; in its wide path's some in every bfloat16
-   instantiation at hidden 64 and above, none in the others;
+   instantiation at hidden 64 and above, none in the others; and in the
+   update kernels' wide stage 1, some in each of ppo_grad_tower's six
+   instantiations, none in ppo_grad_wide's ten;
 8. K2 (fused minibatch gradient) ≡ its twin at full width: numpy-made
    packed data [8, 2^21], one minibatch of 128 random tiles of 2048, both
    heads (fishing-v1 Gaussian, fishing-v0 categorical with 3 actions),
@@ -1823,6 +1825,16 @@ def main():
             fail(f"{fn}: {n_hmma} HMMA instructions under {'bfloat16' if bf16 else 'float32'} "
                  f"at hidden {hidden}")
 
+    # K2/K3's wide stage 1: ppo_grad_tower (bfloat16 at hidden 64 and above,
+    # both BIGD forms) on the tensor cores, ppo_grad_wide (float32 at every
+    # hidden size, bfloat16 at 32) FMA
+    for kernel, n_inst, mma in (("ppo_grad_tower", 6, True), ("ppo_grad_wide", 10, False)):
+        stage1_hmma = hmma_counts(_build, "ppo_update_kernel", kernel)
+        print(f"phase 7: {kernel}, {len(stage1_hmma)} instantiations: HMMA "
+              f"{sorted(stage1_hmma.values())}")
+        if len(stage1_hmma) != n_inst or any((n > 0) != mma for n in stage1_hmma.values()):
+            fail(f"phase 7: {kernel}'s instantiations: {stage1_hmma}")
+
     # ---------------------------------------------------------------- 8
     rng = np.random.default_rng(7)
     cases = {head: ppo_case(ppo, ppo_fused, rng, head, dev) for head in ("gaussian",
@@ -2574,8 +2586,8 @@ def main():
                 wide_bound["K2", key] = wide_bound["K3", key] = update_bound(
                     n_mb, 1, hidden, a, compute, head)
                 # the wide path's two launches apart: stage 1 (wide_prep and
-                # ppo_grad_wide), then dw2c_split from its scratch, held
-                # against its plain version range by range
+                # ppo_grad_wide or ppo_grad_tower), then dw2c_split from its
+                # scratch, held against its plain version range by range
                 act, ws1 = uk.wide_stage1(data, order, w, stats, **kw)
                 split = dict(hidden=hidden, obs_dim=1, act_dim=a, num_tiles=MB_TILES, tile=TILE,
                              head=head, compute=compute)

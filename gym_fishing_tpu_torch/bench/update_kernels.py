@@ -20,8 +20,8 @@ With `--parts` it also times K3's stage 3 alone (`clip_adam`, from K2's
 output; `rollout_instructions.median_ms`, per-call CUDA-event pairs queued behind a
 device-side wait) with its bound, 28 bytes a merged parameter (g, w, m, v read, w,
 m, v written) at 3.35 TB/s, and on the wide path its two stage-1 launches apart,
-the same way as K2 (``wide_prep`` with ``ppo_grad_wide``, `wide_stage1`;
-``dw2c_split`` from its scratch).
+the same way as K2 (``wide_prep`` with ``ppo_grad_wide`` or
+``ppo_grad_tower``, `wide_stage1`; ``dw2c_split`` from its scratch).
 
 With `--ppo` it times whole PPO iterations instead (`measure_ppo_train`, 16384
 envs x 128 steps, 2 warm-up and `--reps` timed iterations, every metric read after

@@ -16,9 +16,11 @@
 //
 // Below them, mma.sync m16n8k16 by hand in the instruction's fixed register
 // layout (mma_16816); warpgroup products on wgmma from swizzled shared memory
-// (wgmma_bf16_mn, for dw2c_split under bfloat16); and tower_mma: the W2c
-// product of the wide paths under bfloat16, shared by the update kernels
-// (ppo_grad_wide) and the policy rollout (policy_rollout_wide).
+// (wgmma_bf16_mn, for dw2c_split under bfloat16); tower_mma: the W2c product
+// of the policy rollout's wide path under bfloat16 (policy_rollout_wide),
+// its B operand from L2; and tower_mma_smem: the update kernels' two W2c
+// products under bfloat16 (ppo_grad_tower), from one tower's block resident
+// in shared memory.
 
 #pragma once
 
@@ -172,8 +174,8 @@ __device__ __forceinline__ unsigned bf16_pair(const __nv_bfloat16* p) {
 }
 
 // Under bfloat16 at hidden 64 and above the wide paths' W2c products run on
-// the tensor cores (tower_mma); at hidden 32 a warp's share of the columns
-// would be half an mma tile, and they stay FMA.
+// the tensor cores (tower_mma in K4, tower_mma_smem in K2/K3); at hidden 32 a
+// warp's share of the columns would be half an mma tile, and they stay FMA.
 template <int H2, bool BF>
 inline constexpr bool kWideMma = BF && H2 >= 128;
 
@@ -185,8 +187,8 @@ inline constexpr bool kWideMma = BF && H2 >= 128;
 // float32 activations rounded to bf16 in registers as they are read (which
 // is what the mode's rounding of the products' inputs defines) or bf16 ones;
 // lda = H2 + 8 elements, so that a half-warp's reads of rows g and columns 2t
-// fall on distinct banks. B is wide_prep's fragment-ordered bf16 copy (FWB,
-// GWB; frag_index), one 8-byte load a lane and n8 tile, from L2. No barrier:
+// fall on distinct banks. B is wide_prep's fragment-ordered bf16 copy (FWB;
+// frag_index), one 8-byte load a lane and n8 tile, from L2. No barrier:
 // a warp reads only its own columns of B, and nothing writes A meanwhile.
 // acc[m][f] holds the entries in mma_16816's C layout: rows 16 m + g
 // (+ 8), columns n0 + 8 f + 2t (+ 1).
@@ -233,4 +235,106 @@ __device__ __forceinline__ void tower_mma_out(const float (&acc)[MT][H2 / 128][4
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         fn(16 * m + g + e / 2 * 8, n0 + 8 * f + 2 * t + e % 2, acc[m][f][e]);
+}
+
+// ldmatrix: two or four 8 x 8 bf16 matrices from shared memory, lane l giving
+// the address of row l % 8 of matrix l / 8 (lanes 0-15 for two). Lane 4 g + t
+// receives row g, columns 2t and 2t + 1 of each matrix (the lower column in
+// the low half), or with .trans column g, rows 2t and 2t + 1: an mma.sync B
+// fragment from a matrix stored n-major, or from one stored k-major.
+template <bool TRANS>
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const __nv_bfloat16* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  if constexpr (TRANS)
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+  else
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+
+template <bool TRANS>
+__device__ __forceinline__ void ldsm_x2(unsigned (&r)[2], const __nv_bfloat16* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  if constexpr (TRANS)
+    asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+                 : "=r"(r[0]), "=r"(r[1]) : "r"(a));
+  else
+    asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+                 : "=r"(r[0]), "=r"(r[1]) : "r"(a));
+}
+
+// Where entry (k, n) of one tower's [H][H] block lies in its resident bf16
+// copy: row k at k H, its 16-byte pieces of 8 columns swizzled, piece c at
+// c ^ (k % 8), so that the 8 rows of an ldmatrix matrix, 8 consecutive k at
+// one piece, fall on the 8 distinct 16-byte bank groups.
+template <int H>
+__device__ __forceinline__ int tower_swz(int k, int n) {
+  return k * H + (((n >> 3) ^ (k & 7)) << 3) + (n & 7);
+}
+
+// A W2c product of the update kernels on the tensor cores, for a CTA of 16
+// warps that holds one tower: acc = A x B for this warp's m16 tile of rows
+// (16 (warp / 8).., samples) and its H / 8 columns n0 = (warp % 8) H / 8..
+// (H / 64 n8 tiles), summed over the tower's H rows of B in k-steps of 16
+// by mma.sync m16n8k16 (bf16 inputs, float32 sums), the k-steps in order,
+// as tower_mma sums them. A is [32][lda] bf16 in shared memory (the
+// activations as the mode rounds them), read through ldmatrix; lda = H + 8,
+// so that the 8 rows of a matrix fall on distinct 16-byte bank groups. B is
+// the tower's W2c block W[k][n] = W2c[tH + k][tH + n] as bf16 in shared
+// memory (tower_swz), read through ldmatrix: the forward product h1 W (B =
+// W, through .trans) and, with BACKWARD, g_p2 W^T (B[k][n] = W[n][k], the
+// same copy read straight). No barrier: nothing writes A or B meanwhile.
+// acc[f] holds the entries in mma_16816's C layout: rows 16 (warp / 8) + g
+// (+ 8), columns n0 + 8 f + 2t (+ 1).
+template <int H, bool BACKWARD>
+__device__ __forceinline__ void tower_mma_smem(const __nv_bfloat16* A, int lda,
+                                               const __nv_bfloat16* B, float (&acc)[H / 64][4]) {
+  constexpr int NT = H / 64, KB = H / 16;
+  static_assert(NT == 1 || NT % 2 == 0, "n8 tiles in pairs");
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int n0 = (warp & 7) * (H / 8);
+  // this lane's ldmatrix row: of A, matrix mi = lane / 8 (rows + 8 (mi % 2),
+  // columns + 8 (mi / 2): a0..a3), row r = lane % 8; of B, matrix mi (its k
+  // half mi % 2 and n8 tile mi / 2 of a pair), row r
+  const int mi = lane >> 3, r = lane & 7;
+#pragma unroll
+  for (int f = 0; f < NT; ++f)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[f][e] = 0.0f;
+  const __nv_bfloat16* a = A + ((warp >> 3) * 16 + (mi & 1) * 8 + r) * lda + (mi >> 1) * 8;
+#pragma unroll 4
+  for (int kb = 0; kb < KB; ++kb) {
+    unsigned af[4];
+    ldsm_x4<false>(af, a + kb * 16);
+#pragma unroll
+    for (int f = 0; f < NT; f += 2) {
+      // forward: row k of W, piece of column n; backward: row n (an output
+      // column) of W, piece of k
+      const int k = kb * 16 + (mi & 1) * 8, n = n0 + 8 * (f + (mi >> 1));
+      const __nv_bfloat16* src = BACKWARD ? B + tower_swz<H>(n + r, k) : B + tower_swz<H>(k + r, n);
+      if constexpr (NT == 1) {
+        unsigned b[2];
+        ldsm_x2<!BACKWARD>(b, src);
+        mma_16816(acc[f], af, b[0], b[1]);
+      } else {
+        unsigned b[4];
+        ldsm_x4<!BACKWARD>(b, src);
+        mma_16816(acc[f], af, b[0], b[1]);
+        mma_16816(acc[f + 1], af, b[2], b[3]);
+      }
+    }
+  }
+}
+
+// Calls fn(row, column, value) for each entry of tower_mma_smem's result
+// held by this thread.
+template <int H, typename Fn>
+__device__ __forceinline__ void tower_mma_smem_out(const float (&acc)[H / 64][4], Fn fn) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int m0 = (warp >> 3) * 16, n0 = (warp & 7) * (H / 8);
+#pragma unroll
+  for (int f = 0; f < H / 64; ++f)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) fn(m0 + g + e / 2 * 8, n0 + 8 * f + 2 * t + e % 2, acc[f][e]);
 }

@@ -1212,7 +1212,7 @@ static int launch(const PolicyRolloutParams* p, const RollArgs& a, unsigned grid
 }
 
 // wide_prep for the wide path at hidden H: the fragment-ordered bf16 copies
-// (FWB, MPB; GWB comes along) where the products run on the tensor cores.
+// (FWB, MPB) where the products run on the tensor cores.
 template <int H, bool BF>
 static int launch_prep(const PolicyRolloutParams* p, const float* w, float* prep,
                        cudaStream_t st) {
@@ -1297,7 +1297,7 @@ extern "C" int policy_rollout_prep_floats(int hidden, int act_dim) {
 // (the wrapper's views of wide_prep's regions).
 extern "C" void policy_rollout_prep_layout(int hidden, int act_dim, int* out) {
   const WidePrep w = wide_prep_layout(hidden, wide_ap(act_dim));
-  const int offs[9] = {w.fw, w.gw, w.mp, w.mt, w.wv, w.fwb, w.gwb, w.mpb, w.total};
+  const int offs[9] = {w.fw, w.gw, w.mp, w.mt, w.wv, w.fwb, w.w2b, w.mpb, w.total};
   for (int i = 0; i < 9; ++i) out[i] = offs[i];
 }
 

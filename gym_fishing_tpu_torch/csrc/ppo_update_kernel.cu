@@ -66,12 +66,26 @@
 //   [G * kSplit, P + 4].
 //   That plan holds hidden 32 and 64 with at most 16 logits. Hidden 128 and
 //   256, and categorical heads of up to 128 classes at any hidden size, take
-//   ppo_grad_wide (below): the same grid and workspace rows, chunks of 32
-//   samples whose activations alone stay in shared memory, every weight
-//   matrix streamed from L2 (under bfloat16 the two W2c products on the
-//   tensor cores), dWhc added chunk by chunk into the CTA's own workspace
-//   row, and h1 and g_p2 written out once, for dW2c as a split-K product
-//   over the whole minibatch (dw2c_split) into the dW2c blocks of the rows.
+//   the wide path: the same grid and workspace rows, chunks of 32 samples,
+//   and h1 and g_p2 written out once, for dW2c as a split-K product over the
+//   whole minibatch (dw2c_split) into the dW2c blocks of the rows.
+//   * float32, and bfloat16 at hidden 32: ppo_grad_wide (below). Only the
+//     activations stay in shared memory; every weight matrix streams from
+//     L2 (FMA products through block_product's slabs), and dWhc is added
+//     chunk by chunk into the CTA's own workspace row.
+//   * bfloat16 at hidden 64 and above: ppo_grad_tower (below). What bounded
+//     ppo_grad_wide there was W2c: both towers' blocks do not fit a CTA
+//     beside the activations, so every chunk read them from L2 for its two
+//     tensor-core products (512 KiB a chunk at hidden 256, ~30k of the
+//     chunk's 72k cycles). The towers are independent in stage 1, so a
+//     tile's two CTAs become its two towers: each keeps its tower's W2c
+//     block (128 KiB bf16 at hidden 256) resident in shared memory for all
+//     the tile's chunks, and both products read it through ldmatrix. The
+//     tower split costs the per-chunk work that does not shrink with the
+//     tower's width (the loss, the head's dots, the chunk's barriers), now
+//     run once a tower, and the two CTAs of a tile do unequal work (the
+//     policy tower carries the head), so the policy CTAs are launched
+//     first.
 // - Stage 2: one thread per gradient entry sums the rows in index order, in
 //   blocks of 16 rows and then the blocks. No float atomics anywhere, so two
 //   identical steps give identical bits. The column sums of stage 1 (db1c,
@@ -712,17 +726,14 @@ __global__ void __launch_bounds__(kThreads, 1)
 // ------------------------------------------------------------------ wide
 // Stage 1 at the widths whose weights do not fit a CTA: hidden 128 and 256,
 // and categorical heads of 17 to 128 classes at any hidden size (the kernel
-// above keeps hidden 32 and 64 with at most 16). Its shared memory holds the
-// activations of a chunk of kWideChunk samples ([S][2H] twice) and every
-// weight matrix streams from L2.
+// above keeps hidden 32 and 64 with at most 16), under float32, and under
+// bfloat16 at hidden 32 (at hidden 64 and above bfloat16 takes
+// ppo_grad_tower, below). Its shared memory holds the activations of a chunk
+// of kWideChunk samples ([S][2H] twice) and every weight matrix streams
+// from L2.
 // - The two W2c products of a chunk (the forward product and g_p1's):
-//   under float32 float32 FMA through block_product's slabs (wide_mlp.cuh),
-//   the towers' W2 blocks side by side and their transposes; under
-//   bfloat16 (hidden 64 and above, kWideMma) mma.sync m16n8k16 (tower_mma):
-//   a warp takes all 32 samples and 2H / 16 columns, its A fragments built
-//   in registers from the float32 activations rounded to bf16, its B
-//   fragments read from L2 out of wide_prep's fragment-ordered bf16 copies
-//   (FWB, GWB), no block barrier inside the product.
+//   float32 FMA through block_product's slabs (wide_mlp.cuh), the towers' W2
+//   blocks side by side and their transposes.
 // - The head's products (Wm padded to whole tiles, its transpose for g_p2)
 //   are float32 FMA through the slabs in both modes.
 // - dW2c (512 KiB at hidden 256) is not summed here: each chunk writes its
@@ -733,11 +744,10 @@ __global__ void __launch_bounds__(kThreads, 1)
 //   own workspace row, which only this CTA writes: no atomics, the same
 //   thread adds the same entries in the same order every chunk, so the bits
 //   stay fixed.
-// Shared memory at hidden 256 (WideSmem<512, BF>): the two activation
-// arrays 130 KiB (row stride 2H + 4 floats; 2H + 8 under bfloat16, 132
-// KiB, for conflict-free A fragments), two 16 KiB slabs, the head outputs
-// 16.5 KiB, the double-buffered sample rows 6 KiB and 12.5 KiB of biases,
-// W1c and sums: 197.6 / 198.6 KiB of the 227 KiB a CTA may have. Per chunk:
+// Shared memory at hidden 256 (WideSmem<512, false>): the two activation
+// arrays 130 KiB (row stride 2H + 4 floats), two 16 KiB slabs, the head
+// outputs 16.5 KiB, the double-buffered sample rows 6 KiB and 12.5 KiB of
+// biases, W1c and sums: 197.6 KiB of the 227 KiB a CTA may have. Per chunk:
 //   h1 (elementwise) | h2 = tanh(h1 W2 + b2) | out = h2 Wm + bh, value by warp
 //   | loss, a warp a sample, the classes over the lanes | dbhc, dWhc, then
 //   g_p2 = (g_top Wm^T) (1 - h2^2) | db2c, h1 and g_p2 out, g_p1 =
@@ -770,14 +780,10 @@ __device__ __forceinline__ void rows_out(const float* src, int lda, void* act, l
 }
 static_assert(kWarps * 2 == kWideChunk, "a warp takes two samples of a chunk in the loss");
 
-// Under bfloat16 at hidden 64 and above the two W2c products of a chunk run
-// on the tensor cores (tower_mma, mma_tiles.cuh, for the chunk's 32 samples:
-// two m16 tiles); at hidden 32 they stay FMA (kWideMma).
-
 template <int H2, bool BF>
 struct WideSmem {
   static constexpr int S = kWideChunk;
-  static constexpr int LDA = kWideMma<H2, BF> ? H2 + 8 : kActLD<H2>;
+  static constexpr int LDA = kActLD<H2>;
   static constexpr int ACT0 = 0;                        // [S][LDA]: h1, then g_p1
   static constexpr int ACT1 = ACT0 + S * LDA;           // [S][LDA]: h2, then g_p2
   static constexpr int SLAB = ACT1 + S * LDA;           // [2][kSlabFloats]
@@ -810,7 +816,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   float* sm = reinterpret_cast<float*>(smem);
   using S_ = WideSmem<H2, BF>;
   constexpr int H = H2 / 2, S = kWideChunk, LDA = S_::LDA, LDO = kWideLDO;
-  constexpr bool MMA = kWideMma<H2, BF>;
+  static_assert(!kWideMma<H2, BF>, "bfloat16 at hidden 64 and above takes ppo_grad_tower");
   // thread tiles: the W2 products [S][H2], g_p2's product [S][H], the head [S][AP]
   constexpr int TC2 = H2 >= 512 ? 8 : 4, TS2 = S * (H2 / TC2) / kThreads;
   constexpr int TCB = H >= 64 ? 4 : 2, TSB = S * (H / TCB) / kThreads;
@@ -823,6 +829,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   float* act1 = sm + S_::ACT1;
   float* slab = sm + S_::SLAB;
   float* out = sm + S_::OUT;
+  __nv_bfloat16* abf = reinterpret_cast<__nv_bfloat16*>(out);   // a product's A as bf16
+  __nv_bfloat16* h_out = static_cast<__nv_bfloat16*>(act);      // the activation scratch
   float* sX = sm + S_::X;
   float* sW1 = sm + S_::W1;
   float* sb1 = sm + S_::B1;
@@ -908,13 +916,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     __syncthreads();
 
     // h2 = tanh(W2c^T h1 + b2c), per tower
-    if constexpr (MMA) {
-      float acc[2][H2 / 128][4];
-      tower_mma<H2>(act0, LDA, reinterpret_cast<const uint2*>(prep + W.fwb), acc);
-      tower_mma_out<H2>(acc, [&](int s, int c, float z) {
-        act1[s * LDA + c] = tanhf(z + sb2[c]);
-      });
-    } else {
+    {
       float acc[TS2][TC2];
       block_product<TS2, TC2, BF, true>(act0, LDA, H, prep + W.fw, H, H2, slab, f_s0, f_c0, true, acc);
 #pragma unroll
@@ -1103,16 +1105,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       rows_out<H2, BF>(act0, LDA, act, m0);
       rows_out<H2, BF>(act1, LDA, act, n_mb + m0);
     }
-    if constexpr (MMA) {
-      __syncthreads();   // every thread's rows_out has read h1
-      float acc[2][H2 / 128][4];
-      tower_mma<H2>(act1, LDA, reinterpret_cast<const uint2*>(prep + W.gwb), acc);
-      tower_mma_out<H2>(acc, [&](int s, int c, float z) {
-        float* hp = act0 + s * LDA + c;
-        const float h = *hp;
-        *hp = z * (1.0f - h * h);
-      });
-    } else {
+    {
       float acc[TS2][TC2];
       block_product<TS2, TC2, BF, true>(act1, LDA, H, prep + W.gw, H, H2, slab, f_s0, f_c0, true, acc);
 #pragma unroll
@@ -1167,6 +1160,671 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (gauss && lane < A) sred[warp * kMet + 4 + lane] = (float)acc_ls;
   __syncthreads();
   if (tid < 4 + (gauss ? A : 0)) {
+    float z = 0.0f;
+    for (int v = 0; v < kWarps; ++v) z += sred[v * kMet + tid];
+    if (tid < 4) {
+      row[L.P + tid] = z;
+    } else {
+      row[L.ls + tid - 4] = z;
+    }
+  }
+}
+
+// ----------------------------------------------------------------- tower
+// Stage 1 of the wide path under bfloat16 at hidden 64 and above
+// (kWideMma<H2, true>): one CTA a tower of a visited tile. Under bfloat16 the
+// W2c products are on the tensor cores, and what bounded ppo_grad_wide there
+// was their B operand: both towers' blocks (256 KiB of bf16 at hidden 256)
+// do not fit a CTA beside the activations, so each chunk of 32 samples read
+// them from L2 twice, 512 KiB a chunk, 4.3 GB a call, its latency inside
+// every k-step of both products. The towers do not depend on each other in
+// stage 1 (the policy tower needs only the log-prob, the surrogate and the
+// entropy; the value tower the value loss; their gradient entries, W1c
+// columns, biases and metric sums are disjoint), so here CTA (tile, tower)
+// holds its tower's block (128 KiB at hidden 256) in shared memory for all
+// the tile's chunks, copied once by cp.async from wide_prep's W2B, and
+// walks every chunk of the tile: the weights cross L2 once a CTA.
+// - The grid is ppo_grad_wide's, num_tiles x kSplit CTAs, one workspace row
+//   each: CTA g < num_tiles takes the policy tower of visited tile g, CTA
+//   num_tiles + g its value tower. A row is zero outside its tower's
+//   entries: W1c's, b1c's and b2c's columns of the tower; the policy block
+//   of Whc, dbhc[0..A-1], dlog_std, and the surrogate, KL and entropy sums;
+//   or the value column of Whc, dbhc[A], the value loss and the value sum.
+//   Its h1 and g_p2 columns go to the activation scratch as ppo_grad_wide's
+//   do, so dw2c_split, reduce_rows and the wrappers are unchanged.
+// - Both W2c products read the one resident copy through ldmatrix
+//   (mma_tiles.cuh::tower_mma_smem): the forward product h1 W2 through
+//   ldmatrix.trans, g_p1 = g_p2 W2^T straight; the copy's 16-byte pieces
+//   are swizzled so that neither conflicts on the banks. Their A operand
+//   (h1, g_p2) is written as bf16 beside its float32 values by the phase
+//   that produces it, into the head outputs' space, which neither product
+//   overlaps; the scratch takes the same bf16 rows. mma.sync m16n8k16, the
+//   k-steps in tower_mma's order, so h2 and g_p1 carry ppo_grad_wide's bits;
+//   a warp takes one m16 tile of samples and H / 8 columns. Not wgmma: with
+//   W2c as its A (M = the tower's columns, N = 32 samples) its accumulators
+//   land transposed to the epilogues' rows, and once resident the products
+//   take ~5k of a tower's ~21k cycles a chunk.
+// - What is left of a chunk is the float32 work around the products: the
+//   tanh of h1 and h2, the head, the loss and the column sums. The head's
+//   operands (Wm, its transpose, the value column) are read from L2 as
+//   before, through L1: the resident block leaves no room for
+//   block_product's slabs (head_product is its sums without them). The
+//   Gaussian head's dWhc block and the value column stay in registers over
+//   the tile; the categorical head's dWhc is added into the row chunk by
+//   chunk, as ppo_grad_wide adds it. A column's sums over a chunk's samples
+//   are split over the threads that share the column.
+// What the tower split costs: the per-chunk phases that do not scale with the
+// tower's width (the loss and the head's dots, a warp two samples; the bias
+// sums) and the chunk's 9 block barriers now run once per tower, and the
+// policy CTA carries the head alone: ~22k cycles a chunk against the value
+// CTA's ~20k at hidden 256 under the Gaussian head, ~128k at 100 classes (its
+// head read from L2 each chunk). The grid's second wave of value CTAs fills
+// in behind the first wave of policy CTAs.
+// Shared memory at hidden 256 (TowerSmem<512>), 231,056 of the 232,448 bytes
+// a CTA may have: the W2c block 131,072 (bf16 [256][256]); the activations
+// 67,584 (float [2][32][264]: h1 then g_p1, h2 then g_p2); the head outputs
+// 16,896 (float [32][132]; during each product its A, bf16 [32][264]: a row
+// stride of 528 bytes puts an ldmatrix's 8 rows on distinct bank groups);
+// the sample rows 6,144 (double-buffered); W1c's columns 4,096; b1c and b2c
+// 2,048; bhc, the value, its gradient, log_std and the warps' sums 2,192;
+// the chunk's observations in float64 1,024. No room is left for the head's
+// 32 KiB of slabs. Per chunk (the barriers
+// between):
+//   h1, its bf16 copy | h2 = tanh(h1 W2 + b2), h1 out | policy: out = h2 Wm
+//   + bh; value: v = h2 wv + bh | loss | policy: dbhc, dWhc; value: dbhc,
+//   dWhc, g_p2 | policy: g_p2 = (g_top Wm^T) (1 - h2^2) | db2c, g_p2 out and
+//   its bf16 copy | g_p1 = (g_p2 W2^T) (1 - h1^2) | db1c, dW1c.
+template <int H2>
+struct TowerSmem {
+  static constexpr int H = H2 / 2, S = kWideChunk;
+  static constexpr int LDA = H + 8;                     // row stride of an activation buffer
+  static constexpr size_t W2_BYTES = 2 * H * H;         // bf16 [H][H], tower_swz
+  // float offsets after the W2c block
+  static constexpr int ACT0 = 0;                        // [S][LDA]: h1, then g_p1
+  static constexpr int ACT1 = ACT0 + S * LDA;           // [S][LDA]: h2, then g_p2
+  // [S][kWideLDO]: head outputs, then g_top; during the products the
+  // product's A as bf16 [S][LDB]
+  static constexpr int OUT = ACT1 + S * LDA;
+  static constexpr int LDB = H + 8;
+  static constexpr int X = OUT + S * kWideLDO;          // [2][kMaxRows][S], double-buffered
+  static constexpr int W1 = X + 2 * kMaxRows * S;       // [kMaxD][H], the tower's columns
+  static constexpr int B1 = W1 + kMaxD * H;
+  static constexpr int B2 = B1 + H;
+  static constexpr int BH = B2 + H;                     // [kWideMaxA + 4]
+  static constexpr int VAL = BH + kWideMaxA + 4;        // [S] value
+  static constexpr int GV = VAL + S;                    // [S] gradient at the value
+  static constexpr int LS = GV + S;                     // [kMaxGaussA]
+  static constexpr int IV = LS + kMaxGaussA;            // [kMaxGaussA] exp(-2 log_std)
+  static constexpr int RED = IV + kMaxGaussA;           // [kWarps][kMet] per-warp sums
+  static constexpr int XD = RED + kWarps * kMet;        // double [kMaxD][S]: x's observations
+  static constexpr int TOTAL = XD + 2 * kMaxD * S;
+  static constexpr size_t BYTES = W2_BYTES + sizeof(float) * TOTAL;
+  static_assert((W2_BYTES + sizeof(float) * XD) % 8 == 0, "aligned doubles");
+  static_assert(LDB % 64 == 8 && W2_BYTES % 16 == 0 && S * LDB * 2 <= S * kWideLDO * 4,
+                "conflict-free ldmatrix rows, aligned rows, A's copy inside OUT");
+};
+static_assert(TowerSmem<512>::BYTES == 231056 && TowerSmem<512>::BYTES <= 232448,
+              "the tower kernel's plan at hidden 256: see the note above");
+static_assert(kSplit == 2, "a tile's CTAs are its two towers");
+
+// The clipped surrogate of one sample from its log-prob: the gradient at the
+// log-prob, and its metric terms, -min(u1, u2) and the KL estimate
+// ratio - 1 - log ratio.
+struct Surrogate {
+  float g_logp, neg_min, kl;
+};
+
+__device__ __forceinline__ Surrogate clipped_surrogate(float logp, float old_logp, float adv_n,
+                                                       float eps, float inv_n) {
+  const float logr = logp - old_logp;
+  const float ratio = expf(logr);
+  const float rc = fminf(fmaxf(ratio, 1.0f - eps), 1.0f + eps);
+  const float u1 = ratio * adv_n, u2 = rc * adv_n;
+  const bool inside = ratio > 1.0f - eps && ratio < 1.0f + eps;
+  return {((u1 <= u2) || inside ? ratio * adv_n : 0.0f) * (-inv_n), -fminf(u1, u2),
+          ratio - 1.0f - logr};
+}
+
+// C[s][c] = sum over k < K of A[s][k] B[k][c] for this thread's TS rows s0..
+// and TC columns c0.., A in shared memory (row stride lda, 16-byte aligned
+// rows), B [K][NB] row-major in global memory, read through L1: the sums of
+// block_product<TS, TC, false, true> (runs of ks rows summed apart, then
+// added), without its slabs or barriers.
+template <int TS, int TC>
+__device__ __forceinline__ void head_product(const float* A, int lda, const float* __restrict__ B,
+                                             int K, int NB, int s0, int c0,
+                                             float (&acc)[TS][TC]) {
+  static_assert(TS <= 4 && TC == 4, "block_product's order");
+  int ks = 32;
+  while (ks > 4 && (K % ks || ks * NB > kSlabFloats)) ks >>= 1;
+#pragma unroll
+  for (int i = 0; i < TS; ++i)
+#pragma unroll
+    for (int c = 0; c < TC; ++c) acc[i][c] = 0.0f;
+  for (int k0 = 0; k0 < K; k0 += ks) {
+    float part[TS][TC];
+#pragma unroll
+    for (int i = 0; i < TS; ++i)
+#pragma unroll
+      for (int c = 0; c < TC; ++c) part[i][c] = 0.0f;
+#pragma unroll 2
+    for (int k = k0; k < k0 + ks; k += 4) {
+      float a[TS][4];
+#pragma unroll
+      for (int i = 0; i < TS; ++i) load_row<4>(A + (s0 + i) * lda + k, a[i]);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float4 b4 = __ldg(reinterpret_cast<const float4*>(B + (size_t)(k + q) * NB + c0));
+        const float b[4] = {b4.x, b4.y, b4.z, b4.w};
+#pragma unroll
+        for (int i = 0; i < TS; ++i)
+#pragma unroll
+          for (int c = 0; c < TC; ++c) part[i][c] = fmaf(a[i][q], b[c], part[i][c]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < TS; ++i)
+#pragma unroll
+      for (int c = 0; c < TC; ++c) acc[i][c] += part[i][c];
+  }
+}
+
+// BIGD: obs_dim above kMaxD, as in ppo_grad_tiles: W1c is read from L2, and
+// dW1c's chunk shares are added into the workspace row.
+template <int H2, bool BIGD>
+__global__ void __launch_bounds__(kThreads, 1)
+    ppo_grad_tower(const GradParams p, const float* __restrict__ data,
+                   const int* __restrict__ order, const float* __restrict__ w,
+                   const float* __restrict__ prep, const float* __restrict__ adv_stats,
+                   void* __restrict__ act, float* __restrict__ ws) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  using S_ = TowerSmem<H2>;
+  constexpr int H = H2 / 2, S = kWideChunk, LDA = S_::LDA, LDB = S_::LDB, LDO = kWideLDO;
+  // thread tiles of the categorical head's products: g_p2 [S][H], the
+  // logits [S][AP]
+  constexpr int TCB = 4, TSB = S * (H / TCB) / kThreads;
+  constexpr int TSF = 2, TCF = 4;
+  static_assert(TSB >= 1 && (S / TSF) * (kWideMaxA / TCF) <= kThreads && H <= kThreads,
+                "tiling");
+  __nv_bfloat16* sW2 = reinterpret_cast<__nv_bfloat16*>(smem);
+  float* sm = reinterpret_cast<float*>(smem + S_::W2_BYTES);
+  float* act0 = sm + S_::ACT0;
+  float* act1 = sm + S_::ACT1;
+  float* out = sm + S_::OUT;
+  __nv_bfloat16* abf = reinterpret_cast<__nv_bfloat16*>(out);   // a product's A as bf16
+  __nv_bfloat16* h_out = static_cast<__nv_bfloat16*>(act);      // the activation scratch
+  float* sX = sm + S_::X;
+  float* sW1 = sm + S_::W1;
+  float* sb1 = sm + S_::B1;
+  float* sb2 = sm + S_::B2;
+  float* sbh = sm + S_::BH;
+  float* sval = sm + S_::VAL;
+  float* sgv = sm + S_::GV;
+  float* sls = sm + S_::LS;
+  float* siv = sm + S_::IV;
+  float* sred = sm + S_::RED;
+  double* sxd = reinterpret_cast<double*>(sm + S_::XD);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int D = p.obs_dim, A = p.act_dim, A1 = A + 1, AP = wide_ap(A);
+  const bool gauss = p.head == GAUSSIAN;
+  const int na = gauss ? A : 1;
+  const Layout L = make_layout(D, H2, A);
+  const WidePrep W = wide_prep_layout(H, AP);
+  const long long N = p.n_cols, n_mb = (long long)p.num_tiles * p.tile;
+  // CTAs 0..G-1 take the policy tower of visited tile blockIdx.x, the rest
+  // the value tower of tile blockIdx.x - G: the heavier policy CTAs fill the
+  // first wave
+  const bool policy = blockIdx.x < p.num_tiles;
+  const int g = policy ? blockIdx.x : blockIdx.x - p.num_tiles;
+  const int tile_idx = order[g];
+  if (tile_idx < 0 || (long long)(tile_idx + 1) * p.tile > N) __trap();
+  const int c0 = policy ? 0 : H;   // the tower's first merged column
+  const int n_chunks = p.tile / S;
+  const long long base = (long long)tile_idx * p.tile;
+  const long long m0 = (long long)g * p.tile;   // the tile's scratch rows
+
+  // the tower's W2c block into shared memory, once (complete at the first
+  // wait below)
+  {
+    constexpr int PIECES = H / 8;   // 16-byte pieces a row
+    const __nv_bfloat16* src =
+        reinterpret_cast<const __nv_bfloat16*>(prep + W.w2b) + (policy ? 0 : H * H);
+    for (int q = tid; q < H * PIECES; q += kThreads) {
+      const int k = q / PIECES, c = q % PIECES;
+      cp_async16(reinterpret_cast<float*>(sW2 + tower_swz<H>(k, 8 * c)),
+                 reinterpret_cast<const float*>(src + k * H + 8 * c));
+    }
+  }
+  // this CTA's workspace row: zero (16-byte stores between the ends), then
+  // its tower's entries
+  float* row = ws + (long long)blockIdx.x * (L.P + 4);
+  {
+    const int n_row = L.P + 4;
+    const unsigned to16 = (0u - (unsigned)(reinterpret_cast<uintptr_t>(row) >> 2)) & 3u;
+    const int lead = min(n_row, (int)to16);
+    const int n4 = (n_row - lead) / 4;
+    for (int i = tid; i < lead; i += kThreads) row[i] = 0.0f;
+    float4* row4 = reinterpret_cast<float4*>(row + lead);
+    for (int i = tid; i < n4; i += kThreads) row4[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int i = lead + 4 * n4 + tid; i < n_row; i += kThreads) row[i] = 0.0f;
+  }
+  if constexpr (!BIGD)
+    for (int i = tid; i < D * H; i += kThreads) sW1[i] = w[L.w1 + i / H * H2 + c0 + i % H];
+  const float* w1 = BIGD ? w + L.w1 + c0 : sW1;
+  const int w1_ld = BIGD ? H2 : H;
+  for (int i = tid; i < H; i += kThreads) {
+    sb1[i] = w[L.b1 + c0 + i];
+    sb2[i] = w[L.b2 + c0 + i];
+  }
+  for (int i = tid; i < A1; i += kThreads) sbh[i] = w[L.bh + i];
+  if (gauss)
+    for (int i = tid; i < A; i += kThreads) {
+      sls[i] = w[L.ls + i];
+      siv[i] = expf(-2.0f * w[L.ls + i]);
+    }
+  const float adv_mu = adv_stats[0], adv_inv_std = adv_stats[1];
+  const float eps = p.clip_eps, inv_n = p.inv_n;
+  const float g_value_scale = p.vf_coef * inv_n, ent_scale = p.ent_coef * inv_n;
+  // the value head's entry of column tid (value tower); this lane's terms
+  // k = lane + 32 i of the head's first dot: the value's, or the first
+  // Gaussian mean's
+  const float wv = !policy && tid < H ? prep[W.wv + tid] : 0.0f;
+  float w_dot[H / 32];
+#pragma unroll
+  for (int i = 0; i < H / 32; ++i)
+    w_dot[i] = policy ? prep[W.mp + (lane + 32 * i) * AP] : prep[W.wv + lane + 32 * i];
+  // the column sums over a chunk's samples: column col of the tower, samples
+  // part, part + kParts, ...
+  constexpr int kParts = kThreads / H;
+  const int col = tid % H, part = tid / H;
+
+  // this thread's tiles of the categorical head's products
+  const int b_s0 = tid / (H / TCB) * TSB, b_c0 = tid % (H / TCB) * TCB;
+  const int ncgf = AP / TCF;
+  const bool h_mine = tid < (S / TSF) * ncgf;
+  const int h_s0 = h_mine ? tid / ncgf * TSF : 0, h_c0 = h_mine ? tid % ncgf * TCF : 0;
+
+  // running sums kept over the chunks, float64 as in ppo_grad_wide: this
+  // thread's part of column col of the tower's db1c, db2c, dW1c; dbhc entry
+  // a on thread kThreads - 1 - a (policy) or A on thread kThreads - 1
+  // (value), threads that own no column; the metric sums of the half-warp's
+  // sample (lanes 0 and 16) and dlog_std (lanes a and 16 + a). Float32,
+  // added chunk by chunk as ppo_grad_wide adds them into the row: the value
+  // tower's entry tid of Whc's value column, and under the Gaussian head the
+  // policy tower's entries tid + j kThreads of Whc's policy block [H][A]
+  // (categorical: added into the row)
+  constexpr int kWhPT = H * kMaxGaussA / kThreads;
+  double acc_b1 = 0.0, acc_b2 = 0.0, acc_bh = 0.0;
+  double acc_w1[kMaxD] = {0.0, 0.0, 0.0, 0.0};
+  double met[4] = {0.0, 0.0, 0.0, 0.0};
+  double acc_ls = 0.0;
+  float acc_wv = 0.0f;
+  float acc_wh[kWhPT];
+#pragma unroll
+  for (int j = 0; j < kWhPT; ++j) acc_wh[j] = 0.0f;
+
+  const int n_elems = p.rows * S;
+  auto fetch = [&](int chunk, float* dst) {
+    const float* src = data + base + (long long)chunk * S;
+    for (int e = tid; e < n_elems; e += kThreads)
+      cp_async4(dst + e, src + (long long)(e / S) * N + e % S);
+  };
+  fetch(0, sX);
+  cp_async_wait_all();
+  __syncthreads();
+
+  for (int chunk = 0; chunk < n_chunks; ++chunk) {
+    const float* x = sX + (chunk & 1) * (kMaxRows * S);
+    if (chunk + 1 < n_chunks) fetch(chunk + 1, sX + ((chunk + 1) & 1) * (kMaxRows * S));
+
+    // h1 = tanh(W1c^T x + b1c), the tower's columns, two a thread, and as
+    // bf16 beside it; the observations in float64 for dW1c
+    if (!BIGD && tid < D * S) sxd[tid] = (double)x[tid];
+    for (int e = tid; e < S * H / 2; e += kThreads) {
+      const int s = e / (H / 2), c = e % (H / 2) * 2;
+      float z[2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        float u = 0.0f;
+        for (int d = 0; d < D; ++d) u = fmaf(w1[d * w1_ld + c + j], x[d * S + s], u);
+        z[j] = tanhf(u + sb1[c + j]);
+      }
+      *reinterpret_cast<float2*>(act0 + s * LDA + c) = make_float2(z[0], z[1]);
+      *reinterpret_cast<unsigned*>(abf + s * LDB + c) = pack_bf16x2(z[0], z[1]);
+    }
+    __syncthreads();
+
+    // h2 = tanh(h1 W2 + b2c), from the resident block; h1 out to the
+    // activation scratch from its bf16 copy
+    {
+      float acc[H / 64][4];
+      tower_mma_smem<H, false>(abf, LDB, sW2, acc);
+      __nv_bfloat16* dst = h_out + (m0 + (long long)chunk * S) * H2 + c0;
+      for (int e = tid; e < S * H / 8; e += kThreads) {
+        const int s = e / (H / 8), c = e % (H / 8) * 8;
+        *reinterpret_cast<uint4*>(dst + (long long)s * H2 + c) =
+            *reinterpret_cast<const uint4*>(abf + s * LDB + c);
+      }
+      tower_mma_smem_out<H>(acc, [&](int s, int c, float z) {
+        act1[s * LDA + c] = tanhf(z + sb2[c]);
+      });
+    }
+    __syncthreads();
+
+    // head: the policy outputs (zero past A) or the value. The categorical
+    // head's logits are one product; the value and the Gaussian head's few
+    // means are warp dots, a warp two samples, each lane H / 32 terms and
+    // then a butterfly
+    if (policy && !gauss) {
+      if (h_mine) {
+        float acc[TSF][TCF];
+        head_product<TSF, TCF>(act1, LDA, prep + W.mp, H, AP, h_s0, h_c0, acc);
+#pragma unroll
+        for (int i = 0; i < TSF; ++i)
+#pragma unroll
+          for (int c = 0; c < TCF; ++c) {
+            const int a = h_c0 + c;
+            out[(h_s0 + i) * LDO + a] = a < A ? acc[i][c] + sbh[a] : 0.0f;
+          }
+      }
+    } else {
+      // the warp's two samples s0, s0 + 1 at once, from one load of the column
+      const int s0 = warp * 2;
+      for (int a = policy ? 0 : A; a < (policy ? A : A1); ++a) {
+        float wk[H / 32];
+#pragma unroll
+        for (int i = 0; i < H / 32; ++i)
+          wk[i] = a == (policy ? 0 : A) ? w_dot[i] : prep[W.mp + (lane + 32 * i) * AP + a];
+        float z0 = 0.0f, z1 = 0.0f;
+#pragma unroll
+        for (int i = 0; i < H / 32; ++i) {
+          z0 = fmaf(act1[s0 * LDA + lane + 32 * i], wk[i], z0);
+          z1 = fmaf(act1[(s0 + 1) * LDA + lane + 32 * i], wk[i], z1);
+        }
+        z0 = warp_sum(z0) + sbh[a];
+        z1 = warp_sum(z1) + sbh[a];
+        if (lane == 0) {
+          if (a < A) {
+            out[s0 * LDO + a] = z0;
+            out[(s0 + 1) * LDO + a] = z1;
+          } else {
+            sval[s0] = z0;
+            sval[s0 + 1] = z1;
+          }
+        }
+      }
+      if (policy)
+        for (int a = A + lane; a < AP; a += 32) {
+          out[s0 * LDO + a] = 0.0f;
+          out[(s0 + 1) * LDO + a] = 0.0f;
+        }
+    }
+    __syncthreads();
+
+    // per-sample loss: the policy tower's surrogate, KL and entropy, and
+    // g_top in place of the head outputs; the value tower's value loss and
+    // the gradient at the value. The value, and the Gaussian head: half-warp
+    // h takes sample s0 + h of the warp's two (lane a of it action column
+    // a). The categorical head: a warp takes its two samples in turn, lane l
+    // the classes l, l + 32, ...
+    const int s0 = warp * 2, hs = s0 + (lane >> 4), la = lane & 15;
+    if (!policy) {
+      if (la == 0) {
+        const float* xs = x + hs;
+        const float old_v = xs[(D + na + 1) * S], ret = xs[(D + na + 3) * S];
+        const float value = sval[hs];
+        const float dv = value - old_v;
+        const float e1 = value - ret;
+        const float e2 = old_v + fminf(fmaxf(dv, -eps), eps) - ret;
+        const bool inside_v = dv > -eps && dv < eps;
+        met[1] += 0.5f * fmaxf(e1 * e1, e2 * e2);
+        if (gauss) met[3] += value;
+        sgv[hs] = (e1 * e1 >= e2 * e2 ? e1 : (inside_v ? e2 : 0.0f)) * g_value_scale;
+      }
+    } else if (gauss) {
+      const float* xs = x + hs;
+      float* o = out + hs * LDO;
+      const float diff = la < A ? xs[(D + la) * S] - o[la] : 0.0f;
+      const float logp = half_warp_sum(
+          la < A ? -0.5f * (diff * diff * siv[la] + 2.0f * sls[la] + LOG_2PI_F) : 0.0f);
+      const Surrogate u = clipped_surrogate(logp, xs[(D + na) * S],
+                                            (xs[(D + na + 2) * S] - adv_mu) * adv_inv_std, eps,
+                                            inv_n);
+      if (la == 0) {
+        met[0] += u.neg_min;
+        met[2] += u.kl;
+      }
+      if (la < A) {
+        o[la] = u.g_logp * diff * siv[la];
+        acc_ls += u.g_logp * (diff * diff * siv[la] - 1.0f);
+      }
+    } else {
+      for (int q = 0; q < 2; ++q) {
+        const int s = s0 + q;
+        const float* xs = x + s;
+        float* o = out + s * LDO;
+        float lp[kWideMaxA / 32];
+        float mx = -CUDART_INF_F;
+#pragma unroll
+        for (int j = 0; j < kWideMaxA / 32; ++j) {
+          const int a = lane + 32 * j;
+          lp[j] = a < A ? o[a] : -CUDART_INF_F;
+          mx = fmaxf(mx, lp[j]);
+        }
+        mx = warp_max(mx);
+        float se = 0.0f;
+#pragma unroll
+        for (int j = 0; j < kWideMaxA / 32; ++j)
+          if (lane + 32 * j < A) se += expf(lp[j] - mx);
+        const float lse = logf(warp_sum(se));
+        const float act = xs[D * S];
+        float pl = 0.0f, pe = 0.0f;
+#pragma unroll
+        for (int j = 0; j < kWideMaxA / 32; ++j) {
+          const int a = lane + 32 * j;
+          if (a < A) {
+            lp[j] = (lp[j] - mx) - lse;
+            if ((float)a == act) pl += lp[j];
+            pe -= expf(lp[j]) * lp[j];
+          }
+        }
+        const float logp = warp_sum(pl), ent = warp_sum(pe);
+        const Surrogate u = clipped_surrogate(logp, xs[(D + na) * S],
+                                              (xs[(D + na + 2) * S] - adv_mu) * adv_inv_std, eps,
+                                              inv_n);
+        if (lane == 0) {
+          met[0] += u.neg_min;
+          met[2] += u.kl;
+          met[3] += ent;
+        }
+#pragma unroll
+        for (int j = 0; j < kWideMaxA / 32; ++j) {
+          const int a = lane + 32 * j;
+          if (a < A) {
+            const float prob = expf(lp[j]);
+            const float onehot = (float)a == act ? 1.0f : 0.0f;
+            o[a] = u.g_logp * (onehot - prob) + ent_scale * prob * (lp[j] + ent);
+          }
+        }
+      }
+    }
+    __syncthreads();
+
+    // head backward. Policy: dbhc, dWhc's policy block (Gaussian: entry
+    // (k, a) = e = tid + j kThreads as e / A, e % A, in registers;
+    // categorical: into the row). Value: dbhc[A], dWhc's value column and
+    // g_p2 = g_v wv (1 - h2^2), thread k column k (it reads h2's column k,
+    // then overwrites it)
+    if (policy) {
+      if (tid >= kThreads - A)
+        for (int s = 0; s < S; ++s) acc_bh += out[s * LDO + kThreads - 1 - tid];
+      if (gauss) {
+#pragma unroll
+        for (int j = 0; j < kWhPT; ++j) {
+          const int e = tid + j * kThreads;
+          if (e < H * A) {
+            const float* h = act1 + e / A;
+            const float* gt = out + e % A;
+            float z = 0.0f;
+#pragma unroll 8
+            for (int s = 0; s < S; ++s) z = fmaf(h[s * LDA], gt[s * LDO], z);
+            acc_wh[j] += z;
+          }
+        }
+      }
+      constexpr int TK = 8, TN = 4;
+      const int n_nt = gauss ? 0 : AP / TN;
+      for (int t = tid; t < (H / TK) * n_nt; t += kThreads) {
+        const int k0 = t / n_nt * TK, a0 = t % n_nt * TN;
+        float acc[TK][TN];
+        outer_tile<TK, TN, false>(act1 + k0, LDA, out + a0, LDO, S, acc);
+#pragma unroll
+        for (int i = 0; i < TK; ++i)
+#pragma unroll
+          for (int j = 0; j < TN; ++j)
+            if (a0 + j < A) row[L.wh + (k0 + i) * A1 + a0 + j] += acc[i][j];
+      }
+    } else {
+      if (tid == kThreads - 1)
+        for (int s = 0; s < S; ++s) acc_bh += sgv[s];
+      if (tid < H) {
+        float z = 0.0f;
+        for (int s = 0; s < S; ++s) z = fmaf(act1[s * LDA + tid], sgv[s], z);
+        acc_wv += z;
+        for (int s = 0; s < S; ++s) {
+          float* hp = act1 + s * LDA + tid;
+          const float h = *hp;
+          *hp = sgv[s] * wv * (1.0f - h * h);
+        }
+      }
+    }
+    __syncthreads();
+
+    // policy: g_p2 = (g_top Wm^T) (1 - h2^2). The Gaussian head's few
+    // classes by thread (col, part), its samples' sums over the classes a
+    // < A in turn (the padding classes add zeros); the categorical head's
+    // as one product
+    if (policy && gauss) {
+      constexpr int SP = S / kParts;
+      float z[SP];
+#pragma unroll
+      for (int i = 0; i < SP; ++i) z[i] = 0.0f;
+      for (int a = 0; a < A; ++a) {
+        const float mt = prep[W.mt + a * H + col];
+#pragma unroll
+        for (int i = 0; i < SP; ++i) z[i] = fmaf(out[(part + i * kParts) * LDO + a], mt, z[i]);
+      }
+#pragma unroll
+      for (int i = 0; i < SP; ++i) {
+        float* hp = act1 + (part + i * kParts) * LDA + col;
+        const float h = *hp;
+        *hp = z[i] * (1.0f - h * h);
+      }
+    } else if (policy) {
+      float acc[TSB][TCB];
+      head_product<TSB, TCB>(out, LDO, prep + W.mt, AP, H, b_s0, b_c0, acc);
+#pragma unroll
+      for (int i = 0; i < TSB; ++i)
+#pragma unroll
+        for (int c = 0; c < TCB; ++c) {
+          float* hp = act1 + (b_s0 + i) * LDA + b_c0 + c;
+          const float h = *hp;
+          *hp = acc[i][c] * (1.0f - h * h);
+        }
+    }
+    __syncthreads();
+
+    // db2c; g_p2 as bf16, out to the activation scratch (dW2c is
+    // dw2c_split's) and beside it for the backward product
+    for (int s = part; s < S; s += kParts) acc_b2 += act1[s * LDA + col];
+    {
+      __nv_bfloat16* dst = h_out + (n_mb + m0 + (long long)chunk * S) * H2 + c0;
+      for (int e = tid; e < S * H / 4; e += kThreads) {
+        const int s = e / (H / 4), c = e % (H / 4) * 4;
+        const float4 v = *reinterpret_cast<const float4*>(act1 + s * LDA + c);
+        const uint2 u = make_uint2(pack_bf16x2(v.x, v.y), pack_bf16x2(v.z, v.w));
+        *reinterpret_cast<uint2*>(abf + s * LDB + c) = u;
+        *reinterpret_cast<uint2*>(dst + (long long)s * H2 + c) = u;
+      }
+    }
+    __syncthreads();
+
+    // g_p1 = (g_p2 W2^T) (1 - h1^2), from the resident block
+    {
+      float acc[H / 64][4];
+      tower_mma_smem<H, true>(abf, LDB, sW2, acc);
+      tower_mma_smem_out<H>(acc, [&](int s, int c, float z) {
+        float* hp = act0 + s * LDA + c;
+        const float h = *hp;
+        *hp = z * (1.0f - h * h);
+      });
+    }
+    __syncthreads();
+
+    // db1c, dW1c
+    for (int s = part; s < S; s += kParts) {
+      const double gp = act0[s * LDA + col];
+      acc_b1 += gp;
+      if constexpr (!BIGD)
+#pragma unroll
+        for (int d = 0; d < kMaxD; ++d)
+          if (d < D) acc_w1[d] = fma(sxd[d * S + s], gp, acc_w1[d]);
+    }
+    if constexpr (BIGD)
+      // entry (d, c) of the chunk's share in float64, added into the row
+      // (which only this thread writes there) with one rounding
+      for (int o = tid; o < D * H; o += kThreads) {
+        const float* xd = x + (o / H) * S;
+        const float* gc = act0 + o % H;
+        double z = 0.0;
+        for (int s = 0; s < S; ++s) z = fma((double)xd[s], (double)gc[s * LDA], z);
+        float* r = row + L.w1 + (o / H) * H2 + c0 + o % H;
+        *r = (float)((double)*r + z);
+      }
+    cp_async_wait_all();
+    __syncthreads();
+  }
+
+  // the register sums into the row: the column sums' parts added in part
+  // order through the activations' space; the warps' metric sums and
+  // dlog_std in warp order
+  double* red = reinterpret_cast<double*>(act0);
+  auto column_sums = [&](double v, float* dst) {
+    __syncthreads();
+    red[tid] = v;
+    __syncthreads();
+    if (tid < H) {
+      double z = red[tid];
+      for (int q = 1; q < kParts; ++q) z += red[q * H + tid];
+      dst[tid] = (float)z;
+    }
+  };
+  column_sums(acc_b1, row + L.b1 + c0);
+  column_sums(acc_b2, row + L.b2 + c0);
+  if constexpr (!BIGD)
+#pragma unroll
+    for (int d = 0; d < kMaxD; ++d)
+      if (d < D) column_sums(acc_w1[d], row + L.w1 + d * H2 + c0);
+  if (!policy && tid < H) row[L.wh + (H + tid) * A1 + A] = acc_wv;
+  if (policy && gauss)
+#pragma unroll
+    for (int j = 0; j < kWhPT; ++j) {
+      const int e = tid + j * kThreads;
+      if (e < H * A) row[L.wh + e / A * A1 + e % A] = acc_wh[j];
+    }
+  if (policy ? tid >= kThreads - A : tid == kThreads - 1)
+    row[L.bh + (policy ? kThreads - 1 - tid : A)] = (float)acc_bh;
+  // the half-warps' sums into lanes 0..15
+#pragma unroll
+  for (int i = 0; i < 4; ++i) met[i] += __shfl_xor_sync(WIDE_FULL_MASK, met[i], 16);
+  acc_ls += __shfl_xor_sync(WIDE_FULL_MASK, acc_ls, 16);
+  if (lane == 0)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) sred[warp * kMet + i] = (float)met[i];
+  if (policy && gauss && lane < A) sred[warp * kMet + 4 + lane] = (float)acc_ls;
+  __syncthreads();
+  if (tid < 4 + (policy && gauss ? A : 0)) {
     float z = 0.0f;
     for (int v = 0; v < kWarps; ++v) z += sred[v * kMet + tid];
     if (tid < 4) {
@@ -1756,18 +2414,30 @@ static int launch_tiles(const GradParams* p, const float* data, const int* order
   return (int)cudaGetLastError();
 }
 
+// The wide path's stage 1: wide_prep, then ppo_grad_tower under bfloat16 at
+// hidden 64 and above (from W2B) and ppo_grad_wide otherwise (from FW, GW).
 template <int H2, bool BF, bool BIGD>
 static int launch_wide(const GradParams* p, const float* data, const int* order, const float* w,
                        float* prep, const float* adv, void* act, float* ws, cudaStream_t st) {
-  constexpr size_t bytes = WideSmem<H2, BF>::BYTES;
-  cudaError_t e = launch_wide_prep(w, p->obs_dim, H2 / 2, p->act_dim, BF, false, prep, st,
-                                   kWideMma<H2, BF>);
+  constexpr bool TOWER = kWideMma<H2, BF>;
+  cudaError_t e = launch_wide_prep(w, p->obs_dim, H2 / 2, p->act_dim, BF, false, prep, st, false,
+                                   false, TOWER);
   if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(ppo_grad_wide<H2, BF, BIGD>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (e != cudaSuccess) return (int)e;
-  ppo_grad_wide<H2, BF, BIGD><<<p->num_tiles * kSplit, kThreads, bytes, st>>>(
-      *p, data, order, w, prep, adv, act, ws);
+  if constexpr (TOWER) {
+    constexpr size_t bytes = TowerSmem<H2>::BYTES;
+    e = cudaFuncSetAttribute(ppo_grad_tower<H2, BIGD>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (e != cudaSuccess) return (int)e;
+    ppo_grad_tower<H2, BIGD><<<p->num_tiles * kSplit, kThreads, bytes, st>>>(
+        *p, data, order, w, prep, adv, act, ws);
+  } else {
+    constexpr size_t bytes = WideSmem<H2, BF>::BYTES;
+    e = cudaFuncSetAttribute(ppo_grad_wide<H2, BF, BIGD>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (e != cudaSuccess) return (int)e;
+    ppo_grad_wide<H2, BF, BIGD><<<p->num_tiles * kSplit, kThreads, bytes, st>>>(
+        *p, data, order, w, prep, adv, act, ws);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -1926,7 +2596,8 @@ extern "C" int ppo_clip_adam_ctas(int obs_dim, int hidden, int act_dim) {
 
 // The two launches of the wide path's stage 1 apart, for timing them and
 // holding dw2c_split against its plain version: wide_prep and ppo_grad_wide
-// (the workspace rows without dW2c, and the activation scratch), then
+// or ppo_grad_tower (the workspace rows without dW2c, and the activation
+// scratch), then
 // dw2c_split alone (the rows' dW2c blocks from the scratch).
 extern "C" int ppo_grad_stage1_launch(const GradParams* p, const float* data, const int* order,
                                       const float* w, float* prep, void* act, const float* adv,
@@ -1946,6 +2617,12 @@ extern "C" int ppo_grad_dw2c_launch(const GradParams* p, const void* act, float*
 }
 
 extern "C" int ppo_grad_params_size(void) { return (int)sizeof(GradParams); }
+
+// Whether stage 1 at these sizes runs ppo_grad_tower (the wrapper counts its
+// launches): the wide path under bfloat16 at hidden 64 and above.
+extern "C" int ppo_grad_tower_path(int hidden, int act_dim, int compute) {
+  return wide_path(hidden, act_dim) && compute == BFLOAT16 && hidden >= 64;
+}
 
 extern "C" int ppo_grad_prep_floats(int hidden, int act_dim) {
   return wide_path(hidden, act_dim) ? wide_prep_layout(hidden, wide_ap(act_dim)).total : 0;

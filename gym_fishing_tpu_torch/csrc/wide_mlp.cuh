@@ -14,11 +14,11 @@
 // FMA; under bfloat16 the inputs that the mode rounds are rounded where they
 // are read (the weights by wide_prep), which is the function the mode
 // defines. Under bfloat16 at hidden 64 and above the W2c products run on the
-// tensor cores instead (mma_tiles.cuh::tower_mma), from bf16 copies of the
-// two W2 operands that wide_prep adds after that layout when asked
-// (bf_copy), in the order of an mma.sync B fragment; K4's policy head there
-// reads a third such copy, of MP (bf_head), which K2/K3 never ask for. dW2c
-// of the update kernels is not a block product at all: see
+// tensor cores instead: K4's (mma_tiles.cuh::tower_mma) from a bf16 copy of
+// FW in the order of an mma.sync B fragment (bf_copy), its policy head from
+// one of MP (bf_head); K2/K3's (ppo_grad_tower) from a bf16 copy of W2c's two
+// tower blocks, row-major (bf_rows), which each CTA keeps in shared memory.
+// dW2c of the update kernels is not a block product at all: see
 // ppo_update_kernel.cu::dw2c_split.
 
 #pragma once
@@ -74,6 +74,13 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// The same over each half-warp (lanes 0-15 and 16-31 apart).
+__device__ __forceinline__ float half_warp_sum(float v) {
+#pragma unroll
+  for (int d = 8; d > 0; d >>= 1) v += __shfl_xor_sync(WIDE_FULL_MASK, v, d);
+  return v;
+}
+
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int d = 16; d > 0; d >>= 1) v = fmaxf(v, __shfl_xor_sync(WIDE_FULL_MASK, v, d));
@@ -85,13 +92,13 @@ __host__ __device__ inline int wide_ap(int A) { return (A + 7) / 8 * 8; }
 
 // Offsets (floats) into wide_prep's output, for tower width H and padded
 // head width AP: FW [H][2H], GW [H][2H], MP [H][AP], MT [AP][H], WV [H],
-// then FWB and GWB, bf16 copies of FW and GW in the order of an mma.sync
-// B fragment (frag_index), 2H x H bf16 each, then MPB, MP's, AP x H bf16.
-// Only K4's wide path writes MPB; K2/K3 size their scratch by the same
-// total and carry its space unused (H AP / 2 floats, 64 KiB at hidden 256
-// and 128 classes).
+// then FWB, a bf16 copy of FW in the order of an mma.sync B fragment
+// (frag_index), 2H x H bf16, then W2B, W2c's tower blocks as bf16 [2][H][H]
+// (W2B[t][k][n] = W2c[t H + k][t H + n], row-major), then MPB, MP's, AP x H
+// bf16. K4's wide path writes FWB and MPB, K2/K3's W2B; each sizes its
+// scratch by the same total and carries the others' space unused.
 struct WidePrep {
-  int fw, gw, mp, mt, wv, fwb, gwb, mpb, total;
+  int fw, gw, mp, mt, wv, fwb, w2b, mpb, total;
 };
 
 __host__ __device__ inline WidePrep wide_prep_layout(int H, int AP) {
@@ -102,8 +109,8 @@ __host__ __device__ inline WidePrep wide_prep_layout(int H, int AP) {
   w.mt = w.mp + H * AP;
   w.wv = w.mt + AP * H;
   w.fwb = w.wv + H;      // a multiple of 4 floats: 8-byte loads
-  w.gwb = w.fwb + H * H;
-  w.mpb = w.gwb + H * H;
+  w.w2b = w.fwb + H * H;   // a multiple of 4 floats: 16-byte copies
+  w.mpb = w.w2b + H * H;
   w.total = w.mpb + H * AP / 2;
   return w;
 }
@@ -125,14 +132,16 @@ __host__ __device__ inline int frag_index(int k, int n, int H) {
 //   MP[k][a] = Whc[k][a], MT[a][k] = Whc[k][a] for a < A, zero for A <= a < AP
 //   WV[k] = Whc[H + k][A]
 // rounded to bf16 where round_w2 (FW, GW) and round_head (MP, MT, WV) say;
-// with bf_copy also FWB and GWB, FW and GW as bf16 (for round_w2 weights, the
-// same values), and with bf_head MPB, MP as bf16 (likewise for round_head).
+// with bf_copy also FWB, FW as bf16 (for round_w2 weights, the same values),
+// with bf_head MPB, MP as bf16 (likewise for round_head), and with bf_rows
+// W2B in place of FW and GW, which nothing on that path reads.
 // The cross-tower blocks of W2c and Whc are zero by construction
 // (merge_weights) and stay so under K3's masked update; the products rely on
 // it, and a non-zero entry traps.
 __global__ void __launch_bounds__(256) wide_prep(const float* __restrict__ w, int D, int H, int A,
                                                  bool round_w2, bool round_head, bool bf_copy,
-                                                 bool bf_head, float* __restrict__ out) {
+                                                 bool bf_head, bool bf_rows,
+                                                 float* __restrict__ out) {
   const int H2 = 2 * H, A1 = A + 1, AP = wide_ap(A);
   const Layout L = make_layout(D, H2, A);
   const WidePrep P = wide_prep_layout(H, AP);
@@ -148,14 +157,16 @@ __global__ void __launch_bounds__(256) wide_prep(const float* __restrict__ w, in
       }
       const float x = round_w2 ? bf16_round(v) : v;
       const int t = r / H, k = r % H, n = c % H;  // W2c[t H + k][t H + n]
+      if (bf_rows) {
+        reinterpret_cast<__nv_bfloat16*>(out + P.w2b)[(t * H + k) * H + n] =
+            __float2bfloat16_rn(x);
+        continue;
+      }
       out[P.fw + k * H2 + t * H + n] = x;
       out[P.gw + n * H2 + t * H + k] = x;
-      if (bf_copy) {
+      if (bf_copy)
         reinterpret_cast<__nv_bfloat16*>(out + P.fwb)[frag_index(k, t * H + n, H)] =
             __float2bfloat16_rn(x);
-        reinterpret_cast<__nv_bfloat16*>(out + P.gwb)[frag_index(n, t * H + k, H)] =
-            __float2bfloat16_rn(x);
-      }
     } else if (i < n_w2 + n_wh) {
       const int q = i - n_w2, r = q / A1, c = q % A1;
       const float v = w[L.wh + q];
@@ -346,9 +357,10 @@ __device__ __forceinline__ void outer_tile(const float* a, int lda, const float*
 // wide_ap(A)).total floats).
 inline cudaError_t launch_wide_prep(const float* w, int D, int H, int A, bool round_w2,
                                     bool round_head, float* out, cudaStream_t st,
-                                    bool bf_copy = false, bool bf_head = false) {
+                                    bool bf_copy = false, bool bf_head = false,
+                                    bool bf_rows = false) {
   const int n = 4 * H * H + 2 * H * (A + 1) + (wide_ap(A) - A) * H;
   wide_prep<<<(n + 255) / 256, 256, 0, st>>>(w, D, H, A, round_w2, round_head, bf_copy, bf_head,
-                                             out);
+                                             bf_rows, out);
   return cudaGetLastError();
 }

@@ -331,9 +331,10 @@ class WidePrep(NamedTuple):
     """``wide_prep``'s output by region, for tower width H and the head
     padded to AP = 8 ceil(A / 8) classes (``csrc/wide_mlp.cuh::wide_prep_layout``
     places them): float32 FW [H][2H], GW [H][2H], MP [H][AP], MT [AP][H]
-    and WV [H], then FWB and GWB (2H x H bf16 each) and MPB (AP x H bf16),
-    bf16 copies of FW, GW and MP in the order of an mma.sync B fragment
-    (`frag_index`)."""
+    and WV [H], then FWB (2H x H bf16) and, after W2B, MPB (AP x H bf16),
+    bf16 copies of FW and MP in the order of an mma.sync B fragment
+    (`frag_index`); W2B, W2c's two tower blocks as bf16 [2][H][H] row-major,
+    is the update kernels' copy, which this wrapper's kernel never writes."""
 
     fw: torch.Tensor
     gw: torch.Tensor
@@ -341,7 +342,7 @@ class WidePrep(NamedTuple):
     mt: torch.Tensor
     wv: torch.Tensor
     fwb: torch.Tensor
-    gwb: torch.Tensor
+    w2b: torch.Tensor
     mpb: torch.Tensor
 
 
@@ -376,8 +377,9 @@ def wide_prep_reference(weights: tuple, compute: str = "float32") -> WidePrep:
     gw = rnd(torch.cat([w2c[:H, :H].T, w2c[H:, H:].T], 1))  # GW[k][t H + n] = W2c[t H + n][t H + k]
     mp = torch.zeros(H, AP)
     mp[:, :A] = rnd(whc[:H, :A])
+    w2b = torch.stack([w2c[:H, :H], w2c[H:, H:]]).reshape(-1).to(torch.bfloat16)
     return WidePrep(fw, gw, mp, mp.T.contiguous(), rnd(whc[H:, A]).contiguous(),
-                    _bf16_copy(fw, H), _bf16_copy(gw, H), _bf16_copy(mp, H))
+                    _bf16_copy(fw, H), w2b, _bf16_copy(mp, H))
 
 
 def wide_prep(weights: tuple, compute: str = "float32") -> WidePrep:

@@ -15,7 +15,8 @@ K3 then masks the cross-tower blocks, clips by global norm and applies Adam.
 - `fused_minibatch_grad` and `fused_minibatch_grad_adam` are the wrappers:
   on a CUDA tensor they launch ``csrc/ppo_update_kernel.cu`` (and add one to
   `grad_launches` or `adam_launches`, on the wide path one to
-  `split_launches` for its ``dw2c_split``, and under Adam one to
+  `split_launches` for its ``dw2c_split`` and, where stage 1 runs
+  ``ppo_grad_tower``, one to `tower_launches`, and under Adam one to
   `clip_adam_launches` for its stage 3), on a CPU tensor they run the
   twin. `clip_adam` runs stage 3 alone (`clip_adam_reference` its twin).
 - `fused_minibatch_grad_reference` and `fused_minibatch_grad_adam_reference`
@@ -43,11 +44,15 @@ K3's stage 3 clips and applies Adam over the whole card in two launches
 (per-CTA partial sums of squares, then every CTA sums them in one order
 and updates its run; `clip_adam` runs it alone). Hidden 128 and 256, and
 categorical heads of 17 to `KERNEL_MAX_LOGITS` classes at any hidden size,
-take the kernel's wide path (`wide_path`; ``ppo_grad_wide`` and
-``csrc/wide_mlp.cuh``): the same grid and workspace rows, every weight
-matrix streamed from L2, the two W2c products as float32 FMA under
-float32 and on the tensor cores under bfloat16 (bf16 fragments built from
-the float32 activations, float32 sums). There stage 1 writes h1 and g_p2
+take the kernel's wide path (`wide_path`; ``ppo_grad_wide``,
+``ppo_grad_tower`` and ``csrc/wide_mlp.cuh``): the same grid and workspace
+rows. Under float32 (and under bfloat16 at hidden 32) ``ppo_grad_wide``
+streams every weight matrix from L2 and runs the two W2c products as
+float32 FMA; under bfloat16 at hidden 64 and above ``ppo_grad_tower`` gives
+each of a tile's two CTAs one tower, whose W2c block stays in its shared
+memory for the whole tile, and runs the two products on the tensor cores
+from it (bf16 fragments built from the float32 activations, float32 sums;
+`tower_path`). There stage 1 writes h1 and g_p2
 once to an activation scratch (`act_scratch`; bf16 under bfloat16), and a
 second kernel, ``dw2c_split``, takes dW2c = h1^T g_p2 per tower as a
 split-K product over ranges of the samples (`split_k_ranges`;
@@ -116,7 +121,7 @@ _SOURCE = "ppo_update_kernel"
 # call cannot split them, their names in a device trace can. Every kernel of
 # the two sources is named here once; a test holds the table to the sources.
 KERNEL_STAGES = {
-    "stage1": ("wide_prep", "ppo_grad_tiles", "ppo_grad_wide"),
+    "stage1": ("wide_prep", "ppo_grad_tiles", "ppo_grad_wide", "ppo_grad_tower"),
     "dw2c": ("dw2c_split_f32", "dw2c_split_bf16"),
     "reduce": ("reduce_rows",),
     "optimizer": ("clip_norm_parts", "clip_adam_apply"),
@@ -126,6 +131,7 @@ KERNEL_STAGES = {
 grad_launches = 0
 adam_launches = 0
 split_launches = 0   # dw2c_split, launched by K2 and K3 on the wide path
+tower_launches = 0   # ppo_grad_tower, K2's and K3's stage 1 where `tower_path` holds
 clip_adam_launches = 0   # K3's stage 3 (clip + Adam), inside each K3 launch or alone
 
 
@@ -468,10 +474,17 @@ def stage1_rows(num_tiles: int) -> int:
 
 
 def wide_path(hidden: int, act_dim: int) -> bool:
-    """Whether the kernel takes its wide path (``ppo_grad_wide`` and
-    ``dw2c_split``): hidden above 64, or more than `KERNEL_MAX_NARROW_LOGITS`
-    outputs of the policy head."""
+    """Whether the kernel takes its wide path (``ppo_grad_wide`` or
+    ``ppo_grad_tower``, then ``dw2c_split``): hidden above 64, or more than
+    `KERNEL_MAX_NARROW_LOGITS` outputs of the policy head."""
     return hidden > 64 or act_dim > KERNEL_MAX_NARROW_LOGITS
+
+
+def tower_path(hidden: int, act_dim: int, compute: str) -> bool:
+    """Whether stage 1 runs ``ppo_grad_tower`` (one CTA a tower, its W2c
+    block resident in shared memory): the wide path under bfloat16 at hidden
+    64 and above. Elsewhere the wide path runs ``ppo_grad_wide``."""
+    return wide_path(hidden, act_dim) and compute == "bfloat16" and hidden >= 64
 
 
 def split_k_ranges(num_tiles: int, tile: int) -> list:
@@ -513,7 +526,7 @@ def _launch(data, tile_order, w_flat, adv_stats, hidden, adam=None, **scal):
     into the outputs). Returns the reduced [P + 4] buffer: merged gradients,
     then the 4 metric sums. A tile index outside the data traps the kernel
     (checking it here would sync with the card)."""
-    global split_launches, clip_adam_launches
+    global split_launches, clip_adam_launches, tower_launches
     p, lib, prep, act, ws = _stage1_buffers(data, tile_order, w_flat, hidden, scal)
     n_par = w_flat.numel()
     gout = torch.empty((n_par + 4,), dtype=torch.float32, device=data.device)
@@ -534,6 +547,8 @@ def _launch(data, tile_order, w_flat, adv_stats, hidden, adam=None, **scal):
     _build.check(lib, err, what)
     if act is not None:
         split_launches += 1
+    if tower_path(hidden, scal["act_dim"], scal["compute"]):
+        tower_launches += 1
     if adam is not None:
         clip_adam_launches += 1
     return gout
@@ -563,10 +578,12 @@ def _stage1_buffers(data, tile_order, w_flat, hidden, scal):
 def wide_stage1(data, tile_order, merged_w, adv_stats, *, clip_eps, vf_coef, ent_coef, obs_dim,
                 act_dim, tile=2048, head="gaussian", compute="float32"):
     """The wide path's stage 1 alone on CUDA tensors (``wide_prep`` and
-    ``ppo_grad_wide``; no ``dw2c_split``, no reduce): returns (activation
+    ``ppo_grad_wide`` or ``ppo_grad_tower``; no ``dw2c_split``, no reduce): returns (activation
     scratch, workspace rows without dW2c). A timing and checking aid for
     `dw2c_split` (chip_smoke.py, the card tests); the main path launches it
-    through `fused_minibatch_grad` and `fused_minibatch_grad_adam`."""
+    through `fused_minibatch_grad` and `fused_minibatch_grad_adam`. Adds one
+    to `tower_launches` where stage 1 is ``ppo_grad_tower``."""
+    global tower_launches
     scal = dict(clip_eps=clip_eps, vf_coef=vf_coef, ent_coef=ent_coef, obs_dim=obs_dim,
                 act_dim=act_dim, tile=tile, head=head, compute=compute)
     hidden = _check(data, tile_order, merged_w, adv_stats, obs_dim, act_dim, tile, head, compute)
@@ -579,7 +596,9 @@ def wide_stage1(data, tile_order, merged_w, adv_stats, *, clip_eps, vf_coef, ent
             ctypes.addressof(p), _ptr(data), _ptr(tile_order), _ptr(w_flat), _ptr(prep),
             _ptr(act), _ptr(adv_stats), _ptr(ws),
             torch.cuda.current_stream(data.device).cuda_stream)
-    _build.check(lib, err, "ppo_grad_wide launch")
+    _build.check(lib, err, "wide stage 1 launch")
+    if tower_path(hidden, act_dim, compute):
+        tower_launches += 1
     return act, ws
 
 
@@ -652,6 +671,8 @@ def library() -> ctypes.CDLL:
     lib.ppo_clip_adam_launch.restype = ctypes.c_int
     lib.ppo_clip_adam_ctas.argtypes = [ctypes.c_int] * 3
     lib.ppo_clip_adam_ctas.restype = ctypes.c_int
+    lib.ppo_grad_tower_path.argtypes = [ctypes.c_int] * 3
+    lib.ppo_grad_tower_path.restype = ctypes.c_int
     lib.ppo_grad_prep_floats.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.ppo_grad_prep_floats.restype = ctypes.c_int
     lib.ppo_grad_act_bytes.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,

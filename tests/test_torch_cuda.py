@@ -284,7 +284,7 @@ def test_ppo_grad_kernels_take_16_and_24_rows(cuda, head, obs_dim, act_dim, rows
 @pytest.mark.parametrize("obs_dim,rows", [(6, 16), (12, 24), (19, 24)])
 @pytest.mark.parametrize("hidden,head,act_dim", [
     (64, "gaussian", None), (64, "categorical", None),     # ppo_grad_tiles
-    (256, "gaussian", None), (64, "categorical", 100),     # ppo_grad_wide
+    (256, "gaussian", None), (64, "categorical", 100),     # the wide path
 ])
 def test_ppo_grad_kernels_take_long_observations(cuda, hidden, head, act_dim, obs_dim, rows,
                                                  compute):
@@ -328,7 +328,7 @@ def test_ppo_grad_kernel_refuses_32_rows_before_the_launch(cuda):
 
 WIDE_CASES = [(128, "gaussian", None), (256, "gaussian", None), (128, "categorical", 100),
               (256, "categorical", 100), (64, "categorical", 100), (32, "categorical", 17),
-              (256, "categorical", 128)]
+              (256, "categorical", 128), (128, "categorical", 17), (256, "categorical", 17)]
 
 
 @pytest.mark.cuda
@@ -337,14 +337,16 @@ WIDE_CASES = [(128, "gaussian", None), (256, "gaussian", None), (128, "categoric
 def test_ppo_grad_kernels_match_twin_at_the_wide_widths(cuda, hidden, head, act_dim, compute):
     """Hidden 128 and 256, and categorical heads of 17 to 128 classes at any
     hidden size, take the wide path: K2 and K3 equal their twins there under
-    the bars above."""
+    the bars above, each launching ``ppo_grad_tower`` where `tower_path`
+    says (bfloat16 at hidden 64 and above), and a second K3 step from the
+    same inputs gives the same bits."""
     weights, data, a = _ppo_case(head, 64 * 256, hidden, seed=5, act_dim=act_dim)
     data, weights = data.to(cuda), tuple(w.to(cuda) for w in weights)
     order = torch.tensor([9, 0, 63, 17, 5, 40, 33, 2], dtype=torch.int32, device=cuda)
     adv_stats = torch.tensor([0.05, 1.1], device=cuda)
     kw = dict(clip_eps=0.2, vf_coef=0.5, ent_coef=0.01, obs_dim=1, act_dim=a, tile=256,
               head=head, compute=compute)
-    before = uk.grad_launches, uk.adam_launches
+    before = uk.grad_launches, uk.adam_launches, uk.tower_launches
     g, met = uk.fused_minibatch_grad(data, order, weights, adv_stats, **kw)
     g_ref, met_ref = uk.fused_minibatch_grad_reference(data, order, weights, adv_stats, **kw)
     w = uk.merge_weights(weights)
@@ -354,8 +356,14 @@ def test_ppo_grad_kernels_match_twin_at_the_wide_widths(cuda, hidden, head, act_
     akw = dict(kw, lr=3e-4, bc1=1 - 0.9 ** 5, bc2=1 - 0.999 ** 5, max_grad_norm=0.5)
     *new, met_a = uk.fused_minibatch_grad_adam(data, order, w, m, v, adv_stats, **akw)
     *ref, _ = uk.fused_minibatch_grad_adam_reference(data, order, w, m, v, adv_stats, **akw)
-    assert (uk.grad_launches, uk.adam_launches) == (before[0] + 1, before[1] + 1)
+    towers = 2 if uk.tower_path(hidden, a, compute) else 0
+    assert (uk.grad_launches, uk.adam_launches, uk.tower_launches) == (
+        before[0] + 1, before[1] + 1, before[2] + towers)
+    *again, met_b = uk.fused_minibatch_grad_adam(data, order, w, m, v, adv_stats, **akw)
     torch.cuda.synchronize()
+    for x, y in zip([t for group in new for t in group] + [met_a],
+                    [t for group in again for t in group] + [met_b]):
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32))
     _assert_buffers_close(g, g_ref)
     np.testing.assert_allclose(met.cpu().numpy(), met_ref.cpu().numpy(), rtol=2e-4, atol=1e-6)
     np.testing.assert_array_equal(met_a.cpu().numpy(), met.cpu().numpy())
@@ -423,6 +431,18 @@ def test_dw2c_split_matches_its_plain_version(cuda, hidden, head, act_dim, num_t
     for j in range(len(ranges)):
         err = float((w2[j] - part[j]).abs().max())
         assert err <= bar * float(part[j].abs().max()) + 1e-7, (j, err)
+
+
+@pytest.mark.cuda
+def test_tower_path_agrees_with_the_library(cuda):
+    """The wrapper counts ``ppo_grad_tower``'s launches by `tower_path`; the
+    library launches it at the same sizes."""
+    lib = uk.library()
+    for hidden in uk.KERNEL_HIDDEN:
+        for act_dim in (1, 3, 16, 17, 100, 128):
+            for ci, compute in enumerate(uk.COMPUTES):
+                assert bool(lib.ppo_grad_tower_path(hidden, act_dim, ci)) == uk.tower_path(
+                    hidden, act_dim, compute), (hidden, act_dim, compute)
 
 
 @pytest.mark.cuda
@@ -868,11 +888,11 @@ def test_policy_rollout_kernel_is_deterministic(cuda, env_id, overrides, hidden,
 def test_wide_prep_lays_out_the_weights_as_its_plain_version(cuda, hidden, n_actions, compute):
     """wide_prep's regions, at the offsets the library exports, bit for bit
     against wide_prep_reference, and its fragment-ordered bf16 copies (FWB,
-    GWB, MPB; written where the wide path runs on the tensor cores, bfloat16
-    at hidden 64 and above) entry by entry against the kernel's own float32
+    MPB; written where the wide path runs on the tensor cores, bfloat16 at
+    hidden 64 and above) entry by entry against the kernel's own float32
     regions rounded to bf16, read through frag_index: the MPB copy of the
     policy head, zero in its padding classes, is what the bf16 head
-    multiplies."""
+    multiplies. W2B is the update kernels' copy, which K4 does not write."""
     if n_actions:
         args, _ = _k4_case("fishing-v0", hidden, "philox", cuda, sigma=0.1, n_actions=n_actions)
     else:
@@ -883,7 +903,7 @@ def test_wide_prep_lays_out_the_weights_as_its_plain_version(cuda, hidden, n_act
     got = pk.WidePrep(*(x.cpu() for x in got))
     want = pk.wide_prep_reference(weights, compute)
     mma = compute == "bfloat16" and hidden >= 64
-    names = pk.WidePrep._fields if mma else pk.WidePrep._fields[:5]
+    names = [f for f in pk.WidePrep._fields if f != "w2b"] if mma else pk.WidePrep._fields[:5]
     for name in names:
         g, w = getattr(got, name), getattr(want, name)
         bits = torch.int16 if g.dtype == torch.bfloat16 else torch.int32
@@ -891,7 +911,7 @@ def test_wide_prep_lays_out_the_weights_as_its_plain_version(cuda, hidden, n_act
     if not mma:
         return
     H, A, AP = hidden, weights[4].shape[1], got.mp.shape[1]
-    for dense, copy in ((got.fw, got.fwb), (got.gw, got.gwb), (got.mp, got.mpb)):
+    for dense, copy in ((got.fw, got.fwb), (got.mp, got.mpb)):
         n_cols = dense.shape[1]
         k = torch.arange(H).repeat_interleave(n_cols)
         n = torch.arange(n_cols).repeat(H)

@@ -209,3 +209,18 @@ def test_phase_clocks_find_the_chunk_loop():
     assert out.count("(float)ph[tid]") == 1 and len(out) > len(src)
     with pytest.raises(RuntimeError, match="chunk loop"):
         instrument("__global__ void k() { __syncthreads(); }")
+
+
+@pytest.mark.parametrize("kernel,barriers", [("ppo_grad_wide", 7), ("ppo_grad_tower", 9)])
+def test_phase_clocks_find_the_wide_chunk_loops(kernel, barriers):
+    """The wide path's chunk loops take the clocks too: one read at the top
+    of a chunk and one after each of its barriers, the sums stored over the
+    kernel's own db1c entries (the tower kernel's at its tower's columns),
+    and no other kernel's loop touched."""
+    src = (_build.CSRC / "ppo_update_kernel.cu").read_text()
+    out = instrument(src, kernel)
+    assert out.count("clock64()") == barriers + 1
+    store = [line.strip() for line in out.split("\n") if "(float)ph[tid]" in line]
+    index = "c0 + tid" if kernel == "ppo_grad_tower" else "tid"
+    assert store == [f"if (tid < 10) row[L.b1 + {index}] = (float)ph[tid];"]
+    assert instrument(out, "ppo_grad_tiles").count("clock64()") == barriers + 8

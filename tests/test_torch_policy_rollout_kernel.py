@@ -550,9 +550,10 @@ def _split_weights(hidden, act_dim, seed=0):
 def test_wide_prep_reference_lays_out_the_merged_weights(hidden, act_dim, compute):
     """The plain version of wide_prep, which the card test holds the kernel's
     regions against bit for bit: each block is the merged weights' (rounded
-    under bfloat16), the head is zero in its padding classes, and the bf16
-    copies hold FW, GW and MP rounded, in fragment order. On a CPU tensor
-    `wide_prep` is this plain version."""
+    under bfloat16), the head is zero in its padding classes, the bf16
+    copies hold FW and MP rounded, in fragment order, and W2B the two tower
+    blocks rounded, row-major. On a CPU tensor `wide_prep` is this plain
+    version."""
     weights = _split_weights(hidden, act_dim)
     w2c, whc = merge_weights(weights)[2:5:2]
     H, A = hidden, act_dim
@@ -569,7 +570,11 @@ def test_wide_prep_reference_lays_out_the_merged_weights(hidden, act_dim, comput
     assert torch.equal(mp[:, :A], rnd(whc[:H, :A])) and not mp[:, A:].any()
     assert torch.equal(prep.mt, mp.T)
     assert torch.equal(prep.wv, rnd(whc[H:, A]))
-    for dense, copy in ((fw, prep.fwb), (gw, prep.gwb), (mp, prep.mpb)):
+    assert prep.w2b.dtype == torch.bfloat16 and prep.w2b.shape == (2 * H * H,)
+    for t in range(2):
+        block = w2c[t * H:(t + 1) * H, t * H:(t + 1) * H]
+        assert torch.equal(prep.w2b.view(2, H, H)[t].float(), block.to(torch.bfloat16).float())
+    for dense, copy in ((fw, prep.fwb), (mp, prep.mpb)):
         n_cols = dense.shape[1]
         assert copy.dtype == torch.bfloat16 and copy.shape == (H * n_cols,)
         k = torch.arange(H).repeat_interleave(n_cols)

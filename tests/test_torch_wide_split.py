@@ -48,6 +48,27 @@ def test_split_plan_matches_the_cuda_source():
             "act_dim > kMaxA; }") in src
 
 
+@pytest.mark.parametrize("hidden,act_dim,compute,tower", [
+    (256, 1, "bfloat16", True), (128, 1, "bfloat16", True), (64, 100, "bfloat16", True),
+    (256, 128, "bfloat16", True), (32, 17, "bfloat16", False), (64, 16, "bfloat16", False),
+    (256, 1, "float32", False), (64, 100, "float32", False),
+])
+def test_tower_path_matches_the_cuda_source(hidden, act_dim, compute, tower):
+    """Stage 1 runs ``ppo_grad_tower`` (a CTA a tower, W2c's block resident)
+    on the wide path under bfloat16 at hidden 64 and above, where the W2c
+    products are on the tensor cores (``kWideMma``), and ``ppo_grad_wide``
+    elsewhere on the wide path: the rule `tower_path` states, which the
+    wrapper counts launches by, is the one the library exports and the one
+    its launcher takes."""
+    src = (uk._build.CSRC / "ppo_update_kernel.cu").read_text()
+    mma = (uk._build.CSRC / "mma_tiles.cuh").read_text()
+    assert ("  return wide_path(hidden, act_dim) && compute == BFLOAT16 && hidden >= 64;"
+            in src)
+    assert "  constexpr bool TOWER = kWideMma<H2, BF>;" in src
+    assert "inline constexpr bool kWideMma = BF && H2 >= 128;" in mma
+    assert uk.tower_path(hidden, act_dim, compute) is tower
+
+
 def test_optimizer_and_ring_plans_match_the_cuda_source():
     """K3's stage 3 cuts the merged buffer into runs of kAdamRun floats (2
     float4 a thread of kAdamThreads) and blocks of kAdamHeadRows rows of Whc
