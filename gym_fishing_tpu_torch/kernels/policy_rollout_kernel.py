@@ -15,7 +15,8 @@ of the episodes that ended, sum of rewards)``.
 
 - `policy_rollout` is the wrapper: on a CUDA tensor it launches
   ``csrc/policy_rollout_kernel.cu`` without synchronising (and adds one to
-  `launches`), on a CPU tensor it runs `policy_rollout_reference`.
+  `launches`, and under a categorical head one to `categorical_launches`),
+  on a CPU tensor it runs `policy_rollout_reference`.
 - `policy_rollout_reference` is the plain PyTorch twin: a Python loop over
   the T steps with the same arithmetic in float32 and the same Philox
   stream, so from the same seed or planes it agrees with the kernel to
@@ -93,8 +94,10 @@ KERNEL_MAX_ACTIONS = 128
 # path's
 KERNEL_ENVS_PER_CTA = 64
 
-# Kernel launches made by `policy_rollout` (the CPU twin does not count).
+# Kernel launches made by `policy_rollout` (the CPU twin does not count):
+# all of them, and those that draw from the categorical head's inverse CDF.
 launches = 0
+categorical_launches = 0
 
 
 class RolloutScalars(NamedTuple):
@@ -254,7 +257,6 @@ def policy_rollout(
     tensor this launches the kernel on the current stream without
     synchronising; on a CPU tensor it runs `policy_rollout_reference`.
     """
-    global launches
     kw = dict(growth=growth, noise_form=noise_form, gamma=gamma, gae_lambda=gae_lambda,
               scheme=scheme, n_actions=n_actions, obs_noise=obs_noise, compute=compute,
               fold_obs=fold_obs, noise=noise)
@@ -298,10 +300,19 @@ def policy_rollout(
             ptr(out_f[2]), ptr(out_len), ptr(ws), ptr(stats), ptr(prep), stream,
         )
     _build.check(lib, err, "policy_rollout_kernel launch")
-    launches += 1
+    _count_launch(scheme)
     used = 0 if noise is not None else draws_per_call(num_steps)
     return PolicyRollout(packed, out_f[0], out_t, out_f[1], out_f[2], out_len, stats,
                          (scalars.offset + used) % _U64)
+
+
+def _count_launch(scheme: str) -> None:
+    """Count one kernel launch under `scheme` in `launches` and, for the
+    categorical head, in `categorical_launches`."""
+    global launches, categorical_launches
+    launches += 1
+    if scheme != "continuous":
+        categorical_launches += 1
 
 
 @functools.cache

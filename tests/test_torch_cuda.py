@@ -707,9 +707,9 @@ def test_policy_rollout_kernel_matches_twin(cuda, env_id, hidden, overrides, sou
 
 def _assert_k4_matches_twin(args, kw, next_offset):
     compute, categorical = kw["compute"], kw["scheme"] != "continuous"
-    before = pk.launches
+    before = pk.launches, pk.categorical_launches
     ker = pk.policy_rollout(*args, **kw)
-    assert pk.launches == before + 1
+    assert (pk.launches, pk.categorical_launches) == (before[0] + 1, before[1] + categorical)
     ref = pk.policy_rollout_reference(*args, **kw)
     torch.cuda.synchronize()
     T, B = args[-1], args[0].shape[0]
