@@ -45,8 +45,9 @@ curve against JAX's. Phases, each of which raises on failure:
    instructions (HMMA) in the policy rollout's machine code: some under
    bfloat16, none under float32; in its wide path's some in every bfloat16
    instantiation at hidden 64 and above, none in the others; and in the
-   update kernels' wide stage 1, some in each of ppo_grad_tower's six
-   instantiations, none in ppo_grad_wide's ten;
+   update kernels' wide stage 1, some in each of ppo_grad_tower's twelve
+   instantiations (three widths, both BIGD forms, both heads), none in
+   ppo_grad_wide's ten;
 8. K2 (fused minibatch gradient) ≡ its twin at full width: numpy-made
    packed data [8, 2^21], one minibatch of 128 random tiles of 2048, both
    heads (fishing-v1 Gaussian, fishing-v0 categorical with 3 actions),
@@ -1826,9 +1827,9 @@ def main():
                  f"at hidden {hidden}")
 
     # K2/K3's wide stage 1: ppo_grad_tower (bfloat16 at hidden 64 and above,
-    # both BIGD forms) on the tensor cores, ppo_grad_wide (float32 at every
-    # hidden size, bfloat16 at 32) FMA
-    for kernel, n_inst, mma in (("ppo_grad_tower", 6, True), ("ppo_grad_wide", 10, False)):
+    # both BIGD forms, both heads) on the tensor cores, ppo_grad_wide
+    # (float32 at every hidden size, bfloat16 at 32) FMA
+    for kernel, n_inst, mma in (("ppo_grad_tower", 12, True), ("ppo_grad_wide", 10, False)):
         stage1_hmma = hmma_counts(_build, "ppo_update_kernel", kernel)
         print(f"phase 7: {kernel}, {len(stage1_hmma)} instantiations: HMMA "
               f"{sorted(stage1_hmma.values())}")

@@ -85,7 +85,12 @@
 //     tower's width (the loss, the head's dots, the chunk's barriers), now
 //     run once a tower, and the two CTAs of a tile do unequal work (the
 //     policy tower carries the head), so the policy CTAs are launched
-//     first.
+//     first. A categorical head's Wm does not fit beside the block either:
+//     its two products stream Wm and Wm^T through two slabs in the
+//     activation buffer that the head leaves free, each element read from
+//     L2 once a chunk, and dWhc is summed over the tile in an aligned
+//     float32 copy, each entry read, added and written by one thread in
+//     16-byte pieces.
 // - Stage 2: one thread per gradient entry sums the rows in index order, in
 //   blocks of 16 rows and then the blocks. No float atomics anywhere, so two
 //   identical steps give identical bits. The column sums of stage 1 (db1c,
@@ -1205,21 +1210,49 @@ __global__ void __launch_bounds__(kThreads, 1)
 //   land transposed to the epilogues' rows, and once resident the products
 //   take ~5k of a tower's ~21k cycles a chunk.
 // - What is left of a chunk is the float32 work around the products: the
-//   tanh of h1 and h2, the head, the loss and the column sums. The head's
-//   operands (Wm, its transpose, the value column) are read from L2 as
-//   before, through L1: the resident block leaves no room for
-//   block_product's slabs (head_product is its sums without them). The
-//   Gaussian head's dWhc block and the value column stay in registers over
-//   the tile; the categorical head's dWhc is added into the row chunk by
-//   chunk, as ppo_grad_wide adds it. A column's sums over a chunk's samples
-//   are split over the threads that share the column.
+//   tanh of h1 and h2, the head, the loss and the column sums. The value
+//   column and the Gaussian head's few columns are warp dots read from L2
+//   through L1, and the Gaussian head's dWhc block and the value column stay
+//   in registers over the tile. A column's sums over a chunk's samples are
+//   split over the threads that share the column.
+// - The categorical head is three float32 products of S x H x AP FMA (the
+//   logits, dWhc's share, g_p2), 852k each at hidden 256 and 100 classes,
+//   ~6.7k cycles of the SM's FMA pipe. Wm [H][AP] (104 KiB there) fits
+//   neither beside the resident block nor in the 28 KiB of L1 that the
+//   shared memory leaves. Read through L1, every warp whose tile spanned it
+//   fetched it from L2 (13 + 8 times a chunk), and dWhc's share went into
+//   the row in 4-byte pieces at a stride of A1 floats: ~106k of the policy
+//   CTA's ~128k cycles a chunk. Now
+//   * the head reads neither h1 nor its buffer act0, so the categorical
+//     policy CTA keeps no float32 h1 there (g_p1's epilogue recomputes it
+//     from x and W1c, the same bits, ~3k cycles) and its products read B
+//     from act0: the logits Wm and g_p2 Wm^T, in slabs of rows that pass
+//     through two slots there (ring_product; each thread loads its 16-byte
+//     pieces of the next slab into registers while the block reads this
+//     one, the first slab by cp.async while the phases before run), so each
+//     element crosses from L2 once a chunk; their sums keep
+//     block_product's runs of rows, and so the head's bits (a logit's last
+//     bit decides the clip branch of a sample on the clip's edge: one such
+//     sample flipped is over K2's bar on a 2^18-sample minibatch);
+//   * dWhc is summed over the tile in a float32 copy [H][AP] with 16-byte
+//     aligned rows in the row's dW2c block (head_rows_add): a thread owns a
+//     tile of 4 rows x 4 classes and reads, adds and writes it in 16-byte
+//     pieces, loads issued before its sums (each entry gets the sums it got
+//     in the row, in the same order); at the end the copy goes into the
+//     dWhc block and its space back to zero.
+//   What bounds the three products then is shared memory's 32 operands a
+//   clock (a thread tile of 4 x 4 loads 8 operands for 16 FMA) and, for
+//   the logits, which keep their runs of 32 rows whole on 7 warps, latency:
+//   ~19-30k cycles a product at hidden 256 and 100 classes, against 6.7k of
+//   FMA. Larger tiles, which the registers left allow only with operands
+//   loaded one by one, were measured slower.
 // What the tower split costs: the per-chunk phases that do not scale with the
 // tower's width (the loss and the head's dots, a warp two samples; the bias
 // sums) and the chunk's 9 block barriers now run once per tower, and the
-// policy CTA carries the head alone: ~22k cycles a chunk against the value
-// CTA's ~20k at hidden 256 under the Gaussian head, ~128k at 100 classes (its
-// head read from L2 each chunk). The grid's second wave of value CTAs fills
-// in behind the first wave of policy CTAs.
+// policy CTA carries the head alone: ~21k cycles a chunk against the value
+// CTA's ~20k at hidden 256 under the Gaussian head, ~96k at 100 classes.
+// The grid's second wave of value CTAs fills in behind the first wave of
+// policy CTAs.
 // Shared memory at hidden 256 (TowerSmem<512>), 231,056 of the 232,448 bytes
 // a CTA may have: the W2c block 131,072 (bf16 [256][256]); the activations
 // 67,584 (float [2][32][264]: h1 then g_p1, h2 then g_p2); the head outputs
@@ -1227,9 +1260,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 // stride of 528 bytes puts an ldmatrix's 8 rows on distinct bank groups);
 // the sample rows 6,144 (double-buffered); W1c's columns 4,096; b1c and b2c
 // 2,048; bhc, the value, its gradient, log_std and the warps' sums 2,192;
-// the chunk's observations in float64 1,024. No room is left for the head's
-// 32 KiB of slabs. Per chunk (the barriers
-// between):
+// the chunk's observations in float64 1,024. The categorical head's slabs
+// take the first activation buffer. Per chunk (the barriers between):
 //   h1, its bf16 copy | h2 = tanh(h1 W2 + b2), h1 out | policy: out = h2 Wm
 //   + bh; value: v = h2 wv + bh | loss | policy: dbhc, dWhc; value: dbhc,
 //   dWhc, g_p2 | policy: g_p2 = (g_top Wm^T) (1 - h2^2) | db2c, g_p2 out and
@@ -1285,53 +1317,154 @@ __device__ __forceinline__ Surrogate clipped_surrogate(float logp, float old_log
           ratio - 1.0f - logr};
 }
 
-// C[s][c] = sum over k < K of A[s][k] B[k][c] for this thread's TS rows s0..
-// and TC columns c0.., A in shared memory (row stride lda, 16-byte aligned
-// rows), B [K][NB] row-major in global memory, read through L1: the sums of
-// block_product<TS, TC, false, true> (runs of ks rows summed apart, then
-// added), without its slabs or barriers.
-template <int TS, int TC>
-__device__ __forceinline__ void head_product(const float* A, int lda, const float* __restrict__ B,
-                                             int K, int NB, int s0, int c0,
-                                             float (&acc)[TS][TC]) {
-  static_assert(TS <= 4 && TC == 4, "block_product's order");
-  int ks = 32;
-  while (ks > 4 && (K % ks || ks * NB > kSlabFloats)) ks >>= 1;
+// The categorical head's operands in the tower kernel pass through the
+// activation buffer that the head leaves free (act0: the policy CTA
+// recomputes h1 where g_p1 needs it), in two slots: each thread loads its
+// 16-byte pieces of the next slab into registers while the block computes
+// on this one, and stores them after. (cp.async of every slab into a ring
+// of 3 to 5 slots was measured slower: issuing the copies alone took ~5k of
+// the logits' cycles a chunk.) kPieces pieces a thread at most.
+constexpr int kPieces = 2;
+
+// Slab 0 of ring_product's B (the first min(ks, K) rows of [K][NB]) into the
+// ring's first slot by cp.async, while the phases before the product run.
+__device__ __forceinline__ void ring_prefetch(float* ring, const float* __restrict__ B, int K,
+                                              int NB, int ks) {
+  for (int e = threadIdx.x; e < min(ks, K) * NB / 4; e += blockDim.x)
+    cp_async16(ring + 4 * e, B + 4 * e);
+}
+
+// C[i][c] = sum over k < K of A[s0 + i ss][k] B[k][c0 + c], this thread's TS
+// samples (ss apart) and 4 columns if `mine`, A in shared memory (row stride
+// lda, 16-byte aligned rows), B [K][NB] row-major in global memory, read
+// once: slabs of ks rows (the last may be shorter, a multiple of 4) pass
+// through the two slots of `ring` (2 ks NB floats), slab sl + 1 loaded into
+// registers while slab sl is read; slab 0 by ring_prefetch before. The sums
+// are block_product's SLAB_SUMS, whatever the slabs: runs of `run` rows (its
+// slab rows for this K and NB) summed apart, then added, so C has the bits
+// of block_product's sums. Every thread of the block calls it; `ring` may be
+// overwritten after the next block barrier.
+template <int TS>
+__device__ __forceinline__ void ring_product(const float* A, int lda, int ss,
+                                             const float* __restrict__ B, int K, int NB, int ks,
+                                             float* ring, int s0, int c0, bool mine,
+                                             float (&acc)[TS][4]) {
+  const int n_slabs = (K + ks - 1) / ks, tid = threadIdx.x;
+  int run = 32;
+  while (run > 4 && (K % run || run * NB > kSlabFloats)) run >>= 1;
+  const float4* B4 = reinterpret_cast<const float4*>(B);
+  float4 v[kPieces];
+  auto load = [&](int sl) {
+    const int n4 = min(ks, K - sl * ks) * NB / 4;
+#pragma unroll
+    for (int j = 0; j < kPieces; ++j)
+      if (tid + j * kThreads < n4) v[j] = __ldcg(B4 + sl * (ks * NB / 4) + tid + j * kThreads);
+  };
+  auto store = [&](int sl) {
+    const int n4 = min(ks, K - sl * ks) * NB / 4;
+    float4* dst = reinterpret_cast<float4*>(ring + (sl & 1) * (ks * NB));
+#pragma unroll
+    for (int j = 0; j < kPieces; ++j)
+      if (tid + j * kThreads < n4) dst[tid + j * kThreads] = v[j];
+  };
+  float part[TS][4];
 #pragma unroll
   for (int i = 0; i < TS; ++i)
 #pragma unroll
-    for (int c = 0; c < TC; ++c) acc[i][c] = 0.0f;
-  for (int k0 = 0; k0 < K; k0 += ks) {
-    float part[TS][TC];
-#pragma unroll
-    for (int i = 0; i < TS; ++i)
-#pragma unroll
-      for (int c = 0; c < TC; ++c) part[i][c] = 0.0f;
+    for (int c = 0; c < 4; ++c) acc[i][c] = part[i][c] = 0.0f;
+  if (n_slabs > 1) load(1);
+  cp_async_wait_all();
+  for (int sl = 0; sl < n_slabs; ++sl) {
+    __syncthreads();
+    if (mine) {
+      const float* ak = A + s0 * lda + sl * ks;
+      const float* bk = ring + (sl & 1) * (ks * NB) + c0;
+      const int rows = min(ks, K - sl * ks);
 #pragma unroll 2
-    for (int k = k0; k < k0 + ks; k += 4) {
-      float a[TS][4];
+      for (int k = 0; k < rows; k += 4) {
+        float a[TS][4];
 #pragma unroll
-      for (int i = 0; i < TS; ++i) load_row<4>(A + (s0 + i) * lda + k, a[i]);
+        for (int i = 0; i < TS; ++i) load_row<4>(ak + i * ss * lda + k, a[i]);
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const float4 b4 = __ldg(reinterpret_cast<const float4*>(B + (size_t)(k + q) * NB + c0));
-        const float b[4] = {b4.x, b4.y, b4.z, b4.w};
+        for (int q = 0; q < 4; ++q) {
+          float b[4];
+          load_row<4>(bk + (k + q) * NB, b);
 #pragma unroll
-        for (int i = 0; i < TS; ++i)
+          for (int i = 0; i < TS; ++i)
 #pragma unroll
-          for (int c = 0; c < TC; ++c) part[i][c] = fmaf(a[i][q], b[c], part[i][c]);
+            for (int c = 0; c < 4; ++c) part[i][c] = fmaf(a[i][q], b[c], part[i][c]);
+        }
+        if ((sl * ks + k + 4) % run == 0)
+#pragma unroll
+          for (int i = 0; i < TS; ++i)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              acc[i][c] += part[i][c];
+              part[i][c] = 0.0f;
+            }
       }
     }
+    if (sl + 1 < n_slabs) {
+      store(sl + 1);
+      if (sl + 2 < n_slabs) load(sl + 2);
+    }
+  }
+}
+
+// The categorical head's logits out[s][a] = h2 Wm + bh (zero for A <= a <
+// AP), Wm [H][AP] through ring_product in thread tiles of 4 samples (8
+// apart) x 4 classes: warp w the classes 16 w.., lane l samples l / 4 + 8 i
+// and classes 4 (l % 4).. of them (each quarter-warp reads 2 rows of h2 and
+// 4 pieces of a row of Wm: one wavefront). That is AP / 16 warps (7 at 100
+// classes); tiles of 2 x 4 on all 16 were measured slower. Every thread of
+// the block calls it.
+__device__ __forceinline__ void head_logits(const float* h2, int lda, const float* __restrict__ mp,
+                                            const float* sbh, int H, int A, int AP, int ks,
+                                            float* ring, float* out, int ldo) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int s0 = lane / 4, c0 = warp * 16 + lane % 4 * 4;
+  const bool mine = c0 < AP;
+  float acc[4][4];
+  ring_product<4>(h2, lda, 8, mp, H, AP, ks, ring, s0, c0, mine, acc);
+  if (mine)
 #pragma unroll
-    for (int i = 0; i < TS; ++i)
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int c = 0; c < TC; ++c) acc[i][c] += part[i][c];
+      for (int c = 0; c < 4; ++c)
+        out[(s0 + 8 * i) * ldo + c0 + c] = c0 + c < A ? acc[i][c] + sbh[c0 + c] : 0.0f;
+}
+
+// dWhc's policy block += this chunk's share h2^T g_top, summed over the
+// tile's chunks in dwh, a float32 copy [H][AP] with 16-byte aligned rows in
+// global memory (L2): thread tiles of 4 rows x 4 classes, a warp 8 row
+// groups x 4 class groups (each quarter-warp reads 2 pieces of h2 and 4 of
+// g_top: one wavefront), a tile's sums over the samples in order
+// (outer_tile) added to its entries, which it loads before the sums and
+// stores after, in 16-byte pieces: an entry has one owner and gets the sums
+// it got in the row, in the same order. No barrier.
+__device__ __forceinline__ void head_rows_add(float* __restrict__ dwh, const float* h2, int lda,
+                                              const float* gt, int ldg, int H, int AP) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, kb = H / 32;
+  for (int b = warp; b < kb * ((AP + 15) / 16); b += kWarps) {
+    const int k0 = b % kb * 32 + lane / 4 * 4, a0 = b / kb * 16 + lane % 4 * 4;
+    if (a0 >= AP) continue;
+    float4* d = reinterpret_cast<float4*>(dwh + k0 * AP + a0);
+    float4 v[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[i] = d[i * (AP / 4)];
+    float acc[4][4];
+    outer_tile<4, 4, false>(h2 + k0, lda, gt + a0, ldg, kWideChunk, acc);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      d[i * (AP / 4)] = make_float4(v[i].x + acc[i][0], v[i].y + acc[i][1], v[i].z + acc[i][2],
+                                    v[i].w + acc[i][3]);
   }
 }
 
 // BIGD: obs_dim above kMaxD, as in ppo_grad_tiles: W1c is read from L2, and
-// dW1c's chunk shares are added into the workspace row.
-template <int H2, bool BIGD>
+// dW1c's chunk shares are added into the workspace row. CAT: the categorical
+// head (p.head), whose policy CTA runs the head through act0.
+template <int H2, bool BIGD, bool CAT>
 __global__ void __launch_bounds__(kThreads, 1)
     ppo_grad_tower(const GradParams p, const float* __restrict__ data,
                    const int* __restrict__ order, const float* __restrict__ w,
@@ -1340,11 +1473,14 @@ __global__ void __launch_bounds__(kThreads, 1)
   extern __shared__ __align__(128) unsigned char smem[];
   using S_ = TowerSmem<H2>;
   constexpr int H = H2 / 2, S = kWideChunk, LDA = S_::LDA, LDB = S_::LDB, LDO = kWideLDO;
-  // thread tiles of the categorical head's products: g_p2 [S][H], the
-  // logits [S][AP]
-  constexpr int TCB = 4, TSB = S * (H / TCB) / kThreads;
-  constexpr int TSF = 2, TCF = 4;
-  static_assert(TSB >= 1 && (S / TSF) * (kWideMaxA / TCF) <= kThreads && H <= kThreads,
+  // the categorical head's slabs in act0: g_p2's of 16 rows of Wm^T
+  // fit twice, its thread tiles cover [S][H] once, the logits' warps of 16
+  // classes cover AP, and dWhc's copy fits the row's dW2c block
+  constexpr int RING = S * LDA;
+  static_assert(S == 32 && (H / 32) * (S / (4 * (H / 64))) == kWarps && kWideMaxA / 16 <= kWarps &&
+                    2 * 16 * H <= RING &&
+                    16 * H <= 4 * kPieces * kThreads && 4 * H * H >= H * kWideMaxA + 3 &&
+                    H <= kThreads,
                 "tiling");
   __nv_bfloat16* sW2 = reinterpret_cast<__nv_bfloat16*>(smem);
   float* sm = reinterpret_cast<float*>(smem + S_::W2_BYTES);
@@ -1367,7 +1503,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int D = p.obs_dim, A = p.act_dim, A1 = A + 1, AP = wide_ap(A);
-  const bool gauss = p.head == GAUSSIAN;
+  const bool gauss = !CAT;
   const int na = gauss ? A : 1;
   const Layout L = make_layout(D, H2, A);
   const WidePrep W = wide_prep_layout(H, AP);
@@ -1376,6 +1512,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   // the value tower of tile blockIdx.x - G: the heavier policy CTAs fill the
   // first wave
   const bool policy = blockIdx.x < p.num_tiles;
+  // the categorical policy CTA: its head runs through act0, so h1 is not
+  // kept there
+  const bool cat_policy = CAT && policy;
   const int g = policy ? blockIdx.x : blockIdx.x - p.num_tiles;
   const int tile_idx = order[g];
   if (tile_idx < 0 || (long long)(tile_idx + 1) * p.tile > N) __trap();
@@ -1439,11 +1578,16 @@ __global__ void __launch_bounds__(kThreads, 1)
   constexpr int kParts = kThreads / H;
   const int col = tid % H, part = tid / H;
 
-  // this thread's tiles of the categorical head's products
-  const int b_s0 = tid / (H / TCB) * TSB, b_c0 = tid % (H / TCB) * TCB;
-  const int ncgf = AP / TCF;
-  const bool h_mine = tid < (S / TSF) * ncgf;
-  const int h_s0 = h_mine ? tid / ncgf * TSF : 0, h_c0 = h_mine ? tid % ncgf * TCF : 0;
+  // Wm's rows a slab of the logits through act0: two slabs, at most
+  // kPieces 16-byte pieces a thread each
+  int f_ks = 32;
+  while (2 * f_ks * AP > RING || f_ks * AP > 4 * kPieces * kThreads) f_ks >>= 1;
+  // the categorical policy CTA sums dWhc over the tile in a float32 copy
+  // [H][AP] (16-byte aligned rows) in its row's dW2c block, which stage 1
+  // zeroed and whose entries dw2c_split writes (or finds zero) after it; the
+  // copy goes into the dWhc block, and its space back to zero, at the end
+  float* dwh = row + L.w2;
+  dwh += (0u - (unsigned)(reinterpret_cast<uintptr_t>(dwh) >> 2)) & 3u;
 
   // running sums kept over the chunks, float64 as in ppo_grad_wide: this
   // thread's part of column col of the tower's db1c, db2c, dW1c; dbhc entry
@@ -1453,7 +1597,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   // added chunk by chunk as ppo_grad_wide adds them into the row: the value
   // tower's entry tid of Whc's value column, and under the Gaussian head the
   // policy tower's entries tid + j kThreads of Whc's policy block [H][A]
-  // (categorical: added into the row)
+  // (categorical: in dwh)
   constexpr int kWhPT = H * kMaxGaussA / kThreads;
   double acc_b1 = 0.0, acc_b2 = 0.0, acc_bh = 0.0;
   double acc_w1[kMaxD] = {0.0, 0.0, 0.0, 0.0};
@@ -1477,21 +1621,23 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (int chunk = 0; chunk < n_chunks; ++chunk) {
     const float* x = sX + (chunk & 1) * (kMaxRows * S);
     if (chunk + 1 < n_chunks) fetch(chunk + 1, sX + ((chunk + 1) & 1) * (kMaxRows * S));
+    if (cat_policy) ring_prefetch(act0, prep + W.mp, H, AP, f_ks);   // the logits' first slab
 
     // h1 = tanh(W1c^T x + b1c), the tower's columns, two a thread, and as
-    // bf16 beside it; the observations in float64 for dW1c
+    // bf16 beside it (the categorical policy CTA keeps only the bf16 copy,
+    // and g_p1 recomputes the same bits); the observations in float64 for
+    // dW1c
+    auto h1_at = [&](int s, int c) {
+      float u = 0.0f;
+      for (int d = 0; d < D; ++d) u = fmaf(w1[d * w1_ld + c], x[d * S + s], u);
+      return tanhf(u + sb1[c]);
+    };
     if (!BIGD && tid < D * S) sxd[tid] = (double)x[tid];
     for (int e = tid; e < S * H / 2; e += kThreads) {
       const int s = e / (H / 2), c = e % (H / 2) * 2;
-      float z[2];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        float u = 0.0f;
-        for (int d = 0; d < D; ++d) u = fmaf(w1[d * w1_ld + c + j], x[d * S + s], u);
-        z[j] = tanhf(u + sb1[c + j]);
-      }
-      *reinterpret_cast<float2*>(act0 + s * LDA + c) = make_float2(z[0], z[1]);
-      *reinterpret_cast<unsigned*>(abf + s * LDB + c) = pack_bf16x2(z[0], z[1]);
+      const float z0 = h1_at(s, c), z1 = h1_at(s, c + 1);
+      if (!cat_policy) *reinterpret_cast<float2*>(act0 + s * LDA + c) = make_float2(z0, z1);
+      *reinterpret_cast<unsigned*>(abf + s * LDB + c) = pack_bf16x2(z0, z1);
     }
     __syncthreads();
 
@@ -1513,21 +1659,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     __syncthreads();
 
     // head: the policy outputs (zero past A) or the value. The categorical
-    // head's logits are one product; the value and the Gaussian head's few
-    // means are warp dots, a warp two samples, each lane H / 32 terms and
-    // then a butterfly
-    if (policy && !gauss) {
-      if (h_mine) {
-        float acc[TSF][TCF];
-        head_product<TSF, TCF>(act1, LDA, prep + W.mp, H, AP, h_s0, h_c0, acc);
-#pragma unroll
-        for (int i = 0; i < TSF; ++i)
-#pragma unroll
-          for (int c = 0; c < TCF; ++c) {
-            const int a = h_c0 + c;
-            out[(h_s0 + i) * LDO + a] = a < A ? acc[i][c] + sbh[a] : 0.0f;
-          }
-      }
+    // head's logits are one product, Wm through act0; the value and the
+    // Gaussian head's few means are warp dots, a warp two samples, each lane
+    // H / 32 terms and then a butterfly
+    if (cat_policy) {
+      head_logits(act1, LDA, prep + W.mp, sbh, H, A, AP, f_ks, act0, out, LDO);
     } else {
       // the warp's two samples s0, s0 + 1 at once, from one load of the column
       const int s0 = warp * 2;
@@ -1569,6 +1705,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     // a). The categorical head: a warp takes its two samples in turn, lane l
     // the classes l, l + 32, ...
     const int s0 = warp * 2, hs = s0 + (lane >> 4), la = lane & 15;
+    if (cat_policy) ring_prefetch(act0, prep + W.mt, AP, H, 16);   // g_p2's first slab
     if (!policy) {
       if (la == 0) {
         const float* xs = x + hs;
@@ -1653,9 +1790,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 
     // head backward. Policy: dbhc, dWhc's policy block (Gaussian: entry
     // (k, a) = e = tid + j kThreads as e / A, e % A, in registers;
-    // categorical: into the row). Value: dbhc[A], dWhc's value column and
-    // g_p2 = g_v wv (1 - h2^2), thread k column k (it reads h2's column k,
-    // then overwrites it)
+    // categorical: into dwh, head_rows_add). Value: dbhc[A], dWhc's
+    // value column and g_p2 = g_v wv (1 - h2^2), thread k column k (it reads
+    // h2's column k, then overwrites it)
     if (policy) {
       if (tid >= kThreads - A)
         for (int s = 0; s < S; ++s) acc_bh += out[s * LDO + kThreads - 1 - tid];
@@ -1673,18 +1810,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           }
         }
       }
-      constexpr int TK = 8, TN = 4;
-      const int n_nt = gauss ? 0 : AP / TN;
-      for (int t = tid; t < (H / TK) * n_nt; t += kThreads) {
-        const int k0 = t / n_nt * TK, a0 = t % n_nt * TN;
-        float acc[TK][TN];
-        outer_tile<TK, TN, false>(act1 + k0, LDA, out + a0, LDO, S, acc);
-#pragma unroll
-        for (int i = 0; i < TK; ++i)
-#pragma unroll
-          for (int j = 0; j < TN; ++j)
-            if (a0 + j < A) row[L.wh + (k0 + i) * A1 + a0 + j] += acc[i][j];
-      }
+      if (cat_policy) head_rows_add(dwh, act1, LDA, out, LDO, H, AP);
     } else {
       if (tid == kThreads - 1)
         for (int s = 0; s < S; ++s) acc_bh += sgv[s];
@@ -1704,7 +1830,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     // policy: g_p2 = (g_top Wm^T) (1 - h2^2). The Gaussian head's few
     // classes by thread (col, part), its samples' sums over the classes a
     // < A in turn (the padding classes add zeros); the categorical head's
-    // as one product
+    // as one product, Wm^T through act0
     if (policy && gauss) {
       constexpr int SP = S / kParts;
       float z[SP];
@@ -1722,13 +1848,20 @@ __global__ void __launch_bounds__(kThreads, 1)
         *hp = z[i] * (1.0f - h * h);
       }
     } else if (policy) {
-      float acc[TSB][TCB];
-      head_product<TSB, TCB>(out, LDO, prep + W.mt, AP, H, b_s0, b_c0, acc);
+      // thread tiles of TSB samples (4 apart) x 4 columns, a warp 4 TSB
+      // samples x 32 columns: lane l samples l / 8 + 4 i of its warp's and
+      // columns 4 (l % 8).. of its warp's 32 (a quarter-warp reads one row of
+      // g_top and 8 pieces of a row of Wm^T: one wavefront)
+      constexpr int TSB = H / 64;
+      const int b_s0 = warp / (H / 32) * 4 * TSB + lane / 8;
+      const int b_c0 = warp % (H / 32) * 32 + lane % 8 * 4;
+      float acc[TSB][4];
+      ring_product<TSB>(out, LDO, 4, prep + W.mt, AP, H, 16, act0, b_s0, b_c0, true, acc);
 #pragma unroll
       for (int i = 0; i < TSB; ++i)
 #pragma unroll
-        for (int c = 0; c < TCB; ++c) {
-          float* hp = act1 + (b_s0 + i) * LDA + b_c0 + c;
+        for (int c = 0; c < 4; ++c) {
+          float* hp = act1 + (b_s0 + 4 * i) * LDA + b_c0 + c;
           const float h = *hp;
           *hp = acc[i][c] * (1.0f - h * h);
         }
@@ -1756,7 +1889,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       tower_mma_smem<H, true>(abf, LDB, sW2, acc);
       tower_mma_smem_out<H>(acc, [&](int s, int c, float z) {
         float* hp = act0 + s * LDA + c;
-        const float h = *hp;
+        const float h = cat_policy ? h1_at(s, c) : *hp;
         *hp = z * (1.0f - h * h);
       });
     }
@@ -1786,6 +1919,13 @@ __global__ void __launch_bounds__(kThreads, 1)
     __syncthreads();
   }
 
+  // the categorical policy CTA's dWhc copy into its block, and its space
+  // back to zero (the loop's last barrier made every thread's sums visible)
+  if (cat_policy)
+    for (int e = tid; e < H * AP; e += kThreads) {
+      if (e % AP < A) row[L.wh + e / AP * A1 + e % AP] = dwh[e];
+      dwh[e] = 0.0f;
+    }
   // the register sums into the row: the column sums' parts added in part
   // order through the activations' space; the warps' metric sums and
   // dlog_std in warp order
@@ -2425,11 +2565,12 @@ static int launch_wide(const GradParams* p, const float* data, const int* order,
   if (e != cudaSuccess) return (int)e;
   if constexpr (TOWER) {
     constexpr size_t bytes = TowerSmem<H2>::BYTES;
-    e = cudaFuncSetAttribute(ppo_grad_tower<H2, BIGD>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    const auto kernel = p->head == CATEGORICAL ? ppo_grad_tower<H2, BIGD, true>
+                                               : ppo_grad_tower<H2, BIGD, false>;
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (e != cudaSuccess) return (int)e;
-    ppo_grad_tower<H2, BIGD><<<p->num_tiles * kSplit, kThreads, bytes, st>>>(
-        *p, data, order, w, prep, adv, act, ws);
+    kernel<<<p->num_tiles * kSplit, kThreads, bytes, st>>>(*p, data, order, w, prep, adv, act,
+                                                            ws);
   } else {
     constexpr size_t bytes = WideSmem<H2, BF>::BYTES;
     e = cudaFuncSetAttribute(ppo_grad_wide<H2, BF, BIGD>,

@@ -328,7 +328,8 @@ def test_ppo_grad_kernel_refuses_32_rows_before_the_launch(cuda):
 
 WIDE_CASES = [(128, "gaussian", None), (256, "gaussian", None), (128, "categorical", 100),
               (256, "categorical", 100), (64, "categorical", 100), (32, "categorical", 17),
-              (256, "categorical", 128), (128, "categorical", 17), (256, "categorical", 17)]
+              (256, "categorical", 128), (128, "categorical", 17), (256, "categorical", 17),
+              (256, "categorical", None), (256, "categorical", 33)]
 
 
 @pytest.mark.cuda
