@@ -201,6 +201,22 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+# the least times the kernels are held against: the benchmark's arithmetic
+# (benchmark/roofline.py), imported as the benchmark's modules import it
+sys.path.append(os.path.join(ROOT, "benchmark"))
+from roofline import (  # noqa: E402
+    K1_OPS,
+    PEAK,
+    PER_SM_CLOCK,
+    SM_CLOCKS_PER_S,
+    clip_adam_bound,
+    least_ms,
+    pipes_s,
+    rollout_bound,
+    rollout_kernel_bound,
+    update_bound,
+)
+
 B_MAIN, T_MAIN = 1 << 21, 512
 B_PARITY, T_PARITY = 65536 + 37, 64
 # Kernel vs twin, same inputs: float32 with a different libm, FMA contraction
@@ -230,40 +246,6 @@ F64_FACTOR, F64_FLOOR_ULPS = 4.0, 2.0
 # within 1e-5 of the range's largest entry; under bfloat16 the tensor cores'
 # accumulator truncates inside each block of 64 (64 x 2^-23 = 7.6e-6), 2e-5
 SPLIT_RTOL = {"float32": 1e-5, "bfloat16": 2e-5}
-# NVIDIA's data sheet for the H100 SXM, dense: float32 outside the tensor
-# cores, bf16 inside them (FLOP/s), device memory (bytes/s)
-PEAK = {"float32": 67e12, "bfloat16": 989e12, "bytes": 3.35e12}
-# Per SM and clock the card gives 128 float32 results, 64 of 32-bit integer
-# arithmetic and logic, 16 special-function results (rcp, rsqrt, sin, cos, lg2,
-# ex2), and its 4 schedulers start 128 lane-operations of all kinds together
-# (NVIDIA's table of arithmetic instruction throughput for compute capability
-# 9.0); 132 SMs at the data sheet's 1980 MHz, which is where PEAK's 67e12
-# comes from. The pipes work side by side, so operations of several kinds
-# take at least the longest of the pipes' times and of the schedulers' time
-# for all of them.
-SM_CLOCKS_PER_S = 132 * 1.98e9
-PER_SM_CLOCK = {"float32": 128, "int32": 64, "special": 16, "all": 128}
-# What K1's function needs per env and step at the main path's parameters
-# (fishing-v1: logistic, escapement, continuous, additive noise, no obs noise,
-# r_drift = 0, so r is a constant and t is not converted), counted from the
-# algorithm, a multiply with the add it feeds as one operation:
-# - a quarter of a Philox4x32-10 block: per round two 32 x 32 -> 64-bit
-#   multiplies and two three-input xors, 40 integer operations a block (the
-#   key schedule is the same for every env and is not counted), 10 a step;
-# - one uniform: the mantissa under the exponent of 1 (one shift-and-add) and
-#   one float32 subtract;
-# - half a Box-Muller pair: of a pair's lg2, sqrt, sin and cos, 2 special
-#   results; of its four float32 multiplies (the two scalings, rad x cos,
-#   rad x sin), 2;
-# - the step: quota and harvest (4 float32), logistic growth as 1 - x/K in
-#   one multiply-add, r x, and one multiply-add (3), the noise (2), the
-#   collapse test (1; the clamp at 0 changes only an env that resets), the
-#   reward with its penalty (5), the two running sums (2), the reset's
-#   selects and episode sum (3); t + 1, its compare with the collapse folded
-#   in, the episode count and t's select (4 integer).
-# A count of this kind is a floor only while no compilation gets by with
-# fewer: phase 5 holds it against the instructions the shipped kernel executes.
-K1_OPS = {"float32": 1 + 2 + 4 + 3 + 2 + 1 + 5 + 2 + 3, "int32": 10 + 1 + 4, "special": 2}
 # fused vs plain params after one step at 1 epoch x 1 minibatch (the mirror
 # of tests/test_update_kernel.py's own bar), and the learning agreement of
 # scripts/validate_fused_training.py --agreement
@@ -376,44 +358,6 @@ def cuda_ms(fn, reps):
     return float(np.median([start.elapsed_time(end) for start, end in pairs])), out
 
 
-def least_ms(ops_s, nbytes):
-    """(least milliseconds the card could take, which limit): the larger of
-    the operations' time at their peak rates and the bytes' at the memory
-    rate."""
-    ops_ms, bytes_ms = ops_s * 1e3, nbytes / PEAK["bytes"] * 1e3
-    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
-
-
-def pipes_s(ops):
-    """Least seconds for `ops`, {pipe of PER_SM_CLOCK: operations}: the pipes
-    overlap, so the longest pipe's time, or the schedulers' time for all of them."""
-    times = [n / (PER_SM_CLOCK[pipe] * SM_CLOCKS_PER_S) for pipe, n in ops.items()]
-    return max(*times, sum(ops.values()) / (PER_SM_CLOCK["all"] * SM_CLOCKS_PER_S))
-
-
-def update_bound(n, obs_dim, hidden, act_dim, compute, head="gaussian"):
-    """K2/K3 on n samples: the three 2H-contractions per tower (W2c's
-    cross-tower blocks are zero and need no work) at the compute mode's rate,
-    the input layer and the head with their backward in float32, the head
-    per tower (the policy tower's A outputs and the value tower's one:
-    hidden (A + 1), Whc's cross blocks being zero too). Under bfloat16 the
-    tensor cores and the float32 pipe work side by side, so the operations
-    take the longer of the two; under float32 both are on one pipe and add.
-    The packed samples read once, the weights read and the gradients written
-    once: the packed rows are the fields as the packing lays them out
-    (obs_dim + the action columns + 4, a categorical head's action being one
-    class-index column) rounded up to a multiple of 8."""
-    h2, a1 = 2 * hidden, act_dim + 1
-    products = 3 * 2 * h2 * hidden * n
-    rest = (2 * 2 * obs_dim * h2 + 3 * 2 * hidden * a1) * n
-    n_par = obs_dim * h2 + h2 + h2 * h2 + h2 + h2 * a1 + a1 + act_dim
-    na = act_dim if head == "gaussian" else 1
-    rows = -(-(obs_dim + na + 4) // 8) * 8
-    by_pipe = {compute: products / PEAK[compute]}
-    by_pipe["float32"] = by_pipe.get("float32", 0.0) + rest / PEAK["float32"]
-    return least_ms(max(by_pipe.values()), 4 * (rows * n + 2 * n_par))
-
-
 def split_bound(n, num_tiles, hidden, compute):
     """dw2c_split on n samples: 2 x hidden^2 multiply-adds a sample (both
     towers) at the compute mode's rate; h1 and g_p2 [n, 2H] read once in the
@@ -429,12 +373,6 @@ def reduce_bound(rows, n_par):
     """reduce_rows: the workspace's rows of P + 4 floats read once, one row
     written (bytes)."""
     return least_ms(0.0, 4 * (rows + 1) * (n_par + 4))[0]
-
-
-def clip_adam_bound(n_par):
-    """K3's stage 3: g, w, m and v read once, w, m and v written once, 28
-    bytes a merged parameter; its few operations an entry are far below."""
-    return least_ms(0.0, 28 * n_par)
 
 
 def check_clip_adam(uk, data, order, w, m, v, stats, kw, what):
@@ -483,30 +421,6 @@ def print_clip_adam(phase, hidden, ms, plain_ms, bound, err, label):
               f"{bound[key][0] / ms[key]:.3f}); ≡ twin at both clip regimes and at half "
               f"the norm, max abs err "
               f"{err:.3g} so far; {label}")
-
-
-def rollout_bound(num_envs, num_steps, obs_dim, hidden, act_dim, compute, categorical=False):
-    """K4: per env and step the two H-contractions per tower (through W2c and
-    Whc) at the compute mode's rate, the input layer in float32, and 4H tanh
-    on the special-function units, one result each (a floor: an IEEE tanhf
-    takes more), with the categorical sampler's A exponentials there too.
-    The tensor cores, the float32 pipe and the special-function units work
-    side by side, so the operations take the longest of the three and not
-    their sum. 36 bytes per env and step written and the state read and
-    written once."""
-    h2, a1, n = 2 * hidden, act_dim + 1, num_envs * num_steps
-    products = 2 * (h2 * hidden + hidden * a1) * n
-    by_pipe = {compute: products / PEAK[compute]}
-    by_pipe["float32"] = by_pipe.get("float32", 0.0) + 2 * obs_dim * h2 * n / PEAK["float32"]
-    by_pipe["special"] = pipes_s({"special": (2 * h2 + (act_dim if categorical else 0)) * n})
-    return least_ms(max(by_pipe.values()), 36 * n + 40 * num_envs)
-
-
-def rollout_kernel_bound(num_envs, num_steps):
-    """K1 on the main path's configuration: K1_OPS per env and step on their
-    pipes; 44 bytes per env and call."""
-    n = num_envs * num_steps
-    return least_ms(pipes_s({pipe: k * n for pipe, k in K1_OPS.items()}), 44 * num_envs)
 
 
 def issue_ms(instructions_per_step, num_envs, num_steps):
@@ -575,8 +489,7 @@ def compare(ker, ref, what, stock_atol=STOCK_ATOL, reward_atol=REWARD_ATOL):
 
 def ppo_case(ppo, ppo_fused, rng, head, dev, obs_dim=1, hidden=64, n_actions=3):
     """Jittered random weights and the bench's packed buffer [R, 2^21] drawn
-    from them with numpy-made noise: (13 kernel-layout weights, data,
-    act_dim). R is obs_dim + the action columns + 4 rounded up to a multiple
+    from them with numpy-made noise: (merged weights, data, act_dim). R is obs_dim + the action columns + 4 rounded up to a multiple
     of 8: 8 at obs_dim 1, 16 at 4 and 6, 24 at 12 (observation windows).
     Old log-probs and values are spread so every clip branch is visited."""
     gauss = head == "gaussian"
@@ -602,8 +515,14 @@ def ppo_case(ppo, ppo_fused, rng, head, dev, obs_dim=1, hidden=64, n_actions=3):
         packed = torch.cat([obs, action.float().reshape(n, -1), (logp + 0.3 * normal(n))[:, None],
                             (value + 0.3 * normal(n))[:, None], normal(n, 1),
                             (value + normal(n))[:, None]], 1)
-    weights = ppo_fused.kernel_weights(dict(model.named_parameters()), head)
+    weights = ppo_fused.merged_weights(dict(model.named_parameters()), head)
     return weights, ppo_fused.pack_feature_major(packed), a
+
+
+def towers(uk, merged):
+    """The 13 split-tower arrays of merged weights or gradients: K2 computes
+    no cross-tower block, its twin the whole products."""
+    return uk.unmerge_weights(merged, merged[2].shape[0] // 2, merged[4].shape[1] - 1)
 
 
 def check_buffers(got, want, what):
@@ -644,17 +563,18 @@ def check_split(ws, part, hidden, compute, what, obs_dim=1):
 
 
 def check_float64_bar(uk, got, twin, data, order, weights, stats, kw, what):
-    """compute="float32" keeps float32 accuracy: per buffer, the kernel's error
-    against the twin evaluated in float64 within F64_FACTOR of the float32
-    twin's own (or of F64_FLOOR_ULPS ulps of the buffer's largest entry).
-    Returns (name, kernel error, twin error) of the buffer with the largest
-    kernel error relative to its bar."""
-    merged = uk.merge_weights(weights)
+    """compute="float32" keeps float32 accuracy: per parameter, the kernel's
+    error against the twin evaluated in float64 within F64_FACTOR of the
+    float32 twin's own (or of F64_FLOOR_ULPS ulps of the parameter's largest
+    entry). Returns (name, kernel error, twin error) of the parameter with the
+    largest kernel error relative to its bar."""
+    from gym_fishing_tpu_torch.agents import ppo_fused
+
     exact, _ = uk._grad_merged_reference(
-        data.double(), order, tuple(x.double() for x in merged), stats.double(), **kw)
-    hidden, worst = merged[0].shape[1] // 2, ("", 0.0, 0.0, -1.0)
-    for name, g, t, ex in zip(uk.PPOGrads._fields, got, twin,
-                              uk.unmerge_weights(exact, hidden, kw["act_dim"])):
+        data.double(), order, tuple(x.double() for x in weights), stats.double(), **kw)
+    worst = ("", 0.0, 0.0, -1.0)
+    named = [ppo_fused.params_from_merged(x, kw["head"]) for x in (got, twin, exact)]
+    for name, g, t, ex in ((k, *(d[k] for d in named)) for k in named[2]):
         err, err_twin = max_err(g, ex), max_err(t, ex)
         bar = F64_FACTOR * max(err_twin, F64_FLOOR_ULPS * float(ex.abs().max()) * 2.0 ** -23)
         if not err <= bar:
@@ -762,8 +682,8 @@ def k4_setup(gtt, ppo, ppo_fused, rng, env_id, dev, hidden=64, **overrides):
             model.pi_mean.bias.sub_(0.5)
             model.log_std.fill_(-1.0)
     head = "gaussian" if gauss else "categorical"
-    weights = tuple(x.detach().to(dev) for x in ppo_fused.kernel_weights(
-        dict(model.named_parameters()), head))
+    weights = ppo_fused.merged_weights({k: x.to(dev) for k, x in model.named_parameters()},
+                                       head)
     B, T = B_PPO, T_PPO
     tmax = int(params.Tmax)
     f32 = lambda x: torch.from_numpy(x.astype(np.float32)).to(dev)  # noqa: E731
@@ -917,7 +837,7 @@ def check_facade_kernels(model, what):
     args = (bs.env.stock.float().contiguous(), bs.env.t.to(torch.int32).contiguous(),
             bs.env.harvest.float().contiguous(), bs.episode_return.float().contiguous(),
             bs.episode_length.to(torch.int32).contiguous(),
-            ppo_fused.kernel_weights(ts.params(), head), scal, cfg.num_steps)
+            ppo_fused.merged_weights(ts.params(), head), scal, cfg.num_steps)
     kw = dict(growth=env.config.growth, noise_form=env.config.noise_form, gamma=cfg.gamma,
               gae_lambda=cfg.gae_lambda, scheme=env.config.scheme,
               n_actions=env.config.n_actions, obs_noise=scal.sigma_m > 0.0,
@@ -938,8 +858,7 @@ def check_facade_kernels(model, what):
     order = torch.randperm(t_sum.shape[0], generator=torch.Generator().manual_seed(30))
     order = order[:per_mb].to(data.device, torch.int32)
     stats = ppo_fused._adv_stats(t_sum, t_sq, order, per_mb * tile)
-    w, m, v = (uk.merge_weights(ppo_fused.kernel_weights(x, head))
-               for x in (ts.params(), ts.m, ts.v))
+    w, m, v = (ppo_fused.merged_weights(x, head) for x in (ts.params(), ts.m, ts.v))
     count1 = ts.count + 1
     kw3 = dict(clip_eps=cfg.clip_eps, vf_coef=cfg.vf_coef, ent_coef=cfg.ent_coef,
                lr=ppo.learning_rate(cfg, ts.count), bc1=1.0 - uk.ADAM_B1 ** count1,
@@ -1353,8 +1272,7 @@ def multi_device_phases(dev, label, counts, reset_counts):
     times["full_ms"] = float(np.median(ms["full"]))
     # what the step's collectives cost alone: per minibatch one all-reduce of
     # K2's output buffer and one of the two advantage sums
-    buf = torch.zeros(uk.flatten_merged(uk.merge_weights(ppo_fused.kernel_weights(
-        ts0.params()))).numel() + 4, device=dev)
+    buf = torch.zeros(ppo_fused.merged_weights(ts0.params()).flat.numel() + 4, device=dev)
     sums = torch.zeros(2, device=dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1442,7 +1360,7 @@ def multi_device_phases(dev, label, counts, reset_counts):
     args = (b0.env.stock.float().contiguous(), b0.env.t.to(torch.int32).contiguous(),
             b0.env.harvest.float().contiguous(), b0.episode_return.float().contiguous(),
             b0.episode_length.to(torch.int32).contiguous(),
-            ppo_fused.kernel_weights(st.params(), "gaussian"), scal, local.num_steps)
+            ppo_fused.merged_weights(st.params(), "gaussian"), scal, local.num_steps)
     kw = dict(growth=env.config.growth, noise_form=env.config.noise_form, gamma=local.gamma,
               gae_lambda=local.gae_lambda, scheme=env.config.scheme,
               n_actions=env.config.n_actions, obs_noise=False, compute="float32",
@@ -1461,11 +1379,11 @@ def multi_device_phases(dev, label, counts, reset_counts):
     stats = ppo_fused._adv_stats(t_sum, t_sq, order, per_mb * tile)
     kw2 = dict(clip_eps=local.clip_eps, vf_coef=local.vf_coef, ent_coef=local.ent_coef,
                obs_dim=1, act_dim=1, tile=tile, head="gaussian", compute="float32")
-    weights = ppo_fused.kernel_weights(st.params(), "gaussian")
+    weights = ppo_fused.merged_weights(st.params(), "gaussian")
     g, m = uk.fused_minibatch_grad(data, order, weights, stats, **kw2)
     g_ref, m_ref = uk.fused_minibatch_grad_reference(data, order, weights, stats, **kw2)
     torch.cuda.synchronize()
-    errs["K2"] = check_buffers(g, g_ref, "phase 33(c): K2")
+    errs["K2"] = check_buffers(towers(uk, g), towers(uk, g_ref), "phase 33(c): K2")
     check_metrics(m, m_ref, "phase 33(c): K2")
     # (d) the plain step against the single process
     ts = to_device(ts_d, dev)
@@ -1525,7 +1443,6 @@ def multi_device_phases(dev, label, counts, reset_counts):
     print(f"phase 35: full+adam float32 against JAX's recorded plain-form curve: PASS "
           f"{label}; in {time.perf_counter() - t35:.1f} s")
     return sharded, errs, times
-
 
 
 def main():
@@ -1856,7 +1773,7 @@ def main():
                                                                     stats, **kw)
                 torch.cuda.synchronize()
                 what = f"K2 {head} ent_coef={ent_coef} {compute}"
-                err = check_buffers(g, g_ref, what)
+                err = check_buffers(towers(uk, g), towers(uk, g_ref), what)
                 check_metrics(met, met_ref, what)
                 grad_err = max(grad_err, err)
                 line = f"phase 8: {what:40s} max abs err {err:.3g}"
@@ -1897,7 +1814,7 @@ def main():
     adam_ms, adam_plain_ms = {}, {}
     clip_ms, clip_plain_ms, clip_bound = {}, {}, {}
     for head, (weights, data, a) in cases.items():
-        w = uk.merge_weights(weights)
+        w = weights
         m = tuple(torch.from_numpy(0.01 * rng.standard_normal(x.shape).astype(np.float32))
                   .to(dev) for x in w)
         v = tuple(torch.from_numpy(1e-4 * rng.random(x.shape).astype(np.float32)).to(dev)
@@ -2179,7 +2096,7 @@ def main():
             fail(f"phase 14: {head} data has {data.shape[0]} rows, not 16")
         adv = data[4 + 1 + 2, order.long()[:, None] * TILE + torch.arange(TILE, device=dev)]
         stats = torch.stack([adv.mean(), 1.0 / (adv.std(correction=0) + 1e-8)])
-        w = uk.merge_weights(weights)
+        w = weights
         m = tuple(torch.from_numpy(0.01 * rng.standard_normal(x.shape).astype(np.float32))
                   .to(dev) for x in w)
         v = tuple(torch.from_numpy(1e-4 * rng.random(x.shape).astype(np.float32)).to(dev)
@@ -2193,7 +2110,7 @@ def main():
                                                                     stats, **kw)
                 torch.cuda.synchronize()
                 what = f"K2 16 rows {head} ent_coef={ent_coef} {compute}"
-                err = check_buffers(g, g_ref, what)
+                err = check_buffers(towers(uk, g), towers(uk, g_ref), what)
                 check_metrics(met, met_ref, what)
                 grad16_err = max(grad16_err, err)
                 line = f"phase 14: {what:48s} max abs err {err:.3g}"
@@ -2537,7 +2454,7 @@ def main():
                                         n_actions=WIDE_ACTIONS)
             adv = data[4, order.long()[:, None] * TILE + torch.arange(TILE, device=dev)]
             stats = torch.stack([adv.mean(), 1.0 / (adv.std(correction=0) + 1e-8)])
-            w = uk.merge_weights(weights)
+            w = weights
             m = tuple(torch.from_numpy(0.01 * rng.standard_normal(x.shape).astype(np.float32))
                       .to(dev) for x in w)
             v = tuple(torch.from_numpy(1e-4 * rng.random(x.shape).astype(np.float32)).to(dev)
@@ -2554,7 +2471,7 @@ def main():
                                                                        stats, **kw3)
                 torch.cuda.synchronize()
                 what = f"hidden={hidden} {head} A={a} {compute}"
-                err = check_buffers(g, g_ref, "K2 " + what)
+                err = check_buffers(towers(uk, g), towers(uk, g_ref), "K2 " + what)
                 check_metrics(met, met_ref, "K2 " + what)
                 err3 = max(check_buffers([x - y for x, y in zip(new[0], w)],
                                          [x - y for x, y in zip(ref[0], w)], "K3 " + what + " dw"),
@@ -2846,7 +2763,7 @@ def main():
                 adv = data[obs_dim + 3, order.long()[:, None] * TILE
                            + torch.arange(TILE, device=dev)]
                 stats = torch.stack([adv.mean(), 1.0 / (adv.std(correction=0) + 1e-8)])
-                w = uk.merge_weights(weights)
+                w = weights
                 m = tuple(torch.from_numpy(0.01 * rng.standard_normal(x.shape).astype(np.float32))
                           .to(dev) for x in w)
                 v = tuple(torch.from_numpy(1e-4 * rng.random(x.shape).astype(np.float32))
@@ -2864,7 +2781,7 @@ def main():
                         data, order, w, m, v, stats, **kw3)
                     torch.cuda.synchronize()
                     what = f"obs_dim={obs_dim} hidden={hidden} {head} A={a} {compute}"
-                    err = check_buffers(g, g_ref, "K2 " + what)
+                    err = check_buffers(towers(uk, g), towers(uk, g_ref), "K2 " + what)
                     check_metrics(met, met_ref, "K2 " + what)
                     err3 = max(check_buffers([x - y for x, y in zip(new[0], w)],
                                              [x - y for x, y in zip(ref[0], w)],

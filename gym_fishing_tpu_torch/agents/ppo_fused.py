@@ -1,11 +1,11 @@
 """Glue between the ActorCritic parameters and the fused kernels.
 
-Counterpart of ``gym_fishing_tpu/agents/ppo_fused.py``. The update kernels
-(``kernels/ppo_update_kernel.py``) want kernel-layout weights
-(``[in, out]`` matrices, ``[n, 1]`` biases, merged block-diagonally) and the
-feature-major ``[R, N]`` sample matrix (R a multiple of 8); `torch.nn.Linear` stores
-``[out, in]`` and 1-D biases. The arrays are tiny (~17k floats), so the
-relayout costs little next to the pass over the samples.
+Counterpart of ``gym_fishing_tpu/agents/ppo_fused.py``. Every kernel wrapper
+takes the weights merged block-diagonally (`merged_weights`: ``[in, out]``
+matrices, ``[n, 1]`` biases, views of one flat buffer), the update kernels
+the feature-major ``[R, N]`` sample matrix (R a multiple of 8);
+`torch.nn.Linear` stores ``[out, in]`` and 1-D biases. The glue converts
+once each way per rollout and per epoch scan.
 
 Parameters travel as a name -> tensor mapping (``dict(model.named_parameters())``
 or Adam's moments, which share the names), the counterpart of the flax tree.
@@ -36,7 +36,7 @@ from gym_fishing_tpu_torch.kernels.ppo_update_kernel import (
     ADAM_B1,
     ADAM_B2,
     LOG_2PI_E,
-    PPOGrads,
+    MergedWeights,
     fused_minibatch_grad,
     fused_minibatch_grad_adam,
     merge_weights,
@@ -52,7 +52,7 @@ def _pi_head(head: str) -> str:
 
 
 def kernel_weights(params: Mapping[str, torch.Tensor], head: str = "gaussian") -> tuple:
-    """Named parameters -> the 13 kernel-layout arrays (PPOGrads order).
+    """Named parameters -> the 13 kernel-layout arrays (`merge_weights`' input).
 
     The categorical head has no log_std parameter: its slot gets a zeros
     [A, 1] placeholder that the kernel never reads."""
@@ -80,19 +80,15 @@ def params_from_kernel(split: tuple, head: str = "gaussian") -> Dict[str, torch.
     return out
 
 
-def grads_pytree(g: PPOGrads, params: Mapping[str, torch.Tensor], ent_coef: float,
-                 head: str = "gaussian") -> Dict[str, torch.Tensor]:
-    """Kernel-layout gradients -> a name -> tensor mapping with the names and
-    shapes of `params`.
+def merged_weights(params: Mapping[str, torch.Tensor], head: str = "gaussian") -> MergedWeights:
+    """Named parameters (or Adam's moments) -> the kernels' merged weights."""
+    return merge_weights(kernel_weights(params, head))
 
-    Gaussian: the entropy term of the loss, -ent_coef * mean(sum_a(log_std +
-    c)), is data-independent; its gradient (-ent_coef per action dim) is
-    added here. Categorical: the entropy gradient is already in dWm/dbm and
-    there is no log_std."""
-    grads = params_from_kernel(tuple(g), head)
-    if head == "gaussian":
-        grads["log_std"] = grads["log_std"] - ent_coef
-    return {name: grads[name].reshape(p.shape) for name, p in params.items()}
+
+def params_from_merged(merged: tuple, head: str = "gaussian") -> Dict[str, torch.Tensor]:
+    """Inverse of `merged_weights`: named tensors in `torch.nn.Linear` layout."""
+    h, a = merged[2].shape[0] // 2, merged[4].shape[1] - 1
+    return params_from_kernel(unmerge_weights(merged, h, a), head)
 
 
 def pack_feature_major(mb: torch.Tensor) -> torch.Tensor:
@@ -133,10 +129,16 @@ def fused_grad(params: Mapping[str, torch.Tensor], data_t: torch.Tensor, clip_ep
         adv = data_t[obs_dim + na + 2]
         adv_stats = torch.stack([adv.mean(), 1.0 / (adv.std(correction=0) + 1e-8)])
     g, met = fused_minibatch_grad(
-        data_t, tile_order, kernel_weights(params, head), adv_stats, clip_eps=clip_eps,
+        data_t, tile_order, merged_weights(params, head), adv_stats, clip_eps=clip_eps,
         vf_coef=vf_coef, ent_coef=ent_coef, obs_dim=obs_dim, act_dim=act_dim, tile=tile,
         head=head, compute=compute, reduce=reduce)
-    grads = grads_pytree(g, params, ent_coef, head)
+    grads = params_from_merged(g, head)
+    # Gaussian: the loss's entropy term, -ent_coef * mean(sum_a(log_std + c)),
+    # is data-independent and its gradient, -ent_coef per action dim, joins
+    # here; the categorical entropy gradient is already in dWm / dbm
+    if head == "gaussian":
+        grads["log_std"] = grads["log_std"] - ent_coef
+    grads = {name: grads[name].reshape(p.shape) for name, p in params.items()}
     if head == "gaussian":
         entropy = torch.sum(params["log_std"].detach() + 0.5 * LOG_2PI_E)
     else:
@@ -255,7 +257,8 @@ def fused_epoch_scan_adam(cfg, ts, packed_t: torch.Tensor, obs_dim: int, act_dim
     any gradient could be reduced over ranks, so a `mesh` raises.
 
     The merged weights and moments are built once, carried through every
-    minibatch launch, and written back to `ts` once at the end. lr (with
+    minibatch launch (each takes the last one's output buffers as they
+    are), and written back to `ts` once at the end. lr (with
     anneal_lr, optax.linear_schedule at the count BEFORE the increment) and
     the bias corrections come from the Python-int count.
 
@@ -272,9 +275,7 @@ def fused_epoch_scan_adam(cfg, ts, packed_t: torch.Tensor, obs_dim: int, act_dim
         n_mb = per_mb * tile
         params = ts.params()
         log_std0 = params["log_std"].detach().clone() if head == "gaussian" else None
-        w = merge_weights(kernel_weights(params, head))
-        m = merge_weights(kernel_weights(ts.m, head))
-        v = merge_weights(kernel_weights(ts.v, head))
+        w, m, v = (merged_weights(x, head) for x in (params, ts.m, ts.v))
     count = ts.count
     mets = []
     for e in range(cfg.epochs):
@@ -297,13 +298,11 @@ def fused_epoch_scan_adam(cfg, ts, packed_t: torch.Tensor, obs_dim: int, act_dim
             count = count1
 
     with span("train_step/update/writeback"):
-        h = params["pi_d1.weight"].shape[0]
-        a = params[f"{_pi_head(head)}.weight"].shape[0]
         with torch.no_grad():
-            for name, val in params_from_kernel(unmerge_weights(w, h, a), head).items():
+            for name, val in params_from_merged(w, head).items():
                 params[name].copy_(val.reshape(params[name].shape))
         for store, merged in ((ts.m, m), (ts.v, v)):
-            for name, val in params_from_kernel(unmerge_weights(merged, h, a), head).items():
+            for name, val in params_from_merged(merged, head).items():
                 store[name] = val.reshape(params[name].shape).contiguous()
         ts.count = count
         ts.step += cfg.epochs * cfg.num_minibatches
@@ -424,11 +423,11 @@ def fused_rollout_collect(env, env_params: EnvParams, cfg, ts, bstate: BatchStat
                  bstate.env.harvest.float().contiguous(),
                  bstate.episode_return.float().contiguous(),
                  bstate.episode_length.to(torch.int32).contiguous())
-        weights = kernel_weights(ts.params(), head)
+        merged = merged_weights(ts.params(), head)
     with span("train_step/rollout/k4"):
         roll = policy_rollout(
             *state,
-            weights,
+            merged,
             scalars,
             cfg.num_steps,
             growth=env.config.growth,

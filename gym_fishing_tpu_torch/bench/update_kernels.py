@@ -102,8 +102,8 @@ def error_table(uk, ppo, ppo_fused, dev) -> None:
                     obs, action.float().reshape(n, -1), (logp + 0.3 * randn(n))[:, None],
                     (value + 0.3 * randn(n))[:, None], randn(n, 1),
                     (value + randn(n))[:, None]], 1)
-                weights = tuple(w.to(dev) for w in ppo_fused.kernel_weights(
-                    dict(model.named_parameters()), head))
+                weights = ppo_fused.merged_weights(
+                    {k: w.to(dev) for k, w in model.named_parameters()}, head)
                 data = ppo_fused.pack_feature_major(packed).to(dev)
                 order = torch.arange(0, 64, dtype=torch.int32, device=dev)
                 stats = torch.tensor([0.05, 1.1], device=dev)
@@ -112,11 +112,12 @@ def error_table(uk, ppo, ppo_fused, dev) -> None:
                 got, _ = uk.fused_minibatch_grad(data, order, weights, stats, **kw)
                 twin, _ = uk.fused_minibatch_grad_reference(data, order, weights, stats, **kw)
                 exact, _ = uk._grad_merged_reference(
-                    data.double(), order,
-                    tuple(x.double() for x in uk.merge_weights(weights)), stats.double(), **kw)
+                    data.double(), order, tuple(x.double() for x in weights), stats.double(),
+                    **kw)
                 cells = []
-                for name, g, t, ex in zip(uk.PPOGrads._fields, got, twin,
-                                          uk.unmerge_weights(exact, hidden, a)):
+                # by parameter: the kernel computes no cross-tower block
+                named = [ppo_fused.params_from_merged(x, head) for x in (got, twin, exact)]
+                for name, g, t, ex in ((k, *(d[k] for d in named)) for k in named[2]):
                     ulp = float(ex.abs().max()) * 2.0 ** -23
                     if ulp == 0.0:
                         continue

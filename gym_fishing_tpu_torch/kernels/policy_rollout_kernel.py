@@ -1,12 +1,11 @@
 """Fused PPO policy rollout (K4): CUDA kernel and plain twin.
 
 Counterpart of ``gym_fishing_tpu/kernels/policy_rollout_kernel.py``. One call
-runs T steps of B envs under the actor-critic, given as the 13 split-tower
-kernel-layout arrays (``agents/ppo_fused.py::kernel_weights``) and merged
-here into the update kernels' block-diagonal layout
-(``kernels/ppo_update_kernel.py::merge_weights``): forward, Gaussian or
-inverse-CDF categorical sampling, the continuous, proportional or relative
-decode, the dynamics with auto-reset and
+runs T steps of B envs under the actor-critic, given in the update kernels'
+merged block-diagonal format at obs_dim 1 (the 7 arrays of
+``kernels/ppo_update_kernel.py::merge_weights``, whose flat buffer the
+kernel reads): forward, Gaussian or inverse-CDF categorical sampling, the
+continuous, proportional or relative decode, the dynamics with auto-reset and
 observation noise, then the reverse GAE pass, and returns the update
 kernels' packed sample matrix ``[8, T*B]`` (rows: obs, action, logp, value,
 advantage, return, two zero rows; sample ``t*B + env``), the final env
@@ -40,9 +39,8 @@ a CTA; otherwise its products are float32 FMA on the same rounded inputs,
 64 envs a CTA (the library's ``policy_rollout_envs_per_cta`` says which).
 
 The kernel multiplies W2c and Whc per tower and relies on their cross-tower
-blocks being zero (it traps on any other). The wrapper and the twin take the
-split towers and merge them themselves, as the JAX wrapper does, so no call
-can hand the kernel such a block.
+blocks being zero, as `merge_weights` builds them and K3's masked update
+keeps them (it traps on any other); the twin takes any blocks.
 
 Noise: Philox4x32-10 with key = `seed` and counter = (env index, `offset` +
 t), one block of four uint32 per env and step (`draws_per_call`). Gaussian
@@ -71,7 +69,7 @@ from gym_fishing_tpu_torch.kernels.ppo_update_kernel import (
     COMPUTES,
     LOG_2PI,
     flatten_merged,
-    merge_weights,
+    merged_shapes,
 )
 from gym_fishing_tpu_torch.kernels.rollout_kernel import (
     _GROWTHS,
@@ -165,7 +163,7 @@ def draws_per_call(num_steps: int) -> int:
     return num_steps
 
 
-def _check(stock, t, harvest, ep_ret, ep_len, weights, scalars, num_steps, growth, noise_form,
+def _check(stock, t, harvest, ep_ret, ep_len, merged, scalars, num_steps, growth, noise_form,
            scheme, n_actions, obs_noise, compute, noise):
     """Validate the arguments; returns (hidden, A) with A the head width
     (1 for the Gaussian head, n_actions for the categorical one)."""
@@ -187,15 +185,14 @@ def _check(stock, t, harvest, ep_ret, ep_len, weights, scalars, num_steps, growt
     A = 1 if scheme == "continuous" else n_actions
     if A < 2 and scheme != "continuous":
         raise ValueError("n_actions must be >= 2")
-    if len(weights) != 13:
-        raise ValueError("weights must hold the 13 kernel-layout arrays "
-                         "(ppo_fused.kernel_weights)")
-    hidden = weights[0].shape[1]
+    if len(merged) != 7:
+        raise ValueError("the weights must be the 7 merged arrays (merge_weights)")
+    hidden = merged[0].shape[1] // 2
     expect = [("stock", stock, torch.float32, (B,)), ("t", t, torch.int32, (B,)),
               ("harvest", harvest, torch.float32, (B,)),
               ("ep_ret", ep_ret, torch.float32, (B,)), ("ep_len", ep_len, torch.int32, (B,))]
-    expect += [(f"weights[{i}]", x, torch.float32, shape)
-               for i, (x, shape) in enumerate(zip(weights, _split_shapes(hidden, A)))]
+    expect += [(f"merged[{i}]", x, torch.float32, shape)
+               for i, (x, shape) in enumerate(zip(merged, merged_shapes(1, hidden, A)))]
     if noise is not None:
         expect.append(("noise", noise, torch.float32, (3 if obs_noise else 2, num_steps, B)))
     for name, x, dtype, shape in expect:
@@ -207,14 +204,6 @@ def _check(stock, t, harvest, ep_ret, ep_len, weights, scalars, num_steps, growt
     if stock.device.type not in ("cpu", "cuda"):
         raise ValueError(f"runs on CUDA or CPU tensors, not {stock.device}")
     return hidden, A
-
-
-def _split_shapes(hidden: int, act_dim: int):
-    """Shapes of the 13 kernel-layout arrays at obs_dim 1: the policy tower
-    (w1, b1, w2, b2, head weight, head bias), log_std, then the value tower."""
-    h, a = hidden, act_dim
-    return [(1, h), (h, 1), (h, h), (h, 1), (h, a), (a, 1), (a, 1),
-            (1, h), (h, 1), (h, h), (h, 1), (h, 1), (1, 1)]
 
 
 def check_kernel_limits(hidden: int, act_dim: int) -> None:
@@ -233,7 +222,7 @@ def policy_rollout(
     harvest: torch.Tensor,    # (B,) f32 carried harvest
     ep_ret: torch.Tensor,     # (B,) f32 running return
     ep_len: torch.Tensor,     # (B,) i32 running length
-    weights: tuple,           # 13 kernel-layout arrays (ppo_fused.kernel_weights)
+    merged: tuple,            # 7 merged weight arrays (merge_weights)
     scalars: RolloutScalars,
     num_steps: int,
     *,
@@ -261,9 +250,9 @@ def policy_rollout(
               scheme=scheme, n_actions=n_actions, obs_noise=obs_noise, compute=compute,
               fold_obs=fold_obs, noise=noise)
     if stock.device.type == "cpu":
-        return policy_rollout_reference(stock, t, harvest, ep_ret, ep_len, weights, scalars,
+        return policy_rollout_reference(stock, t, harvest, ep_ret, ep_len, merged, scalars,
                                         num_steps, **kw)
-    hidden, A = _check(stock, t, harvest, ep_ret, ep_len, weights, scalars, num_steps, growth,
+    hidden, A = _check(stock, t, harvest, ep_ret, ep_len, merged, scalars, num_steps, growth,
                        noise_form, scheme, n_actions, obs_noise, compute, noise)
     check_kernel_limits(hidden, A)
     given = (stock, t, harvest, ep_ret, ep_len, *(() if noise is None else (noise,)))
@@ -280,7 +269,7 @@ def policy_rollout(
         num_steps=num_steps, pad0=0, num_envs=B, seed=s["seed"], offset=s["offset"],
     )
     dev = stock.device
-    w = flatten_merged(merge_weights(weights))
+    w = flatten_merged(merged)
     packed = torch.empty((PACKED_ROWS, num_steps * B), dtype=torch.float32, device=dev)
     out_f = [torch.empty_like(stock) for _ in range(3)]  # stock, harvest, ep_ret
     out_t, out_len = torch.empty_like(t), torch.empty_like(ep_len)
@@ -375,11 +364,11 @@ def _bf16_copy(m: torch.Tensor, hidden: int) -> torch.Tensor:
     return out
 
 
-def wide_prep_reference(weights: tuple, compute: str = "float32") -> WidePrep:
-    """Plain version of ``wide_prep``: the regions it lays out from the 13
-    kernel-layout arrays (ppo_fused.kernel_weights), on the CPU, rounded to
-    bf16 under bfloat16, the head zero in its padding classes."""
-    w2c, whc = (x.detach().cpu() for x in merge_weights(weights)[2:5:2])
+def wide_prep_reference(merged: tuple, compute: str = "float32") -> WidePrep:
+    """Plain version of ``wide_prep``: the regions it lays out from the 7
+    merged arrays (merge_weights), on the CPU, rounded to bf16 under
+    bfloat16, the head zero in its padding classes."""
+    w2c, whc = (x.detach().cpu() for x in merged[2:5:2])
     H, A = w2c.shape[0] // 2, whc.shape[1] - 1
     AP = -(-A // 8) * 8
     rnd = ((lambda x: x.to(torch.bfloat16).to(torch.float32)) if compute == "bfloat16"
@@ -393,9 +382,9 @@ def wide_prep_reference(weights: tuple, compute: str = "float32") -> WidePrep:
                     _bf16_copy(fw, H), w2b, _bf16_copy(mp, H))
 
 
-def wide_prep(weights: tuple, compute: str = "float32") -> WidePrep:
-    """``wide_prep``'s output for the 13 kernel-layout arrays at sizes that
-    take the wide path, by region: views of the scratch the kernel reads,
+def wide_prep(merged: tuple, compute: str = "float32") -> WidePrep:
+    """``wide_prep``'s output for the 7 merged arrays (merge_weights) at sizes
+    that take the wide path, by region: views of the scratch the kernel reads,
     at the offsets the library exports. The kernel writes the bf16 copies
     only where the wide path runs on the tensor cores; elsewhere they hold
     whatever the scratch held. On a CUDA tensor it launches
@@ -403,17 +392,17 @@ def wide_prep(weights: tuple, compute: str = "float32") -> WidePrep:
     a CPU tensor it runs `wide_prep_reference`."""
     if compute not in COMPUTES:
         raise ValueError(f"unknown compute {compute!r}")
-    if weights[0].device.type == "cpu":
-        return wide_prep_reference(weights, compute)
-    hidden, A = weights[0].shape[1], weights[4].shape[1]
+    if merged[0].device.type == "cpu":
+        return wide_prep_reference(merged, compute)
+    hidden, A = merged[0].shape[1] // 2, merged[4].shape[1] - 1
     check_kernel_limits(hidden, A)
     lib = library()
     n_prep = lib.policy_rollout_prep_floats(hidden, A)
     if not n_prep:
         raise ValueError(f"hidden {hidden} with {A} head outputs takes the narrow kernel")
     p = _Params(hidden=hidden, act_dim=A, compute=COMPUTES.index(compute))
-    dev = weights[0].device
-    w = flatten_merged(merge_weights(weights))
+    dev = merged[0].device
+    w = flatten_merged(merged)
     prep = torch.empty((n_prep,), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = lib.policy_rollout_wide_prep(ctypes.addressof(p), w.data_ptr(), prep.data_ptr(),
@@ -455,7 +444,7 @@ def policy_rollout_reference(
     harvest: torch.Tensor,
     ep_ret: torch.Tensor,
     ep_len: torch.Tensor,
-    weights: tuple,
+    merged: tuple,
     scalars: RolloutScalars,
     num_steps: int,
     *,
@@ -471,7 +460,7 @@ def policy_rollout_reference(
     noise: Optional[torch.Tensor] = None,
 ) -> PolicyRollout:
     """Plain PyTorch twin of the kernel: same signature, outputs and noise."""
-    _, A = _check(stock, t, harvest, ep_ret, ep_len, weights, scalars, num_steps, growth,
+    _, A = _check(stock, t, harvest, ep_ret, ep_len, merged, scalars, num_steps, growth,
                   noise_form, scheme, n_actions, obs_noise, compute, noise)
     dev, f32 = stock.device, torch.float32
     B, T = stock.shape[0], num_steps
@@ -488,7 +477,7 @@ def policy_rollout_reference(
     rnd = ((lambda x: x.to(torch.bfloat16).to(f32)) if compute == "bfloat16"
            else (lambda x: x))
 
-    w1c, b1c, w2c, b2c, whc, bhc, ls = merge_weights(weights)
+    w1c, b1c, w2c, b2c, whc, bhc, ls = merged
     w1, b1 = w1c[0], b1c[:, 0]
     if fold_obs:   # obs = clip(m, 0, 2K)/K - 1 enters the input layer as w/K and b - w
         w1, b1 = w1 * inv_K, b1 - w1

@@ -69,9 +69,12 @@ sums in registers; longer observations (windows of stacked observations, up
 to `KERNEL_MAX_OBS_DIM` fields) take instantiations whose threads own the
 entries of the ``[D, 2H]`` block instead and read W1c from L2.
 
-The kernel takes merged weights whose cross-tower blocks of W2c are zero, as
-`merge_weights` builds them and K3's masked update keeps them, and traps on
-any other; the twins take any W2c.
+Every kernel wrapper, K4's too, takes the weights as `MergedWeights`: the
+7 arrays of `merged_shapes` as views of the one flat buffer the CUDA code
+reads, built by `merge_weights` and returned by K2 and K3, so chained K3
+calls copy nothing. The kernels take merged weights whose cross-tower
+blocks of W2c are zero, as `merge_weights` builds them and K3's masked
+update keeps them, and trap on any other; the twins take any W2c.
 
 The advantage statistics ``adv_stats = (mu, 1/(std + 1e-8))`` arrive as a
 2-element tensor on the data's device, so a minibatch loop never syncs with
@@ -83,7 +86,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Callable, NamedTuple, Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -135,24 +138,6 @@ tower_launches = 0   # ppo_grad_tower, K2's and K3's stage 1 where `tower_path` 
 clip_adam_launches = 0   # K3's stage 3 (clip + Adam), inside each K3 launch or alone
 
 
-class PPOGrads(NamedTuple):
-    """Gradient buffers in kernel layout (split towers)."""
-
-    dW1p: torch.Tensor   # [D, H]
-    db1p: torch.Tensor   # [H, 1]
-    dW2p: torch.Tensor   # [H, H]
-    db2p: torch.Tensor   # [H, 1]
-    dWm: torch.Tensor    # [H, A]
-    dbm: torch.Tensor    # [A, 1]
-    dlog_std: torch.Tensor  # [A, 1]
-    dW1v: torch.Tensor   # [D, H]
-    db1v: torch.Tensor   # [H, 1]
-    dW2v: torch.Tensor   # [H, H]
-    db2v: torch.Tensor   # [H, 1]
-    dWv: torch.Tensor    # [H, 1]
-    dbv: torch.Tensor    # [1, 1]
-
-
 class _GradParams(ctypes.Structure):
     """Mirror of `struct GradParams` in csrc/ppo_update_kernel.cu."""
 
@@ -176,18 +161,32 @@ class _AdamParams(ctypes.Structure):
 
 # ------------------------------------------------------------ merged layout
 
-def merge_weights(weights: tuple) -> tuple:
-    """13 split-tower kernel-layout arrays -> 7 merged block-diagonal arrays:
-    W1c [D, 2H], b1c [2H, 1], W2c [2H, 2H], b2c [2H, 1], Whc [2H, A+1],
-    bhc [A+1, 1], log_std [A, 1]. The zero off-diagonal blocks of W2c and Whc
-    correspond to no parameter."""
-    (w1p, b1p, w2p, b2p, wm, bm, ls, w1v, b1v, w2v, b2v, wv, bv) = weights
-    h, a = w1p.shape[1], wm.shape[1]
-    z = functools.partial(torch.zeros, dtype=torch.float32, device=w1p.device)
-    w2c = torch.cat([torch.cat([w2p, z(h, h)], 1), torch.cat([z(h, h), w2v], 1)], 0)
-    whc = torch.cat([torch.cat([wm, z(h, 1)], 1), torch.cat([z(h, a), wv], 1)], 0)
-    return (torch.cat([w1p, w1v], 1), torch.cat([b1p, b1v], 0), w2c,
-            torch.cat([b2p, b2v], 0), whc, torch.cat([bm, bv], 0), ls)
+class MergedWeights(tuple):
+    """The 7 merged arrays (`merged_shapes` order) as views of one flat
+    buffer, `.flat`, laid out as the kernels read it (``make_layout`` in
+    csrc/ppo_update_kernel.cu)."""
+
+    flat: torch.Tensor
+
+    def __new__(cls, arrays, flat: torch.Tensor):
+        self = super().__new__(cls, arrays)
+        self.flat = flat
+        return self
+
+
+def merge_weights(weights: tuple) -> MergedWeights:
+    """13 split-tower kernel-layout arrays -> the 7 merged block-diagonal
+    arrays W1c [D, 2H], b1c [2H, 1], W2c [2H, 2H], b2c [2H, 1], Whc [2H, A+1],
+    bhc [A+1, 1], log_std [A, 1], as views of one zeroed buffer into whose
+    blocks the towers are copied. The zero off-diagonal blocks of W2c and
+    Whc correspond to no parameter."""
+    w1p, wm = weights[0], weights[4]
+    d, h, a = w1p.shape[0], w1p.shape[1], wm.shape[1]
+    n = sum(r * c for r, c in merged_shapes(d, h, a))
+    merged = unflatten_merged(torch.zeros((n,), dtype=w1p.dtype, device=w1p.device), d, h, a)
+    for block, x in zip(unmerge_weights(merged, h, a), weights):
+        block.copy_(x)
+    return merged
 
 
 def unmerge_weights(merged: tuple, h: int, a: int) -> tuple:
@@ -217,18 +216,20 @@ def merged_shapes(obs_dim: int, hidden: int, act_dim: int):
 
 
 def flatten_merged(merged: tuple) -> torch.Tensor:
+    """The kernels' flat buffer of the 7 merged arrays: the `MergedWeights`'
+    own, without a copy; a plain tuple's arrays concatenated."""
+    if isinstance(merged, MergedWeights):
+        return merged.flat
     return torch.cat([x.reshape(-1) for x in merged])
 
 
-def unflatten_merged(flat: torch.Tensor, obs_dim: int, hidden: int, act_dim: int) -> tuple:
-    """Views of the flat buffer as the 7 merged arrays."""
+def unflatten_merged(flat: torch.Tensor, obs_dim: int, hidden: int,
+                     act_dim: int) -> MergedWeights:
+    """Views of the flat buffer's first P entries as the 7 merged arrays."""
     shapes = merged_shapes(obs_dim, hidden, act_dim)
     sizes = [r * c for r, c in shapes]
-    return tuple(x.view(s) for x, s in zip(torch.split(flat[:sum(sizes)], sizes), shapes))
-
-
-def _split_grads(merged_g: tuple, h: int, a: int) -> PPOGrads:
-    return PPOGrads(*unmerge_weights(merged_g, h, a))
+    flat = flat[:sum(sizes)]
+    return MergedWeights((x.view(s) for x, s in zip(torch.split(flat, sizes), shapes)), flat)
 
 
 # ------------------------------------------------------------------ checks
@@ -259,6 +260,8 @@ def _check(data, tile_order, merged, adv_stats, obs_dim, act_dim, tile, head, co
         raise ValueError("tile_order must be a non-empty int32 vector")
     if adv_stats.shape != (2,) or adv_stats.dtype != torch.float32:
         raise ValueError("adv_stats must be float32 of shape (2,): (mu, 1/(std + 1e-8))")
+    if len(merged) != 7:
+        raise ValueError(f"the weights must be the 7 merged arrays, not {len(merged)}")
     hidden = merged[0].shape[1] // 2
     for x, shape in zip(merged, merged_shapes(obs_dim, hidden, act_dim)):
         if tuple(x.shape) != shape or x.dtype != torch.float32:
@@ -313,7 +316,7 @@ def _check_adam(data, tile_order, merged_w, merged_m, merged_v, adv_stats, obs_d
 def fused_minibatch_grad(
     data: torch.Tensor,        # [R, N] f32 feature-major packed samples, R = 8, 16, 24
     tile_order: torch.Tensor,  # (G,) i32: the tiles this pass visits
-    weights: tuple,            # 13 kernel-layout arrays, see PPOGrads order
+    merged: tuple,             # 7 merged weight arrays (merge_weights)
     adv_stats: torch.Tensor,   # (2,) f32: (mu, 1/(std + 1e-8)) of the minibatch
     *,
     clip_eps: float,
@@ -325,12 +328,12 @@ def fused_minibatch_grad(
     head: str = "gaussian",
     compute: str = "float32",
     reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
-) -> Tuple[PPOGrads, torch.Tensor]:
-    """One fused pass -> (PPOGrads, metric sums (4,)).
+) -> Tuple[MergedWeights, torch.Tensor]:
+    """One fused pass -> (the merged gradients, metric sums (4,)).
 
-    `reduce` takes the pass's one flat output (the 7 merged gradients, then
-    the 4 metric sums) before it is split, and returns it reduced: the
-    sharded step all-reduces it over the ranks there, in one collective.
+    Both are views of the pass's one flat output (the 7 merged gradients,
+    then the 4 metric sums), which `reduce` takes first and returns reduced:
+    the sharded step all-reduces it over the ranks there, in one collective.
 
     The minibatch is the ``G * tile`` samples of the tiles `tile_order`
     names, read in place (zero-copy shuffling); ``inv_n = 1 / (G * tile)``.
@@ -342,16 +345,19 @@ def fused_minibatch_grad(
     scal = dict(clip_eps=clip_eps, vf_coef=vf_coef, ent_coef=ent_coef, obs_dim=obs_dim,
                 act_dim=act_dim, tile=tile, head=head, compute=compute)
     if data.device.type == "cpu":
-        return fused_minibatch_grad_reference(data, tile_order, weights, adv_stats, **scal,
+        return fused_minibatch_grad_reference(data, tile_order, merged, adv_stats, **scal,
                                               reduce=reduce)
-    merged = merge_weights(weights)
     hidden = _check(data, tile_order, merged, adv_stats, obs_dim, act_dim, tile, head, compute)
     gout = _launch(data, tile_order, flatten_merged(merged), adv_stats, hidden, **scal)
     grad_launches += 1
+    return _grad_outputs(gout, reduce, obs_dim, hidden, act_dim)
+
+
+def _grad_outputs(gout, reduce, obs_dim, hidden, act_dim):
+    """(merged gradients, metric sums): views of K2's output [P + 4], reduced."""
     if reduce is not None:
         gout = reduce(gout)
-    g = unflatten_merged(gout, obs_dim, hidden, act_dim)
-    return _split_grads(g, hidden, act_dim), gout[-4:]
+    return unflatten_merged(gout, obs_dim, hidden, act_dim), gout[-4:]
 
 
 def fused_minibatch_grad_adam(
@@ -380,12 +386,13 @@ def fused_minibatch_grad_adam(
 ):
     """One minibatch: gradient + clip-by-global-norm + Adam.
 
-    Returns (new merged_w, new merged_m, new merged_v, metric sums (4,)), with
-    optax.chain(clip_by_global_norm, adam) semantics: the cross-tower blocks
-    are masked out of the norm and the update, the Gaussian head's
-    data-independent entropy gradient ``-ent_coef`` joins ``log_std``'s before
-    clipping, and the categorical head passes ``log_std`` and its moments
-    through. On a CUDA tensor this launches the kernel without syncing.
+    Returns (new merged_w, new merged_m, new merged_v, metric sums (4,)), on
+    new buffers the next call takes as they are, with optax.chain(
+    clip_by_global_norm, adam) semantics: the cross-tower blocks are masked
+    out of the norm and the update, the Gaussian head's data-independent
+    entropy gradient ``-ent_coef`` joins ``log_std``'s before clipping, and
+    the categorical head passes ``log_std`` and its moments through. On a
+    CUDA tensor this launches the kernel without syncing.
     """
     global adam_launches
     scal = dict(clip_eps=clip_eps, vf_coef=vf_coef, ent_coef=ent_coef, obs_dim=obs_dim,
@@ -823,7 +830,7 @@ def reduce_rows_reference(rows: torch.Tensor) -> torch.Tensor:
     return z
 
 
-def fused_minibatch_grad_split_reference(data, tile_order, weights, adv_stats, *, clip_eps,
+def fused_minibatch_grad_split_reference(data, tile_order, merged, adv_stats, *, clip_eps,
                                          vf_coef, ent_coef, obs_dim, act_dim, tile=2048,
                                          head="gaussian", compute="float32", reduce=None):
     """The wide path's pipeline as plain tensor ops, same signature and
@@ -831,7 +838,6 @@ def fused_minibatch_grad_split_reference(data, tile_order, weights, adv_stats, *
     activation scratch holds them, `dw2c_split_reference`'s partials over
     the same ranges, their sum in stage 2's order for dW2c, and the other
     buffers and the metric sums as the twin computes them."""
-    merged = merge_weights(weights)
     hidden = _check(data, tile_order, merged, adv_stats, obs_dim, act_dim, tile, head, compute)
     g, met, h1, gp2 = _grad_merged_parts(
         data, tile_order, merged, adv_stats, clip_eps=clip_eps, vf_coef=vf_coef,
@@ -841,10 +847,7 @@ def fused_minibatch_grad_split_reference(data, tile_order, weights, adv_stats, *
         h1, gp2 = h1.to(torch.bfloat16), gp2.to(torch.bfloat16)
     part = dw2c_split_reference(h1.T.float(), gp2.T.float(), hidden, tile_order.shape[0], tile)
     g = (*g[:2], reduce_rows_reference(part), *g[3:])
-    if reduce is not None:
-        flat = reduce(torch.cat([flatten_merged(g), met]))
-        g, met = unflatten_merged(flat, obs_dim, hidden, act_dim), flat[-4:]
-    return _split_grads(g, hidden, act_dim), met
+    return _grad_outputs(torch.cat([flatten_merged(g), met]), reduce, obs_dim, hidden, act_dim)
 
 
 def _masked_grads(g, head, ent_coef):
@@ -904,20 +907,16 @@ def clip_adam_reference(gout, w, m, v, *, obs_dim, hidden, act_dim, head="gaussi
     return tuple(flatten_merged(x) for x in new)
 
 
-def fused_minibatch_grad_reference(data, tile_order, weights, adv_stats, *, clip_eps, vf_coef,
+def fused_minibatch_grad_reference(data, tile_order, merged, adv_stats, *, clip_eps, vf_coef,
                                    ent_coef, obs_dim, act_dim, tile=2048, head="gaussian",
                                    compute="float32", reduce=None):
     """Plain PyTorch twin of `fused_minibatch_grad`: same signature and outputs."""
-    merged = merge_weights(weights)
     hidden = _check(data, tile_order, merged, adv_stats, obs_dim, act_dim, tile, head, compute)
     g, met = _grad_merged_reference(
         data, tile_order, merged, adv_stats, clip_eps=clip_eps, vf_coef=vf_coef,
         ent_coef=ent_coef, obs_dim=obs_dim, act_dim=act_dim, tile=tile, head=head,
         compute=compute)
-    if reduce is not None:
-        flat = reduce(torch.cat([flatten_merged(g), met]))
-        g, met = unflatten_merged(flat, obs_dim, hidden, act_dim), flat[-4:]
-    return _split_grads(g, hidden, act_dim), met
+    return _grad_outputs(torch.cat([flatten_merged(g), met]), reduce, obs_dim, hidden, act_dim)
 
 
 def fused_minibatch_grad_adam_reference(data, tile_order, merged_w, merged_m, merged_v,

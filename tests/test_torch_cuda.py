@@ -179,8 +179,9 @@ def test_a_library_runs_its_own_configuration_only(cuda, monkeypatch):
 
 
 def _ppo_case(head, n, hidden, seed, obs_dim=1, act_dim=None):
-    """A jittered random ActorCritic and n packed samples drawn from it, with
-    old log-probs and values spread so every clip branch is visited."""
+    """A jittered random ActorCritic (merged weights) and n packed samples
+    drawn from it, with old log-probs and values spread so every clip branch
+    is visited."""
     gen = torch.Generator().manual_seed(seed)
     gauss = head == "gaussian"
     a = act_dim or (1 if gauss else 3)
@@ -197,8 +198,14 @@ def _ppo_case(head, n, hidden, seed, obs_dim=1, act_dim=None):
     packed = torch.cat([obs, action.float().reshape(n, -1), (logp + 0.3 * randn(n))[:, None],
                         (value + 0.3 * randn(n))[:, None], randn(n, 1),
                         (value + randn(n))[:, None]], 1)
-    weights = ppo_fused.kernel_weights(dict(model.named_parameters()), head)
+    weights = ppo_fused.merged_weights(dict(model.named_parameters()), head)
     return weights, ppo_fused.pack_feature_major(packed), a
+
+
+def _towers(merged):
+    """The 13 split-tower arrays of merged weights or gradients: K2 computes
+    no cross-tower block (its are zero), the twin the whole products."""
+    return uk.unmerge_weights(merged, merged[2].shape[0] // 2, merged[4].shape[1] - 1)
 
 
 def _assert_buffers_close(got, ref):
@@ -225,7 +232,7 @@ def test_ppo_grad_kernel_matches_twin(cuda, head, ent_coef, hidden, compute):
     assert uk.grad_launches == before + 1
     g_ref, met_ref = uk.fused_minibatch_grad_reference(data, order, weights, adv_stats, **kw)
     torch.cuda.synchronize()
-    _assert_buffers_close(g, g_ref)
+    _assert_buffers_close(_towers(g), _towers(g_ref))
     np.testing.assert_allclose(met.cpu().numpy(), met_ref.cpu().numpy(), rtol=2e-4, atol=1e-6)
 
 
@@ -242,7 +249,7 @@ def _assert_k2_k3_match_twins(cuda, weights, data, a, obs_dim, head, compute, co
     before = uk.grad_launches, uk.adam_launches
     g, met = uk.fused_minibatch_grad(data, order, weights, adv_stats, **kw)
     g_ref, met_ref = uk.fused_minibatch_grad_reference(data, order, weights, adv_stats, **kw)
-    w = uk.merge_weights(weights)
+    w = weights
     if count5:
         gen = torch.Generator().manual_seed(3)
         m = tuple((0.01 * torch.randn(x.shape, generator=gen)).to(cuda) for x in w)
@@ -255,7 +262,7 @@ def _assert_k2_k3_match_twins(cuda, weights, data, a, obs_dim, head, compute, co
     *ref, _ = uk.fused_minibatch_grad_adam_reference(data, order, w, m, v, adv_stats, **akw)
     assert (uk.grad_launches, uk.adam_launches) == (before[0] + 1, before[1] + 1)
     torch.cuda.synchronize()
-    _assert_buffers_close(g, g_ref)
+    _assert_buffers_close(_towers(g), _towers(g_ref))
     np.testing.assert_allclose(met.cpu().numpy(), met_ref.cpu().numpy(), rtol=2e-4, atol=1e-6)
     np.testing.assert_array_equal(met_a.cpu().numpy(), met.cpu().numpy())
     _assert_buffers_close([n - o for n, o in zip(new[0], w)], [r - o for r, o in zip(ref[0], w)])
@@ -350,7 +357,7 @@ def test_ppo_grad_kernels_match_twin_at_the_wide_widths(cuda, hidden, head, act_
     before = uk.grad_launches, uk.adam_launches, uk.tower_launches
     g, met = uk.fused_minibatch_grad(data, order, weights, adv_stats, **kw)
     g_ref, met_ref = uk.fused_minibatch_grad_reference(data, order, weights, adv_stats, **kw)
-    w = uk.merge_weights(weights)
+    w = weights
     gen = torch.Generator().manual_seed(3)
     m = tuple((0.01 * torch.randn(x.shape, generator=gen)).to(cuda) for x in w)
     v = tuple((1e-4 * torch.rand(x.shape, generator=gen)).to(cuda) for x in w)
@@ -365,7 +372,7 @@ def test_ppo_grad_kernels_match_twin_at_the_wide_widths(cuda, hidden, head, act_
     for x, y in zip([t for group in new for t in group] + [met_a],
                     [t for group in again for t in group] + [met_b]):
         assert torch.equal(x.view(torch.int32), y.view(torch.int32))
-    _assert_buffers_close(g, g_ref)
+    _assert_buffers_close(_towers(g), _towers(g_ref))
     np.testing.assert_allclose(met.cpu().numpy(), met_ref.cpu().numpy(), rtol=2e-4, atol=1e-6)
     np.testing.assert_array_equal(met_a.cpu().numpy(), met.cpu().numpy())
     _assert_buffers_close([n - o for n, o in zip(new[0], w)], [r - o for r, o in zip(ref[0], w)])
@@ -405,7 +412,7 @@ def test_dw2c_split_matches_its_plain_version(cuda, hidden, head, act_dim, num_t
     stats = torch.tensor([0.05, 1.1], device=cuda)
     kw = dict(clip_eps=0.2, vf_coef=0.5, ent_coef=0.01, obs_dim=1, act_dim=a, tile=tile,
               head=head, compute=compute)
-    merged = uk.merge_weights(weights)
+    merged = weights
     n, h2 = num_tiles * tile, 2 * hidden
     act, ws = uk.wide_stage1(data, order, merged, stats, **kw)
     _, _, h1, gp2 = uk._grad_merged_parts(data, order, merged, stats, **kw)
@@ -479,7 +486,7 @@ def test_ppo_grad_kernel_refuses_wider_sizes_before_the_launch(cuda, hidden, act
 def _float32_accuracy_case(cuda, head, hidden, act_dim, obs_dim=1):
     weights, data, a = _ppo_case(head, 64 * 256, hidden, seed=6, obs_dim=obs_dim,
                                  act_dim=act_dim)
-    _assert_float32_accuracy(cuda, weights, data, a, hidden, head, obs_dim)
+    _assert_float32_accuracy(cuda, weights, data, a, head, obs_dim)
 
 
 @pytest.mark.cuda
@@ -506,7 +513,7 @@ def test_ppo_grad_kernel_float32_accuracy_on_long_observations(cuda, head, hidde
     _float32_accuracy_case(cuda, head, hidden, act_dim, obs_dim)
 
 
-def _assert_float32_accuracy(cuda, weights, data, a, hidden, head, obs_dim):
+def _assert_float32_accuracy(cuda, weights, data, a, head, obs_dim):
     data, weights = data.to(cuda), tuple(w.to(cuda) for w in weights)
     order = torch.arange(0, 64, dtype=torch.int32, device=cuda)
     adv_stats = torch.tensor([0.05, 1.1], device=cuda)
@@ -515,12 +522,11 @@ def _assert_float32_accuracy(cuda, weights, data, a, hidden, head, obs_dim):
     g, _ = uk.fused_minibatch_grad(data, order, weights, adv_stats, **kw)
     twin, _ = uk.fused_minibatch_grad_reference(data, order, weights, adv_stats, **kw)
     exact, _ = uk._grad_merged_reference(
-        data.double(), order, tuple(x.double() for x in uk.merge_weights(weights)),
-        adv_stats.double(), **kw)
+        data.double(), order, tuple(x.double() for x in weights), adv_stats.double(), **kw)
     torch.cuda.synchronize()
     over = {}
-    for name, got, tw, ex in zip(uk.PPOGrads._fields, g, twin,
-                                 uk.unmerge_weights(exact, hidden, a)):
+    named = [ppo_fused.params_from_merged(x, head) for x in (g, twin, exact)]
+    for name, got, tw, ex in ((k, *(d[k] for d in named)) for k in named[2]):
         err, err_twin = float((got - ex).abs().max()), float((tw - ex).abs().max())
         ulp = float(ex.abs().max()) * 2.0 ** -23
         if not err <= 4 * max(err_twin, 2 * ulp):
@@ -534,7 +540,7 @@ def _assert_float32_accuracy(cuda, weights, data, a, hidden, head, obs_dim):
 def test_ppo_grad_adam_kernel_matches_twin(cuda, head, max_grad_norm):
     weights, data, a = _ppo_case(head, 64 * 256, 64, seed=2)
     data = data.to(cuda)
-    w = uk.merge_weights(tuple(x.to(cuda) for x in weights))
+    w = tuple(x.to(cuda) for x in weights)
     gen = torch.Generator().manual_seed(3)
     m = tuple((0.01 * torch.randn(x.shape, generator=gen)).to(cuda) for x in w)
     v = tuple((1e-4 * torch.rand(x.shape, generator=gen)).to(cuda) for x in w)
@@ -556,6 +562,42 @@ def test_ppo_grad_adam_kernel_matches_twin(cuda, head, max_grad_norm):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("hidden,head,act_dim,compute", [
+    (64, "gaussian", None, "float32"), (64, "categorical", None, "bfloat16"),
+    (256, "gaussian", None, "bfloat16"), (256, "categorical", 100, "bfloat16")])
+def test_chained_k3_calls_equal_calls_on_fresh_copies(cuda, hidden, head, act_dim, compute):
+    """K3 returns its weights and moments as views of its output buffers,
+    which the next call takes as they are: two calls chained so give the
+    same bits as the same calls fed freshly concatenated copies."""
+    weights, data, a = _ppo_case(head, 64 * 256, hidden, seed=12, act_dim=act_dim)
+    data = data.to(cuda)
+    w = uk.merge_weights(tuple(x.to(cuda) for x in _towers(weights)))
+    m = v = uk.merge_weights(tuple(torch.zeros_like(x) for x in _towers(w)))
+    order = torch.arange(0, 64, 3, dtype=torch.int32, device=cuda)
+    stats = torch.tensor([0.05, 1.1], device=cuda)
+
+    def k3(w, m, v, count):
+        return uk.fused_minibatch_grad_adam(
+            data, order, w, m, v, stats, clip_eps=0.2, vf_coef=0.5, ent_coef=0.01, lr=3e-4,
+            bc1=1 - 0.9 ** count, bc2=1 - 0.999 ** count, obs_dim=1, act_dim=a, tile=256,
+            head=head, compute=compute, max_grad_norm=0.5)
+
+    def copies(*merged):
+        return (tuple(x.clone() for x in t) for t in merged)
+
+    first = k3(w, m, v, 1)
+    assert all(isinstance(t, uk.MergedWeights) for t in first[:3])
+    chained = k3(*first[:3], 2)
+    fresh = k3(*copies(w, m, v), 1)
+    fresh = (fresh, k3(*copies(*fresh[:3]), 2))
+    torch.cuda.synchronize()
+    for got, want in zip((first, chained), fresh):
+        for x, y in zip([*got[0], *got[1], *got[2], got[3]], [*want[0], *want[1], *want[2],
+                                                              want[3]]):
+            assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("max_grad_norm", [1e6, 1e-3, "half"])
 @pytest.mark.parametrize("head,act_dim", [("gaussian", None), ("categorical", 100)])
 @pytest.mark.parametrize("hidden", [64, 128, 256])
@@ -571,7 +613,7 @@ def test_clip_adam_matches_its_twin(cuda, hidden, head, act_dim, max_grad_norm):
     categorical log_std and its moments pass through bit for bit, and two
     launches give the same bits."""
     weights, _, a = _ppo_case(head, 256, hidden, seed=9, act_dim=act_dim)
-    w = uk.merge_weights(tuple(x.to(cuda) for x in weights))
+    w = tuple(x.to(cuda) for x in weights)
     gen = torch.Generator().manual_seed(4)
     m_w2c, m_whc = uk._block_diag_masks(hidden, a, cuda)
     masks = [None, None, m_w2c, None, m_whc, None, None]
@@ -643,7 +685,7 @@ def _assert_deterministic(cuda, adam, hidden, obs_dim, compute):
     kw = dict(clip_eps=0.2, vf_coef=0.5, ent_coef=0.0, obs_dim=obs_dim, act_dim=a, tile=256,
               compute=compute)
     if adam:
-        w = uk.merge_weights(weights)
+        w = weights
         zeros = tuple(torch.zeros_like(x) for x in w)
         runs = [uk.fused_minibatch_grad_adam(data, order, w, zeros, zeros, stats, lr=3e-4,
                                              bc1=0.1, bc2=0.001, **kw) for _ in range(2)]
@@ -670,8 +712,8 @@ def _k4_case(env_id, hidden, source, dev, B=2048 + 5, T=32, **overrides):
             p.add_(0.05 * torch.randn(p.shape, generator=gen))
         if gauss:
             model.pi_mean.bias.sub_(0.5)
-    weights = tuple(x.detach().to(dev) for x in ppo_fused.kernel_weights(
-        dict(model.named_parameters()), "gaussian" if gauss else "categorical"))
+    weights = ppo_fused.merged_weights({k: x.to(dev) for k, x in model.named_parameters()},
+                                       "gaussian" if gauss else "categorical")
     rng = np.random.default_rng(1)
     tmax = int(params.Tmax)
     state = (torch.from_numpy(rng.uniform(0.3, 1.2, B).astype(np.float32)).to(dev),
@@ -822,7 +864,7 @@ def test_policy_rollout_bf16_products_equal_float32_on_exact_inputs(cuda, hidden
         return (torch.randint(0, 2, shape, generator=gen).float() * 2 - 1).to(cuda)
 
     # per tower: w1, b1, w2, b2, head weight (policy at 0-4, value at 7-11)
-    w = [x.clone() for x in args[5]]
+    w = [x.clone() for x in _towers(args[5])]
     for base in (0, 7):
         w[base].zero_()
         w[base + 1].copy_(20.0 * sign(w[base + 1].shape))
@@ -831,7 +873,7 @@ def test_policy_rollout_bf16_products_equal_float32_on_exact_inputs(cuda, hidden
         w[base + 4].copy_(w[base + 4].to(torch.bfloat16).float())
     if n_actions:
         w[4].copy_(torch.round(w[4].clamp(-0.98, 0.98) * 64.0) / 64.0)
-    args = (*args[:5], tuple(w), *args[6:])
+    args = (*args[:5], uk.merge_weights(w), *args[6:])
     runs = {c: pk.policy_rollout(*args, **dict(kw, compute=c)) for c in ("float32", "bfloat16")}
     torch.cuda.synchronize()
     f32, bf16 = runs["float32"], runs["bfloat16"]
@@ -846,14 +888,14 @@ def test_policy_rollout_bf16_products_equal_float32_on_exact_inputs(cuda, hidden
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("which", ["merged", "hidden", "n_actions"])
+@pytest.mark.parametrize("which", ["split", "hidden", "n_actions"])
 def test_policy_rollout_wrapper_refuses_before_the_launch(cuda, which):
-    """The kernel relies on zero cross-tower blocks and has fixed sizes: the
-    wrapper takes the split towers only, which it merges itself, and raises
-    on sizes the kernel does not take, so the card never sees such input."""
-    if which == "merged":
+    """The kernel has fixed sizes and one weight format: the wrapper takes
+    the 7 merged arrays only and raises on the 13 split-tower arrays and on
+    sizes the kernel does not take, so the card never sees such input."""
+    if which == "split":
         args, kw = _k4_case("fishing-v1", 64, "philox", cuda, sigma=0.1)
-        args, match = (*args[:5], uk.merge_weights(args[5]), *args[6:]), "13 kernel-layout"
+        args, match = (*args[:5], _towers(args[5]), *args[6:]), "7 merged arrays"
     elif which == "hidden":
         (args, kw), match = _k4_case("fishing-v1", 512, "philox", cuda, sigma=0.1), "hidden"
     else:
@@ -911,7 +953,7 @@ def test_wide_prep_lays_out_the_weights_as_its_plain_version(cuda, hidden, n_act
         assert g.shape == w.shape and torch.equal(g.view(bits), w.view(bits)), name
     if not mma:
         return
-    H, A, AP = hidden, weights[4].shape[1], got.mp.shape[1]
+    H, A, AP = hidden, weights[4].shape[1] - 1, got.mp.shape[1]
     for dense, copy in ((got.fw, got.fwb), (got.mp, got.mpb)):
         n_cols = dense.shape[1]
         k = torch.arange(H).repeat_interleave(n_cols)

@@ -55,7 +55,7 @@ from gym_fishing_tpu_torch.convert import (
 )
 from gym_fishing_tpu_torch.kernels import _build
 from gym_fishing_tpu_torch.kernels import policy_rollout_kernel as pk
-from gym_fishing_tpu_torch.kernels.ppo_update_kernel import merge_weights
+from gym_fishing_tpu_torch.kernels import ppo_update_kernel as uk
 
 # the port's entry points default to the card; these tests run on the CPU
 make = functools.partial(gtt.make, device="cpu")
@@ -228,7 +228,7 @@ def _seeded(env_id, B=4096, T=8, seed=11, offset=0, fold=False):
     cfg = ppo.PPOConfig(num_envs=B, num_steps=T, hidden=32)
     ts = make_train_state(env, cfg, torch.Generator().manual_seed(4))
     head = "gaussian" if env.config.scheme == "continuous" else "categorical"
-    weights = ppo_fused.kernel_weights(ts.params(), head)
+    weights = ppo_fused.merged_weights(ts.params(), head)
     bstate = batched_reset(env, params, B)
     bstate = bstate.replace(env=bstate.env.replace(stock=torch.linspace(0.2, 1.8, B)))
     roll = pk.policy_rollout(
@@ -453,7 +453,7 @@ def test_merge_weights_is_block_diagonal(head):
     """What the wrapper hands the kernel: the cross-tower blocks of W2c and
     Whc are zeros, whatever the towers hold."""
     weights, a = _weights(head)
-    merged = merge_weights(tuple(x + 1.0 for x in weights))   # no zero in any tower
+    merged = uk.merge_weights(tuple(x + 1.0 for x in weights))   # no zero in any tower
     assert len(merged) == 7
     w2c, whc = merged[2], merged[4]
     h = w2c.shape[0] // 2
@@ -472,20 +472,21 @@ def _call(weights, head, B=8, T=4):
 
 
 @pytest.mark.parametrize("head", ["gaussian", "categorical"])
-@pytest.mark.parametrize("what", ["merged", "short", "w2p", "wv"])
+@pytest.mark.parametrize("what", ["split", "short", "w2c", "whc"])
 def test_wrapper_takes_only_the_split_towers(head, what):
-    """Merged arrays, in which a cross-tower block could be anything, a
-    missing array and an array of another shape are refused."""
+    """The wrapper takes the towers in the merged format only: the 13 split
+    arrays, a missing array and an array of another shape are refused."""
     weights, _ = _weights(head)
-    _call(weights, head)
-    if what == "merged":
-        bad = merge_weights(weights)
+    merged = uk.merge_weights(weights)
+    _call(merged, head)
+    if what == "split":
+        bad = weights
     elif what == "short":
-        bad = weights[:-1]
+        bad = merged[:-1]
     else:
-        i = 2 if what == "w2p" else 11
-        bad = (*weights[:i], weights[i][:-1], *weights[i + 1:])
-    with pytest.raises(ValueError, match="13 kernel-layout arrays|must be torch.float32 of"):
+        i = 2 if what == "w2c" else 4
+        bad = (*merged[:i], merged[i][:-1], *merged[i + 1:])
+    with pytest.raises(ValueError, match="7 merged arrays|must be torch.float32 of"):
         _call(bad, head)
 
 
@@ -493,15 +494,15 @@ def test_wrapper_computes_the_towers_it_is_given():
     """A change in the value tower moves the value row and nothing of the
     policy's; one in the policy tower moves the actions."""
     weights, _ = _weights("gaussian")
-    base = _call(weights, "gaussian")
+    base = _call(uk.merge_weights(weights), "gaussian")
     w2v = weights[9].clone()
     w2v[0, -1] += 0.5
-    value = _call((*weights[:9], w2v, *weights[10:]), "gaussian")
+    value = _call(uk.merge_weights((*weights[:9], w2v, *weights[10:])), "gaussian")
     assert torch.equal(base.packed_t[1], value.packed_t[1])          # the actions
     assert not torch.equal(base.packed_t[3], value.packed_t[3])      # the values
     w2p = weights[2].clone()
     w2p[0, -1] += 0.5
-    policy = _call((*weights[:2], w2p, *weights[3:]), "gaussian")
+    policy = _call(uk.merge_weights((*weights[:2], w2p, *weights[3:])), "gaussian")
     assert not torch.equal(base.packed_t[1], policy.packed_t[1])
     B = 8
     assert torch.equal(base.packed_t[3, :B], policy.packed_t[3, :B])  # the first values
@@ -539,10 +540,14 @@ def test_frag_index_is_a_bijection(hidden, n_cols):
     assert word == [4 * ((col * (hidden // 16) + kb) * 4 + t) + i for i in range(4)]
 
 
-def _split_weights(hidden, act_dim, seed=0):
+def _merged_weights(hidden, act_dim, seed=0):
+    """Random towers in the merged format, the cross-tower blocks zero."""
     rng = np.random.default_rng(seed)
-    return tuple(torch.from_numpy(0.3 * rng.standard_normal(shape).astype(np.float32))
-                 for shape in pk._split_shapes(hidden, act_dim))
+    merged = [torch.from_numpy(0.3 * rng.standard_normal(shape).astype(np.float32))
+              for shape in uk.merged_shapes(1, hidden, act_dim)]
+    for i, mask in zip((2, 4), uk._block_diag_masks(hidden, act_dim)):
+        merged[i] = merged[i] * mask
+    return tuple(merged)
 
 
 @pytest.mark.parametrize("compute", ["float32", "bfloat16"])
@@ -554,8 +559,8 @@ def test_wide_prep_reference_lays_out_the_merged_weights(hidden, act_dim, comput
     copies hold FW and MP rounded, in fragment order, and W2B the two tower
     blocks rounded, row-major. On a CPU tensor `wide_prep` is this plain
     version."""
-    weights = _split_weights(hidden, act_dim)
-    w2c, whc = merge_weights(weights)[2:5:2]
+    weights = _merged_weights(hidden, act_dim)
+    w2c, whc = weights[2:5:2]
     H, A = hidden, act_dim
     rnd = ((lambda x: x.to(torch.bfloat16).float()) if compute == "bfloat16"
            else (lambda x: x))

@@ -87,7 +87,7 @@ def test_the_reference_rollout_is_k4s_twin():
     samples, end = ref.rollout(w0, s0, ENV, PPO, seed, offset)
     roll = pk.policy_rollout_reference(
         s0["stock"], s0["t"], s0["harvest"], s0["ep_ret"], s0["ep_len"],
-        ppo_fused.kernel_weights(ts.params(), "categorical"),
+        ppo_fused.merged_weights(ts.params(), "categorical"),
         ppo_fused.rollout_scalars(params, seed, offset), NUM_STEPS, scheme="proportional",
         n_actions=N_ACTIONS, gamma=PPO["gamma"], gae_lambda=PPO["gae_lambda"])
     rows = dict(zip(("obs", "action", "logp", "value", "advantage", "return"), roll.packed_t))
@@ -192,7 +192,7 @@ def test_k4_counts_its_categorical_launches_apart():
     env, params, cfg, ts, w0, s0 = _case()
     before = pk.launches, pk.categorical_launches
     pk.policy_rollout(s0["stock"], s0["t"], s0["harvest"], s0["ep_ret"], s0["ep_len"],
-                      ppo_fused.kernel_weights(ts.params(), "categorical"),
+                      ppo_fused.merged_weights(ts.params(), "categorical"),
                       ppo_fused.rollout_scalars(params, 1, 0), 2, scheme="proportional",
                       n_actions=N_ACTIONS)
     assert (pk.launches, pk.categorical_launches) == before

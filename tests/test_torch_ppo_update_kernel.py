@@ -257,6 +257,50 @@ def test_merge_layout_and_masks_match_jax():
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+def _concatenated(split):
+    """The 7 merged arrays concatenated from the 13 split-tower arrays, as
+    the JAX package builds them."""
+    (w1p, b1p, w2p, b2p, wm, bm, ls, w1v, b1v, w2v, b2v, wv, bv) = split
+    h, a = w1p.shape[1], wm.shape[1]
+    w2c = torch.cat([torch.cat([w2p, torch.zeros(h, h)], 1),
+                     torch.cat([torch.zeros(h, h), w2v], 1)])
+    whc = torch.cat([torch.cat([wm, torch.zeros(h, 1)], 1),
+                     torch.cat([torch.zeros(h, a), wv], 1)])
+    return (torch.cat([w1p, w1v], 1), torch.cat([b1p, b1v]), w2c, torch.cat([b2p, b2v]), whc,
+            torch.cat([bm, bv]), ls)
+
+
+@pytest.mark.parametrize("hidden", [64, 256])
+@pytest.mark.parametrize("head", ["gaussian", "categorical"])
+def test_merged_weights_are_views_of_one_buffer(head, hidden):
+    """`merge_weights` gives the concatenated arrays bit for bit, as views of
+    one flat buffer in the kernels' order, which `flatten_merged` hands over
+    without a copy; `unflatten_merged`'s views (K2's and K3's outputs) do
+    the same, and a plain tuple is concatenated into the same bits."""
+    model = ppo.ActorCritic(1, 1 if head == "gaussian" else 100, head == "gaussian", hidden,
+                            generator=torch.Generator().manual_seed(5))
+    split = ppo_fused.kernel_weights(dict(model.named_parameters()), head)
+    merged = uk.merge_weights(split)
+    flat = uk.flatten_merged(merged)
+    assert isinstance(merged, uk.MergedWeights) and len(merged) == 7
+    assert flat is merged.flat and flat.is_contiguous()
+    a = split[4].shape[1]
+    assert flat.shape == (sum(r * c for r, c in uk.merged_shapes(1, hidden, a)),)
+    offset = 0
+    for got, want in zip(merged, _concatenated(split)):
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+        assert got.data_ptr() == flat.data_ptr() + 4 * offset and got.is_contiguous()
+        offset += got.numel()
+    assert offset == flat.numel()
+    assert torch.equal(uk.flatten_merged(tuple(merged)).view(torch.int32),
+                       flat.view(torch.int32))
+    out = torch.cat([flat, torch.ones(4)])   # a K2 output: the gradients, then 4 sums
+    views = uk.unflatten_merged(out, 1, hidden, a)
+    assert uk.flatten_merged(views).data_ptr() == out.data_ptr()
+    assert all(x.data_ptr() == y.data_ptr() - flat.data_ptr() + out.data_ptr()
+               for x, y in zip(views, merged))
+
+
 def test_cpu_wrappers_never_load_the_library(monkeypatch):
     def refuse(name):
         raise AssertionError(f"tried to build/load {name}")
@@ -269,7 +313,7 @@ def test_cpu_wrappers_never_load_the_library(monkeypatch):
     before = (uk.grad_launches, uk.adam_launches)
     kw = dict(clip_eps=0.2, vf_coef=0.5, ent_coef=0.0, obs_dim=1, act_dim=1, tile=128)
     order, stats = torch.tensor([1], dtype=torch.int32), torch.tensor([0.0, 1.0])
-    uk.fused_minibatch_grad(_packed_t(packed), order, uk.unmerge_weights(w, 64, 1), stats, **kw)
+    uk.fused_minibatch_grad(_packed_t(packed), order, w, stats, **kw)
     uk.fused_minibatch_grad_adam(_packed_t(packed), order, w, zeros, zeros, stats, lr=1e-3,
                                  bc1=0.1, bc2=0.001, **kw)
     assert (uk.grad_launches, uk.adam_launches) == before
@@ -279,7 +323,7 @@ def test_cpu_wrappers_never_load_the_library(monkeypatch):
 @pytest.mark.parametrize("bad", ["rows", "ragged", "order_dtype", "stats", "head"])
 def test_wrapper_rejects_bad_inputs(bad):
     _, _, params, _, packed, _ = _case("gaussian")
-    weights = ppo_fused.kernel_weights(
+    weights = ppo_fused.merged_weights(
         dict(actor_critic_from_numpy(_np(params)).named_parameters()))
     data, order = _packed_t(packed), torch.tensor([0], dtype=torch.int32)
     stats = torch.tensor([0.0, 1.0])
@@ -417,7 +461,7 @@ def test_wrapper_takes_only_as_many_rows_as_fit():
     """The twin takes any multiple of 8 rows that holds the fields; fewer
     rows than fields raise before any arithmetic."""
     _, params, packed, _ = _case_obs4("gaussian")
-    weights = ppo_fused.kernel_weights(
+    weights = ppo_fused.merged_weights(
         dict(actor_critic_from_numpy(_np(params)).named_parameters()))
     kw = dict(clip_eps=0.2, vf_coef=0.5, ent_coef=0.0, obs_dim=4, act_dim=1, tile=128)
     data, order, stats = _packed_t(packed), torch.tensor([0], dtype=torch.int32), \
