@@ -21,7 +21,8 @@ output; `rollout_instructions.median_ms`, per-call CUDA-event pairs queued behin
 device-side wait) with its bound, 28 bytes a merged parameter (g, w, m, v read, w,
 m, v written) at 3.35 TB/s, and on the wide path its two stage-1 launches apart,
 the same way as K2 (``wide_prep`` with ``ppo_grad_wide`` or
-``ppo_grad_tower``, `wide_stage1`; ``dw2c_split`` from its scratch).
+``ppo_grad_tower``, `wide_stage1`; ``dw2c_split`` from its scratch), with a
+hash of stage 1's activation scratch and workspace rows.
 
 With `--ppo` it times whole PPO iterations instead (`measure_ppo_train`, 16384
 envs x 128 steps, 2 warm-up and `--reps` timed iterations, every metric read after
@@ -227,6 +228,9 @@ def main() -> None:
         if args.parts and uk.wide_path(args.hidden, a):
             merged = uk.unflatten_merged(w_flat, d, args.hidden, a)
             act, ws = uk.wide_stage1(data, order, merged, stats, **scal)
+            bits = torch.cat([act.view(torch.uint8).flatten(), ws.view(torch.uint8).flatten()])
+            out[f"{compute}_stage1_sha256"] = hashlib.sha256(
+                bits.cpu().numpy().tobytes()).hexdigest()[:16]
             stage1 = lambda: uk.wide_stage1(data, order, merged, stats, **scal)  # noqa: E731
             split = lambda: uk.dw2c_split(  # noqa: E731
                 act, ws, hidden=args.hidden, obs_dim=d, act_dim=a, num_tiles=MB_TILES,

@@ -1240,12 +1240,16 @@ __global__ void __launch_bounds__(kThreads, 1)
 //     pieces, loads issued before its sums (each entry gets the sums it got
 //     in the row, in the same order); at the end the copy goes into the
 //     dWhc block and its space back to zero.
+//   * at hidden 256 the logits take two runs of 32 rows of Wm at once (two
+//     fit act0's two slots at every class count: logit_pairs), the two
+//     half-warps of a warp one run each, their partials added in run order
+//     into running sums kept in the head outputs (pair_logits): twice the
+//     warps of one run at a time, the same bits.
 //   What bounds the three products then is shared memory's 32 operands a
-//   clock (a thread tile of 4 x 4 loads 8 operands for 16 FMA) and, for
-//   the logits, which keep their runs of 32 rows whole on 7 warps, latency:
-//   ~19-30k cycles a product at hidden 256 and 100 classes, against 6.7k of
-//   FMA. Larger tiles, which the registers left allow only with operands
-//   loaded one by one, were measured slower.
+//   clock (a thread tile of 4 x 4 loads 8 operands for 16 FMA) and latency:
+//   ~19-22k cycles for dWhc and g_p2 at hidden 256 and 100 classes, against
+//   6.7k of FMA. Larger tiles, which the registers left allow only with
+//   operands loaded one by one, were measured slower.
 // What the tower split costs: the per-chunk phases that do not scale with the
 // tower's width (the loss and the head's dots, a warp two samples; the bias
 // sums) and the chunk's 9 block barriers now run once per tower, and the
@@ -1411,27 +1415,136 @@ __device__ __forceinline__ void ring_product(const float* A, int lda, int ss,
   }
 }
 
+// Whether the logits at hidden H take pair_logits: two whole runs of 32 rows
+// of Wm [H][AP] fit act0's two slots (S x LDA floats of TowerSmem) at every
+// AP, and the runs pair up. Hidden 256 only. (At 128 and 64 the smaller heads
+// fit too, but a choice between the two schedules by AP at run time took
+// registers from the whole kernel: hidden 128 with 100 classes, which keeps
+// the one-run schedule, lost 5% of stage 1 to the spills.)
+__host__ __device__ constexpr bool logit_pairs(int H) {
+  return H % 64 == 0 && 2 * 32 * kWideMaxA <= kWideChunk * (H + 8);
+}
+
+// 16-byte pieces a thread of one pair of runs, at most
+constexpr int kPairPieces = 4;
+static_assert(32 * kWideMaxA <= kSlabFloats && 16 * kWideMaxA <= kPairPieces * kThreads &&
+                  kWideMaxA / 8 <= kWarps,
+              "a run of Wm is block_product's, a pair fits the pieces, AP / 8 warps");
+
+// The logits where logit_pairs(H): out[s][a] = h2 Wm + bh (zero for A
+// <= a < AP) with Wm's runs of 32 rows two at a time. Runs 2r and 2r + 1 sit
+// in ring's two slots (the first pair by ring_prefetch of 64 rows); in a
+// thread tile of 4 samples (8 apart) x 4 classes, warp w the classes 8 w..,
+// lane l samples (l % 16) / 2 + 8 i and classes 4 (l % 2).. (each
+// quarter-warp reads 4 rows of h2 and 2 pieces of a row of Wm: one
+// wavefront), the lower half-warp sums run 2r and the upper run 2r + 1 for
+// the same tile, each an FMA chain from zero in k order as block_product
+// sums a run: AP / 8 warps (13 at 100 classes) on both runs at once. The
+// partials cross by a shuffle, and the lower lane adds samples i = 0, 1 of
+// the tile, the upper i = 2, 3: out = (out + even) + odd, from zero at the
+// first pair (the running sums stay in out, which leaves the registers to
+// the products), then + bh at the last. The runs are added left to right as
+// ring_product adds them one at a time, so every logit keeps its bits.
+// Every thread of the block loads its pieces of the next pair into
+// registers once it has read this pair (issued before the sums, they held 16
+// registers through them and were no faster), and stores them after a
+// barrier; H / 64 rounds. Every thread of the block calls it.
+__device__ __forceinline__ void pair_logits(const float* h2, int lda, const float* __restrict__ mp,
+                                            const float* sbh, int H, int A, int AP, float* ring,
+                                            float* out, int ldo) {
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, half = lane >> 4;
+  const int s0 = (lane & 15) / 2, c0 = warp * 8 + (lane & 1) * 4;
+  const bool mine = c0 < AP;   // the same over the warp: AP is a multiple of 8
+  const int n_pairs = H / 64, n4 = 16 * AP;
+  const float4* B4 = reinterpret_cast<const float4*>(mp);
+  float4 v[kPairPieces];
+  auto load = [&](int r) {
+#pragma unroll
+    for (int j = 0; j < kPairPieces; ++j)
+      if (tid + j * kThreads < n4) v[j] = __ldcg(B4 + r * n4 + tid + j * kThreads);
+  };
+  cp_async_wait_all();
+  for (int r = 0; r < n_pairs; ++r) {
+    __syncthreads();
+    if (mine) {
+      const float* ak = h2 + s0 * lda + (2 * r + half) * 32;
+      const float* bk = ring + half * (32 * AP) + c0;
+      float part[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) part[i][c] = 0.0f;
+#pragma unroll 2
+      for (int k = 0; k < 32; k += 4) {
+        float a[4][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) load_row<4>(ak + i * 8 * lda + k, a[i]);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          float b[4];
+          load_row<4>(bk + (k + q) * AP, b);
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) part[i][c] = fmaf(a[i][q], b[c], part[i][c]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        float4* o = reinterpret_cast<float4*>(out + (s0 + 8 * (2 * half + j)) * ldo + c0);
+        const float4 cur = r ? *o : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        const float base[4] = {cur.x, cur.y, cur.z, cur.w};
+        float z[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          // this lane's partial of sample 2 half + j, and its partner's
+          const float own = half ? part[2 + j][c] : part[j][c];
+          const float other =
+              __shfl_xor_sync(WIDE_FULL_MASK, half ? part[j][c] : part[2 + j][c], 16);
+          z[c] = (base[c] + (half ? other : own)) + (half ? own : other);
+          if (r + 1 == n_pairs) z[c] = c0 + c < A ? z[c] + sbh[c0 + c] : 0.0f;
+        }
+        *o = make_float4(z[0], z[1], z[2], z[3]);
+      }
+    }
+    if (r + 1 < n_pairs) {
+      load(r + 1);
+      __syncthreads();
+      float4* dst = reinterpret_cast<float4*>(ring);
+#pragma unroll
+      for (int j = 0; j < kPairPieces; ++j)
+        if (tid + j * kThreads < n4) dst[tid + j * kThreads] = v[j];
+    }
+  }
+}
+
 // The categorical head's logits out[s][a] = h2 Wm + bh (zero for A <= a <
-// AP), Wm [H][AP] through ring_product in thread tiles of 4 samples (8
-// apart) x 4 classes: warp w the classes 16 w.., lane l samples l / 4 + 8 i
-// and classes 4 (l % 4).. of them (each quarter-warp reads 2 rows of h2 and
-// 4 pieces of a row of Wm: one wavefront). That is AP / 16 warps (7 at 100
-// classes); tiles of 2 x 4 on all 16 were measured slower. Every thread of
-// the block calls it.
+// AP), Wm [H][AP] through act0: by pair_logits where logit_pairs(H);
+// elsewhere through ring_product, one run at a time, in thread tiles of 4
+// samples (8 apart) x 4 classes: warp w the classes 16 w.., lane l samples
+// l / 4 + 8 i and classes 4 (l % 4).. of them (each quarter-warp reads 2 rows
+// of h2 and 4 pieces of a row of Wm: one wavefront). That is AP / 16 warps
+// (7 at 100 classes); tiles of 2 x 4 on all 16, which cut the runs, were
+// measured slower. Every thread of the block calls it.
+template <int H>
 __device__ __forceinline__ void head_logits(const float* h2, int lda, const float* __restrict__ mp,
-                                            const float* sbh, int H, int A, int AP, int ks,
-                                            float* ring, float* out, int ldo) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int s0 = lane / 4, c0 = warp * 16 + lane % 4 * 4;
-  const bool mine = c0 < AP;
-  float acc[4][4];
-  ring_product<4>(h2, lda, 8, mp, H, AP, ks, ring, s0, c0, mine, acc);
-  if (mine)
+                                            const float* sbh, int A, int AP, int ks, float* ring,
+                                            float* out, int ldo) {
+  if constexpr (logit_pairs(H)) {
+    pair_logits(h2, lda, mp, sbh, H, A, AP, ring, out, ldo);
+  } else {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int s0 = lane / 4, c0 = warp * 16 + lane % 4 * 4;
+    const bool mine = c0 < AP;
+    float acc[4][4];
+    ring_product<4>(h2, lda, 8, mp, H, AP, ks, ring, s0, c0, mine, acc);
+    if (mine)
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int c = 0; c < 4; ++c)
-        out[(s0 + 8 * i) * ldo + c0 + c] = c0 + c < A ? acc[i][c] + sbh[c0 + c] : 0.0f;
+        for (int c = 0; c < 4; ++c)
+          out[(s0 + 8 * i) * ldo + c0 + c] = c0 + c < A ? acc[i][c] + sbh[c0 + c] : 0.0f;
+  }
 }
 
 // dWhc's policy block += this chunk's share h2^T g_top, summed over the
@@ -1480,8 +1593,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   static_assert(S == 32 && (H / 32) * (S / (4 * (H / 64))) == kWarps && kWideMaxA / 16 <= kWarps &&
                     2 * 16 * H <= RING &&
                     16 * H <= 4 * kPieces * kThreads && 4 * H * H >= H * kWideMaxA + 3 &&
-                    H <= kThreads,
-                "tiling");
+                    H <= kThreads && RING == S * (H + 8),
+                "tiling; logit_pairs reads act0's size as S (H + 8)");
   __nv_bfloat16* sW2 = reinterpret_cast<__nv_bfloat16*>(smem);
   float* sm = reinterpret_cast<float*>(smem + S_::W2_BYTES);
   float* act0 = sm + S_::ACT0;
@@ -1621,7 +1734,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (int chunk = 0; chunk < n_chunks; ++chunk) {
     const float* x = sX + (chunk & 1) * (kMaxRows * S);
     if (chunk + 1 < n_chunks) fetch(chunk + 1, sX + ((chunk + 1) & 1) * (kMaxRows * S));
-    if (cat_policy) ring_prefetch(act0, prep + W.mp, H, AP, f_ks);   // the logits' first slab
+    // the logits' first slab, or first pair of runs
+    if (cat_policy) ring_prefetch(act0, prep + W.mp, H, AP, logit_pairs(H) ? 64 : f_ks);
 
     // h1 = tanh(W1c^T x + b1c), the tower's columns, two a thread, and as
     // bf16 beside it (the categorical policy CTA keeps only the bf16 copy,
@@ -1663,7 +1777,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     // Gaussian head's few means are warp dots, a warp two samples, each lane
     // H / 32 terms and then a butterfly
     if (cat_policy) {
-      head_logits(act1, LDA, prep + W.mp, sbh, H, A, AP, f_ks, act0, out, LDO);
+      head_logits<H>(act1, LDA, prep + W.mp, sbh, A, AP, f_ks, act0, out, LDO);
     } else {
       // the warp's two samples s0, s0 + 1 at once, from one load of the column
       const int s0 = warp * 2;
@@ -2763,6 +2877,14 @@ extern "C" int ppo_grad_params_size(void) { return (int)sizeof(GradParams); }
 // launches): the wide path under bfloat16 at hidden 64 and above.
 extern "C" int ppo_grad_tower_path(int hidden, int act_dim, int compute) {
   return wide_path(hidden, act_dim) && compute == BFLOAT16 && hidden >= 64;
+}
+
+// Whether stage 1 at these sizes runs the categorical logits two runs of Wm
+// at a time (the wrapper counts such launches): ppo_grad_tower with the
+// categorical head where logit_pairs(hidden).
+extern "C" int ppo_grad_logit_pair_path(int hidden, int act_dim, int compute, int head) {
+  return ppo_grad_tower_path(hidden, act_dim, compute) && head == CATEGORICAL &&
+         logit_pairs(hidden);
 }
 
 extern "C" int ppo_grad_prep_floats(int hidden, int act_dim) {

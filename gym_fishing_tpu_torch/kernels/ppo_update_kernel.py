@@ -16,7 +16,8 @@ K3 then masks the cross-tower blocks, clips by global norm and applies Adam.
   on a CUDA tensor they launch ``csrc/ppo_update_kernel.cu`` (and add one to
   `grad_launches` or `adam_launches`, on the wide path one to
   `split_launches` for its ``dw2c_split`` and, where stage 1 runs
-  ``ppo_grad_tower``, one to `tower_launches`, and under Adam one to
+  ``ppo_grad_tower``, one to `tower_launches` (and one to
+  `logit_pair_launches` where its logits take `logit_pair_path`), and under Adam one to
   `clip_adam_launches` for its stage 3), on a CPU tensor they run the
   twin. `clip_adam` runs stage 3 alone (`clip_adam_reference` its twin).
 - `fused_minibatch_grad_reference` and `fused_minibatch_grad_adam_reference`
@@ -135,6 +136,7 @@ grad_launches = 0
 adam_launches = 0
 split_launches = 0   # dw2c_split, launched by K2 and K3 on the wide path
 tower_launches = 0   # ppo_grad_tower, K2's and K3's stage 1 where `tower_path` holds
+logit_pair_launches = 0   # of those, the categorical ones where `logit_pair_path` holds
 clip_adam_launches = 0   # K3's stage 3 (clip + Adam), inside each K3 launch or alone
 
 
@@ -494,6 +496,17 @@ def tower_path(hidden: int, act_dim: int, compute: str) -> bool:
     return wide_path(hidden, act_dim) and compute == "bfloat16" and hidden >= 64
 
 
+def logit_pair_path(hidden: int, act_dim: int, compute: str, head: str) -> bool:
+    """Whether ``ppo_grad_tower``'s categorical logits take two runs of 32
+    rows of Wm at once (its pair schedule): on the tower path under the
+    categorical head, at a hidden width where two runs of the widest head
+    (`KERNEL_MAX_LOGITS` classes) fit the activation buffer they pass
+    through, 32 x (hidden + 8) floats, and the runs pair up: hidden 256.
+    Elsewhere the logits take one run at a time; both give the same bits."""
+    return (tower_path(hidden, act_dim, compute) and head == "categorical"
+            and hidden % 64 == 0 and 2 * 32 * KERNEL_MAX_LOGITS <= 32 * (hidden + 8))
+
+
 def split_k_ranges(num_tiles: int, tile: int) -> list:
     """The sample ranges ``[k0, k1)`` of ``dw2c_split`` over the minibatch's
     ``num_tiles * tile`` samples: whole blocks of `KERNEL_KBLOCK`, at most
@@ -533,7 +546,7 @@ def _launch(data, tile_order, w_flat, adv_stats, hidden, adam=None, **scal):
     into the outputs). Returns the reduced [P + 4] buffer: merged gradients,
     then the 4 metric sums. A tile index outside the data traps the kernel
     (checking it here would sync with the card)."""
-    global split_launches, clip_adam_launches, tower_launches
+    global split_launches, clip_adam_launches, tower_launches, logit_pair_launches
     p, lib, prep, act, ws = _stage1_buffers(data, tile_order, w_flat, hidden, scal)
     n_par = w_flat.numel()
     gout = torch.empty((n_par + 4,), dtype=torch.float32, device=data.device)
@@ -556,6 +569,8 @@ def _launch(data, tile_order, w_flat, adv_stats, hidden, adam=None, **scal):
         split_launches += 1
     if tower_path(hidden, scal["act_dim"], scal["compute"]):
         tower_launches += 1
+    if logit_pair_path(hidden, scal["act_dim"], scal["compute"], scal["head"]):
+        logit_pair_launches += 1
     if adam is not None:
         clip_adam_launches += 1
     return gout
@@ -589,8 +604,9 @@ def wide_stage1(data, tile_order, merged_w, adv_stats, *, clip_eps, vf_coef, ent
     scratch, workspace rows without dW2c). A timing and checking aid for
     `dw2c_split` (chip_smoke.py, the card tests); the main path launches it
     through `fused_minibatch_grad` and `fused_minibatch_grad_adam`. Adds one
-    to `tower_launches` where stage 1 is ``ppo_grad_tower``."""
-    global tower_launches
+    to `tower_launches` where stage 1 is ``ppo_grad_tower``, and one to
+    `logit_pair_launches` where `logit_pair_path` holds."""
+    global tower_launches, logit_pair_launches
     scal = dict(clip_eps=clip_eps, vf_coef=vf_coef, ent_coef=ent_coef, obs_dim=obs_dim,
                 act_dim=act_dim, tile=tile, head=head, compute=compute)
     hidden = _check(data, tile_order, merged_w, adv_stats, obs_dim, act_dim, tile, head, compute)
@@ -606,6 +622,8 @@ def wide_stage1(data, tile_order, merged_w, adv_stats, *, clip_eps, vf_coef, ent
     _build.check(lib, err, "wide stage 1 launch")
     if tower_path(hidden, act_dim, compute):
         tower_launches += 1
+    if logit_pair_path(hidden, act_dim, compute, head):
+        logit_pair_launches += 1
     return act, ws
 
 
@@ -680,6 +698,8 @@ def library() -> ctypes.CDLL:
     lib.ppo_clip_adam_ctas.restype = ctypes.c_int
     lib.ppo_grad_tower_path.argtypes = [ctypes.c_int] * 3
     lib.ppo_grad_tower_path.restype = ctypes.c_int
+    lib.ppo_grad_logit_pair_path.argtypes = [ctypes.c_int] * 4
+    lib.ppo_grad_logit_pair_path.restype = ctypes.c_int
     lib.ppo_grad_prep_floats.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.ppo_grad_prep_floats.restype = ctypes.c_int
     lib.ppo_grad_act_bytes.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,

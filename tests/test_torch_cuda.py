@@ -346,15 +346,16 @@ def test_ppo_grad_kernels_match_twin_at_the_wide_widths(cuda, hidden, head, act_
     """Hidden 128 and 256, and categorical heads of 17 to 128 classes at any
     hidden size, take the wide path: K2 and K3 equal their twins there under
     the bars above, each launching ``ppo_grad_tower`` where `tower_path`
-    says (bfloat16 at hidden 64 and above), and a second K3 step from the
-    same inputs gives the same bits."""
+    says (bfloat16 at hidden 64 and above), its logits two runs at a time
+    where `logit_pair_path` says, and a second K3 step from the same inputs
+    gives the same bits."""
     weights, data, a = _ppo_case(head, 64 * 256, hidden, seed=5, act_dim=act_dim)
     data, weights = data.to(cuda), tuple(w.to(cuda) for w in weights)
     order = torch.tensor([9, 0, 63, 17, 5, 40, 33, 2], dtype=torch.int32, device=cuda)
     adv_stats = torch.tensor([0.05, 1.1], device=cuda)
     kw = dict(clip_eps=0.2, vf_coef=0.5, ent_coef=0.01, obs_dim=1, act_dim=a, tile=256,
               head=head, compute=compute)
-    before = uk.grad_launches, uk.adam_launches, uk.tower_launches
+    before = uk.grad_launches, uk.adam_launches, uk.tower_launches, uk.logit_pair_launches
     g, met = uk.fused_minibatch_grad(data, order, weights, adv_stats, **kw)
     g_ref, met_ref = uk.fused_minibatch_grad_reference(data, order, weights, adv_stats, **kw)
     w = weights
@@ -365,8 +366,9 @@ def test_ppo_grad_kernels_match_twin_at_the_wide_widths(cuda, hidden, head, act_
     *new, met_a = uk.fused_minibatch_grad_adam(data, order, w, m, v, adv_stats, **akw)
     *ref, _ = uk.fused_minibatch_grad_adam_reference(data, order, w, m, v, adv_stats, **akw)
     towers = 2 if uk.tower_path(hidden, a, compute) else 0
-    assert (uk.grad_launches, uk.adam_launches, uk.tower_launches) == (
-        before[0] + 1, before[1] + 1, before[2] + towers)
+    pairs = 2 if uk.logit_pair_path(hidden, a, compute, head) else 0
+    assert (uk.grad_launches, uk.adam_launches, uk.tower_launches, uk.logit_pair_launches) == (
+        before[0] + 1, before[1] + 1, before[2] + towers, before[3] + pairs)
     *again, met_b = uk.fused_minibatch_grad_adam(data, order, w, m, v, adv_stats, **akw)
     torch.cuda.synchronize()
     for x, y in zip([t for group in new for t in group] + [met_a],
@@ -443,14 +445,40 @@ def test_dw2c_split_matches_its_plain_version(cuda, hidden, head, act_dim, num_t
 
 @pytest.mark.cuda
 def test_tower_path_agrees_with_the_library(cuda):
-    """The wrapper counts ``ppo_grad_tower``'s launches by `tower_path`; the
-    library launches it at the same sizes."""
+    """The wrapper counts ``ppo_grad_tower``'s launches by `tower_path`, and
+    those whose logits take two runs at a time by `logit_pair_path`; the
+    library takes both at the same sizes."""
     lib = uk.library()
     for hidden in uk.KERNEL_HIDDEN:
         for act_dim in (1, 3, 16, 17, 100, 128):
             for ci, compute in enumerate(uk.COMPUTES):
                 assert bool(lib.ppo_grad_tower_path(hidden, act_dim, ci)) == uk.tower_path(
                     hidden, act_dim, compute), (hidden, act_dim, compute)
+                for hi, head in enumerate(uk.HEADS):
+                    assert bool(lib.ppo_grad_logit_pair_path(hidden, act_dim, ci, hi)) == (
+                        uk.logit_pair_path(hidden, act_dim, compute, head)), (
+                        hidden, act_dim, compute, head)
+
+
+@pytest.mark.cuda
+def test_logit_pair_launches_count_the_categorical_k3_calls(cuda):
+    """One K3 call with 100 classes at hidden 256 under bfloat16 (the
+    100-class cell's) adds one to `tower_launches` and one to
+    `logit_pair_launches`; a Gaussian call adds one to the first and none
+    to the second."""
+    for head, act_dim, pairs in (("categorical", 100, 1), ("gaussian", None, 0)):
+        weights, data, a = _ppo_case(head, 64 * 256, 256, seed=5, act_dim=act_dim)
+        data, w = data.to(cuda), tuple(x.to(cuda) for x in weights)
+        order = torch.tensor([9, 0, 63, 17], dtype=torch.int32, device=cuda)
+        m = tuple(torch.zeros_like(x) for x in w)
+        v = tuple(torch.zeros_like(x) for x in w)
+        before = uk.tower_launches, uk.logit_pair_launches
+        uk.fused_minibatch_grad_adam(
+            data, order, w, m, v, torch.tensor([0.05, 1.1], device=cuda), clip_eps=0.2,
+            vf_coef=0.5, ent_coef=0.01, obs_dim=1, act_dim=a, tile=256, head=head,
+            compute="bfloat16", lr=3e-4, bc1=0.1, bc2=0.001, max_grad_norm=0.5)
+        torch.cuda.synchronize()
+        assert (uk.tower_launches, uk.logit_pair_launches) == (before[0] + 1, before[1] + pairs)
 
 
 @pytest.mark.cuda

@@ -69,6 +69,37 @@ def test_tower_path_matches_the_cuda_source(hidden, act_dim, compute, tower):
     assert uk.tower_path(hidden, act_dim, compute) is tower
 
 
+@pytest.mark.parametrize("hidden,act_dim,compute,head,pairs", [
+    (256, 17, "bfloat16", "categorical", True), (256, 33, "bfloat16", "categorical", True),
+    (256, 100, "bfloat16", "categorical", True), (256, 128, "bfloat16", "categorical", True),
+    (256, 3, "bfloat16", "categorical", True), (256, 1, "bfloat16", "gaussian", False),
+    (256, 100, "float32", "categorical", False), (128, 100, "bfloat16", "categorical", False),
+    (128, 17, "bfloat16", "categorical", False), (128, 64, "bfloat16", "categorical", False),
+    (64, 100, "bfloat16", "categorical", False), (64, 17, "bfloat16", "categorical", False),
+    (64, 16, "bfloat16", "categorical", False), (32, 17, "bfloat16", "categorical", False),
+])
+def test_logit_pair_path_matches_the_cuda_source(hidden, act_dim, compute, head, pairs):
+    """``ppo_grad_tower``'s categorical logits take two runs of 32 rows of
+    Wm at once at the hidden width where two runs of the widest head fit the
+    activation buffer they pass through (act0, 32 x (H + 8) floats) and the
+    runs pair up: hidden 256, at every class count; elsewhere (hidden 64 and
+    128, the Gaussian head, float32, ``ppo_grad_wide``, the narrow path)
+    not. The rule `logit_pair_path` states, which the wrapper counts
+    `logit_pair_launches` by, is the one the library exports and the kernel
+    takes."""
+    src = (uk._build.CSRC / "ppo_update_kernel.cu").read_text()
+    wide = (uk._build.CSRC / "wide_mlp.cuh").read_text()
+    assert "  return H % 64 == 0 && 2 * 32 * kWideMaxA <= kWideChunk * (H + 8);" in src
+    assert ("  return ppo_grad_tower_path(hidden, act_dim, compute) && head == CATEGORICAL &&\n"
+            "         logit_pairs(hidden);") in src
+    assert "  if constexpr (logit_pairs(H)) {" in src
+    assert "H <= kThreads && RING == S * (H + 8)," in src
+    assert "constexpr int kWideChunk = 32;" in src
+    assert "constexpr int kWideMaxA = 128;" in wide
+    assert uk.KERNEL_MAX_LOGITS == 128
+    assert uk.logit_pair_path(hidden, act_dim, compute, head) is pairs
+
+
 def test_optimizer_and_ring_plans_match_the_cuda_source():
     """K3's stage 3 cuts the merged buffer into runs of kAdamRun floats (2
     float4 a thread of kAdamThreads) and blocks of kAdamHeadRows rows of Whc
