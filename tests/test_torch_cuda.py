@@ -1157,3 +1157,89 @@ def test_sharded_rollout_at_nccl_world_1_is_the_kernel(nccl_mesh):
     torch.cuda.synchronize()
     for name in rk.KernelRollout._fields[:-1]:
         assert torch.equal(getattr(a, name), getattr(b, name)), name
+
+
+@pytest.mark.cuda
+def test_lstm_learner_on_its_graphs_matches_the_reference(cuda, monkeypatch):
+    """The LSTM recurrent PPO (sb3-contrib's actor-critic at hidden 64, MLPs
+    [16, 16]) through three train steps on fishing-v2, 256 envs x 32 steps,
+    2 epochs x 4 minibatches, the envs at years 40 .. 99 so that episodes
+    end inside the segments: on the card the rollout replays 2T + 2 CUDA
+    graphs from its first run on and the update three a minibatch, which
+    give the eager path's bits (the same phases called, `_graphs` patched),
+    on given draws and on the generator's;
+    against the benchmark's plain reference (float32, TF32 off) on the card
+    from the same weights and draws, the weights after the first two steps
+    within 1e-4 of each leaf's largest entry (float32 sums in another order,
+    carried through 16 Adam steps), the state resets exactly."""
+    import importlib
+    import sys
+    from pathlib import Path
+
+    from gym_fishing_tpu_torch.agents import ppo_rnn
+    from gym_fishing_tpu_torch.batch import BatchState
+    from gym_fishing_tpu_torch.core.types import EnvState
+
+    bench = str(Path(__file__).resolve().parent.parent / "benchmark")
+    sys.path.insert(0, bench)
+    try:
+        ref = importlib.import_module("reference.rppo_lstm")
+    finally:
+        sys.path.remove(bench)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = ppo_rnn.RPPOConfig(num_envs=256, num_steps=32, epochs=2, num_minibatches=4,
+                             hidden=64, cell="lstm", net_arch=(16, 16))
+    env, params = gtt.make("fishing-v2", device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    B, T = cfg.num_envs, cfg.num_steps
+    draws = [{"act": torch.randn((T, B, 1), generator=gen, device=cuda),
+              "env": torch.randn((T, 2, B), generator=gen, device=cuda),
+              "perms": [torch.randperm(B, generator=gen, device=cuda) for _ in range(2)]}
+             for _ in range(2)]
+    ts0 = ppo_rnn.make_rppo_state(env, cfg, torch.Generator().manual_seed(2), cuda)
+    w0 = {k: x.detach().clone() for k, x in ts0.params().items()}
+    t0 = torch.randint(40, 100, (B,), generator=gen, device=cuda, dtype=torch.int32)
+    s0 = {"stock": torch.full((B,), 0.75, device=cuda), "t": t0,
+          "ep_ret": torch.zeros(B, device=cuda), "ep_len": t0.clone()}
+    out = {}
+    for graphs in (True, False):
+        monkeypatch.setattr(ppo_rnn, "_graphs", lambda device, graphs=graphs: graphs)
+        bs = BatchState(env=EnvState(stock=s0["stock"].clone(), harvest=torch.full_like(
+            s0["stock"], 0.0125), t=s0["t"].clone()), episode_return=s0["ep_ret"].clone(),
+            episode_length=s0["ep_len"].clone())
+        ts, h = ts0.clone(), ppo_rnn.init_hidden(cfg, B)
+        before = ppo_rnn.state_resets()
+        for d in draws:
+            ts, bs, h, met = ppo_rnn.train_step(env, params, cfg, ts, bs, h, perms=d["perms"],
+                                                act_noise=d["act"], env_noise=d["env"])
+        w2, resets = {k: x.detach().clone() for k, x in ts.params().items()}, (
+            ppo_rnn.state_resets() - before)
+        upd, roll = ppo_rnn._updates[ts.model], ppo_rnn._rollouts[ts.model]
+        assert (upd.graphs is not None and len(upd.graphs) == 3) == graphs
+        assert (roll.graphs is not None and len(roll.graphs) == 2 * T + 2) == graphs
+        # a third step on the generator's draws
+        ts, bs, h, met = ppo_rnn.train_step(env, params, cfg, ts, bs, h,
+                                            torch.Generator(device=cuda).manual_seed(9))
+        out[graphs] = (ts, met, resets, w2, h)
+    (ts_g, met_g, resets, w_g, h_g), (ts_e, met_e, resets_e, w_e, h_e) = out[True], out[False]
+    for k in w0:
+        assert torch.equal(w_g[k], w_e[k]), k
+        assert torch.equal(ts_g.params()[k], ts_e.params()[k]), k
+        assert torch.equal(ts_g.m[k], ts_e.m[k]) and torch.equal(ts_g.v[k], ts_e.v[k]), k
+    for k in met_g:
+        assert torch.equal(met_g[k], met_e[k]), k
+    assert all(torch.equal(x, y) for x, y in zip(h_g, h_e))
+    env_d = {"r": 0.3, "K": 1.0, "sigma": 0.05, "sigma_m": 0.05, "price": 1.0, "cost": 0.0,
+             "init_state": 0.75, "Tmax": 100, "action_scale": 1.0, "collapse_penalty": 0.0}
+    rppo = {"num_steps": T, "epochs": 2, "num_minibatches": 4, "gamma": cfg.gamma,
+            "gae_lambda": cfg.gae_lambda, "clip_eps": cfg.clip_eps, "lr": cfg.lr,
+            "vf_coef": cfg.vf_coef, "ent_coef": cfg.ent_coef,
+            "max_grad_norm": cfg.max_grad_norm, "adam_b1": 0.9, "adam_b2": 0.999,
+            "adam_eps": 1e-5}
+    ref_draws = [{"act": d["act"][..., 0], "env": d["env"], "perms": d["perms"]} for d in draws]
+    res = ref.run(w0, s0, env_d, rppo, ref_draws, keep=lambda w, m, v: dict(w))
+    assert resets == resets_e == sum(m["dones"] for m, _ in res) > 0
+    w_ref = res[-1][1]
+    for k in w0:
+        gap = float((w_g[k] - w_ref[k]).abs().max())
+        assert gap <= 1e-4 * float(w_ref[k].abs().max()) + 1e-12, (k, gap)
